@@ -1,0 +1,81 @@
+"""Synthetic DLRM-style Parquet data, from a seed.
+
+The schema is the JAX package's ``data_generation.DATA_SPEC``: 17 int64
+embedding-index columns with Criteo-like cardinalities, 2 small categorical
+columns, a float64 label in ``[0, 1)``, and a globally unique ``key``
+column. The bytes differ from the JAX generator's (plain seeded numpy
+here); the parity tests feed both packages the same files.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Tuple
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+# Column spec: name -> (low, high, dtype).
+DATA_SPEC = {
+    "embeddings_name0": (0, 2385, np.int64),
+    "embeddings_name1": (0, 201, np.int64),
+    "embeddings_name2": (0, 201, np.int64),
+    "embeddings_name3": (0, 6, np.int64),
+    "embeddings_name4": (0, 19, np.int64),
+    "embeddings_name5": (0, 1441, np.int64),
+    "embeddings_name6": (0, 201, np.int64),
+    "embeddings_name7": (0, 22, np.int64),
+    "embeddings_name8": (0, 156, np.int64),
+    "embeddings_name9": (0, 1216, np.int64),
+    "embeddings_name10": (0, 9216, np.int64),
+    "embeddings_name11": (0, 88999, np.int64),
+    "embeddings_name12": (0, 941792, np.int64),
+    "embeddings_name13": (0, 9405, np.int64),
+    "embeddings_name14": (0, 83332, np.int64),
+    "embeddings_name15": (0, 828767, np.int64),
+    "embeddings_name16": (0, 945195, np.int64),
+    "one_hot0": (0, 3, np.int64),
+    "one_hot1": (0, 50, np.int64),
+    "labels": (0, 1, np.float64),
+}
+
+EMBEDDING_COLUMNS = [c for c in DATA_SPEC if c.startswith("embeddings")]
+ONE_HOT_COLUMNS = [c for c in DATA_SPEC if c.startswith("one_hot")]
+FEATURE_COLUMNS = EMBEDDING_COLUMNS + ONE_HOT_COLUMNS
+LABEL_COLUMN = "labels"
+KEY_COLUMN = "key"
+
+
+def generate_table(first_row: int, num_rows: int, seed: int) -> pa.Table:
+    """``num_rows`` rows whose keys start at ``first_row``; deterministic in
+    ``(seed, first_row)``."""
+    rng = np.random.Generator(np.random.Philox(
+        np.random.SeedSequence([seed, first_row])))
+    columns = {KEY_COLUMN: np.arange(first_row, first_row + num_rows,
+                                     dtype=np.int64)}
+    for col, (low, high, dtype) in DATA_SPEC.items():
+        if np.issubdtype(dtype, np.integer):
+            columns[col] = rng.integers(low, high, size=num_rows,
+                                        dtype=np.int64)
+        else:
+            columns[col] = low + (high - low) * rng.random(num_rows)
+    return pa.table(columns)
+
+
+def generate_data(num_rows: int, num_files: int, data_dir: str,
+                  seed: int = 0) -> Tuple[List[str], int]:
+    """Write ``num_rows`` rows over ``num_files`` snappy Parquet files
+    (one row group each); returns ``(paths, in-memory bytes)``."""
+    os.makedirs(data_dir, exist_ok=True)
+    rows_per_file = max(1, num_rows // num_files)
+    filenames, nbytes = [], 0
+    for file_index, start in enumerate(range(0, num_rows, rows_per_file)):
+        n = min(rows_per_file, num_rows - start)
+        table = generate_table(start, n, seed)
+        path = os.path.join(data_dir,
+                            f"input_data_{file_index}.parquet.snappy")
+        pq.write_table(table, path, compression="snappy", row_group_size=n)
+        filenames.append(path)
+        nbytes += table.nbytes
+    return filenames, nbytes

@@ -1,0 +1,194 @@
+"""Framework-neutral shuffling dataset: exact-size Arrow batches.
+
+Rank 0 (or :func:`create_batch_queue_and_shuffle`, for several ranks in
+one process) creates the per-``(epoch, rank)`` queues and starts the
+background shuffle; each rank pops its reducer outputs for the epoch and
+re-chunks them into exact ``batch_size``-row tables with a carry buffer
+that spans table boundaries (:func:`slice_batches`).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import functools
+from typing import Iterator, List, Optional, Sequence
+
+import pyarrow as pa
+
+from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
+from ray_shuffling_data_loader_tpu_torch import shuffle as sh
+from ray_shuffling_data_loader_tpu_torch.utils.config import (
+    default_num_reducers)
+
+
+class ShuffleFailure:
+    """Put into every queue when the shuffle dies, so a consumer blocked on
+    its queue raises instead of waiting forever."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def make_failure_broadcaster(queue: mq.MultiQueue):
+    def broadcast(error: BaseException) -> None:
+        try:
+            for queue_idx in range(queue.num_queues):
+                queue.put(queue_idx, ShuffleFailure(error))
+        except mq.ShutdownError:
+            pass  # every epoch was consumed: nobody is left to wake
+    return broadcast
+
+
+def batch_consumer(queue: mq.MultiQueue, num_trainers: int, rank: int,
+                   epoch: int, batches: Optional[Sequence[cf.Future]]
+                   ) -> None:
+    """Route reducer futures (or the ``None`` sentinel) into the
+    ``(epoch, rank)`` queue."""
+    queue_idx = mq.queue_index(epoch, rank, num_trainers)
+    if batches is None:
+        queue.put(queue_idx, None)
+    else:
+        queue.put_batch(queue_idx, list(batches))
+
+
+def create_batch_queue_and_shuffle(
+        filenames: Sequence[str], num_epochs: int, num_trainers: int,
+        max_concurrent_epochs: int = 2, num_reducers: Optional[int] = None,
+        seed: int = 0, map_transform=None):
+    """Create the queues and start the shuffle before any trainer exists,
+    so every rank can be a pure consumer. Returns
+    ``(queue, shuffle_future)``."""
+    queue = mq.MultiQueue(num_epochs * num_trainers)
+    if num_reducers is None:
+        num_reducers = default_num_reducers(num_trainers)
+    result = sh.run_shuffle_in_background(
+        filenames, functools.partial(batch_consumer, queue, num_trainers),
+        num_epochs, num_reducers, num_trainers, max_concurrent_epochs,
+        seed=seed, map_transform=map_transform,
+        on_failure=make_failure_broadcaster(queue))
+    return queue, result
+
+
+class ShufflingDataset:
+    """Iterable of exact ``batch_size``-row ``pa.Table`` batches.
+
+    Rank 0 launches the shuffle unless ``batch_queue``/``shuffle_result``
+    come from :func:`create_batch_queue_and_shuffle`; other ranks need
+    them. Call :meth:`set_epoch` before each epoch's iteration.
+    """
+
+    def __init__(self, filenames: Sequence[str], num_epochs: int,
+                 num_trainers: int, batch_size: int, rank: int,
+                 drop_last: bool = False,
+                 num_reducers: Optional[int] = None,
+                 max_concurrent_epochs: int = 2,
+                 batch_queue: Optional[mq.MultiQueue] = None,
+                 shuffle_result: Optional[cf.Future] = None,
+                 seed: int = 0, map_transform=None):
+        self._owns_queue = False
+        if batch_queue is None:
+            if rank != 0:
+                raise ValueError(
+                    "ranks other than 0 need the batch_queue and "
+                    "shuffle_result of create_batch_queue_and_shuffle")
+            batch_queue, shuffle_result = create_batch_queue_and_shuffle(
+                filenames, num_epochs, num_trainers, max_concurrent_epochs,
+                num_reducers, seed=seed, map_transform=map_transform)
+            self._owns_queue = True
+        self._batch_queue = batch_queue
+        self._shuffle_result = shuffle_result
+        self._batch_size = batch_size
+        self._num_epochs = num_epochs
+        self._num_trainers = num_trainers
+        self._rank = rank
+        self._drop_last = drop_last
+        self._skip_batches = 0
+        self._epoch: Optional[int] = None
+        self._last_epoch: Optional[int] = None
+
+    @property
+    def batch_size(self) -> int:
+        return self._batch_size
+
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        """Declare the epoch about to be iterated; ``skip_batches`` drops
+        its first N batches (checkpoint resume) as zero-copy slices."""
+        if not 0 <= epoch < self._num_epochs:
+            raise ValueError(
+                f"epoch {epoch} out of range [0, {self._num_epochs})")
+        if skip_batches < 0:
+            raise ValueError(f"skip_batches must be >= 0, got {skip_batches}")
+        self._skip_batches = skip_batches
+        self._epoch = epoch
+
+    def iter_tables(self) -> Iterator[pa.Table]:
+        """This epoch's raw reducer tables, after the ``skip_batches``
+        row skip."""
+        if self._epoch is None or self._epoch == self._last_epoch:
+            raise ValueError(
+                "call set_epoch() before iterating each epoch")
+        to_skip = self._skip_batches * self._batch_size
+        self._skip_batches = 0
+        queue_idx = mq.queue_index(self._epoch, self._rank,
+                                   self._num_trainers)
+        while True:
+            ref = self._batch_queue.get(queue_idx)
+            if ref is None:
+                break
+            if isinstance(ref, ShuffleFailure):
+                raise RuntimeError(
+                    "the shuffle driver died; no more batches are coming"
+                ) from ref.error
+            table: pa.Table = ref.result()
+            if to_skip and table.num_rows <= to_skip:
+                to_skip -= table.num_rows
+                continue
+            if to_skip:
+                table = table.slice(to_skip)
+                to_skip = 0
+            yield table
+        self._last_epoch = self._epoch
+        if (self._epoch == self._num_epochs - 1
+                and self._shuffle_result is not None):
+            self._shuffle_result.result()
+            self.shutdown()
+
+    def __iter__(self) -> Iterator[pa.Table]:
+        return slice_batches(self.iter_tables(), self._batch_size,
+                             self._drop_last)
+
+    def shutdown(self) -> None:
+        """Close the queues if this dataset created them. Idempotent."""
+        if self._owns_queue:
+            self._batch_queue.shutdown()
+            self._owns_queue = False
+
+
+def slice_batches(tables: Iterator[pa.Table], batch_size: int,
+                  drop_last: bool) -> Iterator[pa.Table]:
+    """Exact-size re-batching over variable-size tables; the carry buffer
+    spans table boundaries and is concatenated only when a batch fills."""
+    carry: List[pa.Table] = []
+    carry_rows = 0
+    for table in tables:
+        offset = 0
+        num_rows = table.num_rows
+        if carry_rows:
+            take = min(batch_size - carry_rows, num_rows)
+            carry.append(table.slice(0, take))
+            carry_rows += take
+            offset = take
+            if carry_rows == batch_size:
+                yield pa.concat_tables(carry)
+                carry = []
+                carry_rows = 0
+        while num_rows - offset >= batch_size:
+            yield table.slice(offset, batch_size)
+            offset += batch_size
+        if offset < num_rows:
+            carry.append(table.slice(offset))
+            carry_rows += num_rows - offset
+    if carry_rows and not drop_last:
+        yield pa.concat_tables(carry)

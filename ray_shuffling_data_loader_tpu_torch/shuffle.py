@@ -1,0 +1,189 @@
+"""Seeded per-epoch map/reduce shuffle with epoch pipelining.
+
+Per epoch, one map task per Parquet file reads it, applies the optional
+map-time transform (the narrow-dtype cast) and plans which reducer each row
+goes to (:func:`partition.plan_partition_flat`). One reduce task per
+reducer concatenates its rows from every file, in file order, and permutes
+them with its ``(seed, epoch, reducer)`` stream. Each trainer rank receives
+a contiguous span of reducer outputs, in reducer order, then a ``None``
+end-of-epoch sentinel. The output equals the JAX package's shuffle bit for
+bit for the same files, seed and reducer count.
+
+Tasks are threads on one pool (pyarrow and numpy release the GIL in the
+heavy parts). Per epoch every map is submitted before any reduce, so on the
+FIFO pool a reduce that waits on a map only ever waits on a task that a
+worker has already taken: the pattern cannot deadlock at any pool size. At
+most ``max_concurrent_epochs`` epochs are in flight; launching another
+first waits for the oldest epoch's reducers.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+import timeit
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+from ray_shuffling_data_loader_tpu_torch import partition
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+#: ``batch_consumer(rank, epoch, futures_or_None)``: futures resolve to the
+#: reducer tables routed to ``rank``; ``None`` ends the epoch.
+BatchConsumer = Callable[[int, int, Optional[Sequence[cf.Future]]], None]
+
+#: Row-order-preserving ``pa.Table -> pa.Table`` hook run right after the
+#: Parquet read.
+MapTransform = Callable[[pa.Table], pa.Table]
+
+
+def _numpy_columns(table: pa.Table) -> Dict[str, np.ndarray]:
+    """{column -> 1-D ndarray}; primitive null-free columns only."""
+    cols: Dict[str, np.ndarray] = {}
+    for name in table.column_names:
+        col = table.column(name)
+        t = col.type
+        if col.null_count or not (pa.types.is_integer(t)
+                                  or pa.types.is_floating(t)
+                                  or pa.types.is_boolean(t)):
+            raise ValueError(
+                f"column {name!r} ({t}) is not a null-free primitive column")
+        cols[name] = col.combine_chunks().to_numpy(zero_copy_only=False)
+    return cols
+
+
+class MapOutput:
+    """One file's rows plus its partition plan: reducer ``r``'s rows are
+    ``flat[offsets[r]:offsets[r+1]]``, in original row order."""
+
+    __slots__ = ("columns", "names", "flat", "offsets")
+
+    def __init__(self, columns: Dict[str, np.ndarray], flat: np.ndarray,
+                 offsets: np.ndarray):
+        self.columns = columns
+        self.names = list(columns)
+        self.flat = flat
+        self.offsets = offsets
+
+    def indices(self, reducer: int) -> np.ndarray:
+        return self.flat[self.offsets[reducer]:self.offsets[reducer + 1]]
+
+
+def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
+                file_index: int,
+                map_transform: Optional[MapTransform] = None) -> MapOutput:
+    """Read one file and plan the scatter of its rows across reducers."""
+    table = pq.read_table(filename)
+    if map_transform is not None:
+        table = map_transform(table)
+    flat, offsets = partition.plan_partition_flat(
+        table.num_rows, num_reducers, seed, epoch, file_index)
+    return MapOutput(_numpy_columns(table), flat, offsets)
+
+
+def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
+                   map_outputs: Sequence[MapOutput]) -> pa.Table:
+    """Concatenate this reducer's rows from every file in file order, then
+    permute them: ``out = concat[perm]``."""
+    names = map_outputs[0].names
+    for m in map_outputs[1:]:
+        if m.names != names or any(
+                m.columns[n].dtype != map_outputs[0].columns[n].dtype
+                for n in names):
+            raise ValueError("map outputs disagree on their schema")
+    parts = [(m.columns, m.indices(reduce_index)) for m in map_outputs]
+    total = sum(len(idx) for _, idx in parts)
+    perm = partition.permutation(
+        total, partition.reduce_rng(seed, epoch, reduce_index))
+    out = {}
+    for name in names:
+        concat = np.concatenate([cols[name][idx] for cols, idx in parts])
+        out[name] = concat[perm]
+    return pa.table(out)
+
+
+def _reduce_task(reduce_index: int, seed: int, epoch: int,
+                 map_futures: Sequence[cf.Future]) -> pa.Table:
+    return shuffle_reduce(reduce_index, seed, epoch,
+                          [f.result() for f in map_futures])
+
+
+def shuffle_epoch(epoch: int, filenames: Sequence[str],
+                  batch_consumer: BatchConsumer, num_reducers: int,
+                  num_trainers: int, pool: cf.Executor, seed: int,
+                  map_transform: Optional[MapTransform] = None
+                  ) -> List[cf.Future]:
+    """Launch one epoch's maps and reduces and route the reducer futures:
+    rank ``k`` gets the ``k``-th contiguous span of reducers, in order,
+    then ``None``. Returns the reducer futures."""
+    map_futures = [
+        pool.submit(shuffle_map, f, num_reducers, seed, epoch, i,
+                    map_transform)
+        for i, f in enumerate(filenames)]
+    reduce_futures = [
+        pool.submit(_reduce_task, r, seed, epoch, map_futures)
+        for r in range(num_reducers)]
+    spans = partition.contiguous_splits(range(num_reducers), num_trainers)
+    for rank, reducers in enumerate(spans):
+        batch_consumer(rank, epoch, [reduce_futures[r] for r in reducers])
+        batch_consumer(rank, epoch, None)
+    return reduce_futures
+
+
+def shuffle(filenames: Sequence[str], batch_consumer: BatchConsumer,
+            num_epochs: int, num_reducers: int, num_trainers: int,
+            max_concurrent_epochs: int = 2, seed: int = 0,
+            map_transform: Optional[MapTransform] = None) -> float:
+    """Shuffle ``num_epochs`` epochs with at most ``max_concurrent_epochs``
+    in flight, on one thread per host core; returns the wall-clock
+    seconds. A failed map or reduce raises here."""
+    start = timeit.default_timer()
+    in_progress: Dict[int, List[cf.Future]] = {}
+    with cf.ThreadPoolExecutor(max_workers=os.cpu_count(),
+                               thread_name_prefix="rsdl-shuffle") as pool:
+        for epoch in range(num_epochs):
+            while len(in_progress) >= max(1, max_concurrent_epochs):
+                for fut in in_progress.pop(min(in_progress)):
+                    fut.result()
+            in_progress[epoch] = shuffle_epoch(
+                epoch, filenames, batch_consumer, num_reducers,
+                num_trainers, pool, seed, map_transform)
+        for epoch in sorted(in_progress):
+            for fut in in_progress.pop(epoch):
+                fut.result()
+    return timeit.default_timer() - start
+
+
+def run_shuffle_in_background(
+        filenames: Sequence[str], batch_consumer: BatchConsumer,
+        num_epochs: int, num_reducers: int, num_trainers: int,
+        max_concurrent_epochs: int = 2, seed: int = 0,
+        map_transform: Optional[MapTransform] = None,
+        on_failure: Optional[Callable[[BaseException], None]] = None
+) -> cf.Future:
+    """Run :func:`shuffle` on a driver thread of its own; the returned
+    future resolves to its duration or raises its error. ``on_failure``
+    runs before the error is stored, so blocked consumers can be woken."""
+    driver = cf.ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="rsdl-driver")
+
+    def _run() -> float:
+        try:
+            return shuffle(filenames, batch_consumer, num_epochs,
+                           num_reducers, num_trainers, max_concurrent_epochs,
+                           seed=seed, map_transform=map_transform)
+        except BaseException as e:
+            logger.error("shuffle failed: %r", e)
+            if on_failure is not None:
+                on_failure(e)
+            raise
+
+    future = driver.submit(_run)
+    driver.shutdown(wait=False)
+    return future

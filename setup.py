@@ -14,9 +14,12 @@ setup(
                  "data loader for JAX"),
     packages=find_packages(
         include=["ray_shuffling_data_loader_tpu",
-                 "ray_shuffling_data_loader_tpu.*"]),
+                 "ray_shuffling_data_loader_tpu.*",
+                 "ray_shuffling_data_loader_tpu_torch",
+                 "ray_shuffling_data_loader_tpu_torch.*"]),
     package_data={
         "ray_shuffling_data_loader_tpu.native": ["src/*.cpp"],
+        "ray_shuffling_data_loader_tpu_torch.kernels": ["*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[
