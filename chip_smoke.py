@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's DLRM train path end to end at full width and checks its
-hand-written kernels against their plain PyTorch versions. Phases, each
-printing one JSON line:
+Drives the port's DLRM and BERT-MLM train paths end to end at full width
+and checks its hand-written kernels against their plain PyTorch versions.
+Phases, each printing one JSON line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit.
-2. ``build``: builds ``kernels/gather.cu`` for sm_90a from the sources.
+2. ``build``: builds ``kernels/gather.cu`` and ``kernels/flash_attention.cu``
+   for sm_90a from the sources, one ``nvcc`` each, started together.
 3. ``kernels``: the gather kernel against ``gather_reference`` on the card
    at the ``mlperf`` shapes (V=945195, E=128, B in {2048, 131072}, int32
    indices including out-of-range ones): f32 and bf16 outputs bit-identical,
@@ -19,6 +20,23 @@ printing one JSON line:
    -> Adam, one micro-step per 2048 rows. Checks rows per epoch, finite
    losses, the first staged batch against a host-side shuffle, the kernel
    path's loss against the ``take`` path's, and that the gather kernel ran.
+5. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions on the card, in bf16, within 2e-2 (atol and
+   rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
+   H=12, S=512, D=64 with and without a key-side bias that masks keys; a
+   ragged S=500, D=32; and dq, dk/dv given a global lse over twice as many
+   keys. Device times (CUDA graphs) of each kernel and its plain version at
+   the main shape without bias, beside the bound and, as a yardstick,
+   ``scaled_dot_product_attention``'s forward and backward.
+6. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
+   Parquet files -> seeded shuffle (8 reducers) -> ``DeviceShufflingDataset``
+   (1 trainer, batch 256, 2 epochs, seed 0) -> on-device MLM masking ->
+   ``bert_base()`` (bf16 compute, random weights from seed 0) with the flash
+   kernels -> Adam (lr 1e-4), one micro-step per 32 sequences. Checks rows
+   per epoch, finite losses, the first staged batch against a host-side
+   shuffle, the flash path's loss against the inline path's (within 1e-2
+   relative: bf16 compute, the two round the scores at different places),
+   and exactly 12 launches of each flash kernel per micro-step.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -27,6 +45,7 @@ without that line. Needs CUDA; imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import json
 import math
@@ -43,12 +62,23 @@ import torch
 # (the SXM part, "NVIDIA H100 80GB HBM3").
 _HBM_PEAK = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
              ("H100", 3.35e12)]
+# Peak dense bf16 tensor-core rate (FLOP/s) by card name, from the same
+# data sheets (without sparsity).
+_BF16_PEAK = [("H200", 989.4e12), ("H100 NVL", 835e12),
+              ("H100 PCIe", 756e12), ("H100", 989.4e12)]
 
 V, E = 945195, 128
 BATCHES = (2048, 131072)
 MICROBATCH = 2048
 NUM_ROWS, NUM_FILES = 2_000_000, 8
 LOADER_BATCH, NUM_REDUCERS, NUM_EPOCHS, SEED = 131072, 8, 2, 0
+# Flash attention: BERT-base's attention shape at batch 32, seq 512.
+ATT_B, ATT_H, ATT_S, ATT_D = 32, 12, 512, 64
+ATT_TOL = 2e-2
+# BERT-MLM phase.
+BERT_SEQS, BERT_FILES, BERT_SEQ_LEN, BERT_VOCAB = 8192, 8, 512, 30522
+BERT_BATCH, BERT_MICRO = 256, 32
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def emit(obj) -> None:
@@ -63,11 +93,19 @@ def nvidia_smi_line() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def hbm_peak(name: str) -> float:
-    for key, rate in _HBM_PEAK:
+def _peak(table, name: str, what: str) -> float:
+    for key, rate in table:
         if key in name:
             return rate
-    raise RuntimeError(f"no peak HBM bandwidth on record for {name!r}")
+    raise RuntimeError(f"no peak {what} on record for {name!r}")
+
+
+def hbm_peak(name: str) -> float:
+    return _peak(_HBM_PEAK, name, "HBM bandwidth")
+
+
+def bf16_peak(name: str) -> float:
+    return _peak(_BF16_PEAK, name, "bf16 tensor-core rate")
 
 
 def call_ms(fn, args_list, iters: int) -> float:
@@ -189,11 +227,13 @@ def _short(kernel_name: str) -> str:
     return kernel_name[:160]
 
 
-def profile_steps(micro_step, cols, labels, steps: int = 5) -> dict:
+def profile_steps(micro_step, cols, labels, kernel_names, steps: int = 5
+                  ) -> dict:
     """Device time by kernel over ``steps`` micro-steps (torch.profiler;
     GPU-side user annotations such as ``Optimizer.step#Adam.step`` span
-    kernels already counted and are left out), and the device's busy
-    share of the same steps' wall time measured without the profiler."""
+    kernels already counted and are left out), the device's busy share of
+    the same steps' wall time measured without the profiler, and the
+    device ms per step of each of ``kernel_names`` (the port's kernels)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         micro_step(cols, labels)
@@ -227,9 +267,9 @@ def profile_steps(micro_step, cols, labels, steps: int = 5) -> dict:
         "top": [{"kernel": _short(key), "ms_per_step": us / steps / 1e3,
                  "launches_per_step": count / steps}
                 for us, count, key in kernels[:12]],
-        "gather_rows_ms_per_step": sum(
-            us for us, _, key in kernels if "gather_rows" in key) / steps
-        / 1e3,
+        "port_kernels_ms_per_step": {
+            name: sum(us for us, _, key in kernels if name in key) / steps
+            / 1e3 for name in kernel_names},
     }
 
 
@@ -323,7 +363,7 @@ def train_phase(emb) -> dict:
                 f"{via_take.item()}")
         # Where a micro-step's time goes (after the main path's counts
         # were read; these steps keep training the same model).
-        breakdown = profile_steps(micro_step, cols, lab)
+        breakdown = profile_steps(micro_step, cols, lab, ["gather_rows"])
 
     waits = ds.batch_wait_stats.wait_times
     wall = t_end - t_first
@@ -348,12 +388,306 @@ def train_phase(emb) -> dict:
     }
 
 
+# The Pallas kernel bodies the three CUDA kernels replace.
+_FLASH_REPLACES = (
+    "ray_shuffling_data_loader_tpu/ops/flash_attention.py:80",
+    "ray_shuffling_data_loader_tpu/ops/flash_attention.py:122",
+    "ray_shuffling_data_loader_tpu/ops/flash_attention.py:155")
+
+
+def _attention_inputs(g, b, h, sq, sk, d, masked):
+    """bf16 q, dO ``(b, h, sq, d)``, k, v ``(b, h, sk, d)`` and, if
+    ``masked``, an f32 key-side bias that masks about 20 % of the keys
+    (never the first) with -1e9."""
+    def randn(rows):
+        return torch.randn((b, h, rows, d), device="cuda",
+                           generator=g).to(torch.bfloat16)
+
+    q, k, v, do = randn(sq), randn(sk), randn(sk), randn(sq)
+    bias = None
+    if masked:
+        keep = torch.rand((b, 1, 1, sk), device="cuda", generator=g) >= 0.2
+        keep[..., 0] = True
+        bias = torch.where(keep, 0.0, -1e9).to(torch.float32)
+    return q, k, v, do, bias
+
+
+def _held(name: str, got, want) -> float:
+    """max |got - want|; raises where it exceeds ATT_TOL * (1 + |want|)."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if bool((diff > ATT_TOL + ATT_TOL * want.float().abs()).any()):
+        raise AssertionError(
+            f"{name} differs from its plain version: max abs err "
+            f"{float(diff.max())} (tolerance {ATT_TOL} + {ATT_TOL}*|ref|)")
+    return float(diff.max())
+
+
+def _backward_errs(fa, case, q, k, v, bias, do, lse, delta) -> dict:
+    errs = {"dq": _held(f"{case} dq", fa.flash_dq(q, k, v, bias, do, lse,
+                                                  delta),
+                        fa.flash_dq_reference(q, k, v, bias, do, lse, delta))}
+    got = fa.flash_dkv(q, k, v, bias, do, lse, delta)
+    want = fa.flash_dkv_reference(q, k, v, bias, do, lse, delta)
+    for name, a, b in zip(("dk", "dv", "dbias"), got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{case} {name}: one side is None")
+        if a is not None:
+            errs[name] = _held(f"{case} {name}", a, b)
+    return errs
+
+
+def _check_case(fa, case, q, k, v, do, bias) -> dict:
+    out, lse = fa.flash_fwd(q, k, v, bias)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, bias)
+    errs = {"out": _held(f"{case} out", out, want_out),
+            "lse": _held(f"{case} lse", lse, want_lse)}
+    delta = (do.float() * out.float()).sum(-1)
+    errs.update(_backward_errs(fa, case, q, k, v, bias, do, lse, delta))
+    return errs
+
+
+def _sdpa(q, k, v):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def _sdpa_forward_backward(q, k, v, do):
+    return torch.autograd.grad(_sdpa(q, k, v), (q, k, v), do)
+
+
+def attention_phase(fa, hbm: float, flop_peak: float) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, h, s, d = ATT_B, ATT_H, ATT_S, ATT_D
+    main = _attention_inputs(g, b, h, s, s, d, masked=False)
+    errors = {
+        "main": _check_case(fa, "main", *main),
+        "main_bias": _check_case(fa, "main_bias", *_attention_inputs(
+            g, b, h, s, s, d, masked=True)),
+        "ragged_s500_d32_bias": _check_case(
+            fa, "ragged", *_attention_inputs(g, 8, h, 500, 500, 32,
+                                             masked=True)),
+    }
+    # dq and dk/dv of the first half of the keys given the lse over all of
+    # them (ring attention's per-hop backward).
+    q, k, v, do, bias = _attention_inputs(g, 8, h, s, 2 * s, d, masked=True)
+    _, lse = fa.flash_forward_reference(q, k, v, bias)
+    k1, v1 = k[:, :, :s].contiguous(), v[:, :, :s].contiguous()
+    b1 = bias[..., :s].contiguous()
+    out1, _ = fa.flash_fwd(q, k1, v1, b1)
+    delta = (do.float() * out1.float()).sum(-1)
+    errors["global_lse"] = _backward_errs(fa, "global_lse", q, k1, v1, b1,
+                                          do, lse, delta)
+    del q, k, v, do, bias, k1, v1, b1, out1, lse, delta
+    max_err = {
+        "flash_fwd": max(e[n] for e in errors.values() for n in ("out", "lse")
+                         if n in e),
+        "flash_dq": max(e["dq"] for e in errors.values()),
+        "flash_dkv": max(e[n] for e in errors.values()
+                         for n in ("dk", "dv", "dbias") if n in e)}
+
+    # Times at the main path's shape (no bias, as in the bert phase).
+    q, k, v, do, _ = main
+    out, lse = fa.flash_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd_args = [(q, k, v, None, do, lse, delta)]
+    elems, rows = b * h * s * d, b * h * s
+    # (products of 2*S*S*D FLOPs per head, bf16 tensors in + out, f32 rows)
+    work = {"flash_fwd": (2, 4, 1), "flash_dq": (3, 5, 2),
+            "flash_dkv": (4, 6, 2)}
+    calls = {
+        "flash_fwd": (fa.flash_fwd, fa.flash_forward_reference, [(q, k, v)]),
+        "flash_dq": (fa.flash_dq, fa.flash_dq_reference, bwd_args),
+        "flash_dkv": (fa.flash_dkv, fa.flash_dkv_reference, bwd_args)}
+    # The yardstick's backward: forward + backward captured in one graph,
+    # less the forward alone.
+    sdpa_fwd_ms = device_ms(_sdpa, [(q, k, v)], 20)
+    leaves = tuple(t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sdpa_bwd_ms = device_ms(_sdpa_forward_backward, [(*leaves, do)],
+                            20) - sdpa_fwd_ms
+    del leaves
+    timings = {}
+    for kernel, (fn, plain, args) in calls.items():
+        products, tensors, f32_rows = work[kernel]
+        flops = products * 2 * b * h * s * s * d
+        moved = tensors * elems * 2 + f32_rows * rows * 4
+        by_ops, by_bytes = flops / flop_peak, moved / hbm
+        timings[kernel] = {
+            "ms": device_ms(fn, args, 20),
+            "plain_ms": device_ms(plain, args, 5),
+            "call_ms": call_ms(fn, args, 20),
+            "library_ms": sdpa_fwd_ms if kernel == "flash_fwd"
+            else sdpa_bwd_ms,
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flops": flops, "bytes": moved,
+        }
+        timings[kernel]["tflops"] = flops / timings[kernel]["ms"] / 1e9
+    torch.cuda.empty_cache()
+    return {"shape": {"B": b, "H": h, "S": s, "D": d, "dtype": "bf16"},
+            "tolerance": {"atol": ATT_TOL, "rtol": ATT_TOL},
+            "max_abs_err_by_case": errors, "max_abs_err": max_err,
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(forward; its backward, timed as forward + backward "
+                       "less forward, covers dq and dk/dv)",
+            "timings": timings}
+
+
+def bert_phase(fa) -> dict:
+    from ray_shuffling_data_loader_tpu_torch import (
+        dataset, device_dataset, train)
+    from ray_shuffling_data_loader_tpu_torch.models import bert
+    from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
+
+    spec = bert_mlm.bert_mlm_spec(BERT_SEQ_LEN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as tmp:
+        start = timeit.default_timer()
+        files, _ = bert_mlm.generate_tokenized_parquet(
+            BERT_SEQS, BERT_FILES, tmp, seq_len=BERT_SEQ_LEN,
+            vocab_size=BERT_VOCAB, seed=SEED)
+        gen_s = timeit.default_timer() - start
+
+        config = bert.bert_base()
+        model = bert.Bert(config, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(SEED))
+        optimizer = train.make_optimizer(model, lr=train.BERT_LR)
+        # Passed explicitly: S=512 is below FLASH_MIN_SEQ_LEN.
+        attention_fn = fa.make_flash_attention_fn()
+        micro_step = train.make_bert_micro_step(
+            model, optimizer,
+            torch.Generator(device="cuda").manual_seed(SEED + 1),
+            attention_fn)
+
+        ds = device_dataset.DeviceShufflingDataset(
+            files, NUM_EPOCHS, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
+            seed=SEED, **spec)
+        rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
+        fa.reset_launch_counts()
+        t_start = timeit.default_timer()
+        t_first = None
+        for epoch in range(NUM_EPOCHS):
+            ds.set_epoch(epoch)
+            rows = 0
+            for features, label in ds:
+                if t_first is None:
+                    t_first = timeit.default_timer()
+                    first_batch = features[0].cpu()
+                t0 = timeit.default_timer()
+                losses.append(train.train_chunk(micro_step, features, label,
+                                                BERT_MICRO))
+                torch.cuda.synchronize()
+                chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+                rows += label.shape[0]
+            rows_per_epoch.append(rows)
+        t_end = timeit.default_timer()
+        launches = dict(fa.launch_counts)
+
+        if rows_per_epoch != [BERT_SEQS] * NUM_EPOCHS:
+            raise AssertionError(
+                f"rows per epoch {rows_per_epoch}, expected {BERT_SEQS}")
+        all_losses = torch.cat(losses).cpu()
+        if not bool(torch.isfinite(all_losses).all()):
+            raise AssertionError("non-finite loss")
+        steps = int(all_losses.numel())
+        for kernel in FLASH_KERNELS:
+            if launches[kernel] != config.num_layers * steps:
+                raise AssertionError(
+                    f"{kernel} launched {launches[kernel]} times in "
+                    f"{steps} micro-steps; expected {config.num_layers} "
+                    "per micro-step")
+
+        # The first staged batch equals the host-side shuffle's.
+        host = dataset.ShufflingDataset(
+            files, 1, 1, BERT_BATCH, 0, drop_last=True,
+            num_reducers=NUM_REDUCERS, seed=SEED,
+            map_transform=device_dataset.make_cast_transform(
+                spec["feature_columns"], spec["feature_types"],
+                spec["label_column"], spec["label_type"]))
+        host.set_epoch(0)
+        host_batches = iter(host)
+        table = next(host_batches)
+        for _ in host_batches:  # drain, so the shuffle ends while files exist
+            pass
+        (host_tokens,), _ = device_dataset.convert_to_arrays(
+            table, spec["feature_columns"], spec["feature_shapes"],
+            [np.dtype(t) for t in spec["feature_types"]],
+            spec["label_column"], None, np.dtype(spec["label_type"]))
+        if (first_batch.dtype != torch.int32
+                or tuple(first_batch.shape) != (BERT_BATCH, BERT_SEQ_LEN)
+                or not np.array_equal(first_batch.numpy(), host_tokens)):
+            raise AssertionError("staged token batch differs from the host's")
+
+        # The flash path's loss against the inline path's, same micro-batch
+        # and weights (after training).
+        tokens = first_batch[:BERT_MICRO].cuda()
+        inputs, targets = bert_mlm.mlm_mask(
+            tokens, torch.Generator(device="cuda").manual_seed(SEED + 2),
+            BERT_VOCAB)
+        with torch.no_grad():
+            via = {}
+            for path, fn in (("flash", attention_fn), ("inline", None)):
+                logits = bert.apply(model, inputs, attention_fn=fn)
+                via[path] = (bert.loss_fn(model, inputs, targets,
+                                          attention_fn=fn).item(),
+                             logits[:, :, :1024].float().cpu())
+                del logits
+        loss_rel = abs(via["flash"][0] - via["inline"][0]) / abs(
+            via["inline"][0])
+        if loss_rel > 1e-2:
+            raise AssertionError(
+                f"flash-path loss {via['flash'][0]} vs inline "
+                f"{via['inline'][0]}: relative difference {loss_rel}")
+        logits_diff = float((via["flash"][1] - via["inline"][1]).abs().max())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # Where a micro-step's time goes (after the main path's counts
+        # were read; these steps keep training the same model).
+        breakdown = profile_steps(
+            micro_step, [tokens], torch.zeros((BERT_MICRO, 1),
+                                              device="cuda"),
+            list(FLASH_KERNELS))
+
+    flash_ms = sum(breakdown["port_kernels_ms_per_step"].values())
+    waits = ds.batch_wait_stats.wait_times
+    wall = t_end - t_first
+    seqs = sum(rows_per_epoch)
+    return {
+        "rows_per_epoch": rows_per_epoch,
+        "micro_steps": steps,
+        "sequences_per_s": seqs / wall,
+        "tokens_per_s": seqs * BERT_SEQ_LEN / wall,
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "batch_wait_s": ds.batch_wait_stats.summary(),
+        "fill_s": t_first - t_start,
+        "step_ms_median": float(np.median(chunk_ms)) / (BERT_BATCH
+                                                        // BERT_MICRO),
+        "chunk_ms_median": float(np.median(chunk_ms)),
+        "loss_first": float(all_losses[:8].mean()),
+        "loss_last": float(all_losses[-8:].mean()),
+        "flash_launches": launches,
+        "launches_per_micro_step": {k: n / steps
+                                    for k, n in launches.items()},
+        "flash_vs_inline": {"loss_flash": via["flash"][0],
+                            "loss_inline": via["inline"][0],
+                            "loss_rel_diff": loss_rel, "loss_rtol": 1e-2,
+                            "logits_max_abs_diff_first_1024_vocab":
+                                logits_diff},
+        "datagen_s": gen_s,
+        "peak_mem_gb": peak_gb,
+        "flash_share_pct": 100.0 * flash_ms / breakdown[
+            "device_ms_per_step"],
+        "profile": breakdown,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from ray_shuffling_data_loader_tpu_torch.kernels import build
     from ray_shuffling_data_loader_tpu_torch.ops import embedding as emb
+    from ray_shuffling_data_loader_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -366,19 +700,31 @@ def main() -> int:
           "tf32": False})
 
     start = timeit.default_timer()
-    build.gather_library()
-    emit({"phase": "build", "kernel": "gather_rows",
-          "seconds": timeit.default_timer() - start, "flags": build.CUDA_FLAGS})
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        for lib in [pool.submit(build.gather_library),
+                    pool.submit(build.flash_library)]:
+            lib.result()
+    emit({"phase": "build", "kernels": ["gather_rows", *FLASH_KERNELS],
+          "seconds": timeit.default_timer() - start, "flags": build.CUDA_FLAGS,
+          "ptxas": {name: [line.strip() for line in info.splitlines()
+                           if "Used" in line or "spill" in line]
+                    for name, info in build.PTXAS_INFO.items()}})
 
     kern = kernels_phase(emb, peak)
     emit({"phase": "kernels", "card": smi, "status": {"gather_rows": "ok"},
           **kern})
 
+    att = attention_phase(fa, peak, bf16_peak(name))
+    emit({"phase": "attention", "card": smi, **att})
+
     trained = train_phase(emb)
     emit({"phase": "train", "card": smi, **trained})
 
+    bert_run = bert_phase(fa)
+    emit({"phase": "bert", "card": smi, **bert_run})
+
     main_path = kern["timings"][f"B{MICROBATCH}_bf16"]
-    emit({"kernels": [{
+    summary = [{
         "name": "gather_rows", "route": "cuda",
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
@@ -387,7 +733,20 @@ def main() -> int:
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": "bytes",
         "library_ms": kern["timings"][f"B{MICROBATCH}_f32"]["library_ms"],
-    }]})
+    }]
+    for kernel, replaces in zip(FLASH_KERNELS, _FLASH_REPLACES):
+        t = att["timings"][kernel]
+        summary.append({
+            "name": kernel, "route": "cuda",
+            "source": "ray_shuffling_data_loader_tpu_torch/kernels/"
+                      "flash_attention.cu",
+            "replaces": replaces,
+            "launches": bert_run["flash_launches"][kernel],
+            "max_abs_err": att["max_abs_err"][kernel],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``JaxShufflingDataset`` (per-batch path).
 A column spec (names, shapes, dtypes of the features plus a label column)
 is normalised with the same rules; spec'd columns are cast to their final
 (narrow) dtypes at the map stage, before the shuffle; each exact-size
-batch becomes ``(list of (B, 1) feature tensors, (B, 1) label)``.
+batch becomes ``(list of feature tensors, label)``, each ``(B, *shape)``
+(default ``(B, 1)``; a fixed-size list column of width W gives
+``(B, W)``).
 
 On CUDA a prefetch thread converts each batch to numpy, copies it into a
 ring of pinned host buffers and issues ``to(device, non_blocking=True)``
@@ -28,6 +30,7 @@ import pyarrow as pa
 import torch
 
 from ray_shuffling_data_loader_tpu_torch.dataset import ShufflingDataset
+from ray_shuffling_data_loader_tpu_torch.shuffle import column_to_rows
 from ray_shuffling_data_loader_tpu_torch.stats import BatchWaitStats
 from ray_shuffling_data_loader_tpu_torch.utils.config import resolve_device
 
@@ -66,14 +69,11 @@ def _normalize_data_spec(feature_columns=None, feature_shapes=None,
             label_shape, label_type)
 
 
-def _column_to_numpy(column: pa.ChunkedArray, dtype: np.dtype) -> np.ndarray:
-    """Primitive Arrow column -> contiguous ndarray of ``dtype``."""
-    if not (pa.types.is_integer(column.type)
-            or pa.types.is_floating(column.type)
-            or pa.types.is_boolean(column.type)):
-        raise TypeError(f"column type {column.type} is not supported; it "
-                        "must be a primitive numeric type")
-    arr = column.combine_chunks().to_numpy(zero_copy_only=False)
+def _column_to_numpy(column: pa.ChunkedArray, name: Any,
+                     dtype: np.dtype) -> np.ndarray:
+    """Arrow column -> contiguous ndarray of ``dtype``, ``(B,)`` or, for a
+    fixed-size list column, ``(B, W)`` (:func:`shuffle.column_to_rows`)."""
+    arr = column_to_rows(column, name)
     return np.ascontiguousarray(arr.astype(dtype, copy=False))
 
 
@@ -125,13 +125,14 @@ def convert_to_arrays(table: pa.Table, feature_columns: List[Any],
     features = []
     for col, shape, dtype in zip(feature_columns, feature_shapes,
                                  feature_types):
-        arr = _column_to_numpy(table.column(col), dtype)
+        arr = _column_to_numpy(table.column(col), col, dtype)
         if shape is not None:
             arr = arr.reshape(-1, *shape)
         elif arr.ndim == 1:
             arr = arr.reshape(-1, 1)
         features.append(arr)
-    label = _column_to_numpy(table.column(label_column), label_type)
+    label = _column_to_numpy(table.column(label_column), label_column,
+                             label_type)
     if label_shape:
         label = label.reshape(-1, label_shape)
     elif label.ndim == 1:

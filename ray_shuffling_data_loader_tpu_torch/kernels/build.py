@@ -1,54 +1,107 @@
 """Build and bind the port's CUDA kernels.
 
 ``kernels/*.cu`` expose a plain C interface (no PyTorch headers, so
-``nvcc`` takes seconds). They are compiled for ``sm_90a`` at first use by
-``torch.utils.cpp_extension.load`` into ``kernels/_build/`` inside the
-package (listed in ``.gitignore``), then bound with ``ctypes``. A build
-failure raises: no caller falls back to a plain PyTorch version when a card
-is present.
+``nvcc`` takes seconds). Each source is compiled for ``sm_90a`` at first
+use, by ``nvcc`` into a shared library in ``kernels/_build/`` inside the
+package (listed in ``.gitignore``) named by a hash of the source and the
+flags, then bound with ``ctypes``. Libraries build independently (one lock
+each), so several can be built at once from threads. A build failure
+raises: no caller falls back to a plain PyTorch version when a card is
+present. ``PTXAS_INFO`` keeps each build's ``-Xptxas -v`` report
+(registers, shared memory, spills per kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import subprocess
 import threading
+from typing import Callable, Dict
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 GATHER_SOURCE = os.path.join(KERNEL_DIR, "gather.cu")
+FLASH_SOURCE = os.path.join(KERNEL_DIR, "flash_attention.cu")
 
 #: nvcc flags: Hopper's arch-specific target, full optimisation.
 CUDA_FLAGS = ["-O3", "-std=c++17",
               "-gencode=arch=compute_90a,code=sm_90a"]
 
-_lock = threading.Lock()
-_gather_lib = None
+#: ``-Xptxas -v`` output of each library built by this process, by name.
+PTXAS_INFO: Dict[str, str] = {}
+
+_locks = {"rsdl_torch_gather": threading.Lock(),
+          "rsdl_torch_flash": threading.Lock()}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+_p, _i, _i64, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_float)
+
+
+def _nvcc() -> str:
+    from torch.utils import cpp_extension
+    home = cpp_extension.CUDA_HOME or os.environ.get("CUDA_HOME")
+    if not home:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME is not set)")
+    return os.path.join(home, "bin", "nvcc")
 
 
 def _compile(name: str, source: str) -> str:
     """Compile ``source`` into a shared library; returns its path."""
-    from torch.utils import cpp_extension
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CUDA_FLAGS).encode())
+    path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    return cpp_extension.load(
-        name=name, sources=[source], build_directory=BUILD_DIR,
-        extra_cuda_cflags=CUDA_FLAGS, is_python_module=False,
-        verbose=False)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *CUDA_FLAGS, "-Xptxas=-v", "-shared", "-Xcompiler",
+           "-fPIC", "-o", tmp, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {source} "
+                           f"(rc {proc.returncode}):\n{proc.stderr[-8000:]}")
+    PTXAS_INFO[name] = proc.stderr
+    os.replace(tmp, path)
+    return path
+
+
+def _library(name: str, source: str,
+             bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    with _locks[name]:
+        if name not in _libs:
+            lib = ctypes.CDLL(_compile(name, source))
+            lib.rsdl_cuda_error_string.argtypes = [_i]
+            lib.rsdl_cuda_error_string.restype = ctypes.c_char_p
+            bind(lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _bind_gather(lib: ctypes.CDLL) -> None:
+    lib.rsdl_gather_rows.argtypes = [_p, _p, _i, _p, _i, _i64, _i64, _i64,
+                                     _p]
+    lib.rsdl_gather_rows.restype = _i
+
+
+def _bind_flash(lib: ctypes.CDLL) -> None:
+    # Pointers, then b, h, sq, sk, d, scale and the stream.
+    shape = [_i64, _i64, _i64, _i64, _i, _f, _p]
+    lib.rsdl_flash_fwd.argtypes = [_p] * 6 + shape
+    lib.rsdl_flash_dq.argtypes = [_p] * 8 + shape
+    lib.rsdl_flash_dkv.argtypes = [_p] * 10 + shape
+    for fn in (lib.rsdl_flash_fwd, lib.rsdl_flash_dq, lib.rsdl_flash_dkv):
+        fn.restype = _i
 
 
 def gather_library() -> ctypes.CDLL:
     """The gather kernel's library, built on first call and cached."""
-    global _gather_lib
-    with _lock:
-        if _gather_lib is None:
-            path = _compile("rsdl_torch_gather", GATHER_SOURCE)
-            lib = ctypes.CDLL(path)
-            lib.rsdl_gather_rows.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-            lib.rsdl_gather_rows.restype = ctypes.c_int
-            lib.rsdl_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.rsdl_cuda_error_string.restype = ctypes.c_char_p
-            _gather_lib = lib
-        return _gather_lib
+    return _library("rsdl_torch_gather", GATHER_SOURCE, _bind_gather)
+
+
+def flash_library() -> ctypes.CDLL:
+    """The three flash-attention kernels' library, built on first call and
+    cached."""
+    return _library("rsdl_torch_flash", FLASH_SOURCE, _bind_flash)

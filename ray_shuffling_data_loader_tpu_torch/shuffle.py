@@ -43,31 +43,56 @@ BatchConsumer = Callable[[int, int, Optional[Sequence[cf.Future]]], None]
 MapTransform = Callable[[pa.Table], pa.Table]
 
 
+def _is_primitive(t: pa.DataType) -> bool:
+    return (pa.types.is_integer(t) or pa.types.is_floating(t)
+            or pa.types.is_boolean(t))
+
+
+def column_to_rows(col: pa.ChunkedArray, name: str) -> np.ndarray:
+    """One ndarray row per table row: a null-free primitive column becomes
+    ``(N,)``, a null-free ``FixedSizeList<primitive>[W]`` column (token
+    sequences) ``(N, W)``, its child values flattened and reshaped.
+    Anything else raises ``ValueError``."""
+    t = col.type
+    if col.null_count == 0 and _is_primitive(t):
+        return col.combine_chunks().to_numpy(zero_copy_only=False)
+    if (col.null_count == 0 and pa.types.is_fixed_size_list(t)
+            and _is_primitive(t.value_type)):
+        values = col.combine_chunks().flatten()
+        if values.null_count == 0:
+            return values.to_numpy(zero_copy_only=False).reshape(
+                -1, t.list_size)
+    raise ValueError(
+        f"column {name!r} ({t}) is neither a null-free primitive column nor "
+        "a null-free fixed-size list of one")
+
+
 def _numpy_columns(table: pa.Table) -> Dict[str, np.ndarray]:
-    """{column -> 1-D ndarray}; primitive null-free columns only."""
-    cols: Dict[str, np.ndarray] = {}
-    for name in table.column_names:
-        col = table.column(name)
-        t = col.type
-        if col.null_count or not (pa.types.is_integer(t)
-                                  or pa.types.is_floating(t)
-                                  or pa.types.is_boolean(t)):
-            raise ValueError(
-                f"column {name!r} ({t}) is not a null-free primitive column")
-        cols[name] = col.combine_chunks().to_numpy(zero_copy_only=False)
-    return cols
+    """{column -> ndarray}, one row per table row (see
+    :func:`column_to_rows`)."""
+    return {name: column_to_rows(table.column(name), name)
+            for name in table.column_names}
+
+
+def _rows_to_arrow(rows: np.ndarray, arrow_type: pa.DataType) -> pa.Array:
+    """Inverse of :func:`column_to_rows` for one reduced column."""
+    if rows.ndim == 1:
+        return pa.array(rows, type=arrow_type)
+    values = pa.array(rows.reshape(-1), type=arrow_type.value_type)
+    return pa.FixedSizeListArray.from_arrays(values, type=arrow_type)
 
 
 class MapOutput:
     """One file's rows plus its partition plan: reducer ``r``'s rows are
     ``flat[offsets[r]:offsets[r+1]]``, in original row order."""
 
-    __slots__ = ("columns", "names", "flat", "offsets")
+    __slots__ = ("columns", "names", "schema", "flat", "offsets")
 
-    def __init__(self, columns: Dict[str, np.ndarray], flat: np.ndarray,
-                 offsets: np.ndarray):
+    def __init__(self, columns: Dict[str, np.ndarray], schema: pa.Schema,
+                 flat: np.ndarray, offsets: np.ndarray):
         self.columns = columns
         self.names = list(columns)
+        self.schema = schema
         self.flat = flat
         self.offsets = offsets
 
@@ -84,18 +109,18 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
         table = map_transform(table)
     flat, offsets = partition.plan_partition_flat(
         table.num_rows, num_reducers, seed, epoch, file_index)
-    return MapOutput(_numpy_columns(table), flat, offsets)
+    return MapOutput(_numpy_columns(table), table.schema, flat, offsets)
 
 
 def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
                    map_outputs: Sequence[MapOutput]) -> pa.Table:
     """Concatenate this reducer's rows from every file in file order, then
-    permute them: ``out = concat[perm]``."""
+    permute them: ``out = concat[perm]`` (whole rows of a fixed-size list
+    column move together)."""
     names = map_outputs[0].names
+    schema = map_outputs[0].schema
     for m in map_outputs[1:]:
-        if m.names != names or any(
-                m.columns[n].dtype != map_outputs[0].columns[n].dtype
-                for n in names):
+        if m.names != names or not m.schema.equals(schema):
             raise ValueError("map outputs disagree on their schema")
     parts = [(m.columns, m.indices(reduce_index)) for m in map_outputs]
     total = sum(len(idx) for _, idx in parts)
@@ -104,7 +129,7 @@ def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
     out = {}
     for name in names:
         concat = np.concatenate([cols[name][idx] for cols, idx in parts])
-        out[name] = concat[perm]
+        out[name] = _rows_to_arrow(concat[perm], schema.field(name).type)
     return pa.table(out)
 
 

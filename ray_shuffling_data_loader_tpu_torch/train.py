@@ -1,25 +1,32 @@
-"""DLRM training steps: one Adam micro-step per ``microbatch``-row slice of
-each loader batch (counterpart of bench.py's micro-batched train phase).
+"""Training steps: one Adam micro-step per ``microbatch``-row slice of each
+loader batch (counterpart of bench.py's micro-batched train phase), for
+DLRM and for BERT MLM.
 
-Adam is ``torch.optim.Adam(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)``, the
-defaults of ``optax.adam(1e-3)``. Both compute ``m_hat / (sqrt(v_hat) +
+Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the
+defaults of ``optax.adam(lr)``: lr 1e-3 for DLRM, 1e-4 for BERT (the JAX
+package's ``workloads/bert_mlm.py``). Both compute ``m_hat / (sqrt(v_hat) +
 eps)``, but round in a different order, so trajectories agree to float32
 rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from ray_shuffling_data_loader_tpu_torch.models import dlrm
+from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm
+from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
 
 MicroStep = Callable[[Sequence[torch.Tensor], torch.Tensor], torch.Tensor]
 
+#: ``optax.adam``'s learning rate in the JAX package's BERT-MLM smoke run.
+BERT_LR = 1e-4
 
-def make_optimizer(model: torch.nn.Module) -> torch.optim.Adam:
-    return torch.optim.Adam(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
+
+def make_optimizer(model: torch.nn.Module,
+                   lr: float = 1e-3) -> torch.optim.Adam:
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8)
 
 
@@ -35,6 +42,43 @@ def make_micro_step(model: dlrm.DLRM,
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def make_bert_update(model: bert.Bert, optimizer: torch.optim.Optimizer,
+                     attention_fn: Optional[bert.AttentionFn] = None
+                     ) -> Callable[[torch.Tensor, torch.Tensor],
+                                   torch.Tensor]:
+    """``update(inputs, targets) -> loss``: MLM forward, backward and one
+    optimizer update on already-masked tokens."""
+
+    def update(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = bert.loss_fn(model, inputs, targets,
+                            attention_fn=attention_fn)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return update
+
+
+def make_bert_micro_step(model: bert.Bert, optimizer: torch.optim.Optimizer,
+                         generator: torch.Generator,
+                         attention_fn: Optional[bert.AttentionFn] = None
+                         ) -> MicroStep:
+    """``step(cols, labels) -> loss`` for BERT MLM: ``cols[0]`` is the
+    ``(B, S)`` token batch (``labels`` is unused); masks it on the device
+    with ``generator`` (:func:`bert_mlm.mlm_mask`), then one
+    :func:`make_bert_update` step."""
+    update = make_bert_update(model, optimizer, attention_fn)
+    vocab_size = model.config.vocab_size
+
+    def step(cols: Sequence[torch.Tensor],
+             labels: torch.Tensor) -> torch.Tensor:
+        inputs, targets = bert_mlm.mlm_mask(cols[0], generator, vocab_size)
+        return update(inputs, targets)
 
     return step
 
