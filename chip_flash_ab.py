@@ -4,7 +4,9 @@
 ``python3 chip_flash_ab.py OTHER.cu`` builds the package's
 ``kernels/flash_attention.cu`` and ``OTHER.cu`` (another version with the
 same C interface, for example the parent commit's, from ``git show
-PARENT:ray_shuffling_data_loader_tpu_torch/kernels/flash_attention.cu``),
+PARENT:ray_shuffling_data_loader_tpu_torch/kernels/flash_attention.cu``;
+a version that includes ``hopper.cuh`` needs its own copy of that header
+beside it, as a quoted include is found there before ``kernels/``),
 holds both against the plain PyTorch versions at ``chip_smoke.py``'s
 attention shapes (within 2e-2), then times each kernel of each build at
 the main shape (B=32, H=12, S=512, D=64, bf16, no bias; CUDA-graph device

@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit.
 2. ``build``: builds ``kernels/gather.cu`` and ``kernels/flash_attention.cu``
-   for sm_90a from the sources, one ``nvcc`` each, started together.
+   for sm_90a from the sources, one ``nvcc`` each, started together, and
+   reports ``ptxas``'s registers and spills for every kernel instantiation.
 3. ``kernels``: the gather kernel against ``gather_reference`` on the card
    at the ``mlperf`` shapes (V=945195, E=128, B in {2048, 131072}, int32
    indices including out-of-range ones): f32 and bf16 outputs bit-identical,
@@ -24,10 +25,12 @@ Phases, each printing one JSON line:
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
    H=12, S=512, D=64 with and without a key-side bias that masks keys; a
-   ragged S=500, D=32; and dq, dk/dv given a global lse over twice as many
-   keys. Device times (CUDA graphs) of each kernel and its plain version at
-   the main shape without bias, beside the bound and, as a yardstick,
-   ``scaled_dot_product_attention``'s forward and backward.
+   ragged S=500, D=32; a ragged Sq=100, Sk=40, D=64; and dq, dk/dv given a
+   global lse over twice as many keys. Device times (CUDA graphs) of each
+   kernel and its plain version at the main shape without bias, beside the
+   bound (and the share of it reached) and, as a yardstick,
+   ``scaled_dot_product_attention``'s forward and backward (and each
+   kernel's time over it).
 6. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
    Parquet files -> seeded shuffle (8 reducers) -> ``DeviceShufflingDataset``
    (1 trainer, batch 256, 2 epochs, seed 0) -> on-device MLM masking ->
@@ -218,6 +221,23 @@ def kernels_phase(emb, peak: float) -> dict:
     del table
     torch.cuda.empty_cache()
     return {"timings": results, "max_abs_err": max_err}
+
+
+def ptxas_by_kernel(info: str) -> dict:
+    """``-Xptxas -v`` output as {kernel instantiation: its "Used ..."
+    and "... spill ..." lines}, names demangled by ``c++filt``."""
+    lines, name = {}, None
+    for line in info.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("Used" in line or "spill" in line):
+            lines.setdefault(name, []).append(
+                line.split("info    :")[-1].strip())
+    demangled = subprocess.run(
+        ["c++filt"], input="\n".join(lines), capture_output=True, text=True,
+        check=True, timeout=60).stdout.splitlines()
+    return {_short(full).split("(")[0]: "; ".join(found)
+            for full, found in zip(demangled, lines.values())}
 
 
 def _short(kernel_name: str) -> str:
@@ -466,6 +486,9 @@ def attention_phase(fa, hbm: float, flop_peak: float) -> dict:
         "ragged_s500_d32_bias": _check_case(
             fa, "ragged", *_attention_inputs(g, 8, h, 500, 500, 32,
                                              masked=True)),
+        "ragged_sq100_sk40_d64_bias": _check_case(
+            fa, "ragged_short_keys", *_attention_inputs(g, 8, h, 100, 40, d,
+                                                        masked=True)),
     }
     # dq and dk/dv of the first half of the keys given the lse over all of
     # them (ring attention's per-hop backward).
@@ -521,7 +544,10 @@ def attention_phase(fa, hbm: float, flop_peak: float) -> dict:
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "flops": flops, "bytes": moved,
         }
-        timings[kernel]["tflops"] = flops / timings[kernel]["ms"] / 1e9
+        t = timings[kernel]
+        t["tflops"] = flops / t["ms"] / 1e9
+        t["x_library"] = t["ms"] / t["library_ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
     torch.cuda.empty_cache()
     return {"shape": {"B": b, "H": h, "S": s, "D": d, "dtype": "bf16"},
             "tolerance": {"atol": ATT_TOL, "rtol": ATT_TOL},
@@ -706,8 +732,7 @@ def main() -> int:
             lib.result()
     emit({"phase": "build", "kernels": ["gather_rows", *FLASH_KERNELS],
           "seconds": timeit.default_timer() - start, "flags": build.CUDA_FLAGS,
-          "ptxas": {name: [line.strip() for line in info.splitlines()
-                           if "Used" in line or "spill" in line]
+          "ptxas": {name: ptxas_by_kernel(info)
                     for name, info in build.PTXAS_INFO.items()}})
 
     kern = kernels_phase(emb, peak)

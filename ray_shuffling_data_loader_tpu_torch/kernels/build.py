@@ -4,8 +4,11 @@
 ``nvcc`` takes seconds). Each source is compiled for ``sm_90a`` at first
 use, by ``nvcc`` into a shared library in ``kernels/_build/`` inside the
 package (listed in ``.gitignore``) named by a hash of the source and the
-flags, then bound with ``ctypes``. Libraries build independently (one lock
-each), so several can be built at once from threads. A build failure
+flags, then bound with ``ctypes``. The hash covers every local header the
+source includes (``#include "..."``, found beside the source or in
+``kernels/``, which is on the include path), so a changed header rebuilds
+the library. Libraries build independently (one lock each), so several can
+be built at once from threads. A build failure
 raises: no caller falls back to a plain PyTorch version when a card is
 present. ``PTXAS_INFO`` keeps each build's ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel).
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from typing import Callable, Dict
@@ -48,17 +52,47 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_digest(source: str) -> str:
+    """sha256 of ``source``, of every local header it includes (directly or
+    through another header) and of the flags."""
+    digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
+    pending, seen = [os.path.abspath(source)], set()
+    while pending:
+        path = pending.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(text)
+        for name in _LOCAL_INCLUDE.findall(text):
+            for folder in (os.path.dirname(path), KERNEL_DIR):
+                header = os.path.join(folder, name.decode())
+                if os.path.exists(header):
+                    pending.append(os.path.abspath(header))
+                    break
+    return digest.hexdigest()
+
+
+def library_path(name: str, source: str) -> str:
+    """Where the library ``name`` built from ``source`` (as it and its
+    headers read now) lives."""
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{_source_digest(source)[:16]}.so")
+
+
 def _compile(name: str, source: str) -> str:
     """Compile ``source`` into a shared library; returns its path."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CUDA_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    path = library_path(name, source)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *CUDA_FLAGS, "-Xptxas=-v", "-shared", "-Xcompiler",
-           "-fPIC", "-o", tmp, source]
+    cmd = [_nvcc(), *CUDA_FLAGS, "-Xptxas=-v", f"-I{KERNEL_DIR}", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {source} "

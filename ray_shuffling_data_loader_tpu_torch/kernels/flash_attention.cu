@@ -2,7 +2,7 @@
 //
 // Layout (B, H, S, D), bf16 q/k/v/dO, contiguous; an optional f32 key-side
 // bias (B, 1, 1, Sk) (a null pointer is the Pallas `_nobias` variant);
-// f32 lse and delta (B, H, Sq). scale = 1/sqrt(D).
+// f32 lse and delta (B, H, Sq). scale = 1/sqrt(D). D is 16, 32, 64 or 128.
 //
 // Replaces the three Pallas TPU kernels of
 // ray_shuffling_data_loader_tpu/ops/flash_attention.py:
@@ -14,52 +14,83 @@
 //                        (called from `flash_backward` :448)
 //
 // On the TPU the innermost grid axis runs in order and carries the online
-// softmax / gradient accumulators in VMEM scratch. Here one block of 4 warps
-// owns one 64-row tile (a q-tile for forward and dq, a k-tile for dk/dv) and
-// loops over the other sequence's 64-row tiles itself; each warp owns 16 rows
-// of the block's tile for the whole kernel, so after a tile is staged in
-// shared memory a warp needs only __syncwarp() to hand its strip from the
-// tensor cores to the row-wise f32 softmax and back. dk/dv blocks own their
-// key rows, so dk, dv and the per-head dbias are written without atomics.
+// softmax / gradient accumulators in VMEM scratch. Here a block owns a tile
+// of one sequence (query rows for forward and dq, key rows for dk/dv) and
+// loops over the other sequence's tiles itself, so the accumulators never
+// leave the block and dk, dv and the per-head dbias are written without
+// atomics.
 //
-// What bounds it on an H100: at BERT's S=512, D=64 the work is about 26-52
-// GFLOP against 100-150 MB per call, so the dense bf16 tensor-core rate
-// (989 TFLOP/s) and the HBM rate (3.35 TB/s) give bounds of the same order
-// (~30-52 us); the scores never reach device memory. This version runs
-// `nvcuda::wmma` 16x16x16 bf16 fragments with f32 accumulation (mma.sync
-// underneath, not wgmma) and is limited by shared-memory traffic and the
-// work between the products, not by either bound. What it does about that:
-// the row work (max, exp, sums, the bf16 cast of P or dS) is spread over
-// all 32 lanes, two per row, with 8-byte accesses and one shuffle per
-// reduction; shared-memory rows are padded so that a fragment's rows fall
-// on different banks; in the backward kernels the bf16 P and dS overwrite
-// the f32 strips they come from, so each block needs ~72 KB at D=64 and
-// three blocks fit an SM; the forward skips rescaling its accumulator when
-// no row's max moved. What it leaves for later work: the forward's output
-// accumulator lives in shared memory so that it can be rescaled row by row
-// (wmma fragments have no documented element-to-row map), every warp
-// re-reads the whole k/v tile, and tiles are staged with synchronous
-// 16-byte loads; wgmma, TMA, double buffering and warp specialisation are
-// the next steps.
+// Bounds on an NVIDIA H100 80GB HBM3 (700 W: 989.4 TFLOP/s dense bf16,
+// 3.35 TB/s), at BERT's B=32, H=12, S=512, D=64 (chip_smoke.py's
+// `attention` phase computes them): forward 25.8 GFLOP against 101 MB of
+// inputs and outputs, 0.030 ms (bytes); dq 38.7 GFLOP, 0.039 ms
+// (operations); dk/dv 51.5 GFLOP, 0.052 ms (operations). The scores never
+// reach device memory.
 //
-// Numerics: the scores and every product accumulate in f32. P (forward, dk/dv)
-// and dS (dq, dk/dv) are rounded to bf16 to feed the tensor cores; the row
-// sums, lse and dbias use the unrounded f32 values; exp(x) is exp2f(x log2 e).
-// The scale multiplies the f32 scores (the Pallas forward scales q before
-// the dot: equal up to f32 rounding). Ragged edges: keys at k >= Sk get a
-// -inf score and query rows at q >= Sq a +inf lse, so their probabilities are
-// exactly 0, and their rows are not written; this equals the unpadded
+// flash_fwd_kernel (bound 0.030 ms, bytes) and flash_dkv_kernel (bound
+// 0.052 ms, operations): wgmma with the softmax in registers, fed by TMA.
+// What the design does about the bound:
+// - Every product is a warpgroup `wgmma` (m64nNk16, bf16 in, f32
+//   accumulate), the only path to the tensor cores' full rate. Operands in
+//   shared memory are read through descriptors; each tile is written by
+//   TMA in the swizzled layout its descriptor names (hopper.cuh).
+// - The scores, the online softmax (running max and sum) and the
+//   accumulators stay in registers: a thread holds the pairs at rows
+//   lane/4 and lane/4 + 8 of its warp's 16 rows, a row's max and sum take
+//   two shuffles within the quad, and P (or Pᵀ, dSᵀ) turns into the next
+//   product's A operand register to register (the accumulator layout of
+//   two adjacent 8-column groups is the A layout of a k16 step). Shared
+//   memory holds only the input tiles.
+// - The tiles that stream (K/V in the forward, Q/dO in dk/dv) arrive by
+//   TMA into a ring of kStages stages, each with its own mbarrier; the
+//   next tile's copy is issued before the current tile's products. Rows
+//   past S are zero-filled by the copy engine (a 3-D tensor map over
+//   (B*H, S, D)), so no head reads the next; a copy never asks for more
+//   rows than S has.
+// - Forward: a block is one warpgroup that owns 64 query rows; Q is loaded
+//   once. dk/dv: a block is one warpgroup that owns 64 keys; K and V are
+//   loaded once and stay resident, and the lse/delta rows of each Q tile
+//   follow it by cp.async. Sᵀ = K Qᵀ and dPᵀ = V dOᵀ read both operands
+//   K-major; dV += Pᵀ dO and dK += dSᵀ Q read the same Q/dO stage MN-major
+//   (the transpose bit), so one tile serves both forms. At D = 128 a stage
+//   holds 32 query rows, so the dk and dv accumulators (128 registers) and
+//   the score tiles fit without spilling; at D <= 64 the kernel is held to
+//   three blocks per SM (168 registers, no spills).
+// Measured at the main shape on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, chip_flash_ab.py): forward about 0.080 ms, dk/dv about
+// 0.135 ms. What they leave for later work: no warp specialisation (thread
+// 0 of the block issues the copies, every thread waits on the stage), no
+// overlap of the softmax with the next tile's products, 64-row tiles, and
+// direct (unstaged) stores of the outputs.
+//
+// flash_dq_kernel (bound 0.039 ms, operations): `nvcuda::wmma` 16x16x16
+// fragments (mma.sync underneath) in 4 warps that each own 16 query rows;
+// scores, dP and dS go through shared memory between the products, and
+// tiles are staged with synchronous 16-byte loads (about 0.42 ms, same
+// card). Its redesign is the next step.
+//
+// Numerics: the scores and every product accumulate in f32. P (forward,
+// dk/dv) and dS (dq, dk/dv) are rounded to bf16 to feed the tensor cores;
+// the row sums, lse and dbias use the unrounded f32 values; exp(x) is
+// exp2f(x log2 e) (the wgmma kernels carry scores, running max and lse in
+// log2 units). The scale multiplies the f32 scores (the Pallas forward
+// scales q before the dot: equal up to f32 rounding). Ragged edges: keys at
+// k >= Sk get a -inf score and query rows at q >= Sq probability 0 (dq: a
+// +inf lse), and their rows are not written; this equals the unpadded
 // computation (and JAX's padding with a -1e9 bias wherever a row has a real
 // key within 1e9 of its maximum). The running max starts at -1e30 and the
 // denominator is clamped at 1e-30, as in the Pallas forward.
 //
 // Plain C interface, loaded with ctypes: no PyTorch headers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -71,16 +102,13 @@ constexpr int kWarps = 4;            // each warp owns kStrip rows of a tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kStrip = 16;           // = the wmma fragment's M
 constexpr float kNegInit = -1e30f;   // running-max init (Pallas `_NEG`)
-// Shared-memory row strides, padded so that consecutive rows start 4 banks
-// apart (a stride of 128 or 256 bytes would put every row of a fragment
-// load on the same banks).
+// Shared-memory row strides of the dq kernel, padded so that consecutive
+// rows start 4 banks apart (a stride of 128 or 256 bytes would put every
+// row of a fragment load on the same banks).
 constexpr int kLdS = kTile + 4;      // f32 score tiles (68 floats)
 constexpr int kLdH = 2 * kLdS;       // a score row read as bf16 (136)
-constexpr int kLdP = kTile + 8;      // bf16 P tile of the forward (72)
 template <int D>
 __host__ __device__ constexpr int ld_tile() { return D + 8; }  // bf16 q/k/v
-template <int D>
-__host__ __device__ constexpr int ld_acc() { return D + 4; }   // f32 acc
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
                              wmma::row_major>;
@@ -91,19 +119,14 @@ using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// -- helpers of the dq kernel (nvcuda::wmma) --------------------------------
 
 // Row work: lane l of a warp handles row (l & 15) of the warp's strip and
 // the column pairs (c, c + 1), c = 4j + 2 (l >> 4), j < 16, of that row,
-// with 8-byte loads and 4-byte bf16x2 stores; the two lanes of a row
-// combine with one shuffle. exp(x) is computed as exp2f(x * log2 e).
-__device__ __forceinline__ float pair_max(float x) {
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
-}
-
-__device__ __forceinline__ float pair_sum(float x) {
-  return x + __shfl_xor_sync(0xffffffffu, x, 16);
-}
-
+// with 8-byte loads and 4-byte bf16x2 stores. exp(x) is computed as
+// exp2f(x * log2 e).
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -192,29 +215,6 @@ __device__ __forceinline__ void strip_ab_acc(FragC (&acc)[D / 16],
   }
 }
 
-// The same product accumulated into a 16 x D f32 strip in shared memory
-// (row stride ld_acc<D>(): the forward's accumulator, rescaled row by row).
-template <int D>
-__device__ __forceinline__ void strip_ab_acc_smem(float* acc, const bf16* a,
-                                                  const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + n * 16, ld_acc<D>(), wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, kLdP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld_tile<D>() + n * 16,
-                             ld_tile<D>());
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + n * 16, c, ld_acc<D>(),
-                            wmma::mem_row_major);
-  }
-}
-
 // Write a warp's 16 x D register accumulator, times `mul`, as bf16 rows
 // [row0 + r] of `dst` (ld D) for row0 + r < rows. `scratch` is the warp's
 // 16 x kTile f32 strip (ld kLdS).
@@ -247,109 +247,248 @@ __device__ __forceinline__ void store_strip(bf16* dst, FragC (&acc)[D / 16],
   }
 }
 
+// -- wgmma kernels: shared pieces -------------------------------------------
+
+constexpr int kWgThreads = 128;     // one warpgroup
+constexpr int kStages = 2;          // streamed tiles in flight
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t{1023});
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Zeroes bytes [0, bytes) of shared memory (a multiple of 16) for the
+// copy engine and the tensor cores: tiles whose copies fill fewer rows
+// than the tile has (a sequence shorter than one tile) stay zero there.
+__device__ __forceinline__ void zero_tiles(unsigned char* smem, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  hopper::fence_proxy_async();
+}
+
+template <int M>
+__device__ __forceinline__ void zero(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) d[i] = 0.f;
+}
+
+// Store a warpgroup's 64 x D accumulator (column blocks of kBlockCols),
+// times `mul` (one factor per row half), as bf16 rows of `dst` (ld D):
+// this thread's rows `row` and `row + 8` where they are below `rows`.
+template <int D, int N>
+__device__ __forceinline__ void store_rows(
+    bf16* dst, const float (&acc)[hopper::Layout<D>::kHalves][N],
+    const float (&mul)[2], int row, int rows) {
+  using L = hopper::Layout<D>;
+  const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= rows) continue;
+    bf16* out = dst + static_cast<int64_t>(row + 8 * r) * D + col;
+#pragma unroll
+    for (int h = 0; h < L::kHalves; ++h) {
+#pragma unroll
+      for (int c = 0; c < L::kBlockCols / 8; ++c) {
+        *reinterpret_cast<__nv_bfloat162*>(out + h * L::kBlockCols + 8 * c) =
+            __floats2bfloat162_rn(acc[h][4 * c + 2 * r] * mul[r],
+                                  acc[h][4 * c + 2 * r + 1] * mul[r]);
+      }
+    }
+  }
+}
+
 // -- forward -----------------------------------------------------------------
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return 3 * kTile * ld_tile<D>() * sizeof(bf16)  // q, k, v tiles
-         + kTile * kLdP * sizeof(bf16)            // P (bf16)
-         + kTile * kLdS * sizeof(float)           // S (f32)
-         + kTile * ld_acc<D>() * sizeof(float)    // output accumulator
-         + 3 * kTile * sizeof(float);             // max, denominator, bias
-}
+struct FwdSmem {
+  using L = hopper::Layout<D>;
+  static constexpr int kK = L::bytes(kTile);                   // Q at 0
+  static constexpr int kV = kK + kStages * L::bytes(kTile);
+  static constexpr int kBars = kV + kStages * L::bytes(kTile);  // Q, K/V
+  static constexpr int kBytes = kBars + (1 + kStages) * 8 + 1024;  // + align
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, float* __restrict__ lse, int64_t h,
-                 int64_t sq, int64_t sk, float scale, int64_t q_tiles) {
-  constexpr int kLdT = ld_tile<D>();
-  constexpr int kLdA = ld_acc<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const float* __restrict__ bias, bf16* __restrict__ out,
+                 float* __restrict__ lse, int h, int sq, int sk, float scale,
+                 int q_tiles, int q_box, int kv_box) {
+  // q_box, kv_box: rows per copy, min(tile rows, S) (the maps' boxes).
+  using L = hopper::Layout<D>;
+  using Sm = FwdSmem<D>;
+  constexpr int kNB = L::kBlockCols;  // N of one P*V product
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kTile * kLdT;
-  bf16* vs = ks + kTile * kLdT;
-  bf16* ps = vs + kTile * kLdT;
-  float* ss = reinterpret_cast<float*>(ps + kTile * kLdP);
-  float* acc = ss + kTile * kLdS;
-  float* row_m = acc + kTile * kLdA;
-  float* row_l = row_m + kTile;
-  float* bias_s = row_l + kTile;
+  bf16* ks = reinterpret_cast<bf16*>(smem + Sm::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + Sm::kV);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + Sm::kBars);
+  uint64_t* kv_bar = q_bar + 1;  // one per stage
 
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int64_t q0 = (blockIdx.x % q_tiles) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * kStrip;
-  const int r = r0 + (lane & 15);  // this lane's row of the row work
-  const int half = lane >> 4;      // and its columns, 2j + half
-  const bf16* km = k + bh * sk * D;
-  const bf16* vm = v + bh * sk * D;
-  const float* bias_row = bias == nullptr ? nullptr : bias + (bh / h) * sk;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int k_tiles = (sk + kTile - 1) / kTile;
+  const float* bias_row =
+      bias == nullptr ? nullptr : bias + static_cast<int64_t>(bh / h) * sk;
 
-  load_tile<D>(qs, q + bh * sq * D, q0, sq);
-  for (int i = threadIdx.x; i < kTile * kLdA; i += kThreads) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    row_m[i] = kNegInit;
-    row_l[i] = 0.f;
+  auto load_kv = [&](int j) {  // K/V tile j into its stage (one thread)
+    const int st = j % kStages;
+    hopper::mbar_expect_tx(&kv_bar[st], 2 * L::bytes(kv_box));
+    hopper::tma_tile<D>(ks + st * kTile * D, &k_map, &kv_bar[st], j * kTile,
+                        bh, kTile);
+    hopper::tma_tile<D>(vs + st * kTile * D, &v_map, &kv_bar[st], j * kTile,
+                        bh, kTile);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&kv_bar[st], 1);
+    hopper::mbar_fence_init();
+  }
+  if (q_box < kTile || kv_box < kTile) zero_tiles(smem, Sm::kBars);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(q_bar, L::bytes(q_box));
+    hopper::tma_tile<D>(qs, &q_map, q_bar, q0, bh, kTile);
+    for (int j = 0; j < kStages - 1 && j < k_tiles; ++j) load_kv(j);
   }
 
-  for (int64_t k0 = 0; k0 < sk; k0 += kTile) {
-    __syncthreads();  // the previous k/v tile is consumed by every warp
-    load_tile<D>(ks, km, k0, sk);
-    load_tile<D>(vs, vm, k0, sk);
-    load_bias(bias_s, bias_row, k0, sk);
-    __syncthreads();
-    strip_abt<D>(ss + r0 * kLdS, qs + r0 * kLdT, ks);
-    __syncwarp();
-    float2 x[kTile / 4];
-    float tile_max = -INFINITY;
+  const float scale_log2 = scale * kLog2e;
+  float o[L::kHalves][kNB / 2];
 #pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const int c = 4 * j + 2 * half;
-      const float2 sv = ld2(ss + r * kLdS + c);
-      const float2 bv = ld2(bias_s + c);
-      x[j] = make_float2(sv.x * scale + bv.x, sv.y * scale + bv.y);
-      tile_max = fmaxf(tile_max, fmaxf(x[j].x, x[j].y));
+  for (int hb = 0; hb < L::kHalves; ++hb) zero(o[hb]);
+  // Running max (log2 units) of rows lane/4 + 8 r, and this thread's
+  // share of their running sums (the quad's shares are added at the end).
+  float m[2] = {kNegInit * kLog2e, kNegInit * kLog2e};
+  float l[2] = {0.f, 0.f};
+  hopper::mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < k_tiles; ++j) {
+    const int st = j % kStages;
+    // Stage (j - 1) % kStages was released by the barrier that ended
+    // iteration j - 1: refill it before this tile's products.
+    if (threadIdx.x == 0 && j + kStages - 1 < k_tiles) {
+      load_kv(j + kStages - 1);
     }
-    const float m_prev = row_m[r];
-    const float m_new = fmaxf(m_prev, pair_max(tile_max));
-    float sum = 0.f;
+    hopper::mbar_wait(&kv_bar[st], (j / kStages) & 1);
+    const bf16* kt = ks + st * kTile * D;
+    const bf16* vt = vs + st * kTile * D;
+
+    // S = Q Kᵀ (64 x 64, f32).
+    float s[kTile / 2];
+    zero(s);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kTile / 4; ++j) {
-      const float p0 = exp_(x[j].x - m_new);
-      const float p1 = exp_(x[j].y - m_new);
-      st2(ps + r * kLdP + 4 * j + 2 * half, p0, p1);
-      sum += p0 + p1;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Wgmma<kTile>::ss(
+          s, hopper::desc_k<D>(qs, kTile, 0, kk),
+          hopper::desc_k<D>(kt, kTile, 0, kk), kk > 0);
     }
-    sum = pair_sum(sum);  // both lanes of the row have read row_m[r]
-    const float corr = exp_(m_prev - m_new);
-    if (__any_sync(0xffffffffu, corr != 1.f)) {  // some row's max moved
-      for (int d = 2 * half; d < D; d += 4) {
-        float2* a = reinterpret_cast<float2*>(acc + r * kLdA + d);
-        const float2 av = *a;
-        *a = make_float2(av.x * corr, av.y * corr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // Scores in log2 units: s * scale * log2 e (+ bias * log2 e; -inf for
+    // keys past sk). Without a bias or ragged keys the scale is folded into
+    // the exponent below.
+    const int key0 = j * kTile;
+    float mul = scale_log2;
+    if (bias_row != nullptr || key0 + kTile > sk) {
+#pragma unroll
+      for (int c = 0; c < kTile / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + 8 * c + 2 * quad + e;
+          const float add = key >= sk ? -INFINITY
+                            : bias_row == nullptr ? 0.f
+                                                  : bias_row[key] * kLog2e;
+          s[4 * c + e] = fmaf(s[4 * c + e], scale_log2, add);
+          s[4 * c + 2 + e] = fmaf(s[4 * c + 2 + e], scale_log2, add);
+        }
+      }
+      mul = 1.f;
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kTile / 8; ++c) {
+        mx = fmaxf(mx, fmaxf(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]));
+      }
+      const float m_new = fmaxf(m[r], quad_max(mx) * mul);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+    // P = exp2(score - max), summed in f32 and packed as bf16 A fragments.
+    uint32_t p[kTile / 16][4];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < kTile / 8; ++c) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = exp2f(fmaf(s[4 * c + i], mul, -m[i / 2]));
+      }
+      sum[0] += pv[0] + pv[1];
+      sum[1] += pv[2] + pv[3];
+      p[c / 2][2 * (c % 2)] = hopper::pack_bf16(pv[0], pv[1]);
+      p[c / 2][2 * (c % 2) + 1] = hopper::pack_bf16(pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+
+    // O = O * corr + P V.
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+#pragma unroll
+      for (int i = 0; i < kNB / 2; ++i) o[hb][i] *= corr[(i / 2) % 2];
+      hopper::fence_regs(o[hb]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        hopper::Wgmma<kNB>::rs(o[hb], p[kk],
+                               hopper::desc_mn<D>(vt, kTile, kk, hb));
       }
     }
-    if (half == 0) {
-      row_m[r] = m_new;
-      row_l[r] = row_l[r] * corr + sum;
-    }
-    __syncwarp();
-    strip_ab_acc_smem<D>(acc + r0 * kLdA, ps + r0 * kLdP, vs);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) hopper::fence_regs(o[hb]);
+    __syncthreads();  // stage st is free for the copy issued next
   }
-  __syncwarp();
-  for (int rr = r0; rr < r0 + kStrip; ++rr) {
-    const int64_t qi = q0 + rr;
-    if (qi >= sq) break;
-    const float l = fmaxf(row_l[rr], 1e-30f);
-    bf16* orow = out + (bh * sq + qi) * D;
-    for (int c = lane; c < D; c += 32) {
-      orow[c] = __float2bfloat16_rn(acc[rr * kLdA + c] / l);
+
+  const int row = q0 + 16 * warp + lane / 4;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_sum = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.f / l_sum;
+    if (quad == 0 && row + 8 * r < sq) {
+      lse[static_cast<int64_t>(bh) * sq + row + 8 * r] =
+          m[r] * kLn2 + logf(l_sum);
     }
-    if (lane == 0) lse[bh * sq + qi] = row_m[rr] + logf(l);
   }
+  store_rows<D>(out + static_cast<int64_t>(bh) * sq * D, o, inv, row, sq);
 }
 
 // -- dq ----------------------------------------------------------------------
@@ -448,112 +587,226 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // -- dk / dv (+ per-head dbias) ----------------------------------------------
 
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return 4 * kTile * ld_tile<D>() * sizeof(bf16)  // k, v, q, dO tiles
-         + 2 * kTile * kLdS * sizeof(float)       // Sᵀ, dPᵀ; Pᵀ, dSᵀ
-         + 4 * kTile * sizeof(float);             // lse, delta, bias, dbias
-}
+struct DkvSmem {
+  using L = hopper::Layout<D>;
+  // Query rows per stage: at D = 128, 32 keep dk, dv and the score tiles
+  // in registers.
+  static constexpr int kQRows = D == 128 ? 32 : 64;
+  static constexpr int kV = L::bytes(kTile);                    // K at 0
+  static constexpr int kQ = kV + L::bytes(kTile);
+  static constexpr int kDo = kQ + kStages * L::bytes(kQRows);
+  static constexpr int kLse = kDo + kStages * L::bytes(kQRows);
+  static constexpr int kDelta = kLse + kStages * kQRows * 4;
+  static constexpr int kBars = kDelta + kStages * kQRows * 4;  // K/V, Q
+  static constexpr int kBytes = kBars + (1 + kStages) * 8 + 1024;  // + align
+};
 
+// At D <= 64 three blocks share an SM (at most 168 registers, no spills):
+// 0.135 ms against 0.158 ms with the two that 200 registers allow at the
+// main shape (chip_flash_ab.py, NVIDIA H100 80GB HBM3, 700 W).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ bias,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, float* __restrict__ dbias, int64_t h,
-                 int64_t sq, int64_t sk, float scale, int64_t k_tiles) {
-  constexpr int kLdT = ld_tile<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kWgThreads, D <= 64 ? 3 : 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ bias, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, float* __restrict__ dbias, int h,
+                 int sq, int sk, float scale, int k_tiles, int q_box,
+                 int kv_box) {
+  // q_box, kv_box: rows per copy, min(tile rows, S) (the maps' boxes).
+  using L = hopper::Layout<D>;
+  using Sm = DkvSmem<D>;
+  constexpr int kQR = Sm::kQRows;
+  constexpr int kNB = L::kBlockCols;  // N of one dV or dK product
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTile * kLdT;
-  bf16* qs = vs + kTile * kLdT;
-  bf16* dos = qs + kTile * kLdT;
-  float* sts = reinterpret_cast<float*>(dos + kTile * kLdT);
-  float* dpts = sts + kTile * kLdS;
-  bf16* pts = reinterpret_cast<bf16*>(sts);    // Pᵀ overwrites Sᵀ
-  bf16* dsts = reinterpret_cast<bf16*>(dpts);  // dSᵀ overwrites dPᵀ
-  float* lse_s = dpts + kTile * kLdS;
-  float* delta_s = lse_s + kTile;
-  float* bias_s = delta_s + kTile;
-  float* dbias_s = bias_s + kTile;
+  bf16* vs = reinterpret_cast<bf16*>(smem + Sm::kV);
+  bf16* qs = reinterpret_cast<bf16*>(smem + Sm::kQ);
+  bf16* dos = reinterpret_cast<bf16*>(smem + Sm::kDo);
+  float* lse_s = reinterpret_cast<float*>(smem + Sm::kLse);
+  float* delta_s = reinterpret_cast<float*>(smem + Sm::kDelta);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + Sm::kBars);
+  uint64_t* q_bar = kv_bar + 1;  // one per stage
 
-  const int64_t bh = blockIdx.x / k_tiles;
-  const int64_t k0 = (blockIdx.x % k_tiles) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * kStrip;
-  const int r = r0 + (lane & 15);  // a key row
-  const int half = lane >> 4;      // query columns 2j + half
-  const bf16* qm = q + bh * sq * D;
-  const bf16* dom = dout + bh * sq * D;
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int q_tiles = (sq + kQR - 1) / kQR;
 
-  load_tile<D>(ks, k + bh * sk * D, k0, sk);
-  load_tile<D>(vs, v + bh * sk * D, k0, sk);
-  load_bias(bias_s, bias == nullptr ? nullptr : bias + (bh / h) * sk, k0,
-            sk);
-  for (int i = threadIdx.x; i < kTile; i += kThreads) dbias_s[i] = 0.f;
-
-  FragC dk_acc[D / 16];
-  FragC dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  for (int64_t q0 = 0; q0 < sq; q0 += kTile) {
-    __syncthreads();
-    load_tile<D>(qs, qm, q0, sq);
-    load_tile<D>(dos, dom, q0, sq);
-    load_rows(lse_s, lse + bh * sq, q0, sq, INFINITY);
-    load_rows(delta_s, delta + bh * sq, q0, sq, 0.f);
-    __syncthreads();
-    strip_abt<D>(sts + r0 * kLdS, ks + r0 * kLdT, qs);    // Sᵀ = k qᵀ
-    strip_abt<D>(dpts + r0 * kLdS, vs + r0 * kLdT, dos);  // dPᵀ = v dOᵀ
-    __syncwarp();
-    const float bias_r = bias_s[r];
-    float ds_sum = 0.f;
-    // Pᵀ and dSᵀ (bf16) overwrite the f32 strips they come from, as in
-    // the dq kernel.
-#pragma unroll
-    for (int chunk = 0; chunk < 2; ++chunk) {
-      float2 p[kTile / 8];
-      float2 ds[kTile / 8];
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int c = 4 * (chunk * kTile / 8 + j) + 2 * half;
-        const float2 sv = ld2(sts + r * kLdS + c);
-        const float2 dpv = ld2(dpts + r * kLdS + c);
-        const float2 lv = ld2(lse_s + c);
-        const float2 deltav = ld2(delta_s + c);
-        p[j] = make_float2(exp_(sv.x * scale + bias_r - lv.x),
-                           exp_(sv.y * scale + bias_r - lv.y));
-        ds[j] = make_float2(p[j].x * (dpv.x - deltav.x),
-                            p[j].y * (dpv.y - deltav.y));
-        ds_sum += ds[j].x + ds[j].y;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int c = 4 * (chunk * kTile / 8 + j) + 2 * half;
-        st2(pts + r * kLdH + c, p[j].x, p[j].y);
-        st2(dsts + r * kLdH + c, ds[j].x, ds[j].y);
-      }
-      __syncwarp();
+  auto load_q = [&](int j) {  // Q/dO tile j (one thread)
+    const int st = j % kStages;
+    hopper::mbar_expect_tx(&q_bar[st], 2 * L::bytes(q_box));
+    hopper::tma_tile<D>(qs + st * kQR * D, &q_map, &q_bar[st], j * kQR, bh,
+                        kQR);
+    hopper::tma_tile<D>(dos + st * kQR * D, &do_map, &q_bar[st], j * kQR, bh,
+                        kQR);
+  };
+  // The lse and delta rows of Q tile j, 4 bytes a thread by cp.async (zero
+  // past sq); the issuing threads wait for them before the barrier that
+  // ends the iteration (or the prologue).
+  const float* lse_bh = lse + static_cast<int64_t>(bh) * sq;
+  const float* delta_bh = delta + static_cast<int64_t>(bh) * sq;
+  auto load_rows_async = [&](int j) {
+    const int st = j % kStages;
+    const int i = threadIdx.x % kQR;
+    const int row = j * kQR + i;
+    const int src = row < sq ? row : sq - 1;
+    if (threadIdx.x < kQR) {
+      hopper::cp_async_4(lse_s + st * kQR + i, lse_bh + src, row < sq);
+    } else if (threadIdx.x < 2 * kQR) {
+      hopper::cp_async_4(delta_s + st * kQR + i, delta_bh + src, row < sq);
     }
-    ds_sum = pair_sum(ds_sum);
-    if (half == 0) dbias_s[r] += ds_sum;
-    strip_ab_acc<D>(dv_acc, pts + r0 * kLdH, kLdH, dos);   // dv += Pᵀ dO
-    strip_ab_acc<D>(dk_acc, dsts + r0 * kLdH, kLdH, qs);   // dk += dSᵀ q
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&q_bar[st], 1);
+    hopper::mbar_fence_init();
   }
-  __syncwarp();
-  store_strip<D>(dv + bh * sk * D, dv_acc, sts + r0 * kLdS, k0 + r0, sk,
-                 1.f);
-  store_strip<D>(dk + bh * sk * D, dk_acc, sts + r0 * kLdS, k0 + r0, sk,
-                 scale);
-  if (dbias != nullptr) {
-    for (int rr = r0 + lane; rr < r0 + kStrip; rr += 32) {
-      if (k0 + rr < sk) dbias[bh * sk + k0 + rr] = dbias_s[rr];
+  if (q_box < kQR || kv_box < kTile) zero_tiles(smem, Sm::kLse);
+  for (int j = 0; j < kStages - 1 && j < q_tiles; ++j) load_rows_async(j);
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(kv_bar, 2 * L::bytes(kv_box));
+    hopper::tma_tile<D>(ks, &k_map, kv_bar, k0, bh, kTile);
+    hopper::tma_tile<D>(vs, &v_map, kv_bar, k0, bh, kTile);
+    for (int j = 0; j < kStages - 1 && j < q_tiles; ++j) load_q(j);
+  }
+
+  // This thread's key rows k0 + key + 8 r: their bias in log2 units, -inf
+  // past sk (probability 0).
+  const int key = k0 + 16 * warp + lane / 4;
+  float bias_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bias_r[r] = key + 8 * r >= sk ? -INFINITY
+                : bias == nullptr
+                    ? 0.f
+                    : bias[static_cast<int64_t>(bh / h) * sk + key + 8 * r] *
+                          kLog2e;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[L::kHalves][kNB / 2];
+  float dv_acc[L::kHalves][kNB / 2];
+#pragma unroll
+  for (int hb = 0; hb < L::kHalves; ++hb) {
+    zero(dk_acc[hb]);
+    zero(dv_acc[hb]);
+  }
+  float dsum[2] = {0.f, 0.f};  // this thread's share of the rows' dbias
+  hopper::mbar_wait(kv_bar, 0);
+
+  for (int j = 0; j < q_tiles; ++j) {
+    const int st = j % kStages;
+    if (j + kStages - 1 < q_tiles) {
+      if (threadIdx.x == 0) load_q(j + kStages - 1);
+      load_rows_async(j + kStages - 1);
+    }
+    hopper::mbar_wait(&q_bar[st], (j / kStages) & 1);
+    const bf16* qt = qs + st * kQR * D;
+    const bf16* dot = dos + st * kQR * D;
+    const float* lt = lse_s + st * kQR;
+    const float* dt = delta_s + st * kQR;
+
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (64 keys x kQR queries, f32).
+    float s[kQR / 2];
+    float dp[kQR / 2];
+    zero(s);
+    zero(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Wgmma<kQR>::ss(s, hopper::desc_k<D>(ks, kTile, 0, kk),
+                             hopper::desc_k<D>(qt, kQR, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Wgmma<kQR>::ss(dp, hopper::desc_k<D>(vs, kTile, 0, kk),
+                             hopper::desc_k<D>(dot, kQR, 0, kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // Pᵀ = exp(s scale + bias_k - lse_q), dSᵀ = Pᵀ (dPᵀ - delta_q), both
+    // packed as bf16 A fragments; dbias sums the unrounded dSᵀ.
+    const int qbase = j * kQR;
+    const bool q_edge = qbase + kQR > sq;
+    uint32_t pa[kQR / 16][4];
+    uint32_t da[kQR / 16][4];
+#pragma unroll
+    for (int c = 0; c < kQR / 8; ++c) {
+      const float2 lv = *reinterpret_cast<const float2*>(lt + 8 * c +
+                                                         2 * quad);
+      const float2 dl = *reinterpret_cast<const float2*>(dt + 8 * c +
+                                                         2 * quad);
+      const float lse2[2] = {lv.x * kLog2e, lv.y * kLog2e};
+      const float delta_q[2] = {dl.x, dl.y};
+      float pv[4];
+      float dsv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i / 2;
+        const int e = i % 2;
+        float pp = exp2f(fmaf(s[4 * c + i], scale_log2, bias_r[r] - lse2[e]));
+        float ds = pp * (dp[4 * c + i] - delta_q[e]);
+        if (q_edge && qbase + 8 * c + 2 * quad + e >= sq) pp = ds = 0.f;
+        pv[i] = pp;
+        dsv[i] = ds;
+        dsum[r] += dsv[i];
+      }
+      pa[c / 2][2 * (c % 2)] = hopper::pack_bf16(pv[0], pv[1]);
+      pa[c / 2][2 * (c % 2) + 1] = hopper::pack_bf16(pv[2], pv[3]);
+      da[c / 2][2 * (c % 2)] = hopper::pack_bf16(dsv[0], dsv[1]);
+      da[c / 2][2 * (c % 2) + 1] = hopper::pack_bf16(dsv[2], dsv[3]);
+    }
+
+    // dV += Pᵀ dO, dK += dSᵀ Q (the Q/dO stage read MN-major).
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+      hopper::fence_regs(dv_acc[hb]);
+      hopper::fence_regs(dk_acc[hb]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+#pragma unroll
+      for (int kk = 0; kk < kQR / 16; ++kk) {
+        hopper::Wgmma<kNB>::rs(dv_acc[hb], pa[kk],
+                               hopper::desc_mn<D>(dot, kQR, kk, hb));
+        hopper::Wgmma<kNB>::rs(dk_acc[hb], da[kk],
+                               hopper::desc_mn<D>(qt, kQR, kk, hb));
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+      hopper::fence_regs(dv_acc[hb]);
+      hopper::fence_regs(dk_acc[hb]);
+    }
+    hopper::cp_async_wait_all();
+    __syncthreads();  // stage st is free for the copies issued next
+  }
+
+  const float ones[2] = {1.f, 1.f};
+  const float scales[2] = {scale, scale};
+  store_rows<D>(dv + static_cast<int64_t>(bh) * sk * D, dv_acc, ones, key,
+                sk);
+  store_rows<D>(dk + static_cast<int64_t>(bh) * sk * D, dk_acc, scales, key,
+                sk);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float total = quad_sum(dsum[r]);
+    if (dbias != nullptr && quad == 0 && key + 8 * r < sk) {
+      dbias[static_cast<int64_t>(bh) * sk + key + 8 * r] = total;
     }
   }
 }
@@ -572,23 +825,90 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 int64_t tiles(int64_t rows) { return (rows + kTile - 1) / kTile; }
 
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (mats, rows, D) bf16 tensor read in boxes of `box_rows` rows and one
+// column block, with the swizzle of the block's row width.
+template <int D>
+cudaError_t encode_rows(CUtensorMap* map, const void* base, int64_t mats,
+                        int64_t rows, int box_rows) {
+  using L = hopper::Layout<D>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {2 * D, static_cast<cuuint64_t>(rows) * 2 * D};
+  const cuuint32_t box[3] = {L::kBlockCols, static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The wgmma kernels index rows with 32-bit ints.
+bool fits_int32(int64_t b, int64_t h, int64_t sq, int64_t sk) {
+  const int64_t rows = b * h * (sq > sk ? sq : sk);
+  return rows < (int64_t{1} << 31) - 2 * kTile;
+}
+
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* out, void* lse, int64_t b,
                        int64_t h, int64_t sq, int64_t sk, float scale,
                        cudaStream_t stream) {
+  using Sm = FwdSmem<D>;
   const int64_t q_tiles = tiles(sq);
-  const int64_t blocks = b * h * q_tiles;
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  static const cudaError_t smem_ok = allow_smem(flash_fwd_kernel<D>, smem);
+  static const cudaError_t smem_ok = allow_smem(flash_fwd_kernel<D>,
+                                                Sm::kBytes);
   if (smem_ok != cudaSuccess) return smem_ok;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                        stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<float*>(lse), h, sq, sk, scale,
-      q_tiles);
+  if (!fits_int32(b, h, sq, sk)) return cudaErrorInvalidConfiguration;
+  // A copy never asks for more rows than the sequence has.
+  const int q_box = static_cast<int>(sq < kTile ? sq : kTile);
+  const int kv_box = static_cast<int>(sk < kTile ? sk : kTile);
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t rc = encode_rows<D>(&q_map, q, b * h, sq, q_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&k_map, k, b * h, sk, kv_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&v_map, v, b * h, sk, kv_box);
+  if (rc != cudaSuccess) return rc;
+  flash_fwd_kernel<D><<<static_cast<unsigned>(b * h * q_tiles), kWgThreads,
+                        Sm::kBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<const float*>(bias),
+      static_cast<bf16*>(out), static_cast<float*>(lse),
+      static_cast<int>(h), static_cast<int>(sq), static_cast<int>(sk), scale,
+      static_cast<int>(q_tiles), q_box, kv_box);
   return cudaGetLastError();
 }
 
@@ -620,20 +940,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* delta, void* dk, void* dv, void* dbias,
                        int64_t b, int64_t h, int64_t sq, int64_t sk,
                        float scale, cudaStream_t stream) {
+  using Sm = DkvSmem<D>;
   const int64_t k_tiles = tiles(sk);
-  const int64_t blocks = b * h * k_tiles;
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  static const cudaError_t smem_ok = allow_smem(flash_dkv_kernel<D>, smem);
+  static const cudaError_t smem_ok = allow_smem(flash_dkv_kernel<D>,
+                                                Sm::kBytes);
   if (smem_ok != cudaSuccess) return smem_ok;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  flash_dkv_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                        stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), static_cast<float*>(dbias), h, sq, sk, scale,
-      k_tiles);
+  if (!fits_int32(b, h, sq, sk)) return cudaErrorInvalidConfiguration;
+  const int q_box = static_cast<int>(sq < Sm::kQRows ? sq : Sm::kQRows);
+  const int kv_box = static_cast<int>(sk < kTile ? sk : kTile);
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t rc = encode_rows<D>(&q_map, q, b * h, sq, q_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&do_map, dout, b * h, sq, q_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&k_map, k, b * h, sk, kv_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&v_map, v, b * h, sk, kv_box);
+  if (rc != cudaSuccess) return rc;
+  flash_dkv_kernel<D><<<static_cast<unsigned>(b * h * k_tiles), kWgThreads,
+                        Sm::kBytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(dbias), static_cast<int>(h), static_cast<int>(sq),
+      static_cast<int>(sk), scale, static_cast<int>(k_tiles), q_box, kv_box);
   return cudaGetLastError();
 }
 

@@ -214,6 +214,9 @@ def _cuda_or_skip():
 
 
 def _card_inputs(b, h, sq, sk, d, with_bias, seed=0):
+    """bf16 q, k, v, dO and a key-side bias: None (``with_bias`` false),
+    masking about 20 % of the keys (true) or, for ``"one_key"``, every key
+    but one."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -223,7 +226,11 @@ def _card_inputs(b, h, sq, sk, d, with_bias, seed=0):
     q, k, v, do = randn(b, h, sq, d), randn(b, h, sk, d), randn(
         b, h, sk, d), randn(b, h, sq, d)
     bias = None
-    if with_bias:
+    if with_bias == "one_key":
+        keep = torch.zeros((b, 1, 1, sk), dtype=torch.bool, device="cuda")
+        keep[..., sk // 2] = True
+        bias = torch.where(keep, 0.0, -1e9).to(torch.float32)
+    elif with_bias:
         keep = torch.rand((b, 1, 1, sk), device="cuda", generator=g) < 0.8
         keep[..., 0] = True
         bias = torch.where(keep, 0.0, -1e9).to(torch.float32)
@@ -236,14 +243,22 @@ def _close(got, want):
                                atol=2e-2)
 
 
+# (B, H, Sq, Sk, bias): tiles that are full, ragged on either side, shorter
+# than one tile (Sk < 64, Sq = 1), Sq != Sk; more blocks than one wave of
+# the card (B=16, H=12, S=512); a bias that masks every key but one.
+_CARD_CASES = [(2, 3, 128, 128, False), (2, 3, 100, 77, True),
+               (2, 3, 64, 200, True), (2, 3, 1, 64, False),
+               (2, 3, 64, 1, True), (2, 3, 65, 63, True),
+               (2, 3, 128, 65, False), (2, 3, 300, 500, True),
+               (16, 12, 512, 512, False), (2, 3, 96, 160, "one_key")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("sq,sk,with_bias", [(128, 128, False),
-                                             (100, 77, True),
-                                             (64, 200, True)])
-def test_cuda_kernels_match_plain(d, sq, sk, with_bias):
+@pytest.mark.parametrize("b,h,sq,sk,with_bias", _CARD_CASES)
+def test_cuda_kernels_match_plain(d, b, h, sq, sk, with_bias):
     _cuda_or_skip()
-    q, k, v, do, bias = _card_inputs(2, 3, sq, sk, d, with_bias)
+    q, k, v, do, bias = _card_inputs(b, h, sq, sk, d, with_bias)
     out, lse = tfa.flash_fwd(q, k, v, bias)
     want_out, want_lse = tfa.flash_forward_reference(q, k, v, bias)
     _close(out, want_out)
