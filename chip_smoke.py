@@ -25,8 +25,9 @@ Phases, each printing one JSON line:
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
    H=12, S=512, D=64 with and without a key-side bias that masks keys; a
-   ragged S=500, D=32; a ragged Sq=100, Sk=40, D=64; and dq, dk/dv given a
-   global lse over twice as many keys. Device times (CUDA graphs) of each
+   ragged S=500, D=32; a ragged Sq=100, Sk=40, D=64; one query row against
+   Sk=200 keys at D=128; and dq, dk/dv given a global lse over twice as
+   many keys. Device times (CUDA graphs) of each
    kernel and its plain version at the main shape without bias, beside the
    bound (and the share of it reached) and, as a yardstick,
    ``scaled_dot_product_attention``'s forward and backward (and each
@@ -489,6 +490,11 @@ def attention_phase(fa, hbm: float, flop_peak: float) -> dict:
         "ragged_sq100_sk40_d64_bias": _check_case(
             fa, "ragged_short_keys", *_attention_inputs(g, 8, h, 100, 40, d,
                                                         masked=True)),
+        # One query row (a one-row Q map) against four key tiles, the last
+        # ragged.
+        "q1_sk200_d128_bias": _check_case(
+            fa, "q1_sk200_d128_bias", *_attention_inputs(g, 8, h, 1, 200, 128,
+                                                         masked=True)),
     }
     # dq and dk/dv of the first half of the keys given the lse over all of
     # them (ring attention's per-hop backward).

@@ -27,52 +27,49 @@
 // (operations); dk/dv 51.5 GFLOP, 0.052 ms (operations). The scores never
 // reach device memory.
 //
-// flash_fwd_kernel (bound 0.030 ms, bytes) and flash_dkv_kernel (bound
-// 0.052 ms, operations): wgmma with the softmax in registers, fed by TMA.
-// What the design does about the bound:
+// One design for the three kernels: wgmma with the softmax in registers,
+// fed by TMA. What it does about the bounds:
 // - Every product is a warpgroup `wgmma` (m64nNk16, bf16 in, f32
 //   accumulate), the only path to the tensor cores' full rate. Operands in
 //   shared memory are read through descriptors; each tile is written by
 //   TMA in the swizzled layout its descriptor names (hopper.cuh).
-// - The scores, the online softmax (running max and sum) and the
-//   accumulators stay in registers: a thread holds the pairs at rows
-//   lane/4 and lane/4 + 8 of its warp's 16 rows, a row's max and sum take
-//   two shuffles within the quad, and P (or Pᵀ, dSᵀ) turns into the next
-//   product's A operand register to register (the accumulator layout of
-//   two adjacent 8-column groups is the A layout of a k16 step). Shared
-//   memory holds only the input tiles.
-// - The tiles that stream (K/V in the forward, Q/dO in dk/dv) arrive by
-//   TMA into a ring of kStages stages, each with its own mbarrier; the
-//   next tile's copy is issued before the current tile's products. Rows
-//   past S are zero-filled by the copy engine (a 3-D tensor map over
-//   (B*H, S, D)), so no head reads the next; a copy never asks for more
-//   rows than S has.
-// - Forward: a block is one warpgroup that owns 64 query rows; Q is loaded
-//   once. dk/dv: a block is one warpgroup that owns 64 keys; K and V are
-//   loaded once and stay resident, and the lse/delta rows of each Q tile
-//   follow it by cp.async. Sᵀ = K Qᵀ and dPᵀ = V dOᵀ read both operands
-//   K-major; dV += Pᵀ dO and dK += dSᵀ Q read the same Q/dO stage MN-major
-//   (the transpose bit), so one tile serves both forms. At D = 128 a stage
-//   holds 32 query rows, so the dk and dv accumulators (128 registers) and
-//   the score tiles fit without spilling; at D <= 64 the kernel is held to
-//   three blocks per SM (168 registers, no spills).
+// - The scores, P and dS, the online softmax (running max and sum), dbias
+//   and the accumulators stay in registers: a thread holds the pairs at
+//   rows lane/4 and lane/4 + 8 of its warp's 16 rows, a row's max and sum
+//   take two shuffles within the quad, and P, dS (or Pᵀ, dSᵀ) turn into
+//   the next product's A operand register to register (the accumulator
+//   layout of two adjacent 8-column groups is the A layout of a k16 step).
+//   Shared memory holds only the input tiles; no f32 tile reaches it.
+// - A block is one warpgroup that owns 64 rows of one sequence: query
+//   rows (forward, dq) or keys (dk/dv). Its own tiles (Q; Q and dO; K and
+//   V) arrive once by TMA and stay resident; the other sequence's tiles
+//   (K/V in the forward and dq, Q/dO in dk/dv) stream through a ring of
+//   kStages stages, each with its own mbarrier, and the next tile's copy
+//   starts before the current tile's products. Rows past S are
+//   zero-filled by the copy engine (a 3-D tensor map over (B*H, S, D)), so
+//   no head reads the next; a copy never asks for more rows than S has.
+// - Forward: S = Q Kᵀ, O = O corr + P V. dq: S = Q Kᵀ and dP = dO Vᵀ,
+//   both operands K-major; dq += dS K reads the same K stage MN-major (the
+//   transpose bit), so one tile serves both forms. dk/dv: Sᵀ = K Qᵀ and
+//   dPᵀ = V dOᵀ; dV += Pᵀ dO and dK += dSᵀ Q read the Q/dO stage MN-major,
+//   and the lse/delta rows of each Q tile follow it by cp.async (dq reads
+//   its own rows' lse and delta once, into registers). At D = 128 a dk/dv
+//   stage holds 32 query rows, so dk, dv (128 registers) and the score
+//   tiles fit without spilling; at D <= 64 dk/dv is held to three blocks
+//   per SM (168 registers, no spills), and dq, at 123 registers, fits
+//   four.
 // Measured at the main shape on an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py, chip_flash_ab.py): forward about 0.080 ms, dk/dv about
-// 0.135 ms. What they leave for later work: no warp specialisation (thread
-// 0 of the block issues the copies, every thread waits on the stage), no
-// overlap of the softmax with the next tile's products, 64-row tiles, and
+// (chip_smoke.py, chip_flash_ab.py): forward about 0.078 ms, dq about
+// 0.083 ms, dk/dv about 0.136 ms. What they leave for later work: no
+// warp specialisation (thread 0 of the block starts the copies, every
+// thread waits on the stage), no overlap of the softmax (or dS) with the
+// next tile's products, 64-row tiles, one block barrier per tile, and
 // direct (unstaged) stores of the outputs.
-//
-// flash_dq_kernel (bound 0.039 ms, operations): `nvcuda::wmma` 16x16x16
-// fragments (mma.sync underneath) in 4 warps that each own 16 query rows;
-// scores, dP and dS go through shared memory between the products, and
-// tiles are staged with synchronous 16-byte loads (about 0.42 ms, same
-// card). Its redesign is the next step.
 //
 // Numerics: the scores and every product accumulate in f32. P (forward,
 // dk/dv) and dS (dq, dk/dv) are rounded to bf16 to feed the tensor cores;
 // the row sums, lse and dbias use the unrounded f32 values; exp(x) is
-// exp2f(x log2 e) (the wgmma kernels carry scores, running max and lse in
+// exp2f(x log2 e) (the kernels carry scores, running max and lse in
 // log2 units). The scale multiplies the f32 scores (the Pallas forward
 // scales q before the dot: equal up to f32 rounding). Ragged edges: keys at
 // k >= Sk get a -inf score and query rows at q >= Sq probability 0 (dq: a
@@ -87,165 +84,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;            // rows of a q-tile and of a k-tile
-constexpr int kWarps = 4;            // each warp owns kStrip rows of a tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kStrip = 16;           // = the wmma fragment's M
 constexpr float kNegInit = -1e30f;   // running-max init (Pallas `_NEG`)
-// Shared-memory row strides of the dq kernel, padded so that consecutive
-// rows start 4 banks apart (a stride of 128 or 256 bytes would put every
-// row of a fragment load on the same banks).
-constexpr int kLdS = kTile + 4;      // f32 score tiles (68 floats)
-constexpr int kLdH = 2 * kLdS;       // a score row read as bf16 (136)
-template <int D>
-__host__ __device__ constexpr int ld_tile() { return D + 8; }  // bf16 q/k/v
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// -- helpers of the dq kernel (nvcuda::wmma) --------------------------------
-
-// Row work: lane l of a warp handles row (l & 15) of the warp's strip and
-// the column pairs (c, c + 1), c = 4j + 2 (l >> 4), j < 16, of that row,
-// with 8-byte loads and 4-byte bf16x2 stores. exp(x) is computed as
-// exp2f(x * log2 e).
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ float exp_(float x) { return exp2f(x * kLog2e); }
-
-// Stage rows [row0, row0 + kTile) of one (rows, D) bf16 matrix into shared
-// memory (row stride ld_tile<D>()) with 16-byte loads; rows at or past
-// `rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t row0, int64_t rows) {
-  constexpr int kVecPerRow = D / 8;
-  const int64_t valid = rows - row0;
-  const uint4* s = reinterpret_cast<const uint4*>(src + row0 * D);
-  for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    *reinterpret_cast<uint4*>(dst + r * ld_tile<D>() + (i % kVecPerRow) * 8) =
-        r < valid ? s[i] : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// dst[i] = src[row0 + i] for the tile's rows, `fill` past `rows`.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t row0, int64_t rows,
-                                          float fill) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    dst[i] = row0 + i < rows ? src[row0 + i] : fill;
-  }
-}
-
-// The key-side bias of keys [k0, k0 + kTile): 0 without a bias, -inf for
-// ragged keys (k >= sk), whose probability is then exactly 0.
-__device__ __forceinline__ void load_bias(float* dst, const float* bias_row,
-                                          int64_t k0, int64_t sk) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int64_t key = k0 + i;
-    dst[i] = key >= sk ? -INFINITY
-                       : (bias_row == nullptr ? 0.f : bias_row[key]);
-  }
-}
-
-// out (16 x kTile f32, ld kLdS) = a (16 x D) * bᵀ, b (kTile x D); a and b
-// with row stride ld_tile<D>().
-template <int D>
-__device__ __forceinline__ void strip_abt(float* out, const bf16* a,
-                                          const bf16* b) {
-  constexpr int kLd = ld_tile<D>();
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, kLd);
-      wmma::load_matrix_sync(fb, b + n * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x D fragments in registers) += a (16 x kTile bf16, row stride
-// lda) * b (kTile x D, row stride ld_tile<D>()).
-template <int D>
-__device__ __forceinline__ void strip_ab_acc(FragC (&acc)[D / 16],
-                                             const bf16* a, int lda,
-                                             const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, lda);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * ld_tile<D>() + n * 16,
-                             ld_tile<D>());
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Write a warp's 16 x D register accumulator, times `mul`, as bf16 rows
-// [row0 + r] of `dst` (ld D) for row0 + r < rows. `scratch` is the warp's
-// 16 x kTile f32 strip (ld kLdS).
-template <int D>
-__device__ __forceinline__ void store_strip(bf16* dst, FragC (&acc)[D / 16],
-                                            float* scratch, int64_t row0,
-                                            int64_t rows, float mul) {
-  const int lane = threadIdx.x & 31;
-  constexpr int kGroup = kTile / 16;  // fragments that fit the scratch
-#pragma unroll
-  for (int n0 = 0; n0 < D / 16; n0 += kGroup) {
-    constexpr int kWidthMax = kGroup * 16;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (n0 + j < D / 16) {
-        wmma::store_matrix_sync(scratch + j * 16, acc[n0 + j], kLdS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-    const int width = D - n0 * 16 < kWidthMax ? D - n0 * 16 : kWidthMax;
-    for (int r = 0; r < kStrip; ++r) {
-      if (row0 + r >= rows) break;
-      bf16* out = dst + (row0 + r) * D + n0 * 16;
-      for (int c = lane; c < width; c += 32) {
-        out[c] = __float2bfloat16_rn(scratch[r * kLdS + c] * mul);
-      }
-    }
-    __syncwarp();
-  }
-}
 
 // -- wgmma kernels: shared pieces -------------------------------------------
 
@@ -494,94 +344,194 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 // -- dq ----------------------------------------------------------------------
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 4 * kTile * ld_tile<D>() * sizeof(bf16)  // q, dO, k, v tiles
-         + 2 * kTile * kLdS * sizeof(float)       // S, dP (f32); dS (bf16)
-         + 3 * kTile * sizeof(float);             // lse, delta, bias
-}
+struct DqSmem {
+  using L = hopper::Layout<D>;
+  static constexpr int kDo = L::bytes(kTile);                   // Q at 0
+  static constexpr int kK = kDo + L::bytes(kTile);
+  static constexpr int kV = kK + kStages * L::bytes(kTile);
+  static constexpr int kBars = kV + kStages * L::bytes(kTile);  // Q/dO, K/V
+  static constexpr int kBytes = kBars + (1 + kStages) * 8 + 1024;  // + align
+};
 
+// dq = scale * sum_k dS K, dS = P (dP - delta), P = exp(scale Q Kᵀ +
+// bias_k - lse), dP = dO Vᵀ. The lse may be taken over more keys than this
+// call has (ring attention's per-hop backward), so P is used as it is and
+// never renormalised. At D <= 64 the bound of three blocks per SM (168
+// registers) does not bind: the kernel needs 123 at D = 64, so four blocks
+// share an SM, and bounds of two, three or four time the same
+// (chip_flash_ab.py, NVIDIA H100 80GB HBM3, 700 W). At D = 128 dq (64
+// registers), S and dP (32 each) and the dS fragments (16) fit in 156
+// registers without spilling.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ bias,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
+__global__ void __launch_bounds__(kWgThreads, D <= 64 ? 3 : 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const float* __restrict__ bias,
+                const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                int64_t h, int64_t sq, int64_t sk, float scale,
-                int64_t q_tiles) {
-  constexpr int kLdT = ld_tile<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
+                int h, int sq, int sk, float scale, int q_tiles, int q_box,
+                int kv_box) {
+  // q_box, kv_box: rows per copy, min(tile rows, S) (the maps' boxes).
+  using L = hopper::Layout<D>;
+  using Sm = DqSmem<D>;
+  constexpr int kNB = L::kBlockCols;  // N of one dS K product
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kTile * kLdT;
-  bf16* ks = dos + kTile * kLdT;
-  bf16* vs = ks + kTile * kLdT;
-  float* ss = reinterpret_cast<float*>(vs + kTile * kLdT);
-  float* dps = ss + kTile * kLdS;
-  bf16* dss = reinterpret_cast<bf16*>(dps);  // dS overwrites dP, row by row
-  float* lse_s = dps + kTile * kLdS;
-  float* delta_s = lse_s + kTile;
-  float* bias_s = delta_s + kTile;
+  bf16* dos = reinterpret_cast<bf16*>(smem + Sm::kDo);
+  bf16* ks = reinterpret_cast<bf16*>(smem + Sm::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + Sm::kV);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + Sm::kBars);
+  uint64_t* kv_bar = q_bar + 1;  // one per stage
 
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int64_t q0 = (blockIdx.x % q_tiles) * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * kStrip;
-  const int r = r0 + (lane & 15);
-  const int half = lane >> 4;
-  const bf16* km = k + bh * sk * D;
-  const bf16* vm = v + bh * sk * D;
-  const float* bias_row = bias == nullptr ? nullptr : bias + (bh / h) * sk;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int k_tiles = (sk + kTile - 1) / kTile;
+  const float* bias_row =
+      bias == nullptr ? nullptr : bias + static_cast<int64_t>(bh / h) * sk;
 
-  load_tile<D>(qs, q + bh * sq * D, q0, sq);
-  load_tile<D>(dos, dout + bh * sq * D, q0, sq);
-  // Ragged query rows: lse +inf makes their probabilities exactly 0.
-  load_rows(lse_s, lse + bh * sq, q0, sq, INFINITY);
-  load_rows(delta_s, delta + bh * sq, q0, sq, 0.f);
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  for (int64_t k0 = 0; k0 < sk; k0 += kTile) {
-    __syncthreads();
-    load_tile<D>(ks, km, k0, sk);
-    load_tile<D>(vs, vm, k0, sk);
-    load_bias(bias_s, bias_row, k0, sk);
-    __syncthreads();
-    strip_abt<D>(ss + r0 * kLdS, qs + r0 * kLdT, ks);     // S = q kᵀ
-    strip_abt<D>(dps + r0 * kLdS, dos + r0 * kLdT, vs);   // dP = dO vᵀ
-    __syncwarp();
-    const float lse_r = lse_s[r];
-    const float delta_r = delta_s[r];
-    // dS (bf16) overwrites the f32 dP strip: every value is read before
-    // the bytes it occupies are rewritten (the bf16 pair at columns c,
-    // c + 1 lands on f32 column c / 2, read in the same or an earlier
-    // chunk).
-#pragma unroll
-    for (int chunk = 0; chunk < 2; ++chunk) {
-      float2 ds[kTile / 8];
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int c = 4 * (chunk * kTile / 8 + j) + 2 * half;
-        const float2 sv = ld2(ss + r * kLdS + c);
-        const float2 dpv = ld2(dps + r * kLdS + c);
-        const float2 bv = ld2(bias_s + c);
-        ds[j] = make_float2(
-            exp_(sv.x * scale + bv.x - lse_r) * (dpv.x - delta_r),
-            exp_(sv.y * scale + bv.y - lse_r) * (dpv.y - delta_r));
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        const int c = 4 * (chunk * kTile / 8 + j) + 2 * half;
-        st2(dss + r * kLdH + c, ds[j].x, ds[j].y);
-      }
-      __syncwarp();
-    }
-    strip_ab_acc<D>(acc, dss + r0 * kLdH, kLdH, ks);        // dq += dS k
+  auto load_kv = [&](int j) {  // K/V tile j into its stage (one thread)
+    const int st = j % kStages;
+    hopper::mbar_expect_tx(&kv_bar[st], 2 * L::bytes(kv_box));
+    hopper::tma_tile<D>(ks + st * kTile * D, &k_map, &kv_bar[st], j * kTile,
+                        bh, kTile);
+    hopper::tma_tile<D>(vs + st * kTile * D, &v_map, &kv_bar[st], j * kTile,
+                        bh, kTile);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&kv_bar[st], 1);
+    hopper::mbar_fence_init();
   }
-  __syncwarp();
-  store_strip<D>(dq + bh * sq * D, acc, ss + r0 * kLdS, q0 + r0, sq, scale);
+  if (q_box < kTile || kv_box < kTile) zero_tiles(smem, Sm::kBars);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(q_bar, 2 * L::bytes(q_box));
+    hopper::tma_tile<D>(qs, &q_map, q_bar, q0, bh, kTile);
+    hopper::tma_tile<D>(dos, &do_map, q_bar, q0, bh, kTile);
+    for (int j = 0; j < kStages - 1 && j < k_tiles; ++j) load_kv(j);
+  }
+
+  // This thread's query rows row + 8 r: lse in log2 units (+inf past sq,
+  // so that P is 0 there) and delta.
+  const int row = q0 + 16 * warp + lane / 4;
+  float lse2[2];
+  float delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = static_cast<int64_t>(bh) * sq + row + 8 * r;
+    const bool in = row + 8 * r < sq;
+    lse2[r] = in ? lse[at] * kLog2e : INFINITY;
+    delta_r[r] = in ? delta[at] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[L::kHalves][kNB / 2];
+#pragma unroll
+  for (int hb = 0; hb < L::kHalves; ++hb) zero(acc[hb]);
+  hopper::mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < k_tiles; ++j) {
+    const int st = j % kStages;
+    // Stage (j - 1) % kStages was released by the barrier that ended
+    // iteration j - 1: refill it before this tile's products.
+    if (threadIdx.x == 0 && j + kStages - 1 < k_tiles) {
+      load_kv(j + kStages - 1);
+    }
+    hopper::mbar_wait(&kv_bar[st], (j / kStages) & 1);
+    const bf16* kt = ks + st * kTile * D;
+    const bf16* vt = vs + st * kTile * D;
+
+    // S = Q Kᵀ and dP = dO Vᵀ (64 x 64, f32), both operands K-major, as
+    // two commit groups: P is computed while dP is still in flight.
+    float s[kTile / 2];
+    float dp[kTile / 2];
+    zero(s);
+    zero(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Wgmma<kTile>::ss(
+          s, hopper::desc_k<D>(qs, kTile, 0, kk),
+          hopper::desc_k<D>(kt, kTile, 0, kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Wgmma<kTile>::ss(
+          dp, hopper::desc_k<D>(dos, kTile, 0, kk),
+          hopper::desc_k<D>(vt, kTile, 0, kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+
+    // P = exp2(s scale log2 e + bias_k log2 e - lse log2 e), over S in
+    // place. Keys past sk get a -inf score, so their P and dS are exactly
+    // 0. That guard, and not the zero-filled K rows, keeps dq right: P
+    // there is exp(-lse), which overflows for a very negative lse, and
+    // inf * 0 is NaN.
+    const int key0 = j * kTile;
+    const bool col_add = bias_row != nullptr || key0 + kTile > sk;
+#pragma unroll
+    for (int c = 0; c < kTile / 8; ++c) {
+      float add[2] = {0.f, 0.f};
+      if (col_add) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + 8 * c + 2 * quad + e;
+          add[e] = key >= sk ? -INFINITY
+                   : bias_row == nullptr ? 0.f
+                                         : bias_row[key] * kLog2e;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[4 * c + i] =
+            exp2f(fmaf(s[4 * c + i], scale_log2, add[i % 2] - lse2[i / 2]));
+      }
+    }
+    // dS = P (dP - delta), packed as bf16 A fragments.
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+    uint32_t da[kTile / 16][4];
+#pragma unroll
+    for (int c = 0; c < kTile / 8; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ds[i] = s[4 * c + i] * (dp[4 * c + i] - delta_r[i / 2]);
+      }
+      da[c / 2][2 * (c % 2)] = hopper::pack_bf16(ds[0], ds[1]);
+      da[c / 2][2 * (c % 2) + 1] = hopper::pack_bf16(ds[2], ds[3]);
+    }
+
+    // dq += dS K (the K stage read MN-major).
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) hopper::fence_regs(acc[hb]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        hopper::Wgmma<kNB>::rs(acc[hb], da[kk],
+                               hopper::desc_mn<D>(kt, kTile, kk, hb));
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int hb = 0; hb < L::kHalves; ++hb) hopper::fence_regs(acc[hb]);
+    __syncthreads();  // stage st is free for the next copy
+  }
+
+  const float scales[2] = {scale, scale};
+  store_rows<D>(dq + static_cast<int64_t>(bh) * sq * D, acc, scales, row,
+                sq);
 }
 
 // -- dk / dv (+ per-head dbias) ----------------------------------------------
@@ -918,19 +868,26 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* delta, void* dq, int64_t b, int64_t h,
                       int64_t sq, int64_t sk, float scale,
                       cudaStream_t stream) {
+  using Sm = DqSmem<D>;
   const int64_t q_tiles = tiles(sq);
-  const int64_t blocks = b * h * q_tiles;
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static const cudaError_t smem_ok = allow_smem(flash_dq_kernel<D>, smem);
+  static const cudaError_t smem_ok = allow_smem(flash_dq_kernel<D>,
+                                                Sm::kBytes);
   if (smem_ok != cudaSuccess) return smem_ok;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  flash_dq_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                       stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), h, sq, sk,
-      scale, q_tiles);
+  if (!fits_int32(b, h, sq, sk)) return cudaErrorInvalidConfiguration;
+  const int q_box = static_cast<int>(sq < kTile ? sq : kTile);
+  const int kv_box = static_cast<int>(sk < kTile ? sk : kTile);
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t rc = encode_rows<D>(&q_map, q, b * h, sq, q_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&do_map, dout, b * h, sq, q_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&k_map, k, b * h, sk, kv_box);
+  if (rc == cudaSuccess) rc = encode_rows<D>(&v_map, v, b * h, sk, kv_box);
+  if (rc != cudaSuccess) return rc;
+  flash_dq_kernel<D><<<static_cast<unsigned>(b * h * q_tiles), kWgThreads,
+                       Sm::kBytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), static_cast<int>(h), static_cast<int>(sq),
+      static_cast<int>(sk), scale, static_cast<int>(q_tiles), q_box, kv_box);
   return cudaGetLastError();
 }
 

@@ -244,13 +244,15 @@ def _close(got, want):
 
 
 # (B, H, Sq, Sk, bias): tiles that are full, ragged on either side, shorter
-# than one tile (Sk < 64, Sq = 1), Sq != Sk; more blocks than one wave of
-# the card (B=16, H=12, S=512); a bias that masks every key but one.
+# than one tile (Sk < 64, Sq = 1), Sq != Sk; one query row against four
+# key tiles with a ragged last one; more blocks than one wave of the card
+# (B=16, H=12, S=512); a bias that masks every key but one.
 _CARD_CASES = [(2, 3, 128, 128, False), (2, 3, 100, 77, True),
                (2, 3, 64, 200, True), (2, 3, 1, 64, False),
-               (2, 3, 64, 1, True), (2, 3, 65, 63, True),
-               (2, 3, 128, 65, False), (2, 3, 300, 500, True),
-               (16, 12, 512, 512, False), (2, 3, 96, 160, "one_key")]
+               (2, 3, 1, 200, True), (2, 3, 64, 1, True),
+               (2, 3, 65, 63, True), (2, 3, 128, 65, False),
+               (2, 3, 300, 500, True), (16, 12, 512, 512, False),
+               (2, 3, 96, 160, "one_key")]
 
 
 @pytest.mark.cuda
