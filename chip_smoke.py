@@ -9,18 +9,25 @@ Phases, each printing one JSON line:
 2. ``build``: builds ``kernels/gather.cu`` and ``kernels/flash_attention.cu``
    for sm_90a from the sources, one ``nvcc`` each, started together, and
    reports ``ptxas``'s registers and spills for every kernel instantiation.
-3. ``kernels``: the gather kernel against ``gather_reference`` on the card
-   at the ``mlperf`` shapes (V=945195, E=128, B in {2048, 131072}, int32
-   indices including out-of-range ones): f32 and bf16 outputs bit-identical,
-   table gradient within 1e-6 relative. Times (CUDA events) for the kernel,
-   the plain version and ``torch.index_select``, beside the bound.
+3. ``kernels``: the gather kernel against its plain version on the card,
+   bit for bit. One table (a group of one) at the ``mlperf`` shapes
+   (V=945195, E=128, B in {2048, 131072}, int32 indices including
+   out-of-range ones, f32 and bf16 outputs; table gradient within 1e-6
+   relative). The DLRM step's group: the 8 ``mlperf`` tables above 2048
+   rows in one launch, B=2048, bf16, int32 (gradient within 1e-6
+   relative, on ids in range). A mixed group: int8/16/32/64 indices in
+   one launch, f32 and bf16, E=128 and E=37, written straight into a
+   (B, G, E) tensor. Times (CUDA graphs and events) for the kernel, the
+   plain version, 8 one-table launches and 8 ``torch.index_select`` calls,
+   beside the bound.
 4. ``train``: 2,000,000 generated rows in 8 Parquet files -> seeded
    shuffle (8 reducers) -> ``DeviceShufflingDataset`` (1 trainer, batch
    131072, 2 epochs, seed 0) -> DLRM ``mlperf`` (all 19 tables, embed 128,
    top MLP 1024-1024-512-256, bf16 compute, random weights from seed 0)
    -> Adam, one micro-step per 2048 rows. Checks rows per epoch, finite
    losses, the first staged batch against a host-side shuffle, the kernel
-   path's loss against the ``take`` path's, and that the gather kernel ran.
+   path's loss against the ``take`` path's, and exactly one gather launch
+   per micro-step.
 5. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
@@ -162,6 +169,94 @@ def _index_select_rows(table, idx):
     return torch.index_select(table, 0, idx)
 
 
+def _index_select_tables(tables, indices):
+    for table, idx in zip(tables, indices):
+        torch.index_select(table, 0, idx)
+
+
+def _one_table_launches(emb, tables, indices, dtype):
+    for table, idx in zip(tables, indices):
+        emb.gather_rows(table, idx, dtype)
+
+
+def main_path_group(emb, g):
+    """The DLRM step's kernel-routed tables (the ``mlperf`` vocabularies
+    above ``ONE_HOT_MAX_VOCAB``, E=128, random from ``g``) and enough sets
+    of B=2048 int32 ids (out-of-range ones included) that the rows read
+    exceed the 50 MB L2, as a training step's fresh indices would."""
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    vocabs = [v for v in dlrm.MLPERF.vocab_sizes
+              if v > emb.ONE_HOT_MAX_VOCAB]
+    tables = [torch.randn((v, E), device="cuda", generator=g) for v in vocabs]
+    n_sets = max(4, math.ceil(200e6 / (MICROBATCH * E * 4 * len(vocabs))))
+    idx_sets = [[torch.randint(-1000, v + 1000, (MICROBATCH,), device="cuda",
+                               dtype=torch.int32, generator=g)
+                 for v in vocabs] for _ in range(n_sets)]
+    return tables, idx_sets
+
+
+def group_bytes(tables, indices, dtype) -> int:
+    """Bytes a grouped gather must move: each table row read, each output
+    row written and each index read once."""
+    out_bytes = torch.empty((), dtype=dtype).element_size()
+    return sum(i.numel() * (t.shape[1] * (4 + out_bytes) + i.element_size())
+               for t, i in zip(tables, indices))
+
+
+def time_group(emb, tables, idx_sets, peak: float, iters: int = 200) -> dict:
+    """Device ms of one grouped launch (bf16) at ``tables`` x ``idx_sets``,
+    beside its plain version, the host's call, 8 one-table launches,
+    ``torch.index_select`` per table and the bound."""
+    args = [(tables, idxs, torch.bfloat16) for idxs in idx_sets]
+    moved = group_bytes(tables, idx_sets[0], torch.bfloat16)
+    t = {
+        "ms": device_ms(emb.gather_rows_grouped, args, iters),
+        "plain_ms": device_ms(emb.gather_grouped_reference, args, iters // 4),
+        "call_ms": call_ms(emb.gather_rows_grouped, args, iters),
+        "one_table_launches_ms": device_ms(
+            lambda *a: _one_table_launches(emb, *a), args, iters),
+        # f32 rows: no PyTorch call gathers and casts in one.
+        "library_ms": device_ms(_index_select_tables, [
+            (tables, [i.long().clamp(0, t.shape[0] - 1)
+                      for t, i in zip(tables, idxs)]) for idxs in idx_sets],
+            iters),
+        "bound_ms": moved / peak * 1e3, "bytes": moved,
+    }
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def _check_grouped(emb, name, tables, indices, dtype, out=None):
+    got = emb.gather_rows_grouped(tables, indices, dtype, out=out)
+    want = emb.gather_grouped_reference(tables, indices, dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"grouped gather {name} differs from "
+                             "gather_grouped_reference")
+
+
+def _mixed_group_checks(emb, g) -> None:
+    """int8/16/32/64 indices (out-of-range ones included) in one launch,
+    f32 and bf16, on the vector (E=128) and scalar (E=37) paths, into a
+    fresh (G, B, E) tensor and straight into a (B, G, E) one."""
+    vocabs = (300, 30000, 70, 2500, 945195)
+    dts = (torch.int8, torch.int16, torch.int32, torch.int64, torch.int32)
+    for batch, embed in ((2048, 128), (1001, 37)):
+        tables = [torch.randn((v, embed), device="cuda", generator=g)
+                  for v in vocabs]
+        indices = [torch.randint(max(-1000, torch.iinfo(dt).min),
+                                 min(v + 1000, torch.iinfo(dt).max),
+                                 (batch,), device="cuda", generator=g).to(dt)
+                   for v, dt in zip(vocabs, dts)]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"mixed B={batch} E={embed} {dtype}"
+            _check_grouped(emb, name, tables, indices, dtype)
+            interleaved = torch.empty((batch, len(vocabs), embed),
+                                      dtype=dtype, device="cuda")
+            _check_grouped(emb, name + " into (B, G, E)", tables, indices,
+                         dtype, out=interleaved.permute(1, 0, 2))
+
+
 def kernels_phase(emb, peak: float) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     table = torch.randn((V, E), device="cuda", generator=g)
@@ -209,17 +304,37 @@ def kernels_phase(emb, peak: float) -> dict:
             grads.append(t.grad)
         torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-6)
         del grads, t
-    # Every gather shape of the main path: the 8 tables above 2048 rows.
-    from ray_shuffling_data_loader_tpu_torch.models import dlrm
-    for vocab in (v for v in dlrm.MLPERF.vocab_sizes
-                  if v > emb.ONE_HOT_MAX_VOCAB):
-        t = torch.randn((vocab, E), device="cuda", generator=g)
-        idx = torch.randint(0, vocab, (MICROBATCH,), device="cuda",
-                            dtype=torch.int32, generator=g)
-        if not torch.equal(emb.gather_rows(t, idx, torch.bfloat16),
-                           emb.gather_reference(t, idx, torch.bfloat16)):
-            raise AssertionError(f"gather_rows differs at V={vocab}")
     del table
+    # The main path's group: the DLRM step's 8 kernel-routed tables in one
+    # launch, each also alone (a group of one).
+    tables, idx_sets = main_path_group(emb, g)
+    for idxs in idx_sets[:2]:
+        _check_grouped(emb, "main path", tables, idxs, torch.bfloat16)
+        for t, i in zip(tables, idxs):
+            if not torch.equal(emb.gather_rows(t, i, torch.bfloat16),
+                               emb.gather_reference(t, i, torch.bfloat16)):
+                raise AssertionError(f"gather_rows differs at "
+                                     f"V={t.shape[0]}")
+    # Gradient: ids in range, so that no row sums hundreds of clamped
+    # cotangent rows (two atomic orders differ there by more than 1e-6).
+    weight = torch.randn((len(tables), MICROBATCH, E), device="cuda",
+                         generator=g)
+    in_range = [torch.randint(0, t.shape[0], (MICROBATCH,), device="cuda",
+                              dtype=torch.int32, generator=g) for t in tables]
+    grads = []
+    for fn in (emb.kernel_lookup_grouped, emb.gather_grouped_reference):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tables]
+        out = fn(leaves, in_range, torch.bfloat16)
+        (out.float() * weight).sum().backward()
+        grads.append([t.grad for t in leaves])
+        del leaves, out
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    del grads
+    _mixed_group_checks(emb, g)
+    results["group_B2048_bf16"] = {"tables": [t.shape[0] for t in tables],
+                                   **time_group(emb, tables, idx_sets, peak)}
+    del tables, idx_sets
     torch.cuda.empty_cache()
     return {"timings": results, "max_abs_err": max_err}
 
@@ -345,8 +460,10 @@ def train_phase(emb) -> dict:
         all_losses = torch.cat(losses).cpu()
         if not bool(torch.isfinite(all_losses).all()):
             raise AssertionError("non-finite loss")
-        if launches <= 0:
-            raise AssertionError("the gather kernel never ran in training")
+        if launches != all_losses.numel():
+            raise AssertionError(
+                f"{launches} gather launches in {all_losses.numel()} "
+                "micro-steps; expected one per micro-step")
 
         # The first staged batch equals the host-side shuffle's.
         host = dataset.ShufflingDataset(
@@ -754,7 +871,7 @@ def main() -> int:
     bert_run = bert_phase(fa)
     emit({"phase": "bert", "card": smi, **bert_run})
 
-    main_path = kern["timings"][f"B{MICROBATCH}_bf16"]
+    main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
         "name": "gather_rows", "route": "cuda",
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
@@ -763,7 +880,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": "bytes",
-        "library_ms": kern["timings"][f"B{MICROBATCH}_f32"]["library_ms"],
+        "library_ms": main_path["library_ms"],
     }]
     for kernel, replaces in zip(FLASH_KERNELS, _FLASH_REPLACES):
         t = att["timings"][kernel]

@@ -114,9 +114,27 @@ def _library(name: str, source: str,
         return _libs[name]
 
 
+#: Most tables one gather launch takes (``kMaxGroups`` in gather.cu).
+GATHER_MAX_GROUPS = 32
+
+
+class GatherGroup(ctypes.Structure):
+    """One table of a gather launch: ``RsdlGatherGroup`` in gather.cu,
+    whose ``static_assert``s state the layout this must match."""
+    _fields_ = [("table", _p), ("idx", _p), ("out", _p),
+                ("vocab", _i64), ("out_stride", _i64),
+                ("idx_code", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+
+
+class GatherArgs(ctypes.Structure):
+    """The gather kernel's by-value parameter: ``RsdlGatherArgs``."""
+    _fields_ = [("group", GatherGroup * GATHER_MAX_GROUPS),
+                ("batch", _i64), ("embed", _i64),
+                ("num_groups", ctypes.c_int32), ("out_code", ctypes.c_int32)]
+
+
 def _bind_gather(lib: ctypes.CDLL) -> None:
-    lib.rsdl_gather_rows.argtypes = [_p, _p, _i, _p, _i, _i64, _i64, _i64,
-                                     _p]
+    lib.rsdl_gather_rows.argtypes = [ctypes.POINTER(GatherArgs), _p]
     lib.rsdl_gather_rows.restype = _i
 
 

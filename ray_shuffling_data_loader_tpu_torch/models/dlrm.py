@@ -2,11 +2,11 @@
 ``models/dlrm.py``).
 
 One embedding table per sparse feature, looked up through
-``ops.embedding.lookup`` (tables above ``ONE_HOT_MAX_VOCAB`` go through the
-CUDA gather kernel on the card); the dot interaction (strict upper
-triangle of the ``F x F`` Gram matrix) plus the mean embedding feed the
-top MLP. Parameters are float32, compute is ``compute_dtype``, logits are
-float32.
+``ops.embedding.lookup_features`` (on the card, the tables above
+``ONE_HOT_MAX_VOCAB`` go through one launch of the CUDA gather kernel);
+the dot interaction (strict upper triangle of the ``F x F`` Gram matrix)
+plus the mean embedding feed the top MLP. Parameters are float32,
+compute is ``compute_dtype``, logits are float32.
 """
 
 from __future__ import annotations
@@ -105,12 +105,11 @@ class DLRM(nn.Module):
             raise ValueError(
                 f"expected {config.num_sparse} sparse columns, got "
                 f"{len(sparse)}")
-        vectors = []
-        for i in range(config.num_sparse):
-            idx = sparse[i].reshape(-1) if is_columns else sparse[:, i]
-            vectors.append(embedding.lookup(
-                self.embeddings[f"table_{i}"], idx, dtype,
-                mode=config.lookup_mode))
+        vectors = embedding.lookup_features(
+            [self.embeddings[f"table_{i}"] for i in range(config.num_sparse)],
+            [sparse[i].reshape(-1) if is_columns else sparse[:, i]
+             for i in range(config.num_sparse)],
+            dtype, mode=config.lookup_mode)
         if config.dense_dim > 0:
             vectors.append(self.bottom(dense).to(dtype))
         stacked = torch.stack(vectors, dim=1)  # (B, F, E)

@@ -13,7 +13,10 @@ Counterpart of ``ray_shuffling_data_loader_tpu/ops/embedding.py``.
   (the port of the Pallas ``_pallas_gather_impl``) wrapped in a
   ``torch.autograd.Function``. On a CPU tensor it runs
   :func:`gather_reference`, its plain PyTorch version; on a CUDA tensor it
-  launches the kernel or raises.
+  launches the kernel or raises. The kernel takes a group of tables in one
+  launch (:func:`gather_rows_grouped`); :func:`lookup_features` sends
+  every table of a model that resolves to ``kernel`` through one such
+  launch.
 - ``auto``: vocab <= ``ONE_HOT_MAX_VOCAB`` goes to ``one_hot``; above it,
   ``kernel`` on CUDA and ``take`` on the CPU. This keeps the JAX package's
   dispatch rule; no timing from the TPU carries over.
@@ -21,8 +24,13 @@ Counterpart of ``ray_shuffling_data_loader_tpu/ops/embedding.py``.
 
 from __future__ import annotations
 
+import ctypes
+from typing import List, Optional, Sequence
+
 import torch
 import torch.nn.functional as F
+
+from ray_shuffling_data_loader_tpu_torch.kernels import build
 
 # The JAX package's dispatch threshold, kept so both packages route each
 # table through the same arithmetic (not a measured H100 optimum).
@@ -53,45 +61,89 @@ def gather_reference(table: torch.Tensor, indices: torch.Tensor,
     return table.index_select(0, _clamped(indices, table.shape[0])).to(dtype)
 
 
-def gather_rows(table: torch.Tensor, indices: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """Launch the CUDA gather kernel: ``cast(table[clamp(idx)])``.
+def gather_grouped_reference(tables: Sequence[torch.Tensor],
+                             indices: Sequence[torch.Tensor],
+                             dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the grouped gather: :func:`gather_reference`
+    per table, stacked to ``(G, B, E)``."""
+    return torch.stack([gather_reference(t, i, dtype)
+                        for t, i in zip(tables, indices)])
 
-    ``table`` f32 ``(V, E)`` contiguous on a CUDA device, ``indices`` a
-    contiguous 1-D int8/16/32/64 tensor on the same device, ``dtype`` f32
-    or bf16. Launches on the current stream; raises on any input the kernel
-    does not take and on a refused launch.
-    """
-    from ray_shuffling_data_loader_tpu_torch.kernels import build
-    if table.device.type != "cuda" or indices.device != table.device:
+
+def _check_group(tables: Sequence[torch.Tensor],
+                 indices: Sequence[torch.Tensor], dtype: torch.dtype) -> None:
+    if not 1 <= len(tables) <= build.GATHER_MAX_GROUPS \
+            or len(indices) != len(tables):
         raise ValueError(
-            f"gather_rows needs table and indices on one CUDA device, got "
-            f"{table.device} and {indices.device}")
-    if table.dtype != torch.float32 or table.dim() != 2 \
-            or not table.is_contiguous():
-        raise ValueError(
-            f"gather_rows needs a contiguous 2-D float32 table, got "
-            f"{table.dtype} {tuple(table.shape)}")
-    if indices.dtype not in _IDX_CODES or indices.dim() != 1 \
-            or not indices.is_contiguous():
-        raise ValueError(
-            f"gather_rows needs contiguous 1-D int8/16/32/64 indices, got "
-            f"{indices.dtype} {tuple(indices.shape)}")
+            f"gather_rows takes 1 to {build.GATHER_MAX_GROUPS} tables with "
+            f"one index tensor each, got {len(tables)} tables and "
+            f"{len(indices)} index tensors")
     if dtype not in _OUT_CODES:
         raise ValueError(f"gather_rows outputs float32 or bfloat16, not "
                          f"{dtype}")
-    vocab, embed = table.shape
-    if vocab < 1:
-        raise ValueError("gather_rows needs a non-empty table")
-    batch = indices.shape[0]
-    out = torch.empty((batch, embed), dtype=dtype, device=table.device)
+    for table, idx in zip(tables, indices):
+        if table.dtype != torch.float32 or table.ndim != 2 \
+                or not table.is_contiguous() or table.shape[0] < 1:
+            raise ValueError(
+                f"gather_rows needs non-empty contiguous 2-D float32 tables, "
+                f"got {table.dtype} {tuple(table.shape)}")
+        if idx.dtype not in _IDX_CODES or idx.ndim != 1 \
+                or not idx.is_contiguous():
+            raise ValueError(
+                f"gather_rows needs contiguous 1-D int8/16/32/64 indices, "
+                f"got {idx.dtype} {tuple(idx.shape)}")
+        if table.shape[1] != tables[0].shape[1] \
+                or idx.shape != indices[0].shape:
+            raise ValueError(
+                f"gather_rows needs one width and one batch for the whole "
+                f"group, got width {table.shape[1]} and batch {idx.shape[0]} "
+                f"beside {tables[0].shape[1]} and {indices[0].shape[0]}")
+    device = tables[0].device
+    if device.type != "cuda" or any(t.device != device
+                                    for t in (*tables, *indices)):
+        raise ValueError(
+            f"gather_rows needs every table and index tensor on one CUDA "
+            f"device, got "
+            f"{sorted({str(t.device) for t in (*tables, *indices)})}")
+
+
+def gather_rows_grouped(tables: Sequence[torch.Tensor],
+                        indices: Sequence[torch.Tensor], dtype: torch.dtype,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA gather kernel once for a group of tables:
+    ``out[g] = cast(tables[g][clamp(indices[g])])``.
+
+    ``tables``: 1 to ``GATHER_MAX_GROUPS`` contiguous f32 ``(V_g, E)``
+    tables on one CUDA device; ``indices``: one contiguous 1-D
+    int8/16/32/64 tensor of length B per table (dtypes may differ);
+    ``dtype`` f32 or bf16. Returns ``out``, a ``(G, B, E)`` tensor
+    allocated here unless given (then any strides with the last one 1).
+    Launches on the current stream; raises on any input the kernel does
+    not take and on a refused launch.
+    """
+    _check_group(tables, indices, dtype)
+    device = tables[0].device
+    groups, batch, embed = len(tables), indices[0].shape[0], tables[0].shape[1]
+    if out is None:
+        out = torch.empty((groups, batch, embed), dtype=dtype, device=device)
+    elif (out.shape != (groups, batch, embed) or out.dtype != dtype
+          or out.device != device or out.stride(2) != 1):
+        raise ValueError(
+            f"gather_rows needs out of shape {(groups, batch, embed)}, dtype "
+            f"{dtype} on {device} with unit stride in its last dimension")
     if batch == 0:
         return out
+    args = build.GatherArgs(batch=batch, embed=embed, num_groups=groups,
+                            out_code=_OUT_CODES[dtype])
+    out_ptr, out_step = out.data_ptr(), out.stride(0) * out.element_size()
+    for g, (table, idx) in enumerate(zip(tables, indices)):
+        desc = args.group[g]  # fields set in place: the host cost counts
+        desc.table, desc.idx = table.data_ptr(), idx.data_ptr()
+        desc.out, desc.out_stride = out_ptr + g * out_step, out.stride(1)
+        desc.vocab, desc.idx_code = table.shape[0], _IDX_CODES[idx.dtype]
     lib = build.gather_library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = lib.rsdl_gather_rows(
-        table.data_ptr(), indices.data_ptr(), _IDX_CODES[indices.dtype],
-        out.data_ptr(), _OUT_CODES[dtype], batch, vocab, embed, stream)
+    rc = lib.rsdl_gather_rows(ctypes.byref(args),
+                              torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"gather_rows launch failed: "
@@ -100,11 +152,27 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def gather_rows(table: torch.Tensor, indices: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The gather kernel for one table (a group of one):
+    ``cast(table[clamp(idx)])`` as a ``(B, E)`` tensor."""
+    return gather_rows_grouped([table], [indices], dtype)[0]
+
+
+def _table_grad(vocab: int, table_dtype: torch.dtype, indices: torch.Tensor,
+                grad_out: torch.Tensor) -> torch.Tensor:
+    """Dense scatter-add of the cotangent rows into ``zeros(V, E)`` in the
+    table's dtype, the counterpart of the JAX package's
+    ``_pallas_gather_bwd`` (an XLA scatter-add there too, outside the
+    kernel)."""
+    grad = torch.zeros((vocab, grad_out.shape[1]), dtype=table_dtype,
+                       device=grad_out.device)
+    grad.index_add_(0, _clamped(indices, vocab), grad_out.to(table_dtype))
+    return grad
+
+
 class KernelGather(torch.autograd.Function):
-    """Forward: the CUDA gather kernel. Backward: dense scatter-add of the
-    cotangent rows into ``zeros(V, E)`` in the table's dtype, the
-    counterpart of the JAX package's ``_pallas_gather_bwd`` (an XLA
-    scatter-add there too, outside the kernel)."""
+    """Forward: the CUDA gather kernel. Backward: :func:`_table_grad`."""
 
     @staticmethod
     def forward(ctx, table, indices, dtype):
@@ -116,11 +184,29 @@ class KernelGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (indices,) = ctx.saved_tensors
-        grad = torch.zeros((ctx.vocab, grad_out.shape[1]),
-                           dtype=ctx.table_dtype, device=grad_out.device)
-        grad.index_add_(0, _clamped(indices, ctx.vocab),
-                        grad_out.to(ctx.table_dtype))
-        return grad, None, None
+        return _table_grad(ctx.vocab, ctx.table_dtype, indices,
+                           grad_out), None, None
+
+
+class KernelGatherGroup(torch.autograd.Function):
+    """Forward: one launch of the CUDA gather kernel for G tables, output
+    ``(G, B, E)``. Backward: :func:`_table_grad` per table, as
+    :class:`KernelGather`. Called as ``apply(dtype, *tables, *indices)``."""
+
+    @staticmethod
+    def forward(ctx, dtype, *tensors):
+        tables, indices = tensors[:len(tensors) // 2], \
+            tensors[len(tensors) // 2:]
+        ctx.save_for_backward(*indices)
+        ctx.tables = [(t.shape[0], t.dtype) for t in tables]
+        return gather_rows_grouped(tables, indices, dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = [_table_grad(vocab, table_dtype, idx, grad)
+                 for (vocab, table_dtype), idx, grad in zip(
+                     ctx.tables, ctx.saved_tensors, grad_out)]
+        return (None, *grads, *([None] * len(grads)))
 
 
 def kernel_lookup(table: torch.Tensor, indices: torch.Tensor,
@@ -129,6 +215,17 @@ def kernel_lookup(table: torch.Tensor, indices: torch.Tensor,
     if table.device.type == "cpu":
         return gather_reference(table, indices, dtype)
     return KernelGather.apply(table, indices.contiguous(), dtype)
+
+
+def kernel_lookup_grouped(tables: Sequence[torch.Tensor],
+                          indices: Sequence[torch.Tensor],
+                          dtype: torch.dtype) -> torch.Tensor:
+    """:func:`kernel_lookup` for a group of tables in one launch:
+    ``(G, B, E)``."""
+    if tables[0].device.type == "cpu":
+        return gather_grouped_reference(tables, indices, dtype)
+    return KernelGatherGroup.apply(dtype, *tables,
+                                   *(i.contiguous() for i in indices))
 
 
 def take_lookup(table: torch.Tensor, indices: torch.Tensor,
@@ -163,3 +260,24 @@ def lookup(table: torch.Tensor, indices: torch.Tensor, dtype: torch.dtype,
         return kernel_lookup(table, indices, dtype)
     raise ValueError(
         f"unknown lookup mode {mode!r}; expected auto/take/one_hot/kernel")
+
+
+def lookup_features(tables: Sequence[torch.Tensor],
+                    indices: Sequence[torch.Tensor], dtype: torch.dtype,
+                    mode: str = "auto") -> List[torch.Tensor]:
+    """:func:`lookup` of ``indices[i]`` in ``tables[i]`` for every feature,
+    in feature order. The tables whose mode resolves to ``kernel`` are
+    gathered together, one launch for up to ``GATHER_MAX_GROUPS`` of them
+    (they share E and B); the rest go through :func:`lookup`."""
+    modes = [_auto_mode(t) if mode == "auto" else mode for t in tables]
+    vectors: List[Optional[torch.Tensor]] = [
+        None if m == "kernel" else lookup(t, i, dtype, mode=m)
+        for t, i, m in zip(tables, indices, modes)]
+    routed = [f for f, m in enumerate(modes) if m == "kernel"]
+    for s in range(0, len(routed), build.GATHER_MAX_GROUPS):
+        chunk = routed[s:s + build.GATHER_MAX_GROUPS]
+        out = kernel_lookup_grouped([tables[f] for f in chunk],
+                                    [indices[f] for f in chunk], dtype)
+        for f, vector in zip(chunk, out.unbind(0)):
+            vectors[f] = vector
+    return vectors
