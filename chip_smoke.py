@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's DLRM and BERT-MLM train paths end to end at full width
-and checks its hand-written kernels against their plain PyTorch versions.
+Drives the port's DLRM and BERT-MLM train paths, and the sequence- and
+data-parallel entry points at world size 1, end to end at full width and
+checks its hand-written kernels against their plain PyTorch versions.
 Phases, each printing one JSON line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit.
@@ -15,9 +16,12 @@ Phases, each printing one JSON line:
    out-of-range ones, f32 and bf16 outputs; table gradient within 1e-6
    relative). The DLRM step's group: the 8 ``mlperf`` tables above 2048
    rows in one launch, B=2048, bf16, int32 (gradient within 1e-6
-   relative, on ids in range). A mixed group: int8/16/32/64 indices in
-   one launch, f32 and bf16, E=128 and E=37, written straight into a
-   (B, G, E) tensor. Times (CUDA graphs and events) for the kernel, the
+   relative, on ids in range). The group's gradient at clamped ids
+   (int8..int64 ids up to 1,000 past each end, about 1,000 cotangent rows
+   piled onto rows 0 and V-1) against the f64 sum of the same cotangents,
+   within the bound of any f32 summation order. A mixed group:
+   int8/16/32/64 indices in one launch, f32 and bf16, E=128 and E=37,
+   written straight into a (B, G, E) tensor. Times (CUDA graphs and events) for the kernel, the
    plain version, 8 one-table launches and 8 ``torch.index_select`` calls,
    beside the bound.
 4. ``train``: 2,000,000 generated rows in 8 Parquet files -> seeded
@@ -48,6 +52,27 @@ Phases, each printing one JSON line:
    shuffle, the flash path's loss against the inline path's (within 1e-2
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
+7. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+   the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
+   of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
+   masking bias: output, dq, dk, dv and dbias against whole-sequence
+   ``flash_attention`` within 2e-2 absolute plus 2e-2 relative, n
+   launches of each flash kernel per ring pass, and device times of the
+   ring pass (forward and backward) beside whole-sequence flash; the
+   causal einsum ring, walked per rank, against plain attention with the
+   causal mask. (b) The sequence-parallel entry point at world size 1
+   over NCCL (``init_process_group`` with a ``file://`` rendezvous, a
+   ``("data", "seq")`` mesh of (1, 1)): ``bert_base()`` at S=512 fed from
+   2,048 generated sequences through ``DeviceShufflingDataset`` (the data
+   coordinate as rank), ``train.make_bert_spmd_micro_step`` with ring
+   attention, one epoch, 12 launches of each flash kernel per micro-step;
+   its first losses (ring, and one Ulysses step) against the ``bert``
+   phase's micro-step from the same weights and masks, within that
+   phase's 1e-2 relative. (c) Three DLRM ``mlperf`` steps through
+   ``SpmdTrainer`` on a (1, 1) ``("data", "model")`` mesh over NCCL, the
+   gather kernel launched once per step, the losses against
+   ``train.make_micro_step``'s from the same weights within 1e-5
+   relative.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -257,6 +282,45 @@ def _mixed_group_checks(emb, g) -> None:
                          dtype, out=interleaved.permute(1, 0, 2))
 
 
+def _clamped_gradient_check(emb, g) -> dict:
+    """The grouped backward at clamped ids: int8..int64 ids up to 1,000
+    past each end of the vocab pile about 1,000 cotangent rows onto rows 0
+    and V-1, summed by ``index_add_`` atomics in no fixed order. Each
+    table's gradient is held against the f64 sum of the same cotangents
+    within the bound of any f32 summation order
+    (``emb.table_grad_reference``)."""
+    vocabs = (300, 30000, 70, 2500, 945195)
+    dts = (torch.int8, torch.int16, torch.int32, torch.int64, torch.int32)
+    leaves = [torch.randn((v, E), device="cuda", generator=g)
+              .requires_grad_(True) for v in vocabs]
+    indices = [torch.randint(max(-1000, torch.iinfo(dt).min),
+                             min(v + 1000, torch.iinfo(dt).max),
+                             (MICROBATCH,), device="cuda", generator=g).to(dt)
+               for v, dt in zip(vocabs, dts)]
+    weight = torch.randn((len(vocabs), MICROBATCH, E), device="cuda",
+                         generator=g)
+    out = emb.kernel_lookup_grouped(leaves, indices, torch.bfloat16)
+    (out.float() * weight).sum().backward()
+    max_err, max_share, piled = 0.0, 0.0, 0
+    for leaf, idx, w in zip(leaves, indices, weight):
+        # The cotangent of the bf16 rows is the weight rounded to bf16.
+        want, bound = emb.table_grad_reference(leaf.shape[0], idx,
+                                               w.to(torch.bfloat16))
+        err = (leaf.grad.double() - want).abs()
+        if bool((err > bound).any()):
+            raise AssertionError(
+                f"clamped-id gradient at V={leaf.shape[0]} exceeds the f32 "
+                f"bound by {float((err - bound).max())}")
+        max_err = max(max_err, float(err.max()))
+        max_share = max(max_share, float((err / bound.clamp(min=1e-300))
+                                         .max()))
+        piled = max(piled, int(torch.bincount(
+            idx.long().clamp(0, leaf.shape[0] - 1)).max()))
+        del want, bound, err
+    return {"max_abs_err": max_err, "max_err_over_bound": max_share,
+            "most_rows_on_one_row": piled}
+
+
 def kernels_phase(emb, peak: float) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     table = torch.randn((V, E), device="cuda", generator=g)
@@ -331,12 +395,14 @@ def kernels_phase(emb, peak: float) -> dict:
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     del grads
+    clamped = _clamped_gradient_check(emb, g)
     _mixed_group_checks(emb, g)
     results["group_B2048_bf16"] = {"tables": [t.shape[0] for t in tables],
                                    **time_group(emb, tables, idx_sets, peak)}
     del tables, idx_sets
     torch.cuda.empty_cache()
-    return {"timings": results, "max_abs_err": max_err}
+    return {"timings": results, "max_abs_err": max_err,
+            "clamped_gradient": clamped}
 
 
 def ptxas_by_kernel(info: str) -> dict:
@@ -830,6 +896,285 @@ def bert_phase(fa) -> dict:
     }
 
 
+# Ring phase: K/V chunk counts walked in one process, the sequences of the
+# world-1 entry point run, and the steps held against the one-card paths.
+RING_NS = (2, 4)
+RING_SEQS, RING_FILES = 2048, 4
+RING_COMPARE_STEPS = 4
+SPMD_DLRM_STEPS = 3
+
+
+def _flash_whole(fa, q, k, v, bias, do):
+    """Whole-sequence flash forward and backward: ``(out, dq, dk, dv,
+    dbias)``."""
+    out, lse = fa.flash_forward(q, k, v, bias)
+    return (out, *fa.flash_backward(q, k, v, bias, out, lse, do))
+
+
+def _flash_ring_walk(ra, q, k_chunks, v_chunks, bias_chunks, do):
+    return ra.ring_walk(q, k_chunks, v_chunks, bias_chunks, do,
+                        use_flash=True)
+
+
+def _chunks(t, n: int, dim: int):
+    return None if t is None else [c.contiguous() for c in t.chunk(n, dim)]
+
+
+def ring_walk_checks(fa, ra, g) -> dict:
+    """(a): the flash ring over n chunks against whole-sequence flash, and
+    the causal einsum ring per rank against plain causal attention."""
+    b, h, s, d = ATT_B, ATT_H, ATT_S, ATT_D
+    errors, timings, launches = {}, {}, {}
+    for masked in (False, True):
+        q, k, v, do, bias = _attention_inputs(g, b, h, s, s, d, masked)
+        want = dict(zip(("out", "dq", "dk", "dv", "dbias"),
+                        _flash_whole(fa, q, k, v, bias, do)))
+        for n in RING_NS:
+            args = (q, _chunks(k, n, 2), _chunks(v, n, 2),
+                    _chunks(bias, n, 3), do)
+            fa.reset_launch_counts()
+            out, dq, dk, dv, dbias = _flash_ring_walk(ra, *args)
+            torch.cuda.synchronize()
+            if fa.launch_counts != {name: n for name in FLASH_KERNELS}:
+                raise AssertionError(f"a ring pass over {n} chunks launched "
+                                     f"{fa.launch_counts}; expected {n} "
+                                     "of each flash kernel")
+            got = {"out": out, "dq": dq, "dk": torch.cat(dk, 2),
+                   "dv": torch.cat(dv, 2)}
+            if masked:
+                got["dbias"] = torch.cat(dbias, 3)
+            case = f"n{n}_bias" if masked else f"n{n}"
+            launches[case] = dict(fa.launch_counts)
+            errors[case] = {name: _held(f"ring {case} {name}", t, want[name])
+                            for name, t in got.items()}
+            if not masked:
+                timings[f"ring_n{n}_ms"] = device_ms(
+                    lambda *a: _flash_ring_walk(ra, *a), [args], 10)
+                # Where a ring pass's time goes.
+                profile = profile_steps(
+                    lambda c, _: _flash_ring_walk(ra, *c), args, None,
+                    list(FLASH_KERNELS))
+        if not masked:
+            timings["whole_flash_ms"] = device_ms(
+                lambda *a: _flash_whole(fa, *a), [(q, k, v, None, do)], 10)
+    for n in RING_NS:
+        timings[f"ring_n{n}_over_whole"] = (timings[f"ring_n{n}_ms"]
+                                            / timings["whole_flash_ms"])
+    # The causal einsum ring: each rank's walk with its own query chunk.
+    n = RING_NS[-1]
+    q, k, v, do, bias = _attention_inputs(g, b, h, s, s, d, masked=True)
+    outs, dqs = [], []
+    dks = [torch.zeros_like(c, dtype=torch.float32) for c in k.chunk(n, 2)]
+    for r in range(n):
+        out, dq, dk, _, _ = ra.ring_walk(
+            q.chunk(n, 2)[r], _chunks(k, n, 2), _chunks(v, n, 2),
+            _chunks(bias, n, 3), do.chunk(n, 2)[r], index=r, causal=True)
+        outs.append(out)
+        dqs.append(dq)
+        dks = [a + c.float() for a, c in zip(dks, dk)]
+    pos = torch.arange(s, device="cuda")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k)]
+    want = ra._full_attention(*leaves, v, bias + ra.causal_bias(pos, pos))
+    want.backward(do)
+    errors["causal_einsum_n4_bias"] = {
+        name: _held(f"causal ring {name}", got, ref) for name, got, ref in (
+            ("out", torch.cat(outs, 2), want.detach()),
+            ("dq", torch.cat(dqs, 2), leaves[0].grad),
+            ("dk", torch.cat(dks, 2), leaves[1].grad))}
+    torch.cuda.empty_cache()
+    return {"errors": errors, "launches_per_pass": launches,
+            "timings": timings, f"profile_n{RING_NS[-1]}": profile}
+
+
+def _first_bert_losses(make_step, tokens) -> list:
+    """The first ``RING_COMPARE_STEPS`` micro-step losses of a fresh
+    ``bert_base()`` (weights from SEED, masks from SEED + 1) on ``tokens``,
+    through ``make_step(model, optimizer, generator)``."""
+    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch.models import bert
+    model = bert.Bert(bert.bert_base(), device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    step = make_step(model, train.make_optimizer(model, lr=train.BERT_LR),
+                     torch.Generator(device="cuda").manual_seed(SEED + 1))
+    losses = [float(step([tokens[i * BERT_MICRO:(i + 1) * BERT_MICRO]], None))
+              for i in range(RING_COMPARE_STEPS)]
+    del model, step
+    torch.cuda.empty_cache()
+    return losses
+
+
+def spmd_bert_run(fa, pmesh, tmp: str) -> dict:
+    """(b): the sequence-parallel BERT entry point on a (1, 1) ``("data",
+    "seq")`` mesh over the NCCL world of 1."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import bert
+    from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
+
+    mesh = pmesh.named_mesh((1, 1), (pmesh.DATA_AXIS, pmesh.SEQ_AXIS))
+    data_rank, data_size = pmesh.local_data_shard_info(mesh)
+    files, _ = bert_mlm.generate_tokenized_parquet(
+        RING_SEQS, RING_FILES, tmp, seq_len=BERT_SEQ_LEN,
+        vocab_size=BERT_VOCAB, seed=SEED)
+    config = bert.bert_base()
+    model = bert.Bert(config, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_bert_spmd_micro_step(
+        mesh, model, train.make_optimizer(model, lr=train.BERT_LR),
+        torch.Generator(device="cuda").manual_seed(SEED + 1), "ring")
+    ds = device_dataset.DeviceShufflingDataset(
+        files, 1, data_size, BERT_BATCH, data_rank,
+        num_reducers=NUM_REDUCERS, seed=SEED,
+        **bert_mlm.bert_mlm_spec(BERT_SEQ_LEN))
+    ds.set_epoch(0)
+    losses, chunk_ms, first = [], [], None
+    fa.reset_launch_counts()
+    t_start = timeit.default_timer()
+    for features, label in ds:
+        if first is None:
+            t_first = timeit.default_timer()
+            first = features[0]
+        t0 = timeit.default_timer()
+        losses.append(train.train_chunk(micro_step, features, label,
+                                        BERT_MICRO))
+        torch.cuda.synchronize()
+        chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+    t_end = timeit.default_timer()
+    launches = dict(fa.launch_counts)
+    # Where a micro-step's time goes (after the main path's counts were
+    # read; these steps keep training the same model).
+    breakdown = profile_steps(micro_step, [first[:BERT_MICRO]], None,
+                              list(FLASH_KERNELS))
+    all_losses = torch.cat(losses).cpu()
+    steps = int(all_losses.numel())
+    if steps != RING_SEQS // BERT_MICRO:
+        raise AssertionError(f"{steps} micro-steps, expected "
+                             f"{RING_SEQS // BERT_MICRO}")
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("non-finite sequence-parallel loss")
+    for kernel in FLASH_KERNELS:
+        if launches[kernel] != config.num_layers * steps:
+            raise AssertionError(
+                f"{kernel} launched {launches[kernel]} times in {steps} "
+                f"ring micro-steps; expected {config.num_layers} per step")
+    del model, micro_step
+    torch.cuda.empty_cache()
+
+    # The same first micro-steps through the bert phase's path, the ring
+    # and Ulysses entry point, each from the same weights and masks.
+    via = {
+        "bert_path": _first_bert_losses(
+            lambda m, o, g: train.make_bert_micro_step(
+                m, o, g, fa.make_flash_attention_fn()), first),
+        "ring": _first_bert_losses(
+            lambda m, o, g: train.make_bert_spmd_micro_step(
+                mesh, m, o, g, "ring"), first),
+        "ulysses": _first_bert_losses(
+            lambda m, o, g: train.make_bert_spmd_micro_step(
+                mesh, m, o, g, "ulysses"), first)[:1]}
+    rel = {}
+    for path in ("ring", "ulysses"):
+        ref = via["bert_path"][:len(via[path])]
+        rel[path] = max(abs(a - b) / abs(b) for a, b in zip(via[path], ref))
+        if not rel[path] <= 1e-2:
+            raise AssertionError(f"{path} losses {via[path]} vs the bert "
+                                 f"path's {ref}: relative {rel[path]}")
+    waits = ds.batch_wait_stats.wait_times
+    wall = t_end - t_first
+    return {
+        "mesh": {"names": list(mesh.mesh_dim_names), "shape": [1, 1]},
+        "micro_steps": steps,
+        "sequences_per_s": RING_SEQS / wall,
+        "tokens_per_s": RING_SEQS * BERT_SEQ_LEN / wall,
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "fill_s": t_first - t_start,
+        "step_ms_median": float(np.median(chunk_ms)) / (BERT_BATCH
+                                                        // BERT_MICRO),
+        "loss_first": float(all_losses[:8].mean()),
+        "loss_last": float(all_losses[-8:].mean()),
+        "flash_launches": launches,
+        "launches_per_micro_step": {k: c / steps
+                                    for k, c in launches.items()},
+        "vs_bert_path": {"losses": via, "max_rel_diff": rel,
+                         "rtol": 1e-2},
+        "profile": breakdown,
+    }
+
+
+def spmd_dlrm_steps(emb, pmesh) -> dict:
+    """(c): DLRM ``mlperf`` through ``SpmdTrainer`` on a (1, 1) ``("data",
+    "model")`` mesh against ``train.make_micro_step``."""
+    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptr
+
+    mesh = pmesh.make_mesh()
+    _, data_size = pmesh.local_data_shard_info(mesh)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cols = [torch.randint(-1000, v + 1000, (MICROBATCH,), device="cuda",
+                          dtype=torch.int32, generator=g)
+            for v in dlrm.MLPERF.vocab_sizes]
+    labels = (torch.rand((MICROBATCH, 1), device="cuda", generator=g)
+              < 0.25).float()
+    losses = {}
+    for path in ("spmd", "micro_step"):
+        model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(SEED))
+        optimizer = train.make_optimizer(model)
+        if path == "spmd":
+            trainer = ptr.SpmdTrainer(
+                mesh, lambda m, *b: dlrm.loss_fn(m, None, list(b[:-1]),
+                                                 b[-1]) / data_size,
+                model, optimizer)
+            emb.reset_launch_counts()
+            out = [trainer.train_step(*cols, labels)
+                   for _ in range(SPMD_DLRM_STEPS)]
+            trainer.block_until_ready()
+            launches = emb.launch_counts["gather_rows"]
+        else:
+            step = train.make_micro_step(model, optimizer)
+            out = [step(cols, labels) for _ in range(SPMD_DLRM_STEPS)]
+        losses[path] = [float(x) for x in out]
+        del model, optimizer, out
+        torch.cuda.empty_cache()
+    if launches != SPMD_DLRM_STEPS:
+        raise AssertionError(f"{launches} gather launches in "
+                             f"{SPMD_DLRM_STEPS} SpmdTrainer steps")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["spmd"],
+                                                   losses["micro_step"]))
+    if not rel <= 1e-5:
+        raise AssertionError(f"SpmdTrainer losses {losses['spmd']} vs "
+                             f"micro-step {losses['micro_step']}")
+    return {"losses": losses, "max_rel_diff": rel, "rtol": 1e-5,
+            "gather_launches": launches}
+
+
+def ring_phase(fa, emb) -> dict:
+    import torch.distributed as dist
+
+    from ray_shuffling_data_loader_tpu_torch.ops import ring_attention as ra
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+
+    walk = ring_walk_checks(fa, ra, torch.Generator(device="cuda")
+                            .manual_seed(3))
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-ring-") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1)
+        try:
+            bert_run = spmd_bert_run(fa, pmesh, tmp)
+            dlrm_run = spmd_dlrm_steps(emb, pmesh)
+        finally:
+            dist.destroy_process_group()
+    return {"shape": {"B": ATT_B, "H": ATT_H, "S": ATT_S, "D": ATT_D,
+                      "dtype": "bf16"},
+            "tolerance": {"atol": ATT_TOL, "rtol": ATT_TOL},
+            "walk": walk, "spmd_bert": bert_run, "spmd_dlrm": dlrm_run}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -871,12 +1216,18 @@ def main() -> int:
     bert_run = bert_phase(fa)
     emit({"phase": "bert", "card": smi, **bert_run})
 
+    ring_run = ring_phase(fa, emb)
+    emit({"phase": "ring", "card": smi, **ring_run})
+
     main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
         "name": "gather_rows", "route": "cuda",
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
         "launches": trained["gather_launches"],
+        "launches_by_path": {
+            "train": trained["gather_launches"],
+            "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": "bytes",
@@ -890,6 +1241,9 @@ def main() -> int:
                       "flash_attention.cu",
             "replaces": replaces,
             "launches": bert_run["flash_launches"][kernel],
+            "launches_by_path": {
+                "bert": bert_run["flash_launches"][kernel],
+                "ring": ring_run["spmd_bert"]["flash_launches"][kernel]},
             "max_abs_err": att["max_abs_err"][kernel],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,8 +1,11 @@
 """Framework-neutral shuffling dataset: exact-size Arrow batches.
 
-Rank 0 (or :func:`create_batch_queue_and_shuffle`, for several ranks in
-one process) creates the per-``(epoch, rank)`` queues and starts the
-background shuffle; each rank pops its reducer outputs for the epoch and
+:func:`create_batch_queue_and_shuffle` (for several ranks in one process)
+creates the per-``(epoch, rank)`` queues and starts the background
+shuffle; without its queue, a dataset starts a shuffle of its own that
+routes only its rank's reducer outputs (one loader per process: the
+seeded plan is the same in every process, so ranks get disjoint parts of
+each epoch). Each rank pops its reducer outputs for the epoch and
 re-chunks them into exact ``batch_size``-row tables with a carry buffer
 that spans table boundaries (:func:`slice_batches`).
 """
@@ -53,20 +56,31 @@ def batch_consumer(queue: mq.MultiQueue, num_trainers: int, rank: int,
         queue.put_batch(queue_idx, list(batches))
 
 
+def _one_rank_consumer(queue: mq.MultiQueue, num_trainers: int,
+                       own_rank: int, rank: int, epoch: int,
+                       batches: Optional[Sequence[cf.Future]]) -> None:
+    if rank == own_rank:
+        batch_consumer(queue, num_trainers, rank, epoch, batches)
+
+
 def create_batch_queue_and_shuffle(
         filenames: Sequence[str], num_epochs: int, num_trainers: int,
         max_concurrent_epochs: int = 2, num_reducers: Optional[int] = None,
-        seed: int = 0, map_transform=None):
+        seed: int = 0, map_transform=None, only_rank: Optional[int] = None):
     """Create the queues and start the shuffle before any trainer exists,
-    so every rank can be a pure consumer. Returns
-    ``(queue, shuffle_future)``."""
+    so every rank can be a pure consumer. With ``only_rank``, only that
+    rank's queues are filled (the other ranks read theirs in other
+    processes). Returns ``(queue, shuffle_future)``."""
     queue = mq.MultiQueue(num_epochs * num_trainers)
     if num_reducers is None:
         num_reducers = default_num_reducers(num_trainers)
+    consumer = (functools.partial(batch_consumer, queue, num_trainers)
+                if only_rank is None else
+                functools.partial(_one_rank_consumer, queue, num_trainers,
+                                  only_rank))
     result = sh.run_shuffle_in_background(
-        filenames, functools.partial(batch_consumer, queue, num_trainers),
-        num_epochs, num_reducers, num_trainers, max_concurrent_epochs,
-        seed=seed, map_transform=map_transform,
+        filenames, consumer, num_epochs, num_reducers, num_trainers,
+        max_concurrent_epochs, seed=seed, map_transform=map_transform,
         on_failure=make_failure_broadcaster(queue))
     return queue, result
 
@@ -74,9 +88,10 @@ def create_batch_queue_and_shuffle(
 class ShufflingDataset:
     """Iterable of exact ``batch_size``-row ``pa.Table`` batches.
 
-    Rank 0 launches the shuffle unless ``batch_queue``/``shuffle_result``
-    come from :func:`create_batch_queue_and_shuffle`; other ranks need
-    them. Call :meth:`set_epoch` before each epoch's iteration.
+    Without ``batch_queue``/``shuffle_result`` from
+    :func:`create_batch_queue_and_shuffle`, the dataset launches a shuffle
+    of its own for its rank. Call :meth:`set_epoch` before each epoch's
+    iteration.
     """
 
     def __init__(self, filenames: Sequence[str], num_epochs: int,
@@ -89,13 +104,10 @@ class ShufflingDataset:
                  seed: int = 0, map_transform=None):
         self._owns_queue = False
         if batch_queue is None:
-            if rank != 0:
-                raise ValueError(
-                    "ranks other than 0 need the batch_queue and "
-                    "shuffle_result of create_batch_queue_and_shuffle")
             batch_queue, shuffle_result = create_batch_queue_and_shuffle(
                 filenames, num_epochs, num_trainers, max_concurrent_epochs,
-                num_reducers, seed=seed, map_transform=map_transform)
+                num_reducers, seed=seed, map_transform=map_transform,
+                only_rank=rank)
             self._owns_queue = True
         self._batch_queue = batch_queue
         self._shuffle_result = shuffle_result

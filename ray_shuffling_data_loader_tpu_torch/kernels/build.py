@@ -22,7 +22,7 @@ import os
 import re
 import subprocess
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -55,25 +55,37 @@ def _nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def _source_digest(source: str) -> str:
-    """sha256 of ``source``, of every local header it includes (directly or
-    through another header) and of the flags."""
-    digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
-    pending, seen = [os.path.abspath(source)], set()
+def local_sources(source: str) -> List[str]:
+    """``source`` and every local header it includes (``#include "..."``),
+    directly or through another header, each found beside the file that
+    includes it or in ``kernels/``. Raises where a header is in neither
+    place."""
+    pending, found = [os.path.abspath(source)], []
     while pending:
         path = pending.pop()
-        if path in seen:
+        if path in found:
             continue
-        seen.add(path)
+        found.append(path)
         with open(path, "rb") as f:
-            text = f.read()
-        digest.update(text)
-        for name in _LOCAL_INCLUDE.findall(text):
-            for folder in (os.path.dirname(path), KERNEL_DIR):
-                header = os.path.join(folder, name.decode())
-                if os.path.exists(header):
-                    pending.append(os.path.abspath(header))
-                    break
+            names = _LOCAL_INCLUDE.findall(f.read())
+        for name in names:
+            candidates = [os.path.join(folder, name.decode()) for folder in
+                          (os.path.dirname(path), KERNEL_DIR)]
+            header = next((c for c in candidates if os.path.exists(c)), None)
+            if header is None:
+                raise FileNotFoundError(
+                    f"{path} includes {name.decode()!r}, found neither "
+                    f"beside it nor in {KERNEL_DIR}")
+            pending.append(os.path.abspath(header))
+    return found
+
+
+def _source_digest(source: str) -> str:
+    """sha256 of the flags and of :func:`local_sources`."""
+    digest = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
+    for path in local_sources(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return digest.hexdigest()
 
 

@@ -13,6 +13,10 @@ whose score product runs in the compute dtype before the cast to f32.
 ``attention_fn(q, k, v, bias) -> (B, H, S, D)`` swaps the attention, e.g.
 ``ops.flash_attention.make_flash_attention_fn()`` for the flash kernels;
 the bias is the key-side ``(B, 1, 1, S)`` f32 mask (0 or -1e9) or None.
+
+Sequence parallelism (``ops.ring_attention.make_attention_fn``): each rank
+passes its chunk of the tokens and the chunk's global ``position_offset``;
+:func:`loss_fn` with a ``mesh`` returns the rank's term of the global loss.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint
@@ -151,15 +156,22 @@ class Bert(nn.Module):
 
     def forward(self, token_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+                attention_fn: Optional[AttentionFn] = None,
+                position_offset: int = 0) -> torch.Tensor:
         """``attention_mask`` ``(B, S)``: 1 attends, 0 is padding; None
-        attends everywhere. Returns f32 logits ``(B, S, vocab)``."""
+        attends everywhere. ``position_offset``: the global position of
+        ``token_ids[:, 0]`` (a sequence chunk's offset). Returns f32 logits
+        ``(B, S, vocab)``."""
         config = self.config
         dtype = config.compute_dtype
         s = token_ids.shape[1]
+        if position_offset + s > config.max_seq_len:
+            raise ValueError(
+                f"positions {position_offset}..{position_offset + s - 1} "
+                f"exceed max_seq_len {config.max_seq_len}")
         ids = token_ids.long().clamp(0, config.vocab_size - 1)
-        x = (F.embedding(ids, self.token_emb)
-             + self.pos_emb[:s][None, :, :]).to(dtype)
+        positions = self.pos_emb[position_offset:position_offset + s]
+        x = (F.embedding(ids, self.token_emb) + positions[None]).to(dtype)
         x = _layer_norm(x, self.emb_ln)
         bias = None
         if attention_mask is not None:
@@ -179,20 +191,30 @@ class Bert(nn.Module):
 
 def apply(model: Bert, token_ids: torch.Tensor,
           attention_mask: Optional[torch.Tensor] = None,
-          attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+          attention_fn: Optional[AttentionFn] = None,
+          position_offset: int = 0) -> torch.Tensor:
     """Logits ``(B, S, vocab)`` f32 (the JAX package's ``apply``)."""
-    return model(token_ids, attention_mask, attention_fn)
+    return model(token_ids, attention_mask, attention_fn, position_offset)
 
 
 def loss_fn(model: Bert, token_ids: torch.Tensor, mlm_targets: torch.Tensor,
             attention_mask: Optional[torch.Tensor] = None,
-            attention_fn: Optional[AttentionFn] = None) -> torch.Tensor:
+            attention_fn: Optional[AttentionFn] = None,
+            position_offset: int = 0, mesh=None) -> torch.Tensor:
     """Masked-LM cross-entropy, the mean over positions whose target is not
-    ``IGNORE_ID`` (the count clamped to at least 1)."""
-    logits = model(token_ids, attention_mask, attention_fn)
+    ``IGNORE_ID`` (the count clamped to at least 1).
+
+    With ``mesh`` (which spans every rank, as ``parallel.mesh`` builds
+    it), the inputs are this rank's block of the global batch and the
+    count is summed over all ranks: the value is this rank's term of the
+    global mean, so the terms, and their gradients, sum over the ranks to
+    the global loss and its gradient."""
+    logits = model(token_ids, attention_mask, attention_fn, position_offset)
     targets = mlm_targets.long()
     total = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                             targets.reshape(-1), ignore_index=IGNORE_ID,
                             reduction="sum")
-    count = (targets != IGNORE_ID).sum().clamp(min=1)
-    return total / count
+    count = (targets != IGNORE_ID).sum()
+    if mesh is not None:
+        dist.all_reduce(count)
+    return total / count.clamp(min=1)

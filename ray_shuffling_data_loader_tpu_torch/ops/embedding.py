@@ -171,6 +171,27 @@ def _table_grad(vocab: int, table_dtype: torch.dtype, indices: torch.Tensor,
     return grad
 
 
+def table_grad_reference(vocab: int, indices: torch.Tensor,
+                         grad_out: torch.Tensor):
+    """Plain check of :func:`_table_grad` at repeated (and clamped) ids,
+    whose atomics add in no fixed order: ``(want, bound)``, the f64 sum of
+    the cotangent rows per table row and the largest error of an f32
+    accumulation of them in any order, ``(m - 1) * u * sum |x|`` with ``m``
+    the rows landing on that row and ``u`` f32's unit roundoff (the first
+    add into zero is exact)."""
+    idx = _clamped(indices, vocab)
+    rows = grad_out.to(torch.float32).double()
+    zeros = torch.zeros((vocab, rows.shape[1]), dtype=torch.float64,
+                        device=rows.device)
+    want = zeros.index_add(0, idx, rows)
+    abs_sum = zeros.index_add(0, idx, rows.abs())
+    hits = torch.zeros(vocab, dtype=torch.float64, device=rows.device)
+    hits.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float64))
+    u = torch.finfo(torch.float32).eps / 2
+    bound = (hits - 1).clamp(min=0)[:, None] * u * abs_sum
+    return want, bound
+
+
 class KernelGather(torch.autograd.Function):
     """Forward: the CUDA gather kernel. Backward: :func:`_table_grad`."""
 

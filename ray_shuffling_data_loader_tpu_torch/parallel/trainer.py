@@ -1,0 +1,104 @@
+"""Data- and sequence-parallel trainer over a mesh (counterpart of the JAX
+package's ``parallel/trainer.py``).
+
+The JAX package jits one SPMD program over global arrays, and XLA inserts
+the gradient collectives. Here every rank runs the step on its block of
+the global batch with its own replica of the parameters:
+
+- at construction the parameters are broadcast from rank 0, so every
+  replica starts from the same values (the JAX package replicates one
+  pytree);
+- ``loss_fn(model, *batch)`` returns this rank's term of the global loss:
+  the terms over all ranks of the mesh sum to it (a per-example mean over
+  a data rank's block is divided by the number of ranks;
+  ``models.bert.loss_fn`` with a ``mesh`` returns its term itself);
+- after ``backward`` the gradients (and the loss term) are summed over
+  every rank, one ``all_reduce`` of one flat buffer per dtype, so the
+  update every replica applies is the global gradient's, as in the JAX
+  package; then the optimizer steps (``train.make_optimizer``: the update
+  of ``optax.adam``).
+
+Tensor-parallel ``param_specs`` are not ported yet (ROADMAP item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+
+LossFn = Callable[..., torch.Tensor]
+
+
+def make_train_step(model: torch.nn.Module, loss_fn: LossFn,
+                    optimizer: torch.optim.Optimizer) -> Callable:
+    """``step(*batch) -> loss``: this rank's loss term and its gradients,
+    both summed over all ranks, then one optimizer update. Returns the
+    global loss (no host sync)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(*batch) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, *batch)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        total = loss.detach().to(torch.float32).reshape(1)
+        pmesh.flat_collective([p.grad for p in params] + [total],
+                              dist.all_reduce)
+        optimizer.step()
+        return total[0]
+
+    return train_step
+
+
+class SpmdTrainer:
+    """Owns a replicated model, its optimizer and the step.
+
+    Args:
+        mesh: the mesh (``parallel.mesh``), spanning every rank.
+        loss_fn: ``loss_fn(model, *batch) -> this rank's loss term``.
+        model: the model, on the mesh's device; its parameters are
+            overwritten with rank 0's.
+        optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
+        param_specs: ``None`` (replicate every parameter); tensor-parallel
+            specs are ROADMAP item 7 and raise.
+    """
+
+    def __init__(self, mesh, loss_fn: LossFn, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer,
+                 param_specs: Optional[Any] = None):
+        if param_specs is not None:
+            raise NotImplementedError(
+                "tensor-parallel param_specs are not ported yet (ROADMAP "
+                "item 7); pass None to replicate every parameter")
+        for name, p in model.named_parameters():
+            if p.device.type != mesh.device_type:
+                raise ValueError(f"parameter {name} is on {p.device}; the "
+                                 f"mesh is over {mesh.device_type}")
+        self.mesh = mesh
+        self.model = pmesh.replicated(model)
+        self.optimizer = optimizer
+        self._step = make_train_step(model, loss_fn, optimizer)
+
+    def train_step(self, *batch) -> torch.Tensor:
+        """One optimizer step on this rank's block of the batch; returns
+        the global loss (on the device, no sync)."""
+        return self._step(*batch)
+
+    def block_until_ready(self) -> None:
+        if self.mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+
+
+def batch_shardings(mesh, batch: Sequence[torch.Tensor],
+                    data_axis: Optional[str] = pmesh.DATA_AXIS,
+                    seq_axis: Optional[str] = None):
+    """This rank's block of each tensor of a global batch
+    (:func:`parallel.mesh.batch_sharding`)."""
+    return tuple(pmesh.batch_sharding(mesh, t, data_axis, seq_axis)
+                 for t in batch)

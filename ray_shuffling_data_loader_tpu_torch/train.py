@@ -1,6 +1,7 @@
 """Training steps: one Adam micro-step per ``microbatch``-row slice of each
 loader batch (counterpart of bench.py's micro-batched train phase), for
-DLRM and for BERT MLM.
+DLRM and for BERT MLM, and BERT MLM split over a ``("data", "seq")`` mesh
+(:func:`make_bert_spmd_micro_step`).
 
 Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the
 defaults of ``optax.adam(lr)``: lr 1e-3 for DLRM, 1e-4 for BERT (the JAX
@@ -16,6 +17,9 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm
+from ray_shuffling_data_loader_tpu_torch.ops import ring_attention
+from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+from ray_shuffling_data_loader_tpu_torch.parallel.trainer import SpmdTrainer
 from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
 
 MicroStep = Callable[[Sequence[torch.Tensor], torch.Tensor], torch.Tensor]
@@ -79,6 +83,45 @@ def make_bert_micro_step(model: bert.Bert, optimizer: torch.optim.Optimizer,
              labels: torch.Tensor) -> torch.Tensor:
         inputs, targets = bert_mlm.mlm_mask(cols[0], generator, vocab_size)
         return update(inputs, targets)
+
+    return step
+
+
+def make_bert_spmd_micro_step(mesh, model: bert.Bert,
+                              optimizer: torch.optim.Optimizer,
+                              generator: torch.Generator,
+                              strategy: str = "ring") -> MicroStep:
+    """``step(cols, labels) -> global loss`` for BERT MLM on a ``("data",
+    "seq")`` mesh (the JAX package's sequence-parallel dry run).
+
+    ``cols[0]`` is this data rank's ``(B, S)`` token batch: each rank's
+    loader is ``DeviceShufflingDataset(rank=, num_trainers=)`` from
+    ``parallel.mesh.local_data_shard_info``, so the ``seq`` peers of a data
+    rank read the same batches. The whole batch is masked with
+    ``generator`` before the rank takes its sequence chunk, so the peers,
+    whose generators must be seeded alike, agree on the masked positions.
+    Attention is ``strategy`` (``"ring"`` or ``"ulysses"``) over ``seq``,
+    through the flash kernels on CUDA; one :class:`SpmdTrainer` step
+    follows (the parameters are broadcast from rank 0 here)."""
+    attention_fn = ring_attention.make_attention_fn(
+        mesh, pmesh.SEQ_AXIS, strategy, batch_axis=pmesh.DATA_AXIS)
+    seq_index = pmesh.axis_index(mesh, pmesh.SEQ_AXIS)
+
+    def loss_fn(model, inputs, targets):
+        return bert.loss_fn(model, inputs, targets, attention_fn=attention_fn,
+                            position_offset=seq_index * inputs.shape[1],
+                            mesh=mesh)
+
+    trainer = SpmdTrainer(mesh, loss_fn, model, optimizer)
+    vocab_size = model.config.vocab_size
+
+    def step(cols: Sequence[torch.Tensor],
+             labels: torch.Tensor) -> torch.Tensor:
+        inputs, targets = bert_mlm.mlm_mask(cols[0], generator, vocab_size)
+        return trainer.train_step(*(
+            pmesh.batch_sharding(mesh, t, data_axis=None,
+                                 seq_axis=pmesh.SEQ_AXIS)
+            for t in (inputs, targets)))
 
     return step
 

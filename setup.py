@@ -19,7 +19,7 @@ setup(
                  "ray_shuffling_data_loader_tpu_torch.*"]),
     package_data={
         "ray_shuffling_data_loader_tpu.native": ["src/*.cpp"],
-        "ray_shuffling_data_loader_tpu_torch.kernels": ["*.cu"],
+        "ray_shuffling_data_loader_tpu_torch.kernels": ["*.cu", "*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

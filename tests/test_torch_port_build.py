@@ -1,11 +1,20 @@
 """The kernel build cache of the PyTorch port (``kernels/build.py``).
 
 A library is named by a hash of everything it is built from, so that a
-changed source, header or flag never loads a stale library. Nothing here
-runs ``nvcc``.
+changed source, header or flag never loads a stale library; and every file
+a kernel is built from is packaged. Nothing here runs ``nvcc``.
 """
 
+import ast
+import fnmatch
+import glob
+import os
+
+import pytest
+
 from ray_shuffling_data_loader_tpu_torch.kernels import build
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _write(path, text):
@@ -59,3 +68,39 @@ def test_the_flash_library_hashes_its_hopper_header(tmp_path):
     with open(kernels["hopper.cuh"], "a") as f:
         f.write("// changed\n")
     assert build.library_path("rsdl_torch_flash", source) != before
+
+
+def _package_data(setup_py):
+    """``package_data`` of the ``setup()`` call in ``setup_py``, read with
+    ``ast`` (setup.py is not run)."""
+    with open(setup_py) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+                == "setup"):
+            for keyword in node.keywords:
+                if keyword.arg == "package_data":
+                    return ast.literal_eval(keyword.value)
+    raise AssertionError("setup.py has no setup(package_data=...)")
+
+
+def test_package_data_ships_every_local_include_of_the_kernels():
+    # An installed port builds its kernels from the package's own files:
+    # every source and every local header it includes must be packaged.
+    globs = _package_data(os.path.join(REPO_ROOT, "setup.py"))[
+        "ray_shuffling_data_loader_tpu_torch.kernels"]
+    sources = sorted(glob.glob(os.path.join(build.KERNEL_DIR, "*.cu")))
+    assert len(sources) == 2
+    shipped = set()
+    for source in sources:
+        for path in build.local_sources(source):
+            rel = os.path.relpath(path, build.KERNEL_DIR)
+            assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+            shipped.add(rel)
+    assert "hopper.cuh" in shipped
+
+
+def test_a_missing_local_header_raises(tmp_path):
+    source = _write(tmp_path / "kernel.cu", '#include "absent.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="absent.cuh"):
+        build.library_path("rsdl_test", source)

@@ -383,3 +383,29 @@ def test_cuda_grouped_gradient_matches_plain():
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gradient_at_clamped_ids_within_the_f32_bound():
+    # spill=1000: about 1,000 cotangent rows per table pile onto rows 0 and
+    # V-1, whose atomics add in no fixed order. Each row is held against
+    # the f64 sum of the same cotangents within the bound of any f32
+    # summation order ((m - 1) * u * sum |x|; exact where m = 1).
+    _cuda_or_skip()
+    tables, indices = _card_group(6, 2048, 128, spill=1000)
+    weight = torch.randn((len(tables), 2048, 128), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(7))
+    leaves = [t.clone().requires_grad_(True) for t in tables]
+    out = temb.kernel_lookup_grouped(leaves, indices, torch.bfloat16)
+    (out.float() * weight).sum().backward()
+    piled = 0
+    for leaf, idx, w in zip(leaves, indices, weight):
+        # The cotangent of the bf16 rows is the weight rounded to bf16.
+        want, bound = temb.table_grad_reference(leaf.shape[0], idx,
+                                                w.to(torch.bfloat16))
+        err = (leaf.grad.double() - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+        piled = max(piled, int(torch.bincount(
+            idx.long().clamp(0, leaf.shape[0] - 1)).max()))
+    assert piled >= 500
