@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's DLRM and BERT-MLM train paths, and the sequence- and
-data-parallel entry points at world size 1, end to end at full width and
-checks its hand-written kernels against their plain PyTorch versions.
-Phases, each printing one JSON line:
+Drives the port's DLRM, BERT-MLM and ResNet-50 train paths, the sequence-
+and data-parallel entry points at world size 1, and save, restore and
+resume mid-epoch, end to end at full width, and checks its hand-written
+kernels against their plain PyTorch versions. Phases, each printing one
+JSON line:
 
-1. ``env``: torch/CUDA versions and the card's name and power limit.
+1. ``env``: torch/CUDA versions, the card's name and power limit, PIL's
+   version, ``g++`` and the codec headers the native image decoder needs,
+   and the decoder the ``resnet`` phase uses (``"native"`` where it can be
+   built, else ``"pil"``).
 2. ``build``: builds ``kernels/gather.cu`` and ``kernels/flash_attention.cu``
    for sm_90a from the sources, one ``nvcc`` each, started together, and
    reports ``ptxas``'s registers and spills for every kernel instantiation.
@@ -73,6 +77,28 @@ Phases, each printing one JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
+8. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+   Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
+   decoding its rows with the ``env`` line's decoder) ->
+   ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
+   uint8 ``(B, 224, 224, 3)`` on the card -> ``resnet50()`` (bf16 compute,
+   f32 GroupNorm, random weights from seed 0) -> SGD (lr 1e-2), one
+   micro-step per 256 images. Checks rows per epoch, finite losses, uint8
+   on the device, the first staged batch against a host-side PIL decode of
+   the same reducer rows, and that no port kernel is launched (the
+   convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
+   reducers' decode rate, the peak device memory and a 5-step profile.
+9. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+   ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
+   loader batches uninterrupted, against 2 batches, a save
+   (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
+   generator and the mid-epoch ``LoaderCheckpoint``), a restore into a
+   model built from another seed, a fresh optimizer and a fresh dataset
+   (``start_epoch``), and the last 2 batches through
+   ``checkpoint.resume_iterator``. Losses within 1e-3 relative and
+   parameters within 1e-3 of their largest magnitude, whether they are
+   equal bit for bit, the save and restore times and bytes, and 12
+   launches of each flash kernel per BERT micro-step.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -85,10 +111,14 @@ import concurrent.futures as cf
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import timeit
+import types
 
 import numpy as np
 import torch
@@ -1175,6 +1205,358 @@ def ring_phase(fa, emb) -> dict:
             "walk": walk, "spmd_bert": bert_run, "spmd_dlrm": dlrm_run}
 
 
+# ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
+# reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
+# NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
+IMG_COUNT, IMG_FILES, IMG_SIZE, IMG_CLASSES = 4096, 8, 224, 1000
+IMG_BATCH, IMG_MICRO = 512, 256
+# Resume phase: loader batches run uninterrupted, and the crash point.
+RESUME_BATCHES, RESUME_CRASH = 4, 2
+RESUME_BERT_SEQS, RESUME_BERT_FILES = 1024, 4
+RESUME_RTOL = 1e-3
+
+
+class TimedTransform:
+    """Wraps a reduce transform and records each call's rows and span."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+        self._lock = threading.Lock()
+
+    def __call__(self, table):
+        t0 = timeit.default_timer()
+        out = self.fn(table)
+        t1 = timeit.default_timer()
+        with self._lock:
+            self.calls.append((t0, t1, table.num_rows))
+        return out
+
+    def summary(self) -> dict:
+        rows = sum(c[2] for c in self.calls)
+        busy = sum(c[1] - c[0] for c in self.calls)
+        span = (max(c[1] for c in self.calls)
+                - min(c[0] for c in self.calls))
+        return {"reducer_calls": len(self.calls), "images": rows,
+                "images_per_s_per_reducer": rows / busy,
+                "images_per_s_all_reducers": rows / span}
+
+
+def _port_launches(fa, emb) -> dict:
+    return {**fa.launch_counts, **emb.launch_counts}
+
+
+def resnet_phase(fa, emb, decoder: str, tmp: str):
+    """ResNet-50 on the decoded-image stream. Returns the phase's line and
+    its shards (written to ``tmp``, for the resume phase)."""
+    from ray_shuffling_data_loader_tpu_torch import (
+        dataset, device_dataset, train)
+    from ray_shuffling_data_loader_tpu_torch.models import resnet
+    from ray_shuffling_data_loader_tpu_torch.workloads import imagenet
+
+    start = timeit.default_timer()
+    files, nbytes = imagenet.generate_imagenet_parquet(
+        IMG_COUNT, IMG_FILES, tmp, height=IMG_SIZE, width=IMG_SIZE,
+        num_classes=IMG_CLASSES, seed=SEED)
+    gen_s = timeit.default_timer() - start
+    spec = imagenet.imagenet_spec(IMG_SIZE, IMG_SIZE, decoder=decoder)
+    decode = TimedTransform(spec.pop("reduce_transform"))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = resnet.resnet50(IMG_CLASSES)
+    model = resnet.ResNet(config, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(SEED))
+    optimizer = train.make_sgd(model)
+    micro_step = train.make_resnet_micro_step(model, optimizer)
+    ds = device_dataset.DeviceShufflingDataset(
+        files, NUM_EPOCHS, 1, IMG_BATCH, 0, num_reducers=NUM_REDUCERS,
+        seed=SEED, reduce_transform=decode, **spec)
+    rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
+    fa.reset_launch_counts()
+    emb.reset_launch_counts()
+    t_start = timeit.default_timer()
+    t_first = t_second = None
+    for epoch in range(NUM_EPOCHS):
+        ds.set_epoch(epoch)
+        rows = 0
+        for (images,), label in ds:
+            if t_first is not None and t_second is None:
+                t_second = timeit.default_timer()
+            if t_first is None:
+                t_first = timeit.default_timer()
+                if not images.is_cuda or images.dtype != torch.uint8:
+                    raise AssertionError(
+                        f"images staged as {images.dtype} on "
+                        f"{images.device}, not uint8 on the card")
+                first_batch = (images.cpu(), label.cpu())
+            t0 = timeit.default_timer()
+            losses.append(train.train_chunk(micro_step, [images], label,
+                                            IMG_MICRO))
+            torch.cuda.synchronize()
+            chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+            rows += label.shape[0]
+        rows_per_epoch.append(rows)
+    t_end = timeit.default_timer()
+    launches = _port_launches(fa, emb)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if rows_per_epoch != [IMG_COUNT] * NUM_EPOCHS:
+        raise AssertionError(
+            f"rows per epoch {rows_per_epoch}, expected {IMG_COUNT}")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("non-finite loss")
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet path launched {launches}; it "
+                             "runs none of the port's kernels")
+    if tuple(first_batch[0].shape) != (IMG_BATCH, IMG_SIZE, IMG_SIZE, 3):
+        raise AssertionError(f"image batch {tuple(first_batch[0].shape)}")
+
+    # The first staged batch equals a host-side PIL decode of the same
+    # reducer rows (the host shuffle carries the encoded bytes).
+    host = dataset.ShufflingDataset(
+        files, 1, 1, IMG_BATCH, 0, drop_last=True,
+        num_reducers=NUM_REDUCERS, seed=SEED,
+        map_transform=device_dataset.make_cast_transform(
+            spec["feature_columns"], spec["feature_types"],
+            spec["label_column"], spec["label_type"]))
+    host.set_epoch(0)
+    host_batches = iter(host)
+    table = next(host_batches)
+    for _ in host_batches:  # drain, so the shuffle ends while files exist
+        pass
+    table = imagenet.decode_transform(IMG_SIZE, IMG_SIZE,
+                                      decoder="pil")(table)
+    (host_images,), host_labels = device_dataset.convert_to_arrays(
+        table, spec["feature_columns"], spec["feature_shapes"],
+        [np.dtype(t) for t in spec["feature_types"]], spec["label_column"],
+        None, np.dtype(spec["label_type"]))
+    if (not np.array_equal(first_batch[0].numpy(), host_images)
+            or not np.array_equal(first_batch[1].numpy(), host_labels)):
+        raise AssertionError("staged image batch differs from the host "
+                             "decode's")
+
+    images = first_batch[0][:IMG_MICRO].cuda()
+    labels = first_batch[1][:IMG_MICRO].cuda()
+    breakdown = profile_steps(micro_step, [images], labels, [])
+    waits = ds.batch_wait_stats.wait_times
+    wall = t_end - t_first
+    steps = int(all_losses.numel())
+    return {
+        "decoder": decoder,
+        "images": {"count": IMG_COUNT, "files": IMG_FILES, "format": "png",
+                   "size": [IMG_SIZE, IMG_SIZE, 3], "classes": IMG_CLASSES,
+                   "shard_bytes": nbytes},
+        "rows_per_epoch": rows_per_epoch,
+        "micro_steps": steps,
+        "micro_batch": IMG_MICRO,
+        "images_per_s": sum(rows_per_epoch) / wall,
+        # Without the first loader batch's steps (cuDNN's first calls).
+        "images_per_s_after_first_batch": (sum(rows_per_epoch) - IMG_BATCH)
+        / (t_end - t_second),
+        "first_chunk_ms": chunk_ms[0],
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "batch_wait_s": ds.batch_wait_stats.summary(),
+        "fill_s": t_first - t_start,
+        "step_ms_median": float(np.median(chunk_ms)) / (IMG_BATCH
+                                                        // IMG_MICRO),
+        "chunk_ms_median": float(np.median(chunk_ms)),
+        "loss_first": float(all_losses[:4].mean()),
+        "loss_last": float(all_losses[-4:].mean()),
+        "decode": decode.summary(),
+        "port_kernel_launches": launches,
+        "staged_dtype": str(first_batch[0].dtype),
+        "datagen_s": gen_s,
+        "peak_mem_gb": peak_gb,
+        "profile": breakdown,
+    }, files
+
+
+def _run_resumable(ds, loader, step, micro: int, batches: int):
+    """Up to ``batches`` loader batches through ``resume_iterator``, one
+    micro-step per ``micro`` rows; returns the micro-step losses."""
+    from ray_shuffling_data_loader_tpu_torch import checkpoint, train
+    losses = []
+    it = checkpoint.resume_iterator(ds, loader)
+    for n, (features, label) in enumerate(it, 1):
+        losses.append(train.train_chunk(step, features, label, micro))
+        if n == batches:
+            break
+    it.close()
+    return torch.cat(losses)
+
+
+def _resume_check(build, make_ds, micro: int, tmp: str, batch: int
+                  ) -> dict:
+    """``build(seed) -> (trainer, step, generators)``. Runs
+    ``RESUME_BATCHES`` loader batches uninterrupted; then
+    ``RESUME_CRASH`` batches, a save, a restore into a trainer built from
+    another seed and a fresh dataset, and the rest. Compares the losses
+    and the parameters."""
+    from ray_shuffling_data_loader_tpu_torch import checkpoint
+
+    def fresh_loader():
+        return checkpoint.LoaderCheckpoint(
+            seed=SEED, epoch=0, batches_consumed=0, num_epochs=1,
+            num_trainers=1, rank=0, batch_size=batch)
+
+    trainer, step, _ = build(SEED)
+    want = _run_resumable(make_ds(0), fresh_loader(), step, micro,
+                          RESUME_BATCHES)
+    want_state = {k: v.clone() for k, v in
+                  trainer.model.state_dict().items()}
+    del trainer, step
+    trainer, step, generators = build(SEED)
+    loader = fresh_loader()
+    got = [_run_resumable(make_ds(0), loader, step, micro, RESUME_CRASH)]
+    if (loader.epoch, loader.batches_consumed) != (0, RESUME_CRASH):
+        raise AssertionError(f"loader checkpoint at {loader}")
+    saver = checkpoint.TrainStateCheckpointer(f"{tmp}/ckpt")
+    torch.cuda.synchronize()
+    t0 = timeit.default_timer()
+    saver.save(RESUME_CRASH, trainer, loader_checkpoint=loader,
+               generators=generators)
+    save_s = timeit.default_timer() - t0
+    step_dir = f"{tmp}/ckpt/{RESUME_CRASH}"
+    save_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+    del trainer, step, generators
+    trainer, step, generators = build(SEED + 99)  # a "fresh process"
+    t0 = timeit.default_timer()
+    restored = saver.restore(trainer, generators=generators)
+    torch.cuda.synchronize()
+    restore_s = timeit.default_timer() - t0
+    if restored != loader:
+        raise AssertionError(f"restored {restored}, saved {loader}")
+    got.append(_run_resumable(make_ds(restored.epoch), restored, step,
+                              micro, RESUME_BATCHES - RESUME_CRASH))
+    got = torch.cat(got)
+    state = trainer.model.state_dict()
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.numel()} micro-steps resumed, "
+                             f"{want.numel()} uninterrupted")
+    loss_rel = float(((got - want).abs() / want.abs()).max())
+    param_diff = max(float((state[k].float() - v.float()).abs().max())
+                     for k, v in want_state.items())
+    param_scale = max(float(v.float().abs().max())
+                      for v in want_state.values())
+    bit_equal = bool(torch.equal(got, want)) and all(
+        torch.equal(state[k], v) for k, v in want_state.items())
+    if not (torch.isfinite(got).all() and loss_rel <= RESUME_RTOL
+            and param_diff <= RESUME_RTOL * param_scale):
+        raise AssertionError(
+            f"resumed run differs: losses {got.tolist()} vs "
+            f"{want.tolist()}, parameters by {param_diff}")
+    return {"micro_steps": int(want.numel()),
+            "crash_after_batches": RESUME_CRASH,
+            "tolerance": {"loss_rtol": RESUME_RTOL,
+                          "param_atol_share_of_max": RESUME_RTOL},
+            "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_diff,
+            "param_max_abs": param_scale, "bit_equal": bit_equal,
+            "losses": want.tolist(),
+            "save_s": save_s, "save_bytes": save_bytes,
+            "restore_s": restore_s}
+
+
+def resume_phase(fa, emb, decoder: str, image_files) -> dict:
+    """Save, restore and continue against an uninterrupted run, on the
+    ResNet-50 path and on the BERT path with the flash kernels."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import bert, resnet
+    from ray_shuffling_data_loader_tpu_torch.workloads import (
+        bert_mlm, imagenet)
+
+    def trainer_of(model, optimizer):
+        return types.SimpleNamespace(model=model, optimizer=optimizer)
+
+    def build_resnet(seed):
+        model = resnet.ResNet(resnet.resnet50(IMG_CLASSES), device="cuda",
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(seed))
+        optimizer = train.make_sgd(model)
+        return (trainer_of(model, optimizer),
+                train.make_resnet_micro_step(model, optimizer), [])
+
+    def image_ds(start_epoch):
+        return device_dataset.DeviceShufflingDataset(
+            image_files, 1, 1, IMG_BATCH, 0, num_reducers=NUM_REDUCERS,
+            seed=SEED, start_epoch=start_epoch,
+            **imagenet.imagenet_spec(IMG_SIZE, IMG_SIZE, decoder=decoder))
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-resume-") as tmp:
+        fa.reset_launch_counts()
+        emb.reset_launch_counts()
+        resnet_run = _resume_check(build_resnet, image_ds, IMG_MICRO, tmp,
+                                   IMG_BATCH)
+        resnet_run["port_kernel_launches"] = _port_launches(fa, emb)
+        if any(resnet_run["port_kernel_launches"].values()):
+            raise AssertionError("the ResNet path launched a port kernel")
+
+    attention_fn = fa.make_flash_attention_fn()
+
+    def build_bert(seed):
+        model = bert.Bert(bert.bert_base(), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(seed))
+        optimizer = train.make_optimizer(model, lr=train.BERT_LR)
+        mask_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        step = train.make_bert_micro_step(model, optimizer, mask_gen,
+                                          attention_fn)
+        return trainer_of(model, optimizer), step, [mask_gen]
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-resume-") as tmp:
+        files, _ = bert_mlm.generate_tokenized_parquet(
+            RESUME_BERT_SEQS, RESUME_BERT_FILES, tmp, seq_len=BERT_SEQ_LEN,
+            vocab_size=BERT_VOCAB, seed=SEED)
+
+        def token_ds(start_epoch):
+            return device_dataset.DeviceShufflingDataset(
+                files, 1, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
+                seed=SEED, start_epoch=start_epoch,
+                **bert_mlm.bert_mlm_spec(BERT_SEQ_LEN))
+
+        fa.reset_launch_counts()
+        emb.reset_launch_counts()
+        bert_run = _resume_check(build_bert, token_ds, BERT_MICRO, tmp,
+                                 BERT_BATCH)
+        launches = dict(fa.launch_counts)
+    # Micro-steps run: the uninterrupted run's, then the resumed run's.
+    steps = 2 * bert_run["micro_steps"]
+    for kernel in FLASH_KERNELS:
+        if launches[kernel] != bert.bert_base().num_layers * steps:
+            raise AssertionError(
+                f"{kernel} launched {launches[kernel]} times in {steps} "
+                "micro-steps of the resume runs")
+    if emb.launch_counts["gather_rows"]:
+        raise AssertionError("the BERT path launched the gather")
+    bert_run["flash_launches"] = launches
+    bert_run["launches_per_micro_step"] = {k: n / steps
+                                           for k, n in launches.items()}
+    return {"decoder": decoder, "resnet50": resnet_run,
+            "bert_base": bert_run}
+
+
+def image_decoder_env() -> dict:
+    """PIL's version, ``g++`` and the codec headers, and the decoder the
+    ``resnet`` phase uses: the native one where it can be built, PIL
+    where it cannot (named, never chosen quietly)."""
+    import PIL
+
+    from ray_shuffling_data_loader_tpu_torch.native import image
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=False,
+                         timeout=60).stdout.splitlines()[:1] if (
+        shutil.which("g++")) else []
+    missing = image.missing_prerequisites()
+    return {"pil": PIL.__version__, "gxx": gxx[0] if gxx else None,
+            "native_decoder_missing": missing,
+            "resnet_decoder": "pil" if missing else "native"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1188,10 +1570,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     peak = hbm_peak(name)
+    decoder_env = image_decoder_env()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": name, "nvidia_smi": smi, "hbm_peak_bytes_s": peak,
-          "tf32": False})
+          "tf32": False, **decoder_env})
+    decoder = decoder_env["resnet_decoder"]
 
     start = timeit.default_timer()
     with cf.ThreadPoolExecutor(max_workers=2) as pool:
@@ -1219,6 +1603,12 @@ def main() -> int:
     ring_run = ring_phase(fa, emb)
     emit({"phase": "ring", "card": smi, **ring_run})
 
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
+        resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
+        emit({"phase": "resnet", "card": smi, **resnet_run})
+        resume_run = resume_phase(fa, emb, decoder, image_files)
+        emit({"phase": "resume", "card": smi, **resume_run})
+
     main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
         "name": "gather_rows", "route": "cuda",
@@ -1227,7 +1617,8 @@ def main() -> int:
         "launches": trained["gather_launches"],
         "launches_by_path": {
             "train": trained["gather_launches"],
-            "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"]},
+            "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
+            "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": "bytes",
@@ -1243,7 +1634,9 @@ def main() -> int:
             "launches": bert_run["flash_launches"][kernel],
             "launches_by_path": {
                 "bert": bert_run["flash_launches"][kernel],
-                "ring": ring_run["spmd_bert"]["flash_launches"][kernel]},
+                "ring": ring_run["spmd_bert"]["flash_launches"][kernel],
+                "resnet": resnet_run["port_kernel_launches"][kernel],
+                "resume": resume_run["bert_base"]["flash_launches"][kernel]},
             "max_abs_err": att["max_abs_err"][kernel],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,0 +1,237 @@
+"""Loader-state and train-state checkpoints, for a mid-epoch resume on the
+same batch stream (counterpart of the JAX package's ``checkpoint.py``).
+
+The shuffle is keyed by ``(seed, epoch, task)``, so every epoch's batch
+stream is a pure function of ``(seed, epoch)``: resuming re-runs the
+shuffle from the checkpoint's epoch (``start_epoch``) and skips the
+batches already consumed (``set_epoch(epoch, skip_batches=)``).
+
+- :class:`LoaderCheckpoint` is that position, as JSON in the JAX
+  package's format (``FORMAT_VERSION``): a file written by either package
+  loads in the other. Saves are atomic (temporary file, fsync, rename,
+  directory fsync).
+- :func:`resume_iterator` iterates a dataset from a checkpoint and keeps
+  it current, at least once.
+- :class:`TrainStateCheckpointer` saves the other half, the model's and
+  the optimizer's ``state_dict`` and the state of the generators the next
+  step reads (BERT's mask generator), with the loader checkpoint beside
+  them, one directory per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import tempfile
+from typing import Iterator, List, Optional, Sequence
+
+import torch
+
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+FORMAT_VERSION = 1
+
+
+def _fsync_dir(directory: str) -> None:
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+@dataclasses.dataclass
+class LoaderCheckpoint:
+    """Everything needed to resume the input pipeline deterministically."""
+
+    seed: int
+    epoch: int
+    batches_consumed: int  # within the current epoch
+    num_epochs: int
+    num_trainers: int
+    rank: int
+    batch_size: int
+    version: int = FORMAT_VERSION
+
+    def save(self, path: str) -> None:
+        """Atomic durable write: tmp file + fsync + rename + dir fsync."""
+        payload = json.dumps(dataclasses.asdict(self), indent=2)
+        directory = os.path.dirname(os.path.abspath(path))
+        os.makedirs(directory, exist_ok=True)
+        fd, tmp_path = tempfile.mkstemp(dir=directory, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp_path, path)
+            _fsync_dir(directory)
+        except BaseException:
+            if os.path.exists(tmp_path):
+                os.remove(tmp_path)
+            raise
+
+    @classmethod
+    def load(cls, path: str) -> "LoaderCheckpoint":
+        with open(path) as f:
+            data = json.load(f)
+        version = data.get("version", 0)
+        if version != FORMAT_VERSION:
+            raise ValueError(
+                f"checkpoint format version {version} != {FORMAT_VERSION}")
+        return cls(**data)
+
+
+def resume_iterator(dataset, checkpoint: LoaderCheckpoint,
+                    checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 0) -> Iterator:
+    """Iterate ``dataset`` from ``checkpoint``, optionally persisting it.
+
+    The caller builds ``dataset`` with the checkpoint's seed, batch size
+    and epoch count (validated here) and ``start_epoch=checkpoint.epoch``.
+    The current epoch is re-shuffled and its first ``batches_consumed``
+    batches are dropped by ``set_epoch(epoch, skip_batches=)``; the rest
+    and every later epoch are yielded.
+
+    With ``checkpoint_path``, the checkpoint is saved after every
+    ``checkpoint_every`` batches (0: only at epoch ends), at least once: a
+    batch counts as consumed only when the caller asks for the next one,
+    so a crash while batch N is processed replays it. After the last epoch
+    the checkpoint reads ``(epoch=num_epochs, batches_consumed=0)``, and
+    resuming a finished run yields nothing.
+    """
+    for field in ("batch_size", "seed", "num_epochs"):
+        have = getattr(dataset, field, None)
+        want = getattr(checkpoint, field)
+        if have is not None and have != want:
+            raise ValueError(
+                f"dataset {field} {have} != checkpoint {field} {want}")
+
+    def maybe_save():
+        if checkpoint_path is not None:
+            checkpoint.save(checkpoint_path)
+
+    for epoch in range(checkpoint.epoch, checkpoint.num_epochs):
+        skip = checkpoint.batches_consumed if epoch == checkpoint.epoch else 0
+        checkpoint.epoch = epoch
+        dataset.set_epoch(epoch, skip_batches=skip)
+        index = skip
+        for batch in dataset:
+            index += 1
+            checkpoint.batches_consumed = index
+            yield batch
+            if checkpoint_every and index % checkpoint_every == 0:
+                maybe_save()
+        checkpoint.batches_consumed = 0
+        checkpoint.epoch = epoch + 1
+        maybe_save()
+
+
+_STATE_FILE = "state.pt"
+_LOADER_FILE = "loader.json"
+
+
+class TrainStateCheckpointer:
+    """Model, optimizer and generator state with the loader position, one
+    directory per step under ``directory``.
+
+    A ``trainer`` is a ``parallel.trainer.SpmdTrainer`` or any object with
+    ``.model`` and ``.optimizer``. Each step's directory is written under
+    a temporary name and renamed into place; the oldest steps past
+    ``max_to_keep`` are removed. :meth:`restore` reads the tensors back
+    (``torch.load(weights_only=True)``) onto the model's device.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def steps(self) -> List[int]:
+        """The saved steps, oldest first."""
+        return sorted(int(name) for name in os.listdir(self.directory)
+                      if name.isdigit()
+                      and os.path.isdir(os.path.join(self.directory, name)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, trainer,
+             loader_checkpoint: Optional[LoaderCheckpoint] = None,
+             generators: Sequence[torch.Generator] = ()) -> None:
+        """Save ``trainer``'s model and optimizer, the state of each of
+        ``generators`` and, if given, ``loader_checkpoint`` as step
+        ``step``; raises if that step exists."""
+        final = self._step_dir(step)
+        if os.path.exists(final):
+            raise ValueError(f"step {step} already exists in "
+                             f"{self.directory}")
+        tmp = tempfile.mkdtemp(dir=self.directory, prefix=f".{step}-",
+                               suffix=".tmp")
+        try:
+            state = {"model": trainer.model.state_dict(),
+                     "optimizer": trainer.optimizer.state_dict(),
+                     "generators": [g.get_state() for g in generators]}
+            path = os.path.join(tmp, _STATE_FILE)
+            with open(path, "wb") as f:
+                torch.save(state, f)
+                f.flush()
+                os.fsync(f.fileno())
+            if loader_checkpoint is not None:
+                loader_checkpoint.save(os.path.join(tmp, _LOADER_FILE))
+            _fsync_dir(tmp)
+            os.replace(tmp, final)
+            _fsync_dir(self.directory)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(self._step_dir(old))
+
+    def restore(self, trainer, step: Optional[int] = None,
+                generators: Sequence[torch.Generator] = ()
+                ) -> Optional[LoaderCheckpoint]:
+        """Load step ``step`` (default: the latest) into ``trainer`` and
+        ``generators`` in place; returns its :class:`LoaderCheckpoint`, or
+        None where it was saved without one."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise ValueError("no checkpoint found to restore")
+        directory = self._step_dir(step)
+        device = next(trainer.model.parameters()).device
+        with open(os.path.join(directory, _STATE_FILE), "rb") as f:
+            state = torch.load(f, map_location=device, weights_only=True)
+        saved = state["generators"]
+        if len(saved) != len(generators):
+            raise ValueError(f"step {step} holds {len(saved)} generator "
+                             f"states; {len(generators)} generators given")
+        trainer.model.load_state_dict(state["model"])
+        trainer.optimizer.load_state_dict(state["optimizer"])
+        for generator, generator_state in zip(generators, saved):
+            generator.set_state(generator_state.cpu())
+        loader = os.path.join(directory, _LOADER_FILE)
+        if not os.path.exists(loader):
+            return None
+        return LoaderCheckpoint.load(loader)
+
+    def close(self) -> None:
+        """Nothing is held open between calls; kept for the JAX package's
+        surface."""
+
+    def __enter__(self) -> "TrainStateCheckpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -66,11 +66,16 @@ def _one_rank_consumer(queue: mq.MultiQueue, num_trainers: int,
 def create_batch_queue_and_shuffle(
         filenames: Sequence[str], num_epochs: int, num_trainers: int,
         max_concurrent_epochs: int = 2, num_reducers: Optional[int] = None,
-        seed: int = 0, map_transform=None, only_rank: Optional[int] = None):
+        seed: int = 0, map_transform=None, only_rank: Optional[int] = None,
+        reduce_transform=None, start_epoch: int = 0):
     """Create the queues and start the shuffle before any trainer exists,
     so every rank can be a pure consumer. With ``only_rank``, only that
     rank's queues are filled (the other ranks read theirs in other
-    processes). Returns ``(queue, shuffle_future)``."""
+    processes). The shuffle starts at ``start_epoch`` (a resumed run).
+    Returns ``(queue, shuffle_future)``."""
+    if not 0 <= start_epoch <= num_epochs:
+        raise ValueError(
+            f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
     queue = mq.MultiQueue(num_epochs * num_trainers)
     if num_reducers is None:
         num_reducers = default_num_reducers(num_trainers)
@@ -81,7 +86,8 @@ def create_batch_queue_and_shuffle(
     result = sh.run_shuffle_in_background(
         filenames, consumer, num_epochs, num_reducers, num_trainers,
         max_concurrent_epochs, seed=seed, map_transform=map_transform,
-        on_failure=make_failure_broadcaster(queue))
+        on_failure=make_failure_broadcaster(queue),
+        reduce_transform=reduce_transform, start_epoch=start_epoch)
     return queue, result
 
 
@@ -91,7 +97,8 @@ class ShufflingDataset:
     Without ``batch_queue``/``shuffle_result`` from
     :func:`create_batch_queue_and_shuffle`, the dataset launches a shuffle
     of its own for its rank. Call :meth:`set_epoch` before each epoch's
-    iteration.
+    iteration. A resumed run passes ``start_epoch``: the epochs before it
+    are never shuffled.
     """
 
     def __init__(self, filenames: Sequence[str], num_epochs: int,
@@ -101,18 +108,25 @@ class ShufflingDataset:
                  max_concurrent_epochs: int = 2,
                  batch_queue: Optional[mq.MultiQueue] = None,
                  shuffle_result: Optional[cf.Future] = None,
-                 seed: int = 0, map_transform=None):
+                 seed: int = 0, map_transform=None, reduce_transform=None,
+                 start_epoch: int = 0):
+        if not 0 <= start_epoch <= num_epochs:
+            raise ValueError(
+                f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
         self._owns_queue = False
         if batch_queue is None:
             batch_queue, shuffle_result = create_batch_queue_and_shuffle(
                 filenames, num_epochs, num_trainers, max_concurrent_epochs,
                 num_reducers, seed=seed, map_transform=map_transform,
-                only_rank=rank)
+                only_rank=rank, reduce_transform=reduce_transform,
+                start_epoch=start_epoch)
             self._owns_queue = True
         self._batch_queue = batch_queue
         self._shuffle_result = shuffle_result
         self._batch_size = batch_size
         self._num_epochs = num_epochs
+        self._start_epoch = start_epoch
+        self._seed = seed
         self._num_trainers = num_trainers
         self._rank = rank
         self._drop_last = drop_last
@@ -124,12 +138,28 @@ class ShufflingDataset:
     def batch_size(self) -> int:
         return self._batch_size
 
+    @property
+    def seed(self) -> int:
+        return self._seed
+
+    @property
+    def num_epochs(self) -> int:
+        return self._num_epochs
+
+    @property
+    def start_epoch(self) -> int:
+        return self._start_epoch
+
     def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
         """Declare the epoch about to be iterated; ``skip_batches`` drops
         its first N batches (checkpoint resume) as zero-copy slices."""
         if not 0 <= epoch < self._num_epochs:
             raise ValueError(
                 f"epoch {epoch} out of range [0, {self._num_epochs})")
+        if epoch < self._start_epoch:
+            raise ValueError(
+                f"epoch {epoch} precedes start_epoch {self._start_epoch}; "
+                "it is never shuffled, so iterating it would block forever")
         if skip_batches < 0:
             raise ValueError(f"skip_batches must be >= 0, got {skip_batches}")
         self._skip_batches = skip_batches

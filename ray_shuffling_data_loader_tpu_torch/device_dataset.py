@@ -6,12 +6,15 @@ is normalised with the same rules; spec'd columns are cast to their final
 (narrow) dtypes at the map stage, before the shuffle; each exact-size
 batch becomes ``(list of feature tensors, label)``, each ``(B, *shape)``
 (default ``(B, 1)``; a fixed-size list column of width W gives
-``(B, W)``).
+``(B, W)``, or ``(B, H, W, C)`` for a feature shape ``(H, W, C)``, as
+decoded images are).
 
 On CUDA a prefetch thread converts each batch to numpy, copies it into a
 ring of pinned host buffers and issues ``to(device, non_blocking=True)``
 on a dedicated copy stream, where int8/int16 columns are also widened to
-int32 (on the device: the narrow bytes are what cross the bus). The
+int32 (on the device: the narrow bytes are what cross the bus). uint8
+columns (image pixels) stay uint8 on the device, as the JAX package keeps
+them: a quarter of f32's bytes, and the model casts them. The
 consumer's stream waits on the batch's CUDA event, so the copy of batch
 N+1 overlaps the training on batch N. On the CPU the same stream comes out
 as CPU tensors. ``batch_wait_stats`` records how long the consumer was
@@ -140,14 +143,15 @@ def convert_to_arrays(table: pa.Table, feature_columns: List[Any],
     return features, label
 
 
-_NARROW_INTS = (torch.int8, torch.int16, torch.uint8)
+_NARROW_INTS = (torch.int8, torch.int16)
 
 #: Batches staged ahead of the consumer (double buffering).
 PREFETCH = 2
 
 
 def _widen(t: torch.Tensor) -> torch.Tensor:
-    """int8/int16/uint8 -> int32; anything else unchanged."""
+    """int8/int16 -> int32 (the DLRM indices); anything else, uint8
+    pixels included, unchanged."""
     return t.to(torch.int32) if t.dtype in _NARROW_INTS else t
 
 
@@ -202,7 +206,9 @@ class DeviceShufflingDataset:
     True (fixed shapes). Spec'd columns are cast at the map stage when
     this dataset launches the shuffle; with an external ``batch_queue``
     the caller passes :func:`make_cast_transform` as the
-    ``map_transform`` of :func:`dataset.create_batch_queue_and_shuffle`.
+    ``map_transform`` of :func:`dataset.create_batch_queue_and_shuffle`
+    (and its own ``reduce_transform``, e.g. the image decode).
+    ``start_epoch`` starts the shuffle at that epoch (a resumed run).
     ``PREFETCH`` batches are kept ready ahead of the consumer.
     """
 
@@ -218,7 +224,8 @@ class DeviceShufflingDataset:
                  num_reducers: Optional[int] = None,
                  max_concurrent_epochs: int = 2,
                  batch_queue=None, shuffle_result=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, reduce_transform=None,
+                 start_epoch: int = 0):
         self.device = resolve_device(device)
         (self._feature_columns, self._feature_shapes, self._feature_types,
          self._label_column, self._label_shape, self._label_type) = (
@@ -235,7 +242,8 @@ class DeviceShufflingDataset:
             drop_last=drop_last, num_reducers=num_reducers,
             max_concurrent_epochs=max_concurrent_epochs,
             batch_queue=batch_queue, shuffle_result=shuffle_result,
-            seed=seed, map_transform=map_transform)
+            seed=seed, map_transform=map_transform,
+            reduce_transform=reduce_transform, start_epoch=start_epoch)
         self._stager = (_CudaStager(self.device, PREFETCH + 1)
                         if self.device.type == "cuda" else None)
         self.batch_wait_stats = BatchWaitStats()
@@ -243,6 +251,14 @@ class DeviceShufflingDataset:
     @property
     def batch_size(self) -> int:
         return self._dataset.batch_size
+
+    @property
+    def seed(self) -> int:
+        return self._dataset.seed
+
+    @property
+    def num_epochs(self) -> int:
+        return self._dataset.num_epochs
 
     def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
         self._dataset.set_epoch(epoch, skip_batches=skip_batches)

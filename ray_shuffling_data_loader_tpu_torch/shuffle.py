@@ -4,7 +4,11 @@ Per epoch, one map task per Parquet file reads it, applies the optional
 map-time transform (the narrow-dtype cast) and plans which reducer each row
 goes to (:func:`partition.plan_partition_flat`). One reduce task per
 reducer concatenates its rows from every file, in file order, and permutes
-them with its ``(seed, epoch, reducer)`` stream. Each trainer rank receives
+them with its ``(seed, epoch, reducer)`` stream, then applies the optional
+reduce-time transform (the image decode). Primitive and fixed-size list
+columns move as numpy rows; a table with a null-free binary column (encoded
+images) is concatenated and permuted with Arrow's ``take`` instead, as the
+JAX package's fallback reduce does. Each trainer rank receives
 a contiguous span of reducer outputs, in reducer order, then a ``None``
 end-of-epoch sentinel. The output equals the JAX package's shuffle bit for
 bit for the same files, seed and reducer count.
@@ -42,6 +46,11 @@ BatchConsumer = Callable[[int, int, Optional[Sequence[cf.Future]]], None]
 #: Parquet read.
 MapTransform = Callable[[pa.Table], pa.Table]
 
+#: Row-order-preserving ``pa.Table -> pa.Table`` hook run on every reducer
+#: output that has columns, 0-row outputs included, so that every reducer
+#: hands on the same schema (e.g. encoded images -> fixed-size pixel lists).
+ReduceTransform = Callable[[pa.Table], pa.Table]
+
 
 def _is_primitive(t: pa.DataType) -> bool:
     return (pa.types.is_integer(t) or pa.types.is_floating(t)
@@ -52,7 +61,8 @@ def column_to_rows(col: pa.ChunkedArray, name: str) -> np.ndarray:
     """One ndarray row per table row: a null-free primitive column becomes
     ``(N,)``, a null-free ``FixedSizeList<primitive>[W]`` column (token
     sequences) ``(N, W)``, its child values flattened and reshaped.
-    Anything else raises ``ValueError``."""
+    Anything else raises ``ValueError`` (a null-free binary column is not
+    taken here: its table is reduced with Arrow's ``take``)."""
     t = col.type
     if col.null_count == 0 and _is_primitive(t):
         return col.combine_chunks().to_numpy(zero_copy_only=False)
@@ -65,6 +75,24 @@ def column_to_rows(col: pa.ChunkedArray, name: str) -> np.ndarray:
     raise ValueError(
         f"column {name!r} ({t}) is neither a null-free primitive column nor "
         "a null-free fixed-size list of one")
+
+
+def _is_binary_column(col: pa.ChunkedArray) -> bool:
+    """A null-free ``binary`` or ``large_binary`` column: reduced with
+    Arrow's ``take`` rather than as numpy rows."""
+    return col.null_count == 0 and (pa.types.is_binary(col.type)
+                                    or pa.types.is_large_binary(col.type))
+
+
+def _promote_large_offsets(table: pa.Table) -> pa.Table:
+    """Cast ``binary`` columns (the only variable-width type a reducer
+    takes) to ``large_binary``, so one reducer output may hold more than
+    2 GiB of them."""
+    schema = pa.schema([f.with_type(pa.large_binary())
+                        if pa.types.is_binary(f.type) else f
+                        for f in table.schema],
+                       metadata=table.schema.metadata)
+    return table.cast(schema)
 
 
 def _numpy_columns(table: pa.Table) -> Dict[str, np.ndarray]:
@@ -84,14 +112,18 @@ def _rows_to_arrow(rows: np.ndarray, arrow_type: pa.DataType) -> pa.Array:
 
 class MapOutput:
     """One file's rows plus its partition plan: reducer ``r``'s rows are
-    ``flat[offsets[r]:offsets[r+1]]``, in original row order."""
+    ``flat[offsets[r]:offsets[r+1]]``, in original row order. The rows are
+    numpy ``columns``, or, where the file has a binary column, the Arrow
+    ``table`` itself (``columns`` is then None)."""
 
-    __slots__ = ("columns", "names", "schema", "flat", "offsets")
+    __slots__ = ("columns", "table", "names", "schema", "flat", "offsets")
 
-    def __init__(self, columns: Dict[str, np.ndarray], schema: pa.Schema,
-                 flat: np.ndarray, offsets: np.ndarray):
+    def __init__(self, columns: Optional[Dict[str, np.ndarray]],
+                 schema: pa.Schema, flat: np.ndarray, offsets: np.ndarray,
+                 table: Optional[pa.Table] = None):
         self.columns = columns
-        self.names = list(columns)
+        self.table = table
+        self.names = list(schema.names)
         self.schema = schema
         self.flat = flat
         self.offsets = offsets
@@ -109,40 +141,70 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
         table = map_transform(table)
     flat, offsets = partition.plan_partition_flat(
         table.num_rows, num_reducers, seed, epoch, file_index)
+    columns = [table.column(name) for name in table.column_names]
+    if any(_is_binary_column(col) for col in columns):
+        for name, col in zip(table.column_names, columns):
+            if not _is_binary_column(col):
+                column_to_rows(col, name)  # raises on an unsupported type
+        return MapOutput(None, table.schema, flat, offsets, table=table)
     return MapOutput(_numpy_columns(table), table.schema, flat, offsets)
 
 
+def _take_reduce(reduce_index: int, perm: np.ndarray,
+                 map_outputs: Sequence[MapOutput]) -> pa.Table:
+    """``concat[perm]`` with Arrow's ``take``; promotes to 64-bit offsets
+    where the output passes 2 GiB of variable-width data."""
+    table = pa.concat_tables([m.table.take(m.indices(reduce_index))
+                              for m in map_outputs])
+    try:
+        return table.take(perm)
+    except pa.ArrowInvalid:
+        return _promote_large_offsets(table).take(perm)
+
+
 def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
-                   map_outputs: Sequence[MapOutput]) -> pa.Table:
+                   map_outputs: Sequence[MapOutput],
+                   reduce_transform: Optional[ReduceTransform] = None
+                   ) -> pa.Table:
     """Concatenate this reducer's rows from every file in file order, then
     permute them: ``out = concat[perm]`` (whole rows of a fixed-size list
-    column move together)."""
+    column move together); then ``reduce_transform``, if any."""
     names = map_outputs[0].names
     schema = map_outputs[0].schema
     for m in map_outputs[1:]:
         if m.names != names or not m.schema.equals(schema):
             raise ValueError("map outputs disagree on their schema")
-    parts = [(m.columns, m.indices(reduce_index)) for m in map_outputs]
-    total = sum(len(idx) for _, idx in parts)
+    total = sum(len(m.indices(reduce_index)) for m in map_outputs)
     perm = partition.permutation(
         total, partition.reduce_rng(seed, epoch, reduce_index))
-    out = {}
-    for name in names:
-        concat = np.concatenate([cols[name][idx] for cols, idx in parts])
-        out[name] = _rows_to_arrow(concat[perm], schema.field(name).type)
-    return pa.table(out)
+    if map_outputs[0].columns is None:
+        out = _take_reduce(reduce_index, perm, map_outputs)
+    else:
+        parts = [(m.columns, m.indices(reduce_index)) for m in map_outputs]
+        columns = {}
+        for name in names:
+            concat = np.concatenate([cols[name][idx] for cols, idx in parts])
+            columns[name] = _rows_to_arrow(concat[perm],
+                                           schema.field(name).type)
+        out = pa.table(columns)
+    if reduce_transform is not None and out.num_columns:
+        out = reduce_transform(out)
+    return out
 
 
 def _reduce_task(reduce_index: int, seed: int, epoch: int,
-                 map_futures: Sequence[cf.Future]) -> pa.Table:
+                 map_futures: Sequence[cf.Future],
+                 reduce_transform: Optional[ReduceTransform]) -> pa.Table:
     return shuffle_reduce(reduce_index, seed, epoch,
-                          [f.result() for f in map_futures])
+                          [f.result() for f in map_futures],
+                          reduce_transform)
 
 
 def shuffle_epoch(epoch: int, filenames: Sequence[str],
                   batch_consumer: BatchConsumer, num_reducers: int,
                   num_trainers: int, pool: cf.Executor, seed: int,
-                  map_transform: Optional[MapTransform] = None
+                  map_transform: Optional[MapTransform] = None,
+                  reduce_transform: Optional[ReduceTransform] = None
                   ) -> List[cf.Future]:
     """Launch one epoch's maps and reduces and route the reducer futures:
     rank ``k`` gets the ``k``-th contiguous span of reducers, in order,
@@ -152,7 +214,8 @@ def shuffle_epoch(epoch: int, filenames: Sequence[str],
                     map_transform)
         for i, f in enumerate(filenames)]
     reduce_futures = [
-        pool.submit(_reduce_task, r, seed, epoch, map_futures)
+        pool.submit(_reduce_task, r, seed, epoch, map_futures,
+                    reduce_transform)
         for r in range(num_reducers)]
     spans = partition.contiguous_splits(range(num_reducers), num_trainers)
     for rank, reducers in enumerate(spans):
@@ -164,21 +227,27 @@ def shuffle_epoch(epoch: int, filenames: Sequence[str],
 def shuffle(filenames: Sequence[str], batch_consumer: BatchConsumer,
             num_epochs: int, num_reducers: int, num_trainers: int,
             max_concurrent_epochs: int = 2, seed: int = 0,
-            map_transform: Optional[MapTransform] = None) -> float:
-    """Shuffle ``num_epochs`` epochs with at most ``max_concurrent_epochs``
-    in flight, on one thread per host core; returns the wall-clock
-    seconds. A failed map or reduce raises here."""
+            map_transform: Optional[MapTransform] = None,
+            reduce_transform: Optional[ReduceTransform] = None,
+            start_epoch: int = 0) -> float:
+    """Shuffle epochs ``start_epoch .. num_epochs - 1`` (a resumed run
+    skips the epochs before its checkpoint) with at most
+    ``max_concurrent_epochs`` in flight, on one thread per host core;
+    returns the wall-clock seconds. A failed map or reduce raises here."""
+    if not 0 <= start_epoch <= num_epochs:
+        raise ValueError(
+            f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
     start = timeit.default_timer()
     in_progress: Dict[int, List[cf.Future]] = {}
     with cf.ThreadPoolExecutor(max_workers=os.cpu_count(),
                                thread_name_prefix="rsdl-shuffle") as pool:
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             while len(in_progress) >= max(1, max_concurrent_epochs):
                 for fut in in_progress.pop(min(in_progress)):
                     fut.result()
             in_progress[epoch] = shuffle_epoch(
                 epoch, filenames, batch_consumer, num_reducers,
-                num_trainers, pool, seed, map_transform)
+                num_trainers, pool, seed, map_transform, reduce_transform)
         for epoch in sorted(in_progress):
             for fut in in_progress.pop(epoch):
                 fut.result()
@@ -190,8 +259,9 @@ def run_shuffle_in_background(
         num_epochs: int, num_reducers: int, num_trainers: int,
         max_concurrent_epochs: int = 2, seed: int = 0,
         map_transform: Optional[MapTransform] = None,
-        on_failure: Optional[Callable[[BaseException], None]] = None
-) -> cf.Future:
+        on_failure: Optional[Callable[[BaseException], None]] = None,
+        reduce_transform: Optional[ReduceTransform] = None,
+        start_epoch: int = 0) -> cf.Future:
     """Run :func:`shuffle` on a driver thread of its own; the returned
     future resolves to its duration or raises its error. ``on_failure``
     runs before the error is stored, so blocked consumers can be woken."""
@@ -202,7 +272,9 @@ def run_shuffle_in_background(
         try:
             return shuffle(filenames, batch_consumer, num_epochs,
                            num_reducers, num_trainers, max_concurrent_epochs,
-                           seed=seed, map_transform=map_transform)
+                           seed=seed, map_transform=map_transform,
+                           reduce_transform=reduce_transform,
+                           start_epoch=start_epoch)
         except BaseException as e:
             logger.error("shuffle failed: %r", e)
             if on_failure is not None:

@@ -1,13 +1,16 @@
-"""Training steps: one Adam micro-step per ``microbatch``-row slice of each
-loader batch (counterpart of bench.py's micro-batched train phase), for
-DLRM and for BERT MLM, and BERT MLM split over a ``("data", "seq")`` mesh
-(:func:`make_bert_spmd_micro_step`).
+"""Training steps: one optimizer micro-step per ``microbatch``-row slice of
+each loader batch (counterpart of bench.py's micro-batched train phase),
+for DLRM and for BERT MLM (Adam), BERT MLM split over a ``("data",
+"seq")`` mesh (:func:`make_bert_spmd_micro_step`), and ResNet on decoded
+images (SGD, :func:`make_resnet_micro_step`).
 
 Adam is ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the
 defaults of ``optax.adam(lr)``: lr 1e-3 for DLRM, 1e-4 for BERT (the JAX
 package's ``workloads/bert_mlm.py``). Both compute ``m_hat / (sqrt(v_hat) +
 eps)``, but round in a different order, so trajectories agree to float32
-rounding, not bit for bit.
+rounding, not bit for bit. SGD is ``torch.optim.SGD(lr=1e-2)``, no
+momentum and no weight decay: ``optax.sgd(1e-2)`` of the JAX package's
+ImageNet smoke run.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm
+from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm, resnet
 from ray_shuffling_data_loader_tpu_torch.ops import ring_attention
 from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
 from ray_shuffling_data_loader_tpu_torch.parallel.trainer import SpmdTrainer
@@ -26,12 +29,20 @@ MicroStep = Callable[[Sequence[torch.Tensor], torch.Tensor], torch.Tensor]
 
 #: ``optax.adam``'s learning rate in the JAX package's BERT-MLM smoke run.
 BERT_LR = 1e-4
+#: ``optax.sgd``'s learning rate in the JAX package's ImageNet smoke run.
+RESNET_LR = 1e-2
 
 
 def make_optimizer(model: torch.nn.Module,
                    lr: float = 1e-3) -> torch.optim.Adam:
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def make_sgd(model: torch.nn.Module,
+             lr: float = RESNET_LR) -> torch.optim.SGD:
+    return torch.optim.SGD(model.parameters(), lr=lr, momentum=0.0,
+                           weight_decay=0.0)
 
 
 def make_micro_step(model: dlrm.DLRM,
@@ -122,6 +133,25 @@ def make_bert_spmd_micro_step(mesh, model: bert.Bert,
             pmesh.batch_sharding(mesh, t, data_axis=None,
                                  seq_axis=pmesh.SEQ_AXIS)
             for t in (inputs, targets)))
+
+    return step
+
+
+def make_resnet_micro_step(model: resnet.ResNet,
+                           optimizer: torch.optim.Optimizer) -> MicroStep:
+    """``step(cols, labels) -> loss`` for ResNet: ``cols[0]`` is the
+    ``(B, H, W, 3)`` uint8 image batch, scaled to ``[0, 1]`` in f32 on its
+    device, then the model's compute dtype, softmax cross-entropy over
+    ``labels`` reshaped to ``(B,)``, and one optimizer update."""
+
+    def step(cols: Sequence[torch.Tensor],
+             labels: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        images = cols[0].to(torch.float32) / 255.0
+        loss = resnet.loss_fn(model, images, labels)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
 
     return step
 

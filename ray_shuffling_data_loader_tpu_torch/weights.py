@@ -1,11 +1,14 @@
-"""Load the JAX package's DLRM and BERT parameters into the port.
+"""Load the JAX package's DLRM, BERT and ResNet parameters into the port.
 
 The DLRM pytree is ``{"embeddings": {"table_i": (V, E)}, "top": {"w{i}":
 (d_in, d_out), "b{i}": (d_out,)}, ["bottom": ...]}``; the BERT pytree is
 ``{"token_emb", "pos_emb", "emb_ln": {"scale", "bias"}, "layer_{i}": {...},
 "mlm_bias"}``. The port stores weights in the same ``(d_in, d_out)`` layout
 (``x @ w + b``) under the same nested names, so the mapping is a flatten
-with no transpose.
+with no transpose. The ResNet pytree is flat (``stem_conv``,
+``s{i}b{j}_conv1``, ``s{i}b{j}_gn1: {"scale", "bias"}``, ..., ``fc_w``,
+``fc_b``); its conv kernels go from HWIO to the port's OIHW, and ``fc_w``
+keeps its ``(cin, num_classes)`` layout.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from ray_shuffling_data_loader_tpu_torch.models.bert import BertConfig
 from ray_shuffling_data_loader_tpu_torch.models.dlrm import DLRMConfig
+from ray_shuffling_data_loader_tpu_torch.models.resnet import ResNetConfig
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -84,3 +88,36 @@ def bert_from_jax_params(config: BertConfig, params_np: Mapping[str, Any]
         for name, shape in layer.items():
             expected[f"layer_{i}.{name}"] = shape
     return _state_dict(params_np, expected)
+
+
+def resnet_from_jax_params(config: ResNetConfig, params_np: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The port's ``ResNet`` state dict for a JAX parameter pytree (numpy
+    leaves): conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), the
+    rest as they are. Raises on a missing, extra or mis-shaped entry."""
+    expected = {"stem_conv": (config.width, 3, 7, 7),
+                "stem_gn.scale": (config.width,),
+                "stem_gn.bias": (config.width,)}
+    cin = config.width
+    for stage, num_blocks in enumerate(config.stage_sizes):
+        cmid = config.width * (2 ** stage)
+        cout = cmid * 4
+        for block in range(num_blocks):
+            name = f"s{stage}b{block}"
+            convs = [("conv1", "gn1", cin, cmid, 1),
+                     ("conv2", "gn2", cmid, cmid, 3),
+                     ("conv3", "gn3", cmid, cout, 1)]
+            if block == 0:
+                convs.append(("proj", "proj_gn", cin, cout, 1))
+            for conv, gn, c_in, c_out, k in convs:
+                expected[f"{name}_{conv}"] = (c_out, c_in, k, k)
+                expected[f"{name}_{gn}.scale"] = (c_out,)
+                expected[f"{name}_{gn}.bias"] = (c_out,)
+            cin = cout
+    expected["fc_w"] = (cin, config.num_classes)
+    expected["fc_b"] = (config.num_classes,)
+    converted = {
+        key: (np.asarray(value).transpose(3, 2, 0, 1)
+              if np.ndim(value) == 4 else value)
+        for key, value in params_np.items()}
+    return _state_dict(converted, expected)

@@ -4,6 +4,8 @@ that wires the workload into ``DeviceShufflingDataset``.
 - ``dlrm_criteo``: the DLRM click-log schema with narrow index dtypes.
 - ``bert_mlm``: BERT MLM on pre-tokenized sequence Parquet, with masking
   on the device.
+- ``imagenet``: encoded-image Parquet, decoded inside the shuffle's
+  reducers, for ResNet.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ setup(
     package_data={
         "ray_shuffling_data_loader_tpu.native": ["src/*.cpp"],
         "ray_shuffling_data_loader_tpu_torch.kernels": ["*.cu", "*.cuh"],
+        "ray_shuffling_data_loader_tpu_torch.native": ["src/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[
