@@ -56,7 +56,24 @@ JSON line:
    shuffle, the flash path's loss against the inline path's (within 1e-2
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
-7. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+7. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
+   turns within this call (per-batch, bulk, bulk, per-batch), each a fresh
+   DLRM ``mlperf`` trained on the ``train`` phase's data for 2 epochs (bulk
+   through ``device_rebatch="auto"``, the default on the card). Every
+   batch is digested on the device (exact int64 sums of each column,
+   weighted by row position) and the digests must be equal in every turn;
+   each loader batch's mean loss within 1e-2 relative of the first turn's
+   (whether bit for bit is reported); one gather launch per micro-step.
+   Per turn: rows/s, ``stall_pct``, step ms, the wait for epoch 1's first
+   batch, copies per epoch and chunk sizes in batches, the input
+   pipeline's peak device bytes against the chunk cap, peak pinned host
+   bytes. Then, loader only: (b) a bulk epoch under a 1e-4 s watchdog
+   deadline must degrade to per-batch copies with the same digests; (c) a
+   bulk epoch under the chaos spec ``device_transfer@0.05`` (seed 0) must
+   recover at least one copy with the same digests; (d) the ``bert``
+   phase's tokens (4 batches per reducer table) in both bindings, digests
+   equal, copies per epoch.
+8. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
    masking bias: output, dq, dk, dv and dbias against whole-sequence
@@ -77,7 +94,7 @@ JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-8. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+9. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -88,7 +105,7 @@ JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-9. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+10. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -100,7 +117,10 @@ JSON line:
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
 
-Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
+Every phase that drives ``DeviceShufflingDataset`` names the binding it
+ran (``"binding"``: the bulk one, the default on the card, unless a turn
+asks for per-batch copies). Then the ``{"kernels": [...]}`` summary, the
+``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. Needs CUDA; imports nothing of JAX.
 """
@@ -505,99 +525,103 @@ def profile_steps(micro_step, cols, labels, kernel_names, steps: int = 5
     }
 
 
-def train_phase(emb) -> dict:
+def dlrm_files(tmp: str):
+    """The ``train`` and ``rebatch`` phases' Parquet files and the seconds
+    their generation took."""
+    from ray_shuffling_data_loader_tpu_torch import data_generation
+    start = timeit.default_timer()
+    files, _ = data_generation.generate_data(NUM_ROWS, NUM_FILES, tmp,
+                                             seed=SEED)
+    return files, timeit.default_timer() - start
+
+
+def train_phase(emb, files, gen_s: float) -> dict:
     from ray_shuffling_data_loader_tpu_torch import (
-        data_generation, dataset, device_dataset, train)
+        dataset, device_dataset, train)
     from ray_shuffling_data_loader_tpu_torch.models import dlrm
     from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
 
     spec = dlrm_criteo.dlrm_spec()
-    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-") as tmp:
-        start = timeit.default_timer()
-        files, _ = data_generation.generate_data(NUM_ROWS, NUM_FILES, tmp,
-                                                 seed=SEED)
-        gen_s = timeit.default_timer() - start
+    config = dlrm.MLPERF
+    model = dlrm.DLRM(config, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    optimizer = train.make_optimizer(model)
+    micro_step = train.make_micro_step(model, optimizer)
 
-        config = dlrm.MLPERF
-        model = dlrm.DLRM(config, device="cuda",
-                          generator=torch.Generator(device="cuda")
-                          .manual_seed(SEED))
-        optimizer = train.make_optimizer(model)
-        micro_step = train.make_micro_step(model, optimizer)
+    ds = device_dataset.DeviceShufflingDataset(
+        files, NUM_EPOCHS, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
+        seed=SEED, **spec)
+    expected_rows = (NUM_ROWS // LOADER_BATCH) * LOADER_BATCH
+    rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
+    emb.reset_launch_counts()
+    t_start = timeit.default_timer()
+    t_first = None
+    for epoch in range(NUM_EPOCHS):
+        ds.set_epoch(epoch)
+        rows = 0
+        for features, label in ds:
+            if t_first is None:
+                t_first = timeit.default_timer()
+                first_batch = ([f.cpu() for f in features], label.cpu())
+            t0 = timeit.default_timer()
+            losses.append(train.train_chunk(micro_step, features, label,
+                                            MICROBATCH))
+            torch.cuda.synchronize()
+            chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+            rows += label.shape[0]
+        rows_per_epoch.append(rows)
+    t_end = timeit.default_timer()
+    launches = emb.launch_counts["gather_rows"]
 
-        ds = device_dataset.DeviceShufflingDataset(
-            files, NUM_EPOCHS, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
-            seed=SEED, **spec)
-        expected_rows = (NUM_ROWS // LOADER_BATCH) * LOADER_BATCH
-        rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
-        emb.reset_launch_counts()
-        t_start = timeit.default_timer()
-        t_first = None
-        for epoch in range(NUM_EPOCHS):
-            ds.set_epoch(epoch)
-            rows = 0
-            for features, label in ds:
-                if t_first is None:
-                    t_first = timeit.default_timer()
-                    first_batch = ([f.cpu() for f in features], label.cpu())
-                t0 = timeit.default_timer()
-                losses.append(train.train_chunk(micro_step, features, label,
-                                                MICROBATCH))
-                torch.cuda.synchronize()
-                chunk_ms.append((timeit.default_timer() - t0) * 1e3)
-                rows += label.shape[0]
-            rows_per_epoch.append(rows)
-        t_end = timeit.default_timer()
-        launches = emb.launch_counts["gather_rows"]
+    if rows_per_epoch != [expected_rows] * NUM_EPOCHS:
+        raise AssertionError(
+            f"rows per epoch {rows_per_epoch}, expected {expected_rows}")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(
+            f"{launches} gather launches in {all_losses.numel()} "
+            "micro-steps; expected one per micro-step")
 
-        if rows_per_epoch != [expected_rows] * NUM_EPOCHS:
-            raise AssertionError(
-                f"rows per epoch {rows_per_epoch}, expected {expected_rows}")
-        all_losses = torch.cat(losses).cpu()
-        if not bool(torch.isfinite(all_losses).all()):
-            raise AssertionError("non-finite loss")
-        if launches != all_losses.numel():
-            raise AssertionError(
-                f"{launches} gather launches in {all_losses.numel()} "
-                "micro-steps; expected one per micro-step")
+    # The first staged batch equals the host-side shuffle's.
+    host = dataset.ShufflingDataset(
+        files, 1, 1, LOADER_BATCH, 0, drop_last=True,
+        num_reducers=NUM_REDUCERS, seed=SEED,
+        map_transform=device_dataset.make_cast_transform(
+            spec["feature_columns"], spec["feature_types"],
+            spec["label_column"], spec["label_type"]))
+    host.set_epoch(0)
+    host_batches = iter(host)
+    table = next(host_batches)
+    for _ in host_batches:  # drain, so the shuffle ends while files exist
+        pass
+    hf, hl = device_dataset.convert_to_arrays(
+        table, spec["feature_columns"], [None] * len(spec["feature_types"]),
+        spec["feature_types"], spec["label_column"], None,
+        np.dtype(np.float32))
+    for a, b in zip(first_batch[0], hf):
+        if not np.array_equal(a.numpy(), b) or a.dtype != torch.int32:
+            raise AssertionError("staged batch differs from the host's")
+    if not np.array_equal(first_batch[1].numpy(), hl):
+        raise AssertionError("staged labels differ from the host's")
 
-        # The first staged batch equals the host-side shuffle's.
-        host = dataset.ShufflingDataset(
-            files, 1, 1, LOADER_BATCH, 0, drop_last=True,
-            num_reducers=NUM_REDUCERS, seed=SEED,
-            map_transform=device_dataset.make_cast_transform(
-                spec["feature_columns"], spec["feature_types"],
-                spec["label_column"], spec["label_type"]))
-        host.set_epoch(0)
-        host_batches = iter(host)
-        table = next(host_batches)
-        for _ in host_batches:  # drain, so the shuffle ends while files exist
-            pass
-        hf, hl = device_dataset.convert_to_arrays(
-            table, spec["feature_columns"], [None] * len(spec["feature_types"]),
-            spec["feature_types"], spec["label_column"], None,
-            np.dtype(np.float32))
-        for a, b in zip(first_batch[0], hf):
-            if not np.array_equal(a.numpy(), b) or a.dtype != torch.int32:
-                raise AssertionError("staged batch differs from the host's")
-        if not np.array_equal(first_batch[1].numpy(), hl):
-            raise AssertionError("staged labels differ from the host's")
-
-        # The kernel path's loss equals the plain take path's.
-        cols = [f[:MICROBATCH].cuda() for f in first_batch[0]]
-        lab = first_batch[1][:MICROBATCH].cuda()
-        with torch.no_grad():
-            via_kernel = dlrm.loss_fn(model, None, cols, lab)
-            model.config = dataclasses.replace(config, lookup_mode="take")
-            via_take = dlrm.loss_fn(model, None, cols, lab)
-            model.config = config
-        if not torch.equal(via_kernel, via_take):
-            raise AssertionError(
-                f"kernel-path loss {via_kernel.item()} != take-path loss "
-                f"{via_take.item()}")
-        # Where a micro-step's time goes (after the main path's counts
-        # were read; these steps keep training the same model).
-        breakdown = profile_steps(micro_step, cols, lab, ["gather_rows"])
+    # The kernel path's loss equals the plain take path's.
+    cols = [f[:MICROBATCH].cuda() for f in first_batch[0]]
+    lab = first_batch[1][:MICROBATCH].cuda()
+    with torch.no_grad():
+        via_kernel = dlrm.loss_fn(model, None, cols, lab)
+        model.config = dataclasses.replace(config, lookup_mode="take")
+        via_take = dlrm.loss_fn(model, None, cols, lab)
+        model.config = config
+    if not torch.equal(via_kernel, via_take):
+        raise AssertionError(
+            f"kernel-path loss {via_kernel.item()} != take-path loss "
+            f"{via_take.item()}")
+    # Where a micro-step's time goes (after the main path's counts
+    # were read; these steps keep training the same model).
+    breakdown = profile_steps(micro_step, cols, lab, ["gather_rows"])
 
     waits = ds.batch_wait_stats.wait_times
     wall = t_end - t_first
@@ -616,6 +640,8 @@ def train_phase(emb) -> dict:
         "loss_last": float(all_losses[-64:].mean()),
         "gather_launches": launches,
         "launches_per_micro_step": launches / steps,
+        "binding": ds.binding,
+        "transfer": ds.transfer_stats(),
         "datagen_s": gen_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": breakdown,
@@ -777,7 +803,18 @@ def attention_phase(fa, hbm: float, flop_peak: float) -> dict:
             "timings": timings}
 
 
-def bert_phase(fa) -> dict:
+def bert_files(tmp: str):
+    """The ``bert`` and ``rebatch`` phases' token files and the seconds
+    their generation took."""
+    from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
+    start = timeit.default_timer()
+    files, _ = bert_mlm.generate_tokenized_parquet(
+        BERT_SEQS, BERT_FILES, tmp, seq_len=BERT_SEQ_LEN,
+        vocab_size=BERT_VOCAB, seed=SEED)
+    return files, timeit.default_timer() - start
+
+
+def bert_phase(fa, files, gen_s: float) -> dict:
     from ray_shuffling_data_loader_tpu_torch import (
         dataset, device_dataset, train)
     from ray_shuffling_data_loader_tpu_torch.models import bert
@@ -786,112 +823,105 @@ def bert_phase(fa) -> dict:
     spec = bert_mlm.bert_mlm_spec(BERT_SEQ_LEN)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as tmp:
-        start = timeit.default_timer()
-        files, _ = bert_mlm.generate_tokenized_parquet(
-            BERT_SEQS, BERT_FILES, tmp, seq_len=BERT_SEQ_LEN,
-            vocab_size=BERT_VOCAB, seed=SEED)
-        gen_s = timeit.default_timer() - start
+    config = bert.bert_base()
+    model = bert.Bert(config, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    optimizer = train.make_optimizer(model, lr=train.BERT_LR)
+    # Passed explicitly: S=512 is below FLASH_MIN_SEQ_LEN.
+    attention_fn = fa.make_flash_attention_fn()
+    micro_step = train.make_bert_micro_step(
+        model, optimizer,
+        torch.Generator(device="cuda").manual_seed(SEED + 1),
+        attention_fn)
 
-        config = bert.bert_base()
-        model = bert.Bert(config, device="cuda",
-                          generator=torch.Generator(device="cuda")
-                          .manual_seed(SEED))
-        optimizer = train.make_optimizer(model, lr=train.BERT_LR)
-        # Passed explicitly: S=512 is below FLASH_MIN_SEQ_LEN.
-        attention_fn = fa.make_flash_attention_fn()
-        micro_step = train.make_bert_micro_step(
-            model, optimizer,
-            torch.Generator(device="cuda").manual_seed(SEED + 1),
-            attention_fn)
+    ds = device_dataset.DeviceShufflingDataset(
+        files, NUM_EPOCHS, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
+        seed=SEED, **spec)
+    rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
+    fa.reset_launch_counts()
+    t_start = timeit.default_timer()
+    t_first = None
+    for epoch in range(NUM_EPOCHS):
+        ds.set_epoch(epoch)
+        rows = 0
+        for features, label in ds:
+            if t_first is None:
+                t_first = timeit.default_timer()
+                first_batch = features[0].cpu()
+            t0 = timeit.default_timer()
+            losses.append(train.train_chunk(micro_step, features, label,
+                                            BERT_MICRO))
+            torch.cuda.synchronize()
+            chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+            rows += label.shape[0]
+        rows_per_epoch.append(rows)
+    t_end = timeit.default_timer()
+    launches = dict(fa.launch_counts)
 
-        ds = device_dataset.DeviceShufflingDataset(
-            files, NUM_EPOCHS, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
-            seed=SEED, **spec)
-        rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
-        fa.reset_launch_counts()
-        t_start = timeit.default_timer()
-        t_first = None
-        for epoch in range(NUM_EPOCHS):
-            ds.set_epoch(epoch)
-            rows = 0
-            for features, label in ds:
-                if t_first is None:
-                    t_first = timeit.default_timer()
-                    first_batch = features[0].cpu()
-                t0 = timeit.default_timer()
-                losses.append(train.train_chunk(micro_step, features, label,
-                                                BERT_MICRO))
-                torch.cuda.synchronize()
-                chunk_ms.append((timeit.default_timer() - t0) * 1e3)
-                rows += label.shape[0]
-            rows_per_epoch.append(rows)
-        t_end = timeit.default_timer()
-        launches = dict(fa.launch_counts)
-
-        if rows_per_epoch != [BERT_SEQS] * NUM_EPOCHS:
+    if rows_per_epoch != [BERT_SEQS] * NUM_EPOCHS:
+        raise AssertionError(
+            f"rows per epoch {rows_per_epoch}, expected {BERT_SEQS}")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("non-finite loss")
+    steps = int(all_losses.numel())
+    for kernel in FLASH_KERNELS:
+        if launches[kernel] != config.num_layers * steps:
             raise AssertionError(
-                f"rows per epoch {rows_per_epoch}, expected {BERT_SEQS}")
-        all_losses = torch.cat(losses).cpu()
-        if not bool(torch.isfinite(all_losses).all()):
-            raise AssertionError("non-finite loss")
-        steps = int(all_losses.numel())
-        for kernel in FLASH_KERNELS:
-            if launches[kernel] != config.num_layers * steps:
-                raise AssertionError(
-                    f"{kernel} launched {launches[kernel]} times in "
-                    f"{steps} micro-steps; expected {config.num_layers} "
-                    "per micro-step")
+                f"{kernel} launched {launches[kernel]} times in "
+                f"{steps} micro-steps; expected {config.num_layers} "
+                "per micro-step")
 
-        # The first staged batch equals the host-side shuffle's.
-        host = dataset.ShufflingDataset(
-            files, 1, 1, BERT_BATCH, 0, drop_last=True,
-            num_reducers=NUM_REDUCERS, seed=SEED,
-            map_transform=device_dataset.make_cast_transform(
-                spec["feature_columns"], spec["feature_types"],
-                spec["label_column"], spec["label_type"]))
-        host.set_epoch(0)
-        host_batches = iter(host)
-        table = next(host_batches)
-        for _ in host_batches:  # drain, so the shuffle ends while files exist
-            pass
-        (host_tokens,), _ = device_dataset.convert_to_arrays(
-            table, spec["feature_columns"], spec["feature_shapes"],
-            [np.dtype(t) for t in spec["feature_types"]],
-            spec["label_column"], None, np.dtype(spec["label_type"]))
-        if (first_batch.dtype != torch.int32
-                or tuple(first_batch.shape) != (BERT_BATCH, BERT_SEQ_LEN)
-                or not np.array_equal(first_batch.numpy(), host_tokens)):
-            raise AssertionError("staged token batch differs from the host's")
+    # The first staged batch equals the host-side shuffle's.
+    host = dataset.ShufflingDataset(
+        files, 1, 1, BERT_BATCH, 0, drop_last=True,
+        num_reducers=NUM_REDUCERS, seed=SEED,
+        map_transform=device_dataset.make_cast_transform(
+            spec["feature_columns"], spec["feature_types"],
+            spec["label_column"], spec["label_type"]))
+    host.set_epoch(0)
+    host_batches = iter(host)
+    table = next(host_batches)
+    for _ in host_batches:  # drain, so the shuffle ends while files exist
+        pass
+    (host_tokens,), _ = device_dataset.convert_to_arrays(
+        table, spec["feature_columns"], spec["feature_shapes"],
+        [np.dtype(t) for t in spec["feature_types"]],
+        spec["label_column"], None, np.dtype(spec["label_type"]))
+    if (first_batch.dtype != torch.int32
+            or tuple(first_batch.shape) != (BERT_BATCH, BERT_SEQ_LEN)
+            or not np.array_equal(first_batch.numpy(), host_tokens)):
+        raise AssertionError("staged token batch differs from the host's")
 
-        # The flash path's loss against the inline path's, same micro-batch
-        # and weights (after training).
-        tokens = first_batch[:BERT_MICRO].cuda()
-        inputs, targets = bert_mlm.mlm_mask(
-            tokens, torch.Generator(device="cuda").manual_seed(SEED + 2),
-            BERT_VOCAB)
-        with torch.no_grad():
-            via = {}
-            for path, fn in (("flash", attention_fn), ("inline", None)):
-                logits = bert.apply(model, inputs, attention_fn=fn)
-                via[path] = (bert.loss_fn(model, inputs, targets,
-                                          attention_fn=fn).item(),
-                             logits[:, :, :1024].float().cpu())
-                del logits
-        loss_rel = abs(via["flash"][0] - via["inline"][0]) / abs(
-            via["inline"][0])
-        if loss_rel > 1e-2:
-            raise AssertionError(
-                f"flash-path loss {via['flash'][0]} vs inline "
-                f"{via['inline'][0]}: relative difference {loss_rel}")
-        logits_diff = float((via["flash"][1] - via["inline"][1]).abs().max())
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        # Where a micro-step's time goes (after the main path's counts
-        # were read; these steps keep training the same model).
-        breakdown = profile_steps(
-            micro_step, [tokens], torch.zeros((BERT_MICRO, 1),
-                                              device="cuda"),
-            list(FLASH_KERNELS))
+    # The flash path's loss against the inline path's, same micro-batch
+    # and weights (after training).
+    tokens = first_batch[:BERT_MICRO].cuda()
+    inputs, targets = bert_mlm.mlm_mask(
+        tokens, torch.Generator(device="cuda").manual_seed(SEED + 2),
+        BERT_VOCAB)
+    with torch.no_grad():
+        via = {}
+        for path, fn in (("flash", attention_fn), ("inline", None)):
+            logits = bert.apply(model, inputs, attention_fn=fn)
+            via[path] = (bert.loss_fn(model, inputs, targets,
+                                      attention_fn=fn).item(),
+                         logits[:, :, :1024].float().cpu())
+            del logits
+    loss_rel = abs(via["flash"][0] - via["inline"][0]) / abs(
+        via["inline"][0])
+    if loss_rel > 1e-2:
+        raise AssertionError(
+            f"flash-path loss {via['flash'][0]} vs inline "
+            f"{via['inline'][0]}: relative difference {loss_rel}")
+    logits_diff = float((via["flash"][1] - via["inline"][1]).abs().max())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Where a micro-step's time goes (after the main path's counts
+    # were read; these steps keep training the same model).
+    breakdown = profile_steps(
+        micro_step, [tokens], torch.zeros((BERT_MICRO, 1),
+                                          device="cuda"),
+        list(FLASH_KERNELS))
 
     flash_ms = sum(breakdown["port_kernels_ms_per_step"].values())
     waits = ds.batch_wait_stats.wait_times
@@ -918,11 +948,264 @@ def bert_phase(fa) -> dict:
                             "loss_rel_diff": loss_rel, "loss_rtol": 1e-2,
                             "logits_max_abs_diff_first_1024_vocab":
                                 logits_diff},
+        "binding": ds.binding,
+        "transfer": ds.transfer_stats(),
         "datagen_s": gen_s,
         "peak_mem_gb": peak_gb,
         "flash_share_pct": 100.0 * flash_ms / breakdown[
             "device_ms_per_step"],
         "profile": breakdown,
+    }
+
+
+# Rebatch phase: the two device bindings in turns on the train phase's
+# data, in one call (the DLRM step varies 11.9-14.9 ms between calls).
+REBATCH_TURNS = ("per_batch", "bulk", "bulk", "per_batch")
+REBATCH_EPOCHS = 2
+REBATCH_BUDGET_S = 150.0
+# Mean loss per loader batch (64 micro-steps) of a turn against the first
+# turn's: the embedding backward's index_add_ adds in no fixed order, so
+# two turns need not agree bit for bit.
+REBATCH_LOSS_RTOL = 1e-2
+REBATCH_DEADLINE_S = 1e-4
+REBATCH_CHAOS = "device_transfer@0.05"
+
+
+def batch_digest(features, label) -> torch.Tensor:
+    """``(2, C)`` int64 on the device: for each column of the batch, the
+    sums of its 32-bit words' low and high 16 bits, each weighted by row
+    position (1..B). Exact: no sum can pass 2**63."""
+    tensors = features if isinstance(features, list) else [features]
+    cols = []
+    for t in tensors + [label]:
+        if t.dtype == torch.float32:
+            t = t.view(torch.int32)
+        cols.append(t.reshape(t.shape[0], -1).to(torch.int64) & 0xFFFFFFFF)
+    x = torch.cat(cols, dim=1)
+    w = torch.arange(1, x.shape[0] + 1, device=x.device,
+                     dtype=torch.int64)[:, None]
+    return torch.stack([(w * (x & 0xFFFF)).sum(0), (w * (x >> 16)).sum(0)])
+
+
+def _loader_pass(files, batch: int, spec: dict, **kw):
+    """One epoch through ``DeviceShufflingDataset`` with no training;
+    returns the dataset and its batches' digests."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset
+    ds = device_dataset.DeviceShufflingDataset(
+        files, 1, 1, batch, 0, num_reducers=NUM_REDUCERS, seed=SEED,
+        **kw, **spec)
+    ds.set_epoch(0)
+    digests = [batch_digest(features, label) for features, label in ds]
+    return ds, torch.stack(digests).cpu()
+
+
+def _same_digests(name: str, got, want) -> None:
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: batch digests differ from the "
+                             "first turn's")
+
+
+def _rebatch_turn(emb, files, binding: str, epochs: int, **ds_kw):
+    """DLRM ``mlperf`` trained over ``epochs`` under one binding (the bulk
+    one through ``device_rebatch="auto"``, the default on the card);
+    ``ds_kw`` go to the dataset. Returns the turn's line, its batch
+    digests and its losses."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    kw = {} if binding == "bulk" else {"device_rebatch": False}
+    ds = device_dataset.DeviceShufflingDataset(
+        files, epochs, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
+        seed=SEED, **kw, **ds_kw, **dlrm_criteo.dlrm_spec())
+    if ds.binding != binding:
+        raise AssertionError(f"{kw or 'auto'} resolved to {ds.binding}")
+    waits = ds.batch_wait_stats.wait_times
+    losses, chunk_ms, digests, epoch1_wait = [], [], [], None
+    emb.reset_launch_counts()
+    t_start = timeit.default_timer()
+    t_first = None
+    for epoch in range(epochs):
+        ds.set_epoch(epoch)
+        n0 = len(waits)
+        for features, label in ds:
+            if t_first is None:
+                t_first = timeit.default_timer()
+            if epoch == 1 and epoch1_wait is None:
+                epoch1_wait = waits[n0]
+            digests.append(batch_digest(features, label))
+            t0 = timeit.default_timer()
+            losses.append(train.train_chunk(micro_step, features, label,
+                                            MICROBATCH))
+            torch.cuda.synchronize()
+            chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+    t_end = timeit.default_timer()
+    launches = emb.launch_counts["gather_rows"]
+    all_losses = torch.cat(losses).cpu()
+    steps = int(all_losses.numel())
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError(f"{binding}: non-finite loss")
+    if launches != steps:
+        raise AssertionError(f"{binding}: {launches} gather launches in "
+                             f"{steps} micro-steps")
+    wall = t_end - t_first
+    transfer = ds.transfer_stats()
+    del model, micro_step
+    return {
+        "binding": binding,
+        "rows_per_s": steps * MICROBATCH / wall,
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "step_ms_median": float(np.median(chunk_ms)) / (LOADER_BATCH
+                                                        // MICROBATCH),
+        "fill_s": t_first - t_start,
+        "epoch1_first_batch_wait_ms": (None if epoch1_wait is None
+                                       else epoch1_wait * 1e3),
+        "batch_wait_s": ds.batch_wait_stats.summary(),
+        "micro_steps": steps,
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / steps,
+        "copies_by_epoch": transfer["copies_by_epoch"],
+        "peak_device_input_bytes": transfer["peak_device_bytes"],
+        "peak_chunk_bytes": transfer["peak_chunk_bytes"],
+        "chunk_cap_bytes": transfer["max_table_bytes"],
+        "peak_pinned_bytes": transfer["peak_pinned_bytes"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }, torch.stack(digests).cpu(), all_losses
+
+
+def _spread(turns, binding: str, key: str) -> list:
+    values = [t[key] for t in turns if t["binding"] == binding]
+    return [min(values), max(values)]
+
+
+def rebatch_phase(emb, dlrm_paths, token_paths) -> dict:
+    """The per-batch and bulk bindings in turns (per-batch, bulk, bulk,
+    per-batch) on the ``train`` phase's data, then on the card: (b) the
+    watchdog degrading a bulk epoch, (c) copies retried under injected
+    faults, (d) a loader-only pass over the ``bert`` phase's tokens."""
+    import logging
+
+    from ray_shuffling_data_loader_tpu_torch import stats
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+    from ray_shuffling_data_loader_tpu_torch.workloads import (
+        bert_mlm, dlrm_criteo)
+
+    start = timeit.default_timer()
+    turns, digests, losses = [], [], []
+    for binding in REBATCH_TURNS:
+        line, digest, loss = _rebatch_turn(emb, dlrm_paths, binding,
+                                           REBATCH_EPOCHS)
+        turns.append(line)
+        digests.append(digest)
+        losses.append(loss)
+    loss_rel = []
+    for i in range(1, len(turns)):
+        _same_digests(f"turn {i} ({turns[i]['binding']})", digests[i],
+                      digests[0])
+        got = losses[i].view(-1, LOADER_BATCH // MICROBATCH).mean(1)
+        want = losses[0].view(-1, LOADER_BATCH // MICROBATCH).mean(1)
+        rel = float(((got - want).abs() / want.abs()).max())
+        loss_rel.append(rel)
+        if rel > REBATCH_LOSS_RTOL:
+            raise AssertionError(f"turn {i}: batch-mean losses differ from "
+                                 f"turn 0's by {rel} relative")
+    epoch0 = digests[0][:len(digests[0]) // REBATCH_EPOCHS]
+    spec = dlrm_criteo.dlrm_spec()
+
+    # (b) The watchdog on the card: a deadline no chunk copy can meet.
+    before = stats.watchdog_stats().snapshot()
+    wd_logger = logging.getLogger(
+        "ray_shuffling_data_loader_tpu_torch.runtime.watchdog")
+    level = wd_logger.level
+    wd_logger.setLevel(logging.CRITICAL)  # one line per escalation
+    try:
+        ds, got = _loader_pass(dlrm_paths, LOADER_BATCH, spec,
+                               runtime_policy={"bulk_transfer_deadline_s":
+                                               REBATCH_DEADLINE_S})
+    finally:
+        wd_logger.setLevel(level)
+    after = stats.watchdog_stats().snapshot()
+    transfer = ds.transfer_stats()
+    _same_digests("watchdog epoch", got, epoch0)
+    watchdog_run = {
+        "deadline_s": REBATCH_DEADLINE_S,
+        "watchdog_events": after["watchdog_events"]
+        - before["watchdog_events"],
+        "stall_escalations": after["stall_escalations"]
+        - before["stall_escalations"],
+        "fallbacks": after["fallbacks_engaged"] - before["fallbacks_engaged"],
+        "fallback_engaged": transfer["fallback_engaged"],
+        "copies": transfer["copies_by_epoch"], "digests_equal": True}
+    if watchdog_run["watchdog_events"] < 1 or not transfer[
+            "fallback_engaged"]:
+        raise AssertionError(f"the watchdog did not degrade: {watchdog_run}")
+
+    # (c) Retry on the card: seeded faults before copy attempts.
+    before = stats.fault_stats().snapshot()
+    faults.install(REBATCH_CHAOS, seed=0)
+    try:
+        ds, got = _loader_pass(dlrm_paths, LOADER_BATCH, spec)
+    finally:
+        faults.clear()
+    after = stats.fault_stats().snapshot()
+    _same_digests("chaos epoch", got, epoch0)
+    chaos_run = {
+        "spec": REBATCH_CHAOS, "seed": 0,
+        "injected": after["injected"] - before["injected"],
+        "retries": after["retries"] - before["retries"],
+        "recoveries": after["recomputes"] - before["recomputes"],
+        "recovery_latency_max_s": after["recovery_latency_max_s"],
+        "copies": ds.transfer_stats()["copies_by_epoch"],
+        "digests_equal": True}
+    if chaos_run["recoveries"] < 1:
+        raise AssertionError(f"no copy recovered: {chaos_run}")
+
+    # (d) The bert phase's tokens, loader only: 4 batches per reducer
+    # table, so a chunk holds several batches.
+    token_spec = bert_mlm.bert_mlm_spec(BERT_SEQ_LEN)
+    tokens = {}
+    for binding, kw in (("per_batch", {"device_rebatch": False}),
+                        ("bulk", {})):
+        t0 = timeit.default_timer()
+        ds, got = _loader_pass(token_paths, BERT_BATCH, token_spec, **kw)
+        elapsed = timeit.default_timer() - t0
+        transfer = ds.transfer_stats()
+        tokens[binding] = {"binding": ds.binding, "digests": got,
+                           "epoch_s": elapsed,
+                           "copies": transfer["copies_by_epoch"],
+                           "peak_pinned_bytes":
+                               transfer["peak_pinned_bytes"],
+                           "peak_device_input_bytes":
+                               transfer["peak_device_bytes"]}
+    _same_digests("bulk token epoch", tokens["bulk"].pop("digests"),
+                  tokens["per_batch"].pop("digests"))
+    phase_s = timeit.default_timer() - start
+    return {
+        "turns": turns,
+        "epochs_per_turn": REBATCH_EPOCHS,
+        "phase_s": phase_s,
+        "over_budget": phase_s > REBATCH_BUDGET_S,
+        "digests_equal": True,
+        "digest_batches": int(digests[0].shape[0]),
+        "loss_rtol": REBATCH_LOSS_RTOL,
+        "loss_max_rel_diff_by_turn": loss_rel,
+        "losses_bit_equal_by_turn": [bool(torch.equal(x, losses[0]))
+                                     for x in losses[1:]],
+        "spread": {b: {k: _spread(turns, b, k)
+                       for k in ("step_ms_median", "stall_pct",
+                                 "rows_per_s")}
+                   for b in ("per_batch", "bulk")},
+        "max_device_input_bytes": 1 << 30,
+        "watchdog": watchdog_run,
+        "chaos": chaos_run,
+        "tokens": tokens,
+        "gather_launches": sum(t["gather_launches"] for t in turns),
     }
 
 
@@ -1126,6 +1409,7 @@ def spmd_bert_run(fa, pmesh, tmp: str) -> dict:
         "flash_launches": launches,
         "launches_per_micro_step": {k: c / steps
                                     for k, c in launches.items()},
+        "binding": ds.binding,
         "vs_bert_path": {"losses": via, "max_rel_diff": rel,
                          "rtol": 1e-2},
         "profile": breakdown,
@@ -1367,6 +1651,8 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
         "loss_last": float(all_losses[-4:].mean()),
         "decode": decode.summary(),
         "port_kernel_launches": launches,
+        "binding": ds.binding,
+        "transfer": ds.transfer_stats(),
         "staged_dtype": str(first_batch[0].dtype),
         "datagen_s": gen_s,
         "peak_mem_gb": peak_gb,
@@ -1479,11 +1765,15 @@ def resume_phase(fa, emb, decoder: str, image_files) -> dict:
         return (trainer_of(model, optimizer),
                 train.make_resnet_micro_step(model, optimizer), [])
 
+    bindings = set()
+
     def image_ds(start_epoch):
-        return device_dataset.DeviceShufflingDataset(
+        ds = device_dataset.DeviceShufflingDataset(
             image_files, 1, 1, IMG_BATCH, 0, num_reducers=NUM_REDUCERS,
             seed=SEED, start_epoch=start_epoch,
             **imagenet.imagenet_spec(IMG_SIZE, IMG_SIZE, decoder=decoder))
+        bindings.add(ds.binding)
+        return ds
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-resume-") as tmp:
@@ -1514,10 +1804,12 @@ def resume_phase(fa, emb, decoder: str, image_files) -> dict:
             vocab_size=BERT_VOCAB, seed=SEED)
 
         def token_ds(start_epoch):
-            return device_dataset.DeviceShufflingDataset(
+            ds = device_dataset.DeviceShufflingDataset(
                 files, 1, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
                 seed=SEED, start_epoch=start_epoch,
                 **bert_mlm.bert_mlm_spec(BERT_SEQ_LEN))
+            bindings.add(ds.binding)
+            return ds
 
         fa.reset_launch_counts()
         emb.reset_launch_counts()
@@ -1536,7 +1828,8 @@ def resume_phase(fa, emb, decoder: str, image_files) -> dict:
     bert_run["flash_launches"] = launches
     bert_run["launches_per_micro_step"] = {k: n / steps
                                            for k, n in launches.items()}
-    return {"decoder": decoder, "resnet50": resnet_run,
+    (binding,) = bindings
+    return {"decoder": decoder, "binding": binding, "resnet50": resnet_run,
             "bert_base": bert_run}
 
 
@@ -1594,11 +1887,18 @@ def main() -> int:
     att = attention_phase(fa, peak, bf16_peak(name))
     emit({"phase": "attention", "card": smi, **att})
 
-    trained = train_phase(emb)
-    emit({"phase": "train", "card": smi, **trained})
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-") as dlrm_tmp, \
+            tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as btmp:
+        dlrm_paths, dlrm_gen_s = dlrm_files(dlrm_tmp)
+        trained = train_phase(emb, dlrm_paths, dlrm_gen_s)
+        emit({"phase": "train", "card": smi, **trained})
 
-    bert_run = bert_phase(fa)
-    emit({"phase": "bert", "card": smi, **bert_run})
+        token_paths, token_gen_s = bert_files(btmp)
+        bert_run = bert_phase(fa, token_paths, token_gen_s)
+        emit({"phase": "bert", "card": smi, **bert_run})
+
+        rebatch = rebatch_phase(emb, dlrm_paths, token_paths)
+        emit({"phase": "rebatch", "card": smi, **rebatch})
 
     ring_run = ring_phase(fa, emb)
     emit({"phase": "ring", "card": smi, **ring_run})
@@ -1617,6 +1917,7 @@ def main() -> int:
         "launches": trained["gather_launches"],
         "launches_by_path": {
             "train": trained["gather_launches"],
+            "rebatch": rebatch["gather_launches"],
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],

@@ -150,6 +150,10 @@ class ShufflingDataset:
     def start_epoch(self) -> int:
         return self._start_epoch
 
+    @property
+    def drop_last(self) -> bool:
+        return self._drop_last
+
     def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
         """Declare the epoch about to be iterated; ``skip_batches`` drops
         its first N batches (checkpoint resume) as zero-copy slices."""

@@ -1,0 +1,123 @@
+"""Policy registry: one resolution surface for the device binding's
+runtime knobs (own copy of the JAX package's ``runtime/policy.py``, with
+only the keys the port reads). Every knob resolves in one order::
+
+    explicit kwarg > RSDL_<COMPONENT>_<KEY> env > RSDL_<KEY> env
+                   > registered component default > library default
+
+The port's loader is the component ``device_dataset``, so its own
+overrides read ``RSDL_DEVICE_DATASET_<KEY>`` (the JAX package's loader
+reads ``RSDL_JAX_DATASET_<KEY>``). The global ``RSDL_<KEY>`` variables
+mean the same in both packages: ``RSDL_DEVICE_REBATCH=0`` turns every
+``device_rebatch="auto"`` construction per-batch in either, and
+``RSDL_BULK_TRANSFER_DEADLINE_S`` sets both loaders' watchdog deadline.
+The keys, their defaults and their parsers are the JAX package's.
+
+Stdlib only.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Callable, Dict, Optional
+
+_FALSE_WORDS = frozenset({"0", "false", "no", "off"})
+
+
+def _parse_bool(raw: str) -> bool:
+    return raw.strip().lower() not in _FALSE_WORDS
+
+
+def _parse_tristate(raw: str):
+    """``"auto"`` stays the string sentinel; anything else parses as bool."""
+    word = raw.strip().lower()
+    if word == "auto":
+        return "auto"
+    return _parse_bool(word)
+
+
+#: key -> (library default, parser for env-var strings).
+_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
+    # Bulk device re-batching: "auto" / True / False.
+    "device_rebatch": ("auto", _parse_tristate),
+    # Deadline watchdog over the bulk copy and carve.
+    "watchdog": (True, _parse_bool),
+    # Seconds one bulk chunk's copy or first carve may run before the
+    # watchdog declares a stall: meant to catch a wedged copy, not a
+    # slow one.
+    "bulk_transfer_deadline_s": (30.0, float),
+    # What a stall does: "degrade" (per-batch copies from then on),
+    # "warn" (record only), "raise" (fail the producer).
+    "stall_action": ("degrade", str),
+    # The watchdog monitor thread's poll interval.
+    "watchdog_poll_interval_s": (0.05, float),
+    # Per-batch copies overlap the next batch's conversion (see
+    # device_dataset's docstring).
+    "device_double_buffer": (True, _parse_bool),
+    # RetryPolicy defaults (runtime/retry.py): total attempts, the
+    # decorrelated-jitter backoff bounds, and a wall-clock deadline for
+    # the call and its retries (<= 0: none).
+    "retry_max_attempts": (3, int),
+    "retry_initial_backoff_s": (0.05, float),
+    "retry_max_backoff_s": (2.0, float),
+    "retry_deadline_s": (0.0, float),
+}
+
+_lock = threading.Lock()
+#: component -> {key -> default} registered by embedding applications.
+_component_defaults: Dict[str, Dict[str, Any]] = {}
+
+
+def _check_key(key: str) -> None:
+    if key not in _KEYS:
+        raise ValueError(f"unknown policy key {key!r} "
+                         f"(known: {sorted(_KEYS)})")
+
+
+def register_defaults(component: str, **defaults: Any) -> None:
+    """Override library defaults for one component (environment variables
+    still win over these)."""
+    for key in defaults:
+        _check_key(key)
+    with _lock:
+        _component_defaults.setdefault(component, {}).update(defaults)
+
+
+def _env_raw(component: str, key: str) -> Optional[str]:
+    for name in (f"RSDL_{component.upper()}_{key.upper()}",
+                 f"RSDL_{key.upper()}"):
+        raw = os.environ.get(name)
+        if raw is not None and raw.strip() != "":
+            return raw
+    return None
+
+
+def resolve(component: str, key: str, override: Any = None,
+            default: Any = None) -> Any:
+    """Resolve one key for a component (the module docstring's order).
+    ``override`` is the explicit-kwarg rung (``None``: not given);
+    ``default`` replaces the library default, the lowest rung."""
+    _check_key(key)
+    library_default, parser = _KEYS[key]
+    if override is not None:
+        return parser(override) if isinstance(override, str) else override
+    raw = _env_raw(component, key)
+    if raw is not None:
+        return parser(raw)
+    with _lock:
+        component_default = _component_defaults.get(component, {})
+        if key in component_default:
+            return component_default[key]
+    return library_default if default is None else default
+
+
+def resolve_all(component: str, **overrides: Any) -> Dict[str, Any]:
+    """Resolve every key for a component; ``overrides`` are explicit
+    kwargs (unknown keys raise, so typos fail loudly)."""
+    unknown = set(overrides) - set(_KEYS)
+    if unknown:
+        raise ValueError(f"unknown policy keys: {sorted(unknown)} "
+                         f"(known: {sorted(_KEYS)})")
+    return {key: resolve(component, key, overrides.get(key))
+            for key in _KEYS}

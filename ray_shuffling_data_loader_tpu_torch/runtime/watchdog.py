@@ -1,0 +1,169 @@
+"""Deadline watchdog for blocking pipeline steps (own copy of the JAX
+package's ``runtime/watchdog.py``, without its periodic callbacks).
+
+A thread blocked in a wedged host-to-device copy cannot be interrupted,
+so the cure is supervision: the step registers a *watch* around its
+blocking call; one daemon monitor thread sees the missed deadline while
+the call is still stuck, files a :class:`StallReport` into
+``stats.watchdog_stats()``, logs it and runs the step's ``on_stall`` hook
+(the device binding's drops it to per-batch copies). When the call
+returns, the step reads ``handle.stalled`` and goes on degraded.
+
+One process-wide instance (:func:`get_watchdog`) supervises every step;
+its monitor parks on a condition while no watch is active.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import time
+from typing import Callable, Iterator, Optional
+
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+
+@dataclasses.dataclass
+class StallReport:
+    """One deadline miss, as recorded into ``stats.watchdog_stats()``."""
+
+    name: str            # watch name, e.g. "device_dataset.bulk_transfer"
+    waited_s: float      # time since the watch's last heartbeat
+    deadline_s: float    # the deadline that was missed
+    escalation: int      # 1 on the first miss, 2 at 2x the deadline, ...
+    detail: str          # step-supplied context (queue depth, ...)
+    timestamp: float     # time.time() at detection
+
+
+class WatchHandle:
+    """Live handle for one supervised step.
+
+    The supervised thread calls :meth:`beat` to restart the deadline (a
+    step of several parts); the monitor sets :attr:`stalled` and
+    :attr:`report` on a miss, which the supervised thread reads after its
+    blocking call returns.
+    """
+
+    __slots__ = ("name", "deadline_s", "on_stall", "detail_fn",
+                 "_last_beat", "stalled", "escalations", "report")
+
+    def __init__(self, name: str, deadline_s: float,
+                 on_stall: Optional[Callable[[StallReport], None]],
+                 detail_fn: Optional[Callable[[], str]]):
+        self.name = name
+        self.deadline_s = deadline_s
+        self.on_stall = on_stall
+        self.detail_fn = detail_fn
+        self._last_beat = time.monotonic()
+        self.stalled = False
+        self.escalations = 0
+        self.report: Optional[StallReport] = None
+
+    def beat(self) -> None:
+        """Report progress: the deadline clock restarts from now."""
+        self._last_beat = time.monotonic()
+
+    def _detail(self) -> str:
+        if self.detail_fn is None:
+            return ""
+        try:
+            return str(self.detail_fn())
+        except Exception as e:  # noqa: BLE001 - detail must never kill it
+            return f"<detail failed: {e}>"
+
+
+class Watchdog:
+    """Deadline monitor: one daemon thread supervising all active
+    watches."""
+
+    def __init__(self, poll_interval_s: float = 0.05):
+        self.poll_interval_s = poll_interval_s
+        self._cond = threading.Condition()
+        self._watches: "set[WatchHandle]" = set()
+        self._thread: Optional[threading.Thread] = None
+
+    @contextlib.contextmanager
+    def watch(self, name: str, deadline_s: float,
+              on_stall: Optional[Callable[[StallReport], None]] = None,
+              detail_fn: Optional[Callable[[], str]] = None
+              ) -> Iterator[WatchHandle]:
+        """Supervise the enclosed block: if it runs longer than
+        ``deadline_s`` without a :meth:`WatchHandle.beat`, a stall is
+        reported (and again at every further multiple of the deadline).
+        ``on_stall`` runs on the MONITOR thread: the supervised thread is
+        stuck."""
+        handle = WatchHandle(name, deadline_s, on_stall, detail_fn)
+        with self._cond:
+            self._watches.add(handle)
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._monitor, daemon=True,
+                    name="rsdl-torch-watchdog")
+                self._thread.start()
+            self._cond.notify_all()
+        try:
+            yield handle
+        finally:
+            with self._cond:
+                self._watches.discard(handle)
+
+    def _monitor(self) -> None:
+        from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
+        while True:
+            with self._cond:
+                if not self._watches:
+                    # Idle park; watch() notifies. Bounded only so a
+                    # torn-down interpreter lets the daemon cycle out.
+                    self._cond.wait(timeout=5.0)
+                    continue
+                now = time.monotonic()
+                due = []
+                for w in self._watches:
+                    waited = now - w._last_beat
+                    if waited >= w.deadline_s * (w.escalations + 1):
+                        w.escalations += 1
+                        w.stalled = True
+                        due.append((w, waited, w.escalations))
+                if not due:
+                    self._cond.wait(timeout=self.poll_interval_s)
+                    continue
+            # Reports, logs and hooks run OUTSIDE the lock: a hook that
+            # takes its subsystem's locks must not deadlock new watchers.
+            for w, waited, escalation in due:
+                report = StallReport(
+                    name=w.name, waited_s=waited, deadline_s=w.deadline_s,
+                    escalation=escalation, detail=w._detail(),
+                    timestamp=time.time())
+                w.report = report
+                stats_mod.watchdog_stats().record_stall(report)
+                log = logger.warning if escalation == 1 else logger.error
+                log("watchdog: %s has run %.4fs (deadline %.4fs, "
+                    "escalation %d)%s", report.name, report.waited_s,
+                    report.deadline_s, report.escalation,
+                    f": {report.detail}" if report.detail else "")
+                if w.on_stall is not None:
+                    try:
+                        w.on_stall(report)
+                    except Exception:  # noqa: BLE001 - supervision survives
+                        logger.exception(
+                            "watchdog on_stall hook for %s failed", w.name)
+
+
+_global_lock = threading.Lock()
+_global: Optional[Watchdog] = None
+
+
+def get_watchdog() -> Watchdog:
+    """The process-wide watchdog (poll interval from the policy registry
+    at first use)."""
+    global _global
+    with _global_lock:
+        if _global is None:
+            from ray_shuffling_data_loader_tpu_torch.runtime import policy
+            _global = Watchdog(poll_interval_s=policy.resolve(
+                "watchdog", "watchdog_poll_interval_s"))
+        return _global

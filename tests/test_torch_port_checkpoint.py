@@ -261,17 +261,21 @@ def test_max_to_keep_is_honoured(tmp_path):
 
 
 def _resume_equals_uninterrupted(tmp_path, files, spec, build, batch_size,
-                                 crash_epoch, crash_after, num_epochs=2):
+                                 crash_epoch, crash_after, num_epochs=2,
+                                 made=None, **ds_kw):
     """``build(seed) -> (trainer, step, generators)``. Trains the whole
     run; then trains until ``crash_after`` batches of ``crash_epoch``,
     saves, restores into a trainer built from another seed and finishes
     through ``resume_iterator``. Returns the two runs' losses and final
-    parameters."""
+    parameters; the datasets made go into ``made``."""
 
     def make_ds(start_epoch=0):
-        return DeviceShufflingDataset(
+        ds = DeviceShufflingDataset(
             files, num_epochs, 1, batch_size, 0, num_reducers=2, seed=21,
-            device="cpu", start_epoch=start_epoch, **spec)
+            device="cpu", start_epoch=start_epoch, **ds_kw, **spec)
+        if made is not None:
+            made.append(ds)
+        return ds
 
     trainer, step, _ = build(0)
     ds = make_ds()
@@ -335,6 +339,41 @@ def test_combined_resume_matches_uninterrupted_run_sgd(tmp_path):
     _assert_bit_equal(*_resume_equals_uninterrupted(
         tmp_path, files, spec, build, batch_size=40, crash_epoch=1,
         crash_after=2))
+
+
+def test_combined_resume_on_the_bulk_binding_skips_into_a_chunk(tmp_path):
+    """The same resume on the bulk binding (``device_rebatch=True``, the
+    default on a card): the crash falls after the first batch of epoch 1,
+    whose first reducer table went to the device as one chunk of several
+    batches; the resumed dataset (``start_epoch=1``) skips that batch at
+    the Arrow level, before its producer enters the epoch."""
+    files = tdg.generate_data(240, 2, str(tmp_path / "pq"))[0]
+    spec = dlrm_spec()
+    in_dim = len(spec["feature_columns"])
+
+    def build(seed):
+        model = mlp.MLP(in_dim, (16,), 1, compute_dtype=torch.float32,
+                        device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+        trainer = types.SimpleNamespace(model=model,
+                                        optimizer=train.make_sgd(model))
+
+        def step(cols, label):
+            x = torch.log1p(torch.cat([c.float() for c in cols], dim=1))
+            return _mlp_step(trainer, x, label)
+
+        return trainer, step, []
+
+    made = []
+    _assert_bit_equal(*_resume_equals_uninterrupted(
+        tmp_path, files, spec, build, batch_size=40, crash_epoch=1,
+        crash_after=1, made=made, device_rebatch=True))
+    uninterrupted, _, resumed = made
+    chunks = uninterrupted.transfer_stats()["copies_by_epoch"][1]
+    assert next(iter(chunks["chunk_batches"])) > 1
+    assert resumed.binding == "bulk"
+    assert resumed._scheduled_skips == {1: 1}  # the Arrow-level skip
+    assert resumed.transfer_stats()["copies_by_epoch"][1]["bulk"] > 0
 
 
 def test_combined_resume_matches_uninterrupted_run_bert_adam(tmp_path):
