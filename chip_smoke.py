@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's DLRM, BERT-MLM and ResNet-50 train paths, the sequence-
-and data-parallel entry points at world size 1, and save, restore and
-resume mid-epoch, end to end at full width, and checks its hand-written
-kernels against their plain PyTorch versions. Phases, each printing one
-JSON line:
+and data-parallel entry points at world size 1, the distributed shuffle
+and its training entry point in a world of two processes, and save,
+restore and resume mid-epoch, end to end at full width, and checks its
+hand-written kernels against their plain PyTorch versions. Phases, each
+printing one JSON line:
 
 1. ``env``: torch/CUDA versions, the card's name and power limit, PIL's
    version, ``g++`` and the codec headers the native image decoder needs,
@@ -94,7 +95,29 @@ JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-9. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+9. ``distributed``: a world of two processes on the one card, started by
+   the port's launcher (``launch_slice --local``, ``RSDL_HOSTS`` on two
+   free loopback ports), each a ``train_shuffle --distributed`` rank with
+   its process group over gloo on CUDA tensors (NCCL refuses two ranks on
+   one device) and ``--record-dir``. (a) The loader alone
+   (``--mock-train-step-time 0``) on the ``train`` phase's files: 8
+   reducers, batch 131,072, 2 epochs, seed 0, each rank a
+   ``DeviceShufflingDataset`` in the bulk binding over
+   ``parallel.distributed.create_distributed_batch_queue_and_shuffle``,
+   the map->reduce chunks that cross ranks sent over the port's TCP
+   transport. Every key arrives exactly once per epoch across the ranks,
+   and each rank's batch digests (``device_dataset.batch_digest``) equal
+   those of the one-process shuffle with ``num_trainers=2`` for that rank.
+   Per rank: rows/s, ``stall_pct``, frames and bytes sent and received
+   and the send rate. (b) DLRM ``mlperf`` (weights from seed 0) through
+   ``SpmdTrainer`` on 18,432 rows in 8 files that the ranks generate,
+   2,048 rows per rank and step, about 4 steps per epoch, 2 epochs:
+   finite losses, one gather launch per step in each rank, the first
+   loss within 1e-5 relative of ``train.make_micro_step`` on the two
+   ranks' batches concatenated from the same weights, the later ones
+   within 1e-3 (the all-reduce sums the gradients in another order);
+   step ms and the all-reduce's share of it.
+10. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -105,7 +128,7 @@ JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-10. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+11. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -971,22 +994,6 @@ REBATCH_DEADLINE_S = 1e-4
 REBATCH_CHAOS = "device_transfer@0.05"
 
 
-def batch_digest(features, label) -> torch.Tensor:
-    """``(2, C)`` int64 on the device: for each column of the batch, the
-    sums of its 32-bit words' low and high 16 bits, each weighted by row
-    position (1..B). Exact: no sum can pass 2**63."""
-    tensors = features if isinstance(features, list) else [features]
-    cols = []
-    for t in tensors + [label]:
-        if t.dtype == torch.float32:
-            t = t.view(torch.int32)
-        cols.append(t.reshape(t.shape[0], -1).to(torch.int64) & 0xFFFFFFFF)
-    x = torch.cat(cols, dim=1)
-    w = torch.arange(1, x.shape[0] + 1, device=x.device,
-                     dtype=torch.int64)[:, None]
-    return torch.stack([(w * (x & 0xFFFF)).sum(0), (w * (x >> 16)).sum(0)])
-
-
 def _loader_pass(files, batch: int, spec: dict, **kw):
     """One epoch through ``DeviceShufflingDataset`` with no training;
     returns the dataset and its batches' digests."""
@@ -995,7 +1002,8 @@ def _loader_pass(files, batch: int, spec: dict, **kw):
         files, 1, 1, batch, 0, num_reducers=NUM_REDUCERS, seed=SEED,
         **kw, **spec)
     ds.set_epoch(0)
-    digests = [batch_digest(features, label) for features, label in ds]
+    digests = [device_dataset.batch_digest(features, label)
+               for features, label in ds]
     return ds, torch.stack(digests).cpu()
 
 
@@ -1039,7 +1047,7 @@ def _rebatch_turn(emb, files, binding: str, epochs: int, **ds_kw):
                 t_first = timeit.default_timer()
             if epoch == 1 and epoch1_wait is None:
                 epoch1_wait = waits[n0]
-            digests.append(batch_digest(features, label))
+            digests.append(device_dataset.batch_digest(features, label))
             t0 = timeit.default_timer()
             losses.append(train.train_chunk(micro_step, features, label,
                                             MICROBATCH))
@@ -1489,6 +1497,244 @@ def ring_phase(fa, emb) -> dict:
             "walk": walk, "spmd_bert": bert_run, "spmd_dlrm": dlrm_run}
 
 
+# Distributed phase: a world of two processes on the one card, started by
+# the port's launcher (--local), the process group over gloo on CUDA
+# tensors (NCCL refuses two ranks on one device).
+DIST_WORLD = 2
+# (b): 18,432 rows in 8 files, about 9,216 per rank and epoch: 4 steps of
+# 2,048 rows per rank.
+DIST_TRAIN_ROWS, DIST_TRAIN_BATCH = 18432, 2048
+DIST_FIRST_RTOL = 1e-5
+# Later steps: gloo sums each rank's gradients in another order than one
+# backward over the concatenated batch does, and the embedding backward's
+# index_add_ adds in no fixed order; Adam's early updates (about lr times
+# the gradient's sign) carry those f32 roundings into the loss.
+DIST_LOSS_RTOL = 1e-3
+DIST_TIMEOUT_S = 600
+_REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_ports(n: int) -> list:
+    import socket
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _launch_world(train_args, out: str):
+    """Run ``train_shuffle`` in ``DIST_WORLD`` processes through the port's
+    launcher (``--local``, ``RSDL_HOSTS`` on free loopback ports, gloo)
+    with ``--record-dir``; returns each rank's ``(summary, arrays)`` and
+    the world's wall seconds. The launcher and its hosts share a process
+    group of their own, all killed if the world outlives
+    ``DIST_TIMEOUT_S``."""
+    import signal
+    *shuffle_ports, master = _free_ports(DIST_WORLD + 1)
+    record = os.path.join(out, "record")
+    cmd = [sys.executable, "-m",
+           "ray_shuffling_data_loader_tpu_torch.launch_slice", "--local",
+           "--out", os.path.join(out, "stats"),
+           "--coordinator-port", str(master), "--",
+           "--process-group-backend", "gloo", "--record-dir", record,
+           *train_args]
+    env = dict(os.environ, RSDL_HOSTS=",".join(
+        f"127.0.0.1:{p}" for p in shuffle_ports))
+    start = timeit.default_timer()
+    proc = subprocess.Popen(cmd, cwd=_REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"the world ran past {DIST_TIMEOUT_S} s")
+    wall = timeit.default_timer() - start
+    if proc.returncode:
+        raise AssertionError(f"launcher exited {proc.returncode}:\n"
+                             f"{log[-6000:]}")
+    ranks = []
+    for rank in range(DIST_WORLD):
+        with open(os.path.join(record, f"rank_{rank}.json")) as f:
+            summary = json.load(f)
+        ranks.append((summary, dict(np.load(
+            os.path.join(record, f"rank_{rank}.npz")))))
+    return ranks, wall
+
+
+def _one_process_stream(files, batch: int, epochs: int, keep: bool):
+    """Per rank, per epoch: the digests of every batch that the one-process
+    shuffle with ``num_trainers=DIST_WORLD`` gives that rank on the card
+    (the key column loaded, the last partial batch kept, as the world's
+    ``--record-dir`` runs load them), and with ``keep`` the batches."""
+    from ray_shuffling_data_loader_tpu_torch import (
+        data_generation, dataset, device_dataset)
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+    spec = dlrm_criteo.dlrm_spec()
+    spec["feature_columns"].append(data_generation.KEY_COLUMN)
+    spec["feature_types"].append(np.dtype(np.int64))
+    queue, result = dataset.create_batch_queue_and_shuffle(
+        files, epochs, DIST_WORLD, num_reducers=NUM_REDUCERS, seed=SEED,
+        map_transform=device_dataset.make_cast_transform(
+            spec["feature_columns"], spec["feature_types"],
+            spec["label_column"], spec["label_type"]))
+    digests, batches = [], []
+    for rank in range(DIST_WORLD):
+        ds = device_dataset.DeviceShufflingDataset(
+            files, epochs, DIST_WORLD, batch, rank, batch_queue=queue,
+            shuffle_result=result, drop_last=False, seed=SEED, **spec)
+        digests.append([])
+        batches.append([])
+        for epoch in range(epochs):
+            ds.set_epoch(epoch)
+            got = list(ds)
+            digests[rank].append([device_dataset.batch_digest(f, y)
+                                  for f, y in got])
+            batches[rank].append(got if keep else None)
+        ds.close()
+    return digests, batches
+
+
+def _same_stream(name: str, rank: int, got, want_by_epoch) -> int:
+    want = torch.stack([d for epoch in want_by_epoch for d in epoch]).cpu()
+    got = torch.from_numpy(got)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: rank {rank}'s batch digests differ "
+                             "from the one-process num_trainers="
+                             f"{DIST_WORLD} stream")
+    return int(want.shape[0])
+
+
+def _transport_line(summary: dict) -> dict:
+    t = summary["transport"]
+    return {**t, "send_MBps": (t["bytes_sent"] / t["send_s"] / 1e6
+                               if t["send_s"] else None)}
+
+
+def distributed_phase(dlrm_paths, tmp: str) -> dict:
+    """(a) The loader at the ``train`` phase's scale in a world of two
+    processes: every key once per epoch, digests equal to the
+    one-process stream. (b) DLRM ``mlperf`` through ``train_shuffle`` and
+    ``SpmdTrainer``: finite losses, one gather launch per step per rank,
+    losses against ``train.make_micro_step`` on the ranks' batches
+    concatenated."""
+    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+
+    torch.cuda.empty_cache()
+    files = sorted(dlrm_paths)
+    common = ["--num-reducers", str(NUM_REDUCERS), "--seed", str(SEED),
+              "--num-epochs", str(NUM_EPOCHS)]
+
+    # (a) The loader alone, bulk binding, the train phase's files.
+    ranks, wall_a = _launch_world(
+        [*common, "--use-old-data", "--data-dir", os.path.dirname(files[0]),
+         "--batch-size", str(LOADER_BATCH), "--mock-train-step-time", "0"],
+        os.path.join(tmp, "loader"))
+    want, _ = _one_process_stream(files, LOADER_BATCH, NUM_EPOCHS, False)
+    loader = []
+    for rank, (summary, arrays) in enumerate(ranks):
+        if summary["binding"] != "bulk":
+            raise AssertionError(f"rank {rank} ran {summary['binding']}")
+        batches = _same_stream("loader", rank, arrays["digests"], want[rank])
+        loader.append({
+            "rank": rank, "binding": summary["binding"], "batches": batches,
+            "rows": summary["rows_delivered"],
+            "rows_per_s": summary["rows_per_s"],
+            "stall_pct": summary["stall_pct"],
+            "transport": _transport_line(summary)})
+    for epoch in range(NUM_EPOCHS):
+        keys = np.sort(np.concatenate([a[f"keys_{epoch}"]
+                                       for _, a in ranks]))
+        if not np.array_equal(keys, np.arange(NUM_ROWS)):
+            raise AssertionError(f"epoch {epoch}: keys lost or repeated "
+                                 "across the ranks")
+
+    # (b) Full-width training; the ranks generate the files themselves.
+    data = os.path.join(tmp, "train_data")
+    ranks, wall_b = _launch_world(
+        [*common, "--num-rows", str(DIST_TRAIN_ROWS), "--num-files",
+         str(NUM_FILES), "--data-dir", data,
+         "--batch-size", str(DIST_TRAIN_BATCH)],
+        os.path.join(tmp, "train"))
+    files_b = sorted(os.path.join(data, f) for f in os.listdir(data))
+    want, batches = _one_process_stream(files_b, DIST_TRAIN_BATCH,
+                                        NUM_EPOCHS, True)
+    steps_by_epoch = ranks[0][0]["steps_by_epoch"]
+    trained = []
+    for rank, (summary, arrays) in enumerate(ranks):
+        _same_stream("train", rank, arrays["digests"], want[rank])
+        steps = sum(summary["steps_by_epoch"])
+        if summary["steps_by_epoch"] != steps_by_epoch:
+            raise AssertionError("the ranks took different numbers of steps")
+        if not all(math.isfinite(x) for x in summary["losses"]):
+            raise AssertionError(f"rank {rank}: non-finite loss")
+        if summary["gather_launches"] != steps:
+            raise AssertionError(
+                f"rank {rank}: {summary['gather_launches']} gather launches "
+                f"in {steps} steps; expected one per step")
+        trained.append({
+            "rank": rank, "steps": steps,
+            "gather_launches": summary["gather_launches"],
+            "step_ms_median": float(np.median(summary["step_ms"])),
+            "allreduce_ms_median": float(np.median(
+                summary["collective_ms"])),
+            "allreduce_share": (sum(summary["collective_ms"])
+                                / sum(summary["step_ms"])),
+            "allreduce_share_median": float(np.median(
+                np.divide(summary["collective_ms"], summary["step_ms"]))),
+            "step_ms": summary["step_ms"],
+            "transport": _transport_line(summary)})
+    losses = ranks[0][0]["losses"]
+    if ranks[1][0]["losses"] != losses:
+        raise AssertionError("the ranks report different global losses")
+
+    # The same steps in one process: train.make_micro_step from the same
+    # weights on the two ranks' batches concatenated.
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    n_features = len(dlrm.MLPERF.vocab_sizes)
+    reference = []
+    for epoch, steps in enumerate(steps_by_epoch):
+        for i in range(steps):
+            pair = [batches[rank][epoch][i] for rank in range(DIST_WORLD)]
+            cols = [torch.cat([f[j] for f, _ in pair])
+                    for j in range(n_features)]
+            reference.append(float(micro_step(
+                cols, torch.cat([y for _, y in pair]))))
+    del model, micro_step
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, reference)]
+    if not rel[0] <= DIST_FIRST_RTOL:
+        raise AssertionError(f"first loss {losses[0]} vs one process "
+                             f"{reference[0]} ({rel[0]} relative)")
+    if not max(rel) <= DIST_LOSS_RTOL:
+        raise AssertionError(f"losses {losses} vs one process {reference}")
+    return {
+        "world": DIST_WORLD, "backend": "gloo", "launcher": "--local",
+        "loader": {"rows": NUM_ROWS, "files": NUM_FILES,
+                   "batch": LOADER_BATCH, "epochs": NUM_EPOCHS,
+                   "keys_exactly_once": True, "digests_equal": True,
+                   "wall_s": wall_a, "ranks": loader},
+        "train": {"model": "mlperf", "rows": DIST_TRAIN_ROWS,
+                  "batch_per_rank": DIST_TRAIN_BATCH,
+                  "steps_by_epoch": steps_by_epoch, "losses": losses,
+                  "one_process_losses": reference,
+                  "first_rel_diff": rel[0], "first_rtol": DIST_FIRST_RTOL,
+                  "max_rel_diff": max(rel), "rtol": DIST_LOSS_RTOL,
+                  "wall_s": wall_b, "ranks": trained},
+        "gather_launches": sum(t["gather_launches"] for t in trained),
+    }
+
+
 # ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
 # reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
 # NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
@@ -1900,8 +2146,12 @@ def main() -> int:
         rebatch = rebatch_phase(emb, dlrm_paths, token_paths)
         emit({"phase": "rebatch", "card": smi, **rebatch})
 
-    ring_run = ring_phase(fa, emb)
-    emit({"phase": "ring", "card": smi, **ring_run})
+        ring_run = ring_phase(fa, emb)
+        emit({"phase": "ring", "card": smi, **ring_run})
+
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-dist-") as tmp:
+            dist_run = distributed_phase(dlrm_paths, tmp)
+        emit({"phase": "distributed", "card": smi, **dist_run})
 
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
@@ -1919,6 +2169,7 @@ def main() -> int:
             "train": trained["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
+            "distributed": dist_run["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],

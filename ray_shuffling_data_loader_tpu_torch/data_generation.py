@@ -64,9 +64,14 @@ def generate_table(first_row: int, num_rows: int, seed: int) -> pa.Table:
 
 
 def generate_data(num_rows: int, num_files: int, data_dir: str,
-                  seed: int = 0) -> Tuple[List[str], int]:
-    """Write ``num_rows`` rows over ``num_files`` snappy Parquet files
-    (one row group each); returns ``(paths, in-memory bytes)``."""
+                  seed: int = 0, num_row_groups_per_file: int = 1
+                  ) -> Tuple[List[str], int]:
+    """Write ``num_rows`` rows over ``num_files`` snappy Parquet files of
+    ``num_row_groups_per_file`` row groups each; returns ``(paths,
+    in-memory bytes)``. Each file is written under a temporary name and
+    renamed into place, so processes that generate the same files into one
+    directory at once (the ranks of a one-machine world) never read a
+    partial file."""
     os.makedirs(data_dir, exist_ok=True)
     rows_per_file = max(1, num_rows // num_files)
     filenames, nbytes = [], 0
@@ -75,7 +80,10 @@ def generate_data(num_rows: int, num_files: int, data_dir: str,
         table = generate_table(start, n, seed)
         path = os.path.join(data_dir,
                             f"input_data_{file_index}.parquet.snappy")
-        pq.write_table(table, path, compression="snappy", row_group_size=n)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        pq.write_table(table, tmp, compression="snappy",
+                       row_group_size=-(-n // num_row_groups_per_file))
+        os.replace(tmp, path)
         filenames.append(path)
         nbytes += table.nbytes
     return filenames, nbytes

@@ -1097,3 +1097,21 @@ class DeviceShufflingDataset:
             except _queue.Empty:
                 pass
             thread.join(timeout=5)
+
+
+def batch_digest(features, label) -> torch.Tensor:
+    """``(2, C)`` int64 on the batch's device: for each column of the
+    batch (each feature tensor, then the label), the sums of its 32-bit
+    words' low and high 16 bits, each weighted by row position (1..B).
+    Exact (no sum can pass 2**63), so two streams are equal batch for
+    batch exactly where their digests are."""
+    tensors = features if isinstance(features, list) else [features]
+    cols = []
+    for t in tensors + [label]:
+        if t.dtype == torch.float32:
+            t = t.view(torch.int32)
+        cols.append(t.reshape(t.shape[0], -1).to(torch.int64) & 0xFFFFFFFF)
+    x = torch.cat(cols, dim=1)
+    w = torch.arange(1, x.shape[0] + 1, device=x.device,
+                     dtype=torch.int64)[:, None]
+    return torch.stack([(w * (x & 0xFFFF)).sum(0), (w * (x >> 16)).sum(0)])

@@ -37,10 +37,11 @@ def named_mesh(shape: Sequence[int], names: Sequence[str],
                device=None) -> DeviceMesh:
     """A mesh of ``shape`` over all ranks, axes named ``names``.
 
-    ``device=None`` means CUDA (over NCCL) and raises without a card;
-    ``device="cpu"`` meshes CPU ranks (over gloo). The default process
-    group must be initialised and its size must be the product of
-    ``shape``.
+    ``device=None`` means CUDA and raises without a card;
+    ``device="cpu"`` meshes CPU ranks. Every axis group runs the default
+    group's backend (NCCL on cards; gloo on the CPU, or on CUDA tensors
+    where several ranks share one card). The default process group must
+    be initialised and its size must be the product of ``shape``.
     """
     device = resolve_device(device)
     if not dist.is_initialized():
@@ -53,8 +54,19 @@ def named_mesh(shape: Sequence[int], names: Sequence[str],
     if size != world:
         raise ValueError(f"mesh shape {tuple(shape)} holds {size} ranks; "
                          f"the world has {world}")
-    return init_device_mesh(device.type, tuple(shape),
+    mesh = init_device_mesh(device.type, tuple(shape),
                             mesh_dim_names=tuple(names))
+    # Every axis must run the default group's backend: over a gloo world on
+    # CUDA tensors (several ranks on one card, where NCCL refuses), an
+    # axis group quietly made with another backend would fail at its
+    # first collective instead.
+    backend = dist.get_backend()
+    for name in names:
+        got = dist.get_backend(mesh.get_group(name))
+        if got != backend:
+            raise RuntimeError(f"mesh axis {name!r} got backend {got!r}; "
+                               f"the default group runs {backend!r}")
+    return mesh
 
 
 def make_mesh(model_parallel: int = 1, device=None) -> DeviceMesh:

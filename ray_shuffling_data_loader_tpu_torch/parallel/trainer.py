@@ -23,7 +23,8 @@ Tensor-parallel ``param_specs`` are not ported yet (ROADMAP item 7).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+import time
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -34,11 +35,19 @@ LossFn = Callable[..., torch.Tensor]
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: LossFn,
-                    optimizer: torch.optim.Optimizer) -> Callable:
+                    optimizer: torch.optim.Optimizer,
+                    collective_ms: Optional[List[float]] = None
+                    ) -> Callable:
     """``step(*batch) -> loss``: this rank's loss term and its gradients,
     both summed over all ranks, then one optimizer update. Returns the
-    global loss (no host sync)."""
+    global loss (no host sync). With a ``collective_ms`` list, each step
+    appends the wall milliseconds of its gradient all-reduce, between a
+    device synchronisation before it and one after it."""
     params = [p for p in model.parameters() if p.requires_grad]
+
+    def sync() -> None:
+        if params and params[0].is_cuda:
+            torch.cuda.synchronize(params[0].device)
 
     def train_step(*batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -48,8 +57,14 @@ def make_train_step(model: torch.nn.Module, loss_fn: LossFn,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         total = loss.detach().to(torch.float32).reshape(1)
+        if collective_ms is not None:
+            sync()
+            start = time.perf_counter()
         pmesh.flat_collective([p.grad for p in params] + [total],
                               dist.all_reduce)
+        if collective_ms is not None:
+            sync()
+            collective_ms.append((time.perf_counter() - start) * 1e3)
         optimizer.step()
         return total[0]
 
@@ -67,11 +82,15 @@ class SpmdTrainer:
         optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
         param_specs: ``None`` (replicate every parameter); tensor-parallel
             specs are ROADMAP item 7 and raise.
+        time_collectives: record each step's all-reduce milliseconds in
+            ``collective_ms`` (it adds a device synchronisation before and
+            after the all-reduce).
     """
 
     def __init__(self, mesh, loss_fn: LossFn, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
-                 param_specs: Optional[Any] = None):
+                 param_specs: Optional[Any] = None,
+                 time_collectives: bool = False):
         if param_specs is not None:
             raise NotImplementedError(
                 "tensor-parallel param_specs are not ported yet (ROADMAP "
@@ -83,7 +102,10 @@ class SpmdTrainer:
         self.mesh = mesh
         self.model = pmesh.replicated(model)
         self.optimizer = optimizer
-        self._step = make_train_step(model, loss_fn, optimizer)
+        self.collective_ms: Optional[List[float]] = (
+            [] if time_collectives else None)
+        self._step = make_train_step(model, loss_fn, optimizer,
+                                     self.collective_ms)
 
     def train_step(self, *batch) -> torch.Tensor:
         """One optimizer step on this rank's block of the batch; returns

@@ -1,0 +1,420 @@
+"""Tagged TCP byte transport for the cross-host shuffle traffic (own copy of
+the JAX package's ``parallel/transport.py``).
+
+One listener per host, one persistent connection per peer, length-prefixed
+frames tagged ``(epoch, reducer, file_index)`` and a blocking tag-matched
+receive. Payloads are raw bytes (the shuffle sends Arrow IPC streams);
+``socket.sendall`` and ``recv_into`` release the GIL, so transfers
+overlap the map and reduce threads.
+
+Wire format of a frame (the JAX package's v2), little-endian::
+
+    magic       u32 = 0x5244534C ("RSDL")
+    src         u32   sending host id
+    incarnation u32   sender's process generation (written as 0 here)
+    view        u32   sender's membership view (written as 0 here)
+    epoch       u64   (2**64 - 1: a heartbeat control frame, no payload)
+    reducer     u64
+    file        u64
+    length      u64   payload byte count
+    payload     length bytes
+
+A port transport and a JAX transport exchange frames in both directions.
+The port has no membership layer: the incarnation and view fields are
+parsed and not fenced, and a heartbeat frame from a JAX peer is dropped.
+
+Delivery: each message is consumed exactly once; a frame whose
+``(src, tag)`` is already in the inbox (a sender's resend after a
+reconnect) is dropped with a warning. A send that fails redials the peer
+once and resends. A connection that dies mid-frame marks the sources it
+carried dead; a ``recv`` from a dead source fails after
+``reconnect_grace_s`` unless a frame from it arrives on a new connection
+first, and any ``recv`` fails with :class:`TransportTimeout` after
+``recv_timeout_s``. The fault sites ``transport_send`` (inside the frame
+sender, so an injected fault takes the redial path) and
+``transport_recv`` (before the inbox pop, so a retried ``recv`` is safe)
+fire through ``runtime/faults.py``; the dial retries under
+``RetryPolicy.for_component("transport")``.
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+_MAGIC = 0x5244534C
+_HEADER = struct.Struct("<IIIIQQQQ")
+#: Epoch of a heartbeat control frame (zero payload, never inboxed).
+_HEARTBEAT_EPOCH = (1 << 64) - 1
+_CHUNK = 1 << 20
+
+Tag = Tuple[int, int, int]  # (epoch, reducer_index, file_index)
+
+
+class TransportError(RuntimeError):
+    pass
+
+
+class TransportTimeout(TransportError):
+    pass
+
+
+class PeerUnreachable(TransportError):
+    """One peer could not be dialed: ``peer`` (its host id), ``address``,
+    ``attempts`` and the ``last_error``."""
+
+    def __init__(self, host_id: int, peer: int, address: Tuple[str, int],
+                 attempts: int, last_error: BaseException):
+        super().__init__(
+            f"host {host_id} could not reach peer {peer} at "
+            f"{address[0]}:{address[1]} after {attempts} attempts: "
+            f"{type(last_error).__name__}: {last_error}")
+        self.peer = peer
+        self.address = address
+        self.attempts = attempts
+        self.last_error = last_error
+
+
+def _recv_into(sock: socket.socket, n: int) -> bytearray:
+    """Read exactly ``n`` bytes into a new ``bytearray``; raises
+    :class:`TransportError` on EOF."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    received = 0
+    while received < n:
+        got = sock.recv_into(view[received:], min(n - received, _CHUNK))
+        if not got:
+            raise TransportError("peer closed connection mid-message")
+        received += got
+    return buf
+
+
+def _new_connection(address: Tuple[str, int]) -> socket.socket:
+    sock = socket.create_connection(address, timeout=30)
+    # Blocking sends from here on: a timed-out sendall after a partial
+    # write would corrupt the framed stream. The receiver's recv timeout
+    # handles dead peers.
+    sock.settimeout(None)
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock
+
+
+class TcpTransport:
+    """Point-to-point tagged message transport between shuffle hosts.
+
+    Args:
+        host_id: this host's index in ``addresses``.
+        addresses: ``(hostname, port)`` per host, the same on every host.
+        recv_timeout_s: how long a ``recv`` waits by default.
+        reconnect_grace_s: how long a ``recv`` from a source whose
+            connection died waits for it to redial.
+
+    ``start()`` binds the listener; ``connect()`` dials every peer (on all
+    hosts, after all have started: the dial retries with backoff to absorb
+    the start-up skew).
+    """
+
+    def __init__(self, host_id: int, addresses: Sequence[Tuple[str, int]],
+                 recv_timeout_s: float = 600.0,
+                 reconnect_grace_s: float = 5.0):
+        if not 0 <= host_id < len(addresses):
+            raise ValueError(
+                f"host_id {host_id} out of range for {len(addresses)} hosts")
+        self.host_id = host_id
+        self.addresses = list(addresses)
+        self.world = len(addresses)
+        self._recv_timeout_s = recv_timeout_s
+        self._reconnect_grace_s = reconnect_grace_s
+        # (src, tag) -> payload: a bytearray (remote) or the sender's
+        # object (self-sends).
+        self._inbox: Dict[Tuple[int, Tag], Any] = {}
+        self._inbox_cv = threading.Condition()
+        # src -> (reason, monotonic time of death); dropped when a frame
+        # from src arrives on a new connection.
+        self._dead_srcs: Dict[int, Tuple[str, float]] = {}
+        self._peers: Dict[int, socket.socket] = {}
+        self._peer_locks: Dict[int, threading.Lock] = {}
+        self._listener: Optional[socket.socket] = None
+        self._closed = threading.Event()
+        self._counts_lock = threading.Lock()
+        self._counts = {"frames_sent": 0, "bytes_sent": 0, "send_s": 0.0,
+                        "frames_received": 0, "bytes_received": 0}
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        """Bind the listener and start accepting peer connections."""
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        listener.bind(self.addresses[self.host_id])
+        listener.listen(self.world)
+        self._listener = listener
+        self._spawn(self._accept_loop, f"rsdl-transport-accept-{self.host_id}")
+
+    def bound_port(self) -> int:
+        """The listening port (the one chosen when configured with 0)."""
+        if self._listener is None:
+            raise TransportError("start() first")
+        return self._listener.getsockname()[1]
+
+    def connect(self, retries: int = 30,
+                initial_backoff_s: float = 0.1) -> None:
+        """Dial every remote peer, each under the ``transport`` component's
+        ``RetryPolicy`` (decorrelated-jitter backoff capped at 5 s, OS
+        errors retried). Raises :class:`PeerUnreachable` naming the first
+        peer that cannot be reached."""
+        policy = rt_retry.RetryPolicy.for_component(
+            "transport", retry_max_attempts=retries + 1,
+            retry_initial_backoff_s=initial_backoff_s,
+            retry_max_backoff_s=5.0,
+            retryable=lambda e: isinstance(e, OSError))
+        # The address table is the dial list.
+        # rsdl-lint: disable=fixed-world-assumption
+        for peer in range(self.world):
+            if peer == self.host_id:
+                continue
+            try:
+                policy.call(self._dial_peer, peer,
+                            describe=f"dial peer {peer}")
+            except OSError as e:
+                raise PeerUnreachable(self.host_id, peer,
+                                      self.addresses[peer], retries + 1, e)
+        logger.info("host %d connected to %d peers", self.host_id,
+                    self.world - 1)
+
+    def _dial_peer(self, peer: int) -> socket.socket:
+        sock = _new_connection(self.addresses[peer])
+        # connect() runs before any send, so no sender holds the lock yet.
+        self._peers[peer] = sock
+        self._peer_locks.setdefault(peer, threading.Lock())
+        return sock
+
+    def close(self) -> None:
+        self._closed.set()
+        with self._inbox_cv:
+            self._inbox_cv.notify_all()
+        for sock in list(self._peers.values()):
+            try:
+                sock.close()
+            except OSError:
+                pass
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+
+    def __enter__(self) -> "TcpTransport":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def stats(self) -> Dict[str, float]:
+        """Frames and payload bytes sent and received so far, and the
+        seconds the senders spent in ``sendall`` (self-sends excluded)."""
+        with self._counts_lock:
+            return dict(self._counts)
+
+    def _count(self, **deltas) -> None:
+        with self._counts_lock:
+            for key, value in deltas.items():
+                self._counts[key] += value
+
+    @staticmethod
+    def _spawn(target, name: str, *args) -> None:
+        threading.Thread(target=target, args=args, daemon=True,
+                         name=name).start()
+
+    # -- receive path --------------------------------------------------------
+
+    def _accept_loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            # No socket timeout: idle links between epochs are normal; the
+            # loop ends when close() closes the connection, and recv()
+            # enforces its own timeout on the tag.
+            conn.settimeout(None)
+            self._spawn(self._recv_loop, f"rsdl-transport-recv-{self.host_id}",
+                        conn)
+
+    def _recv_loop(self, conn: socket.socket) -> None:
+        srcs_seen: set = set()
+        try:
+            while not self._closed.is_set():
+                first = conn.recv(_HEADER.size)
+                if not first:
+                    return  # clean close at a frame boundary
+                header = (first if len(first) == _HEADER.size else
+                          first + _recv_into(conn,
+                                             _HEADER.size - len(first)))
+                (magic, src, _incarnation, _view, epoch, reducer,
+                 file_index, length) = _HEADER.unpack(header)
+                if magic != _MAGIC:
+                    raise TransportError(
+                        f"bad magic {magic:#x} from peer (protocol mismatch)")
+                srcs_seen.add(src)
+                payload = _recv_into(conn, length)
+                if epoch == _HEARTBEAT_EPOCH:
+                    continue
+                self._count(frames_received=1, bytes_received=length)
+                key = (src, (epoch, reducer, file_index))
+                with self._inbox_cv:
+                    if key in self._inbox:
+                        # A sender whose sendall failed after the frame was
+                        # delivered resends it on a new connection: keep
+                        # the first.
+                        logger.warning(
+                            "host %d: dropping duplicate message %s "
+                            "(sender resend after reconnect)",
+                            self.host_id, key)
+                    else:
+                        self._inbox[key] = payload
+                    # A live frame revives a src that an earlier connection
+                    # declared dead (the sender redialed).
+                    self._dead_srcs.pop(src, None)
+                    self._inbox_cv.notify_all()
+                payload = None
+        except (TransportError, OSError) as e:
+            if not self._closed.is_set():
+                now = time.monotonic()
+                with self._inbox_cv:
+                    for src in srcs_seen:
+                        self._dead_srcs.setdefault(src, (str(e), now))
+                    self._inbox_cv.notify_all()
+                logger.warning("host %d: peer connection died: %s",
+                               self.host_id, e)
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def recv(self, src: int, tag: Tag, timeout_s: Optional[float] = None):
+        """Block until the message ``tag`` from host ``src`` arrives and
+        return it (a ``bytearray``, or the sender's object for a
+        self-send). Each message is consumed once. Raises
+        :class:`TransportTimeout` after ``timeout_s`` (default: the
+        transport's ``recv_timeout_s``), and :class:`TransportError` once
+        ``src``'s connection has been dead for ``reconnect_grace_s``."""
+        if timeout_s is None:
+            timeout_s = self._recv_timeout_s
+        rt_faults.inject("transport_recv", epoch=tag[0], task=tag[1])
+        key = (src, tag)
+        deadline = time.monotonic() + timeout_s
+        with self._inbox_cv:
+            while key not in self._inbox:
+                if self._closed.is_set():
+                    raise TransportError("transport closed while receiving")
+                if src in self._dead_srcs:
+                    reason, died_at = self._dead_srcs[src]
+                    if (time.monotonic() - died_at
+                            >= self._reconnect_grace_s):
+                        raise TransportError(
+                            f"host {self.host_id}: connection from host "
+                            f"{src} died before message {tag} arrived "
+                            f"(no reconnect within "
+                            f"{self._reconnect_grace_s:g}s): {reason}")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TransportTimeout(
+                        f"host {self.host_id}: no message {tag} from host "
+                        f"{src} within {timeout_s:g}s")
+                self._inbox_cv.wait(timeout=min(remaining, 1.0))
+            return self._inbox.pop(key)
+
+    # -- send path -----------------------------------------------------------
+
+    def send(self, dest: int, tag: Tag, payload) -> None:
+        """Send ``payload`` (any buffer-protocol object: bytes, a
+        ``pyarrow.Buffer``) to host ``dest`` tagged ``tag``.
+        Thread-safe."""
+        if dest == self.host_id:
+            key = (self.host_id, tag)
+            with self._inbox_cv:
+                if key in self._inbox:
+                    raise TransportError(f"duplicate message for {key}")
+                self._inbox[key] = payload
+                self._inbox_cv.notify_all()
+            return
+        lock = self._peer_locks.get(dest)
+        if lock is None:
+            raise TransportError(
+                f"host {self.host_id} has no connection to peer {dest} "
+                "(connect() not called)")
+        epoch, reducer, file_index = tag
+        nbytes = memoryview(payload).nbytes
+        header = _HEADER.pack(_MAGIC, self.host_id, 0, 0, epoch, reducer,
+                              file_index, nbytes)
+
+        def send_frame(s: socket.socket) -> None:
+            # Inside the frame sender: an injected fault takes the redial
+            # and resend path a socket error takes.
+            rt_faults.inject("transport_send", epoch=epoch, task=reducer)
+            s.sendall(header)
+            s.sendall(payload)
+
+        start = time.monotonic()
+        with lock:
+            sock = self._peers[dest]
+            try:
+                send_frame(sock)
+            except (OSError, rt_faults.InjectedFault) as first_err:
+                # One redial and resend. A partial frame on the old
+                # connection kills only that connection's receive loop;
+                # the resent frame arrives whole on the new one.
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                try:
+                    new_sock = _new_connection(self.addresses[dest])
+                    self._peers[dest] = new_sock
+                    send_frame(new_sock)
+                    logger.warning(
+                        "host %d: send to peer %d failed (%s); redialed and "
+                        "resent %s", self.host_id, dest, first_err, tag)
+                except OSError as e:
+                    raise TransportError(
+                        f"host {self.host_id} failed sending to peer {dest} "
+                        f"(redial also failed: {e}): {first_err}")
+        self._count(frames_sent=1, bytes_sent=nbytes,
+                    send_s=time.monotonic() - start)
+
+
+def create_local_transports(world: int, recv_timeout_s: float = 600.0,
+                            reconnect_grace_s: float = 5.0
+                            ) -> List[TcpTransport]:
+    """A fully connected ``world`` of transports on localhost ephemeral
+    ports: one machine standing in for a cluster's host network (tests,
+    loopback worlds)."""
+    transports = [
+        TcpTransport(h,
+                     # rsdl-lint: disable=fixed-world-assumption
+                     [("127.0.0.1", 0)] * world,
+                     recv_timeout_s=recv_timeout_s,
+                     reconnect_grace_s=reconnect_grace_s)
+        # rsdl-lint: disable=fixed-world-assumption
+        for h in range(world)
+    ]
+    for t in transports:
+        t.start()
+    addresses = [("127.0.0.1", t.bound_port()) for t in transports]
+    for t in transports:
+        t.addresses = addresses
+        t.connect()
+    return transports

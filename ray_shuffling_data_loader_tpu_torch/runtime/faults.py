@@ -4,11 +4,14 @@ injector).
 
 The parser accepts the JAX package's whole set of site names
 (:data:`SITES`), so one spec string means the same in both packages. In
-the port only ``device_transfer`` has an injection point: each
-host-to-device copy of ``device_dataset`` (per batch or per bulk chunk)
-calls ``inject("device_transfer", task=seq)`` before each attempt, with
-the loader's own copy sequence number as the key. The other sites come
-with the modules that own them.
+the port three sites have an injection point: each host-to-device copy
+of ``device_dataset`` (per batch or per bulk chunk) calls
+``inject("device_transfer", task=seq)`` before each attempt, with the
+loader's own copy sequence number as the key; ``parallel/transport.py``
+calls ``inject("transport_send", epoch, task=reducer)`` inside its frame
+sender and ``inject("transport_recv", epoch, task=reducer)`` before a
+receive pops its message. The other sites come with the modules that own
+them.
 
 A chaos spec (``RSDL_CHAOS_SPEC``, or :func:`install`) is a
 comma-separated list of rules::
@@ -22,8 +25,8 @@ comma-separated list of rules::
 Rules fire per distinct ``(site, epoch, task)`` key: the first matching
 call for a key raises :class:`InjectedFault`, later calls pass
 (``afterN`` skips the key's first N calls, ``xN`` fails N in a row; every
-copy attempt of the port takes a new key, so these two change nothing
-there). Rate rules draw from a hash of ``(seed, site, epoch, task)``, so
+device copy attempt takes a new key, so these two change nothing there,
+while a transport frame's resend and a retried receive reuse theirs). Rate rules draw from a hash of ``(seed, site, epoch, task)``, so
 the same seed fails the same keys on any host, in either package.
 
 Stdlib only.

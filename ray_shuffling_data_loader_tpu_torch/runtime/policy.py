@@ -11,7 +11,10 @@ reads ``RSDL_JAX_DATASET_<KEY>``). The global ``RSDL_<KEY>`` variables
 mean the same in both packages: ``RSDL_DEVICE_REBATCH=0`` turns every
 ``device_rebatch="auto"`` construction per-batch in either, and
 ``RSDL_BULK_TRANSFER_DEADLINE_S`` sets both loaders' watchdog deadline.
-The keys, their defaults and their parsers are the JAX package's.
+The keys, their defaults and their parsers are the JAX package's. The
+transport's dial reads only the ``retry_*`` keys, as the component
+``transport`` (``RSDL_TRANSPORT_RETRY_MAX_ATTEMPTS`` deepens only its
+redial budget), with the JAX package's explicit overrides.
 
 Stdlib only.
 """

@@ -8,7 +8,11 @@ them with its ``(seed, epoch, reducer)`` stream, then applies the optional
 reduce-time transform (the image decode). Primitive and fixed-size list
 columns move as numpy rows; a table with a null-free binary column (encoded
 images) is concatenated and permuted with Arrow's ``take`` instead, as the
-JAX package's fallback reduce does. Each trainer rank receives
+JAX package's fallback reduce does. In the distributed shuffle
+(``parallel/distributed.py``) a reducer also takes its rows of a remote
+file as a table received from the host that mapped it; it concatenates
+them with its local files' rows in global file order, so the output is
+the same. Each trainer rank receives
 a contiguous span of reducer outputs, in reducer order, then a ``None``
 end-of-epoch sentinel. The output equals the JAX package's shuffle bit for
 bit for the same files, seed and reducer count.
@@ -26,7 +30,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import os
 import timeit
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import pyarrow as pa
@@ -131,6 +135,30 @@ class MapOutput:
     def indices(self, reducer: int) -> np.ndarray:
         return self.flat[self.offsets[reducer]:self.offsets[reducer + 1]]
 
+    def materialize(self, reducer: int) -> pa.Table:
+        """Reducer ``reducer``'s rows of this file as a table of this
+        file's schema, in original row order (what crosses the wire to a
+        reducer on another host)."""
+        idx = self.indices(reducer)
+        if self.columns is None:
+            return self.table.take(idx)
+        return pa.Table.from_arrays(
+            [_rows_to_arrow(self.columns[name][idx], field.type)
+             for name, field in zip(self.names, self.schema)],
+            schema=self.schema)
+
+
+#: A reducer's rows of one file: the file's :class:`MapOutput` (local,
+#: gathered in the reduce) or those rows already materialized, a table
+#: received from the host that mapped the file.
+Chunk = Union[MapOutput, pa.Table]
+
+
+def _chunk_has_binary(chunk: Chunk) -> bool:
+    if isinstance(chunk, MapOutput):
+        return chunk.columns is None
+    return any(_is_binary_column(col) for col in chunk.columns)
+
 
 def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
                 file_index: int,
@@ -151,39 +179,50 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
 
 
 def _take_reduce(reduce_index: int, perm: np.ndarray,
-                 map_outputs: Sequence[MapOutput]) -> pa.Table:
+                 chunks: Sequence[Chunk]) -> pa.Table:
     """``concat[perm]`` with Arrow's ``take``; promotes to 64-bit offsets
     where the output passes 2 GiB of variable-width data."""
-    table = pa.concat_tables([m.table.take(m.indices(reduce_index))
-                              for m in map_outputs])
+    table = pa.concat_tables([
+        c.table.take(c.indices(reduce_index)) if isinstance(c, MapOutput)
+        else c for c in chunks])
     try:
         return table.take(perm)
     except pa.ArrowInvalid:
         return _promote_large_offsets(table).take(perm)
 
 
+def _chunk_rows(chunk: Chunk, reduce_index: int, name: str) -> np.ndarray:
+    if isinstance(chunk, MapOutput):
+        return chunk.columns[name][chunk.indices(reduce_index)]
+    return column_to_rows(chunk.column(name), name)
+
+
 def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
-                   map_outputs: Sequence[MapOutput],
+                   chunks: Sequence[Chunk],
                    reduce_transform: Optional[ReduceTransform] = None
                    ) -> pa.Table:
     """Concatenate this reducer's rows from every file in file order, then
     permute them: ``out = concat[perm]`` (whole rows of a fixed-size list
-    column move together); then ``reduce_transform``, if any."""
-    names = map_outputs[0].names
-    schema = map_outputs[0].schema
-    for m in map_outputs[1:]:
-        if m.names != names or not m.schema.equals(schema):
+    column move together); then ``reduce_transform``, if any. ``chunks``
+    holds one entry per file, in global file order: the file's
+    :class:`MapOutput`, or this reducer's rows of it received from another
+    host; local rows are gathered only here."""
+    schema = chunks[0].schema
+    names = list(schema.names)
+    for c in chunks[1:]:
+        if list(c.schema.names) != names or not c.schema.equals(schema):
             raise ValueError("map outputs disagree on their schema")
-    total = sum(len(m.indices(reduce_index)) for m in map_outputs)
+    total = sum(len(c.indices(reduce_index)) if isinstance(c, MapOutput)
+                else c.num_rows for c in chunks)
     perm = partition.permutation(
         total, partition.reduce_rng(seed, epoch, reduce_index))
-    if map_outputs[0].columns is None:
-        out = _take_reduce(reduce_index, perm, map_outputs)
+    if _chunk_has_binary(chunks[0]):
+        out = _take_reduce(reduce_index, perm, chunks)
     else:
-        parts = [(m.columns, m.indices(reduce_index)) for m in map_outputs]
         columns = {}
         for name in names:
-            concat = np.concatenate([cols[name][idx] for cols, idx in parts])
+            concat = np.concatenate([_chunk_rows(c, reduce_index, name)
+                                     for c in chunks])
             columns[name] = _rows_to_arrow(concat[perm],
                                            schema.field(name).type)
         out = pa.table(columns)
