@@ -36,7 +36,10 @@ printing one JSON line:
    -> Adam, one micro-step per 2048 rows. Checks rows per epoch, finite
    losses, the first staged batch against a host-side shuffle, the kernel
    path's loss against the ``take`` path's, and exactly one gather launch
-   per micro-step.
+   per micro-step. The shuffle runs the engine's defaults (file cache
+   ``"auto"``, the thread backend) with ``collect_stats``: the line
+   carries each epoch's map, reduce and consume seconds (``TrialStats``),
+   the file cache's hits and bytes and the buffer ledger's peak bytes.
 5. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
@@ -74,7 +77,21 @@ printing one JSON line:
    recover at least one copy with the same digests; (d) the ``bert``
    phase's tokens (4 batches per reducer table) in both bindings, digests
    equal, copies per epoch.
-8. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+8. ``engine``: the shuffle engine on the ``train`` phase's files in three
+   turns, each a fresh DLRM ``mlperf`` from the same seed taking one
+   micro-step on the first 2,048 rows of every loader batch (bulk
+   binding, the key column loaded, the last partial batch kept): (1) no
+   file cache and the read-then-plan map; (2) the defaults under a
+   memory budget of a quarter of the ``train`` phase's peak ledger bytes
+   with a spill directory, so reducer outputs spill and are mapped back;
+   (3) the streaming map with both executor attempts of map 3's read
+   failing in each epoch (``task_retries=1``), so a reduce recomputes it
+   from its lineage. Each turn: every key once per epoch, each full
+   batch's digest equal to the ``train`` phase's, the first loss within
+   1e-6 relative of the ``train`` phase's first micro-step; its
+   ``TrialStats``, cache, spill (files, bytes, read-back seconds),
+   ledger, retry and recovery counts, rows/s and wait per batch.
+9. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
    masking bias: output, dq, dk, dv and dbias against whole-sequence
@@ -95,7 +112,7 @@ printing one JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-9. ``distributed``: a world of two processes on the one card, started by
+10. ``distributed``: a world of two processes on the one card, started by
    the port's launcher (``launch_slice --local``, ``RSDL_HOSTS`` on two
    free loopback ports), each a ``train_shuffle --distributed`` rank with
    its process group over gloo on CUDA tensors (NCCL refuses two ranks on
@@ -108,8 +125,12 @@ printing one JSON line:
    transport. Every key arrives exactly once per epoch across the ranks,
    and each rank's batch digests (``device_dataset.batch_digest``) equal
    those of the one-process shuffle with ``num_trainers=2`` for that rank.
-   Per rank: rows/s, ``stall_pct``, frames and bytes sent and received
-   and the send rate. (b) DLRM ``mlperf`` (weights from seed 0) through
+   Per rank: rows/s, ``stall_pct``, the shuffle's ``TrialStats`` (file
+   cache on), the file cache's and the ledger's counters, frames and
+   bytes sent and received and the send rate, overall and through the
+   native pump. (c) A world of two hosts as threads of this process over
+   loopback transports, with a ``map_read`` fault on host 1's file 5 in
+   each epoch and ``task_retries=1``: the digests equal (a)'s. (b) DLRM ``mlperf`` (weights from seed 0) through
    ``SpmdTrainer`` on 18,432 rows in 8 files that the ranks generate,
    2,048 rows per rank and step, about 4 steps per epoch, 2 epochs:
    finite losses, one gather launch per step in each rank, the first
@@ -117,7 +138,7 @@ printing one JSON line:
    ranks' batches concatenated from the same weights, the later ones
    within 1e-3 (the all-reduce sums the gradients in another order);
    step ms and the all-reduce's share of it.
-10. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+11. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -128,7 +149,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-11. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+12. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -142,7 +163,8 @@ printing one JSON line:
 
 Every phase that drives ``DeviceShufflingDataset`` names the binding it
 ran (``"binding"``: the bulk one, the default on the card, unless a turn
-asks for per-batch copies). Then the ``{"kernels": [...]}`` summary, the
+asks for per-batch copies), the executor backend its shuffle resolved
+and its figures with the shuffle before the engine (``prior_shuffle``). Then the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. Needs CUDA; imports nothing of JAX.
@@ -152,6 +174,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -188,6 +211,23 @@ ATT_TOL = 2e-2
 BERT_SEQS, BERT_FILES, BERT_SEQ_LEN, BERT_VOCAB = 8192, 8, 512, 30522
 BERT_BATCH, BERT_MICRO = 256, 32
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# Figures of each loader phase measured by this script with the shuffle
+# before the plan-driven engine (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 5), printed beside this run's. Times vary by a few per cent
+# between calls on one card, so they are context, not a comparison.
+PRIOR_SHUFFLE = {
+    "train": {"step_ms_median": 12.264, "rows_per_s": 161769,
+              "stall_pct": 0.0120},
+    "bert": {"step_ms_median": 82.96, "tokens_per_s": 195782,
+             "stall_pct": 0.0070},
+    "rebatch": {"step_ms_median": [12.293, 12.674],
+                "stall_pct": [0.0089, 0.0105], "phase_s": 102.8},
+    "distributed": {"loader_rows_per_s": [6096160, 5690049],
+                    "send_MBps": [307, 371]},
+    "resnet": {"step_ms_median": 199.58, "images_per_s": 1278.4,
+               "stall_pct": 0.0169},
+    "resume": {"resnet_save_s": 0.492, "bert_save_s": 2.739},
+}
 
 
 def emit(obj) -> None:
@@ -558,9 +598,50 @@ def dlrm_files(tmp: str):
     return files, timeit.default_timer() - start
 
 
+def engine_lines(cache_before: dict, faults_before: dict,
+                 spills_before: dict) -> dict:
+    """What the shuffle engine did since the snapshots: file cache hits
+    and bytes, spilled files and bytes and their read-back seconds, the
+    buffer ledger's peak bytes (since its last reset), retries and
+    recoveries, and the executor backend it resolved."""
+    from ray_shuffling_data_loader_tpu_torch import (executor, native,
+                                                     shuffle, spill, stats)
+    cache = shuffle.file_cache_totals()
+    spills = spill.process_spill_totals()
+    faults = stats.fault_stats().snapshot()
+    return {
+        "executor_backend": executor.last_worker_pool()["backend"],
+        "file_cache": {k: cache[k] - cache_before[k] for k in cache},
+        "spill": {k: spills[k] - spills_before[k] for k in spills},
+        "ledger_peak_bytes": native.buffer_ledger().peak_bytes(),
+        "injected": faults["injected"] - faults_before["injected"],
+        "retries": faults["retries"] - faults_before["retries"],
+        "recoveries": {
+            k: v - faults_before["recomputes_by_component"].get(k, 0)
+            for k, v in faults["recomputes_by_component"].items()},
+    }
+
+
+def loader_context(phase: str) -> dict:
+    """The executor backend the phase's last shuffle resolved, and the
+    phase's figures with the shuffle before the engine."""
+    from ray_shuffling_data_loader_tpu_torch import executor
+    return {"executor_backend": executor.last_worker_pool()["backend"],
+            "prior_shuffle": PRIOR_SHUFFLE[phase]}
+
+
+def engine_snapshots():
+    """The counters :func:`engine_lines` reads, and a fresh ledger peak."""
+    from ray_shuffling_data_loader_tpu_torch import (native, shuffle, spill,
+                                                     stats)
+    native.buffer_ledger().reset_peak()
+    return (shuffle.file_cache_totals(), stats.fault_stats().snapshot(),
+            spill.process_spill_totals())
+
+
 def train_phase(emb, files, gen_s: float) -> dict:
     from ray_shuffling_data_loader_tpu_torch import (
-        dataset, device_dataset, train)
+        dataset, device_dataset, stats, train)
     from ray_shuffling_data_loader_tpu_torch.models import dlrm
     from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
 
@@ -572,11 +653,13 @@ def train_phase(emb, files, gen_s: float) -> dict:
     optimizer = train.make_optimizer(model)
     micro_step = train.make_micro_step(model, optimizer)
 
+    snapshots = engine_snapshots()
     ds = device_dataset.DeviceShufflingDataset(
         files, NUM_EPOCHS, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
-        seed=SEED, **spec)
+        seed=SEED, collect_stats=True, **spec)
     expected_rows = (NUM_ROWS // LOADER_BATCH) * LOADER_BATCH
     rows_per_epoch, losses, chunk_ms, first_batch = [], [], [], None
+    digests = []
     emb.reset_launch_counts()
     t_start = timeit.default_timer()
     t_first = None
@@ -587,6 +670,7 @@ def train_phase(emb, files, gen_s: float) -> dict:
             if t_first is None:
                 t_first = timeit.default_timer()
                 first_batch = ([f.cpu() for f in features], label.cpu())
+            digests.append(device_dataset.batch_digest(features, label))
             t0 = timeit.default_timer()
             losses.append(train.train_chunk(micro_step, features, label,
                                             MICROBATCH))
@@ -596,6 +680,8 @@ def train_phase(emb, files, gen_s: float) -> dict:
         rows_per_epoch.append(rows)
     t_end = timeit.default_timer()
     launches = emb.launch_counts["gather_rows"]
+    trial = ds.shuffle_result.result()
+    engine = engine_lines(*snapshots)
 
     if rows_per_epoch != [expected_rows] * NUM_EPOCHS:
         raise AssertionError(
@@ -668,6 +754,12 @@ def train_phase(emb, files, gen_s: float) -> dict:
         "datagen_s": gen_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile": breakdown,
+        "shuffle_stages": stats.trial_summary(trial),
+        **engine,
+        "prior_shuffle": PRIOR_SHUFFLE["train"],
+        # For the engine phase: the stream and the first micro-step.
+        "digests": torch.stack(digests).cpu(),
+        "first_loss": float(all_losses[0]),
     }
 
 
@@ -1217,6 +1309,142 @@ def rebatch_phase(emb, dlrm_paths, token_paths) -> dict:
     }
 
 
+# Engine phase: the shuffle engine's configurations on the train phase's
+# files, each turn a fresh DLRM mlperf (weights from SEED) taking one
+# micro-step on the first MICROBATCH rows of every loader batch.
+ENGINE_LOSS_RTOL = 1e-6
+# Both executor attempts (task_retries=1) of map 3's read fail in each
+# epoch, so a reduce recomputes the map from its lineage.
+ENGINE_CHAOS = "map_read:file3:x2"
+
+
+def _engine_turn(name: str, files, want_digests, first_loss: float,
+                 fused: bool, chaos=None, **engine_kw) -> dict:
+    """One turn: the bulk binding over ``DeviceShufflingDataset`` with the
+    key column loaded and the last partial batch kept; checks every
+    key once per epoch, each full batch's digest (model columns) against
+    the train phase's and the first micro-step's loss against the train
+    phase's first."""
+    from ray_shuffling_data_loader_tpu_torch import (
+        data_generation, device_dataset, stats, train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    torch.cuda.empty_cache()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    spec = dlrm_criteo.dlrm_spec()
+    spec["feature_columns"].append(data_generation.KEY_COLUMN)
+    spec["feature_types"].append(np.dtype(np.int64))
+    full = NUM_ROWS // LOADER_BATCH
+    saved_env = os.environ.get("RSDL_SHUFFLE_FUSED_PIPELINE")
+    os.environ["RSDL_SHUFFLE_FUSED_PIPELINE"] = "1" if fused else "0"
+    # The budget's baseline is the process-wide ledger at launch: collect
+    # what earlier turns left in reference cycles first, or its release
+    # during the turn would read as negative growth.
+    gc.collect()
+    snapshots = engine_snapshots()
+    if chaos is not None:
+        faults.install(chaos)
+    digests, losses, rows = [], [], 0
+    try:
+        ds = device_dataset.DeviceShufflingDataset(
+            files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
+            num_reducers=NUM_REDUCERS, seed=SEED, drop_last=False,
+            collect_stats=True, **engine_kw, **spec)
+        t_first = None
+        for epoch in range(NUM_EPOCHS):
+            ds.set_epoch(epoch)
+            keys = []
+            for i, (features, label) in enumerate(ds):
+                if t_first is None:
+                    t_first = timeit.default_timer()
+                if i < full:
+                    digests.append(device_dataset.batch_digest(
+                        features[:-1], label))
+                keys.append(features[-1].reshape(-1).cpu())
+                losses.append(train.train_chunk(
+                    micro_step, [f[:MICROBATCH] for f in features[:-1]],
+                    label[:MICROBATCH], MICROBATCH))
+                rows += label.shape[0]
+            got = np.sort(torch.cat(keys).numpy())
+            if not np.array_equal(got, np.arange(NUM_ROWS)):
+                raise AssertionError(f"{name}: epoch {epoch}'s keys lost or "
+                                     "repeated")
+        torch.cuda.synchronize()
+        wall = timeit.default_timer() - t_first
+        trial = ds.shuffle_result.result()
+    finally:
+        faults.clear()
+        if saved_env is None:
+            os.environ.pop("RSDL_SHUFFLE_FUSED_PIPELINE", None)
+        else:
+            os.environ["RSDL_SHUFFLE_FUSED_PIPELINE"] = saved_env
+    lines = engine_lines(*snapshots)
+    _same_digests(f"engine turn {name}", torch.stack(digests).cpu(),
+                  want_digests)
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError(f"{name}: non-finite loss")
+    rel = abs(float(all_losses[0]) - first_loss) / abs(first_loss)
+    if rel > ENGINE_LOSS_RTOL:
+        raise AssertionError(f"{name}: first loss {float(all_losses[0])} vs "
+                             f"the train phase's {first_loss}")
+    wait = ds.batch_wait_stats.summary()
+    del model, micro_step
+    return {
+        "turn": name, "fused_map": fused, "chaos": chaos,
+        **{k: v for k, v in engine_kw.items() if k != "spill_dir"},
+        "binding": ds.binding, "batches": len(losses),
+        "rows_per_s": rows / wall, "wall_s": wall,
+        "batch_wait_mean_ms": wait["mean"] * 1e3,
+        "batch_wait_max_ms": wait["max"] * 1e3,
+        "first_loss": float(all_losses[0]), "first_loss_rel_diff": rel,
+        "keys_exactly_once": True, "digests_equal": True,
+        "shuffle_stages": stats.trial_summary(trial), **lines}
+
+
+def engine_phase(emb, files, trained: dict, tmp: str) -> dict:
+    """Three turns of the engine on the train phase's data: (1) no file
+    cache and the read-then-plan map; (2) the defaults under a memory
+    budget of a quarter of the train phase's peak ledger bytes with a
+    spill directory, so reducer outputs spill; (3) the streaming map with
+    ``ENGINE_CHAOS`` and ``task_retries=1``, so the lost map is recomputed
+    from its lineage in each epoch (no cache: with it, epoch 1 would
+    serve the file from the cache and never read it)."""
+    start = timeit.default_timer()
+    want, first = trained["digests"], trained["first_loss"]
+    budget = trained["ledger_peak_bytes"] // 4
+    emb.reset_launch_counts()
+    turns = [
+        _engine_turn("uncached", files, want, first, fused=False,
+                     file_cache=None),
+        _engine_turn("spill", files, want, first, fused=True,
+                     max_inflight_bytes=budget,
+                     spill_dir=os.path.join(tmp, "spill")),
+        _engine_turn("lineage", files, want, first, fused=True,
+                     chaos=ENGINE_CHAOS, file_cache=None, task_retries=1),
+    ]
+    launches = emb.launch_counts["gather_rows"]
+    steps = sum(t["batches"] for t in turns)
+    if launches != steps:
+        raise AssertionError(f"{launches} gather launches in {steps} "
+                             "micro-steps")
+    if turns[1]["spill"]["spills"] < 1:
+        raise AssertionError(f"nothing spilled under {budget} bytes")
+    if (turns[2]["recoveries"].get("lineage") != NUM_EPOCHS
+            or turns[2]["injected"] != 2 * NUM_EPOCHS):
+        raise AssertionError(f"the lost maps were not recomputed once per "
+                             f"epoch: {turns[2]}")
+    return {"turns": turns, "budget_bytes": budget,
+            "gather_launches": launches,
+            "launches_per_micro_step": launches / steps,
+            "phase_s": timeit.default_timer() - start}
+
+
 # Ring phase: K/V chunk counts walked in one process, the sequences of the
 # world-1 entry point run, and the steps held against the one-card paths.
 RING_NS = (2, 4)
@@ -1613,9 +1841,55 @@ def _same_stream(name: str, rank: int, got, want_by_epoch) -> int:
 
 
 def _transport_line(summary: dict) -> dict:
+    """The transport's counters, with the send rate over all frames and
+    over the frames the native pump sent."""
     t = summary["transport"]
     return {**t, "send_MBps": (t["bytes_sent"] / t["send_s"] / 1e6
-                               if t["send_s"] else None)}
+                               if t["send_s"] else None),
+            "send_MBps_native": (t["bytes_sent_native"] / t["send_s_native"]
+                                 / 1e6 if t["send_s_native"] else None)}
+
+
+# (c): a map_read fault on host 1 (it maps files 4-7): the first read of
+# file 5 fails in each epoch, and task_retries=1 maps it again.
+DIST_CHAOS = "map_read:file5"
+
+
+def _in_process_world(files, spec, **engine_kw):
+    """Per rank, the digests of every batch of a world of two hosts run
+    as threads of this process (the port's loopback transports), each a
+    ``DeviceShufflingDataset`` in the bulk binding over
+    ``create_distributed_batch_queue_and_shuffle``."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset
+    from ray_shuffling_data_loader_tpu_torch.parallel import (
+        distributed, transport)
+    transports = transport.create_local_transports(DIST_WORLD,
+                                                   recv_timeout_s=120.0)
+    digests = []
+    try:
+        sets = []
+        for t in transports:
+            queue, result = (
+                distributed.create_distributed_batch_queue_and_shuffle(
+                    files, NUM_EPOCHS, NUM_REDUCERS, t, seed=SEED,
+                    map_transform=device_dataset.make_cast_transform(
+                        spec["feature_columns"], spec["feature_types"],
+                        spec["label_column"], spec["label_type"]),
+                    **engine_kw))
+            sets.append(device_dataset.DeviceShufflingDataset(
+                files, NUM_EPOCHS, 1, LOADER_BATCH, 0, batch_queue=queue,
+                shuffle_result=result, drop_last=False, seed=SEED, **spec))
+        for ds in sets:
+            got = []
+            for epoch in range(NUM_EPOCHS):
+                ds.set_epoch(epoch)
+                got.extend(device_dataset.batch_digest(f, y) for f, y in ds)
+            digests.append(torch.stack(got).cpu().numpy())
+            ds.close()
+    finally:
+        for t in transports:
+            t.close()
+    return digests
 
 
 def distributed_phase(dlrm_paths, tmp: str) -> dict:
@@ -1649,6 +1923,10 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
             "rows": summary["rows_delivered"],
             "rows_per_s": summary["rows_per_s"],
             "stall_pct": summary["stall_pct"],
+            "executor_backend": summary["executor_backend"],
+            "shuffle_stages": summary["shuffle_stages"],
+            "file_cache": summary["file_cache"],
+            "ledger_peak_bytes": summary["ledger_peak_bytes"],
             "transport": _transport_line(summary)})
     for epoch in range(NUM_EPOCHS):
         keys = np.sort(np.concatenate([a[f"keys_{epoch}"]
@@ -1656,6 +1934,34 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
         if not np.array_equal(keys, np.arange(NUM_ROWS)):
             raise AssertionError(f"epoch {epoch}: keys lost or repeated "
                                  "across the ranks")
+
+    # (c) A lost map on host 1, retried by the executor, in a world of
+    # threads: the same streams as (a).
+    from ray_shuffling_data_loader_tpu_torch import data_generation, stats
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+    spec = dlrm_criteo.dlrm_spec()
+    spec["feature_columns"].append(data_generation.KEY_COLUMN)
+    spec["feature_types"].append(np.dtype(np.int64))
+    before = stats.fault_stats().snapshot()
+    faults.install(DIST_CHAOS)
+    t0 = timeit.default_timer()
+    try:
+        chaos_digests = _in_process_world(files, spec, task_retries=1,
+                                          file_cache=None)
+    finally:
+        faults.clear()
+    after = stats.fault_stats().snapshot()
+    chaos_turn = {"spec": DIST_CHAOS, "task_retries": 1,
+                  "file_cache": None,
+                  "wall_s": timeit.default_timer() - t0,
+                  "injected": after["injected"] - before["injected"],
+                  "retries": after["retries"] - before["retries"],
+                  "batches": [_same_stream("chaos", rank, d, want[rank])
+                              for rank, d in enumerate(chaos_digests)],
+                  "digests_equal_to_a": True}
+    if chaos_turn["injected"] != NUM_EPOCHS or chaos_turn["retries"] < 1:
+        raise AssertionError(f"the map faults were not retried: {chaos_turn}")
 
     # (b) Full-width training; the ranks generate the files themselves.
     data = os.path.join(tmp, "train_data")
@@ -1724,6 +2030,7 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
                    "batch": LOADER_BATCH, "epochs": NUM_EPOCHS,
                    "keys_exactly_once": True, "digests_equal": True,
                    "wall_s": wall_a, "ranks": loader},
+        "chaos": chaos_turn,
         "train": {"model": "mlperf", "rows": DIST_TRAIN_ROWS,
                   "batch_per_rank": DIST_TRAIN_BATCH,
                   "steps_by_epoch": steps_by_epoch, "losses": losses,
@@ -2137,27 +2444,37 @@ def main() -> int:
             tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as btmp:
         dlrm_paths, dlrm_gen_s = dlrm_files(dlrm_tmp)
         trained = train_phase(emb, dlrm_paths, dlrm_gen_s)
-        emit({"phase": "train", "card": smi, **trained})
+        emit({"phase": "train", "card": smi,
+              **{k: v for k, v in trained.items() if k != "digests"}})
 
         token_paths, token_gen_s = bert_files(btmp)
         bert_run = bert_phase(fa, token_paths, token_gen_s)
-        emit({"phase": "bert", "card": smi, **bert_run})
+        emit({"phase": "bert", "card": smi, **loader_context("bert"),
+              **bert_run})
 
         rebatch = rebatch_phase(emb, dlrm_paths, token_paths)
-        emit({"phase": "rebatch", "card": smi, **rebatch})
+        emit({"phase": "rebatch", "card": smi,
+              **loader_context("rebatch"), **rebatch})
+
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-eng-") as tmp:
+            engine = engine_phase(emb, dlrm_paths, trained, tmp)
+        emit({"phase": "engine", "card": smi, **engine})
 
         ring_run = ring_phase(fa, emb)
         emit({"phase": "ring", "card": smi, **ring_run})
 
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-dist-") as tmp:
             dist_run = distributed_phase(dlrm_paths, tmp)
-        emit({"phase": "distributed", "card": smi, **dist_run})
+        emit({"phase": "distributed", "card": smi,
+              "prior_shuffle": PRIOR_SHUFFLE["distributed"], **dist_run})
 
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
-        emit({"phase": "resnet", "card": smi, **resnet_run})
+        emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
+              **resnet_run})
         resume_run = resume_phase(fa, emb, decoder, image_files)
-        emit({"phase": "resume", "card": smi, **resume_run})
+        emit({"phase": "resume", "card": smi, **loader_context("resume"),
+              **resume_run})
 
     main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
@@ -2168,6 +2485,7 @@ def main() -> int:
         "launches_by_path": {
             "train": trained["gather_launches"],
             "rebatch": rebatch["gather_launches"],
+            "engine": engine["gather_launches"],
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "distributed": dist_run["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},

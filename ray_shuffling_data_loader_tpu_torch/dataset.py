@@ -7,19 +7,28 @@ routes only its rank's reducer outputs (one loader per process: the
 seeded plan is the same in every process, so ranks get disjoint parts of
 each epoch). Each rank pops its reducer outputs for the epoch and
 re-chunks them into exact ``batch_size``-row tables with a carry buffer
-that spans table boundaries (:func:`slice_batches`).
+that spans table boundaries (:func:`slice_batches`). A reducer output the
+memory budget spilled to disk is mapped back (``spill.unwrap``) as it is
+popped.
+
+The shuffle engine's arguments pass through as in the JAX package's
+``create_batch_queue_and_shuffle``: ``num_workers``, ``task_retries``,
+``file_cache``, ``max_inflight_bytes``, ``spill_dir``, ``on_bad_file``
+and ``executor_backend``; ``collect_stats=True`` makes the shuffle's
+result (``ShufflingDataset.shuffle_result``) a ``stats.TrialStats``.
 """
 
 from __future__ import annotations
 
-import concurrent.futures as cf
 import functools
 from typing import Iterator, List, Optional, Sequence
 
 import pyarrow as pa
 
+from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
 from ray_shuffling_data_loader_tpu_torch import shuffle as sh
+from ray_shuffling_data_loader_tpu_torch import spill
 from ray_shuffling_data_loader_tpu_torch.utils.config import (
     default_num_reducers)
 
@@ -45,9 +54,9 @@ def make_failure_broadcaster(queue: mq.MultiQueue):
 
 
 def batch_consumer(queue: mq.MultiQueue, num_trainers: int, rank: int,
-                   epoch: int, batches: Optional[Sequence[cf.Future]]
+                   epoch: int, batches: Optional[Sequence[ex.TaskRef]]
                    ) -> None:
-    """Route reducer futures (or the ``None`` sentinel) into the
+    """Route reducer refs (or the ``None`` sentinel) into the
     ``(epoch, rank)`` queue."""
     queue_idx = mq.queue_index(epoch, rank, num_trainers)
     if batches is None:
@@ -58,7 +67,7 @@ def batch_consumer(queue: mq.MultiQueue, num_trainers: int, rank: int,
 
 def _one_rank_consumer(queue: mq.MultiQueue, num_trainers: int,
                        own_rank: int, rank: int, epoch: int,
-                       batches: Optional[Sequence[cf.Future]]) -> None:
+                       batches: Optional[Sequence[ex.TaskRef]]) -> None:
     if rank == own_rank:
         batch_consumer(queue, num_trainers, rank, epoch, batches)
 
@@ -67,12 +76,19 @@ def create_batch_queue_and_shuffle(
         filenames: Sequence[str], num_epochs: int, num_trainers: int,
         max_concurrent_epochs: int = 2, num_reducers: Optional[int] = None,
         seed: int = 0, map_transform=None, only_rank: Optional[int] = None,
-        reduce_transform=None, start_epoch: int = 0):
+        reduce_transform=None, start_epoch: int = 0,
+        num_workers: Optional[int] = None, task_retries: int = 0,
+        file_cache="auto", max_inflight_bytes: Optional[int] = None,
+        spill_dir: Optional[str] = None, on_bad_file: Optional[str] = None,
+        executor_backend: Optional[str] = None,
+        collect_stats: bool = False):
     """Create the queues and start the shuffle before any trainer exists,
     so every rank can be a pure consumer. With ``only_rank``, only that
     rank's queues are filled (the other ranks read theirs in other
     processes). The shuffle starts at ``start_epoch`` (a resumed run).
-    Returns ``(queue, shuffle_future)``."""
+    The engine's arguments go to ``shuffle.shuffle``. Returns ``(queue,
+    shuffle_result)``; the result resolves to the shuffle's duration, or
+    its ``TrialStats`` with ``collect_stats``."""
     if not 0 <= start_epoch <= num_epochs:
         raise ValueError(
             f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
@@ -85,9 +101,14 @@ def create_batch_queue_and_shuffle(
                                   only_rank))
     result = sh.run_shuffle_in_background(
         filenames, consumer, num_epochs, num_reducers, num_trainers,
-        max_concurrent_epochs, seed=seed, map_transform=map_transform,
+        max_concurrent_epochs, seed=seed,
         on_failure=make_failure_broadcaster(queue),
-        reduce_transform=reduce_transform, start_epoch=start_epoch)
+        map_transform=map_transform, reduce_transform=reduce_transform,
+        start_epoch=start_epoch, num_workers=num_workers,
+        task_retries=task_retries, file_cache=file_cache,
+        max_inflight_bytes=max_inflight_bytes, spill_dir=spill_dir,
+        on_bad_file=on_bad_file, executor_backend=executor_backend,
+        collect_stats=collect_stats)
     return queue, result
 
 
@@ -96,9 +117,12 @@ class ShufflingDataset:
 
     Without ``batch_queue``/``shuffle_result`` from
     :func:`create_batch_queue_and_shuffle`, the dataset launches a shuffle
-    of its own for its rank. Call :meth:`set_epoch` before each epoch's
-    iteration. A resumed run passes ``start_epoch``: the epochs before it
-    are never shuffled.
+    of its own for its rank, with the engine's arguments
+    (``shuffle_kwargs``: ``num_workers``, ``task_retries``, ``file_cache``,
+    ``max_inflight_bytes``, ``spill_dir``, ``on_bad_file``,
+    ``executor_backend``, ``collect_stats``). Call :meth:`set_epoch`
+    before each epoch's iteration. A resumed run passes ``start_epoch``:
+    the epochs before it are never shuffled.
     """
 
     def __init__(self, filenames: Sequence[str], num_epochs: int,
@@ -107,9 +131,9 @@ class ShufflingDataset:
                  num_reducers: Optional[int] = None,
                  max_concurrent_epochs: int = 2,
                  batch_queue: Optional[mq.MultiQueue] = None,
-                 shuffle_result: Optional[cf.Future] = None,
+                 shuffle_result: Optional[ex.TaskRef] = None,
                  seed: int = 0, map_transform=None, reduce_transform=None,
-                 start_epoch: int = 0):
+                 start_epoch: int = 0, **shuffle_kwargs):
         if not 0 <= start_epoch <= num_epochs:
             raise ValueError(
                 f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
@@ -119,8 +143,13 @@ class ShufflingDataset:
                 filenames, num_epochs, num_trainers, max_concurrent_epochs,
                 num_reducers, seed=seed, map_transform=map_transform,
                 only_rank=rank, reduce_transform=reduce_transform,
-                start_epoch=start_epoch)
+                start_epoch=start_epoch, **shuffle_kwargs)
             self._owns_queue = True
+        elif shuffle_kwargs:
+            raise ValueError(
+                f"{sorted(shuffle_kwargs)} configure the shuffle this "
+                "dataset launches; with a batch_queue, pass them to the "
+                "shuffle that fills it")
         self._batch_queue = batch_queue
         self._shuffle_result = shuffle_result
         self._batch_size = batch_size
@@ -137,6 +166,12 @@ class ShufflingDataset:
     @property
     def batch_size(self) -> int:
         return self._batch_size
+
+    @property
+    def shuffle_result(self) -> Optional[ex.TaskRef]:
+        """The shuffle's result: its duration, or its ``TrialStats``
+        with ``collect_stats``."""
+        return self._shuffle_result
 
     @property
     def seed(self) -> int:
@@ -187,7 +222,7 @@ class ShufflingDataset:
                 raise RuntimeError(
                     "the shuffle driver died; no more batches are coming"
                 ) from ref.error
-            table: pa.Table = ref.result()
+            table: pa.Table = spill.unwrap(ref.result())
             if to_skip and table.num_rows <= to_skip:
                 to_skip -= table.num_rows
                 continue

@@ -131,6 +131,11 @@ class CastTransform:
 
     __slots__ = ("targets",)
 
+    #: Per-row and row-count preserving: the streaming map
+    #: (``shuffle._fused_stream_columns``) may apply it per record batch
+    #: instead of per file, with the same bytes either way.
+    row_elementwise = True
+
     def __init__(self, targets):
         self.targets = {k: np.dtype(v) for k, v in targets.items()}
 
@@ -692,6 +697,13 @@ class DeviceShufflingDataset:
       holds at most about ``prefetch_size + 2`` chunks, so the per-chunk
       cap is ``max_device_input_bytes // (prefetch_size + 2)``.
     - ``max_device_table_bytes``: an explicit per-chunk cap instead.
+    - ``shuffle_kwargs``: the shuffle engine's arguments, for the shuffle
+      this dataset launches (``file_cache``, ``max_inflight_bytes``,
+      ``spill_dir``, ``task_retries``, ``on_bad_file``, ``num_workers``,
+      ``executor_backend``, ``collect_stats``; see
+      ``dataset.ShufflingDataset``). A reducer output that the budget
+      spilled is mapped back from its file as it is popped; being no
+      pinned memory, it takes the staging copy as any table does.
     - ``runtime_policy``: explicit values for ``runtime/policy.py`` keys
       (``device_rebatch``, ``watchdog``, ``bulk_transfer_deadline_s``,
       ``stall_action``, ``device_double_buffer``, ``retry_*``); the rest
@@ -718,7 +730,8 @@ class DeviceShufflingDataset:
                  device_rebatch="auto",
                  max_device_input_bytes: int = 1 << 30,
                  max_device_table_bytes: Optional[int] = None,
-                 runtime_policy: Optional[dict] = None):
+                 runtime_policy: Optional[dict] = None,
+                 **shuffle_kwargs):
         self.device = resolve_device(device)
         spec = _normalize_data_spec(feature_columns, feature_shapes,
                                     feature_types, label_column, label_shape,
@@ -761,7 +774,8 @@ class DeviceShufflingDataset:
             max_concurrent_epochs=max_concurrent_epochs,
             batch_queue=batch_queue, shuffle_result=shuffle_result,
             seed=seed, map_transform=map_transform,
-            reduce_transform=reduce_transform, start_epoch=start_epoch)
+            reduce_transform=reduce_transform, start_epoch=start_epoch,
+            **shuffle_kwargs)
         self._prefetch_size = max(1, prefetch_size)
         if max_device_table_bytes is None:
             max_device_table_bytes = max(
@@ -813,6 +827,12 @@ class DeviceShufflingDataset:
     @property
     def num_epochs(self) -> int:
         return self._dataset.num_epochs
+
+    @property
+    def shuffle_result(self):
+        """The shuffle's result (``dataset.ShufflingDataset``): its
+        duration, or its ``TrialStats`` with ``collect_stats``."""
+        return self._dataset.shuffle_result
 
     def transfer_stats(self) -> Dict[str, Any]:
         """Copies per epoch (per-batch, bulk, and the bulk chunks' sizes

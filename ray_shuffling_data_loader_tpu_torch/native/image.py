@@ -1,8 +1,9 @@
 """Threaded libjpeg/libpng batch image decoder (``src/image_decode.cpp``).
 
 The port's own copy of the JAX package's native decoder. It is built with
-``g++`` at first use into ``native/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, and bound with ``ctypes``.
+``g++`` at first use into ``native/_build/`` (listed in ``.gitignore``) by
+the package's builder (:func:`native.build_library`: named by a hash of
+the source and the flags), and bound with ``ctypes``.
 Unlike the JAX package's loader it never gives way quietly: a failed
 build or load raises, and ``workloads.imagenet.decode_transform`` takes
 the decoder by name. :func:`missing_prerequisites` says beforehand whether
@@ -12,7 +13,6 @@ a host can build it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -20,6 +20,9 @@ import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from ray_shuffling_data_loader_tpu_torch.native import (build_library,
+                                                        library_file)
 
 NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(NATIVE_DIR, "_build")
@@ -38,11 +41,8 @@ _lib: Optional[ctypes.CDLL] = None
 
 def library_path() -> str:
     """Where the library built from :data:`SOURCE` as it reads now lives."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f"libimage_decode-{digest.hexdigest()[:16]}.so")
+    return library_file(SOURCE, "libimage_decode", CXX_FLAGS, LIBS,
+                        BUILD_DIR)
 
 
 def missing_prerequisites() -> List[str]:
@@ -63,22 +63,8 @@ def missing_prerequisites() -> List[str]:
 
 
 def _build() -> str:
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, SOURCE, "-o", tmp, *LIBS]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300, check=False)
-    except OSError as e:
-        raise RuntimeError(f"cannot run g++ to build {SOURCE}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {SOURCE} "
-                           f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
-    return path
+    return build_library(SOURCE, "libimage_decode", CXX_FLAGS, LIBS,
+                         BUILD_DIR)
 
 
 def library() -> ctypes.CDLL:

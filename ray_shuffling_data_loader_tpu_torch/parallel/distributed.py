@@ -16,28 +16,32 @@ indices (``partition.py``), so global trainer ``t = host *
 trainers_per_host + local_rank`` gets bit for bit the reducer tables that
 a one-process shuffle with ``num_trainers = world * trainers_per_host``
 routes to rank ``t``, and a checkpoint resumes under any world.
+
+Each host runs the shuffle engine's pieces (``shuffle.py``): the file
+cache over its own files, the memory budget and spill tier over its own
+reducer outputs, retries of its maps (a resent chunk is dropped by the
+receiver) and its own ``TrialStats``.
 """
 
 from __future__ import annotations
 
-import concurrent.futures as cf
 import functools
-import os
 import timeit
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 
 from ray_shuffling_data_loader_tpu_torch import dataset as ds_mod
+from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
+from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch import partition
 from ray_shuffling_data_loader_tpu_torch import shuffle as sh
+from ray_shuffling_data_loader_tpu_torch import spill
+from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
+from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.parallel.transport import (
     TcpTransport)
-from ray_shuffling_data_loader_tpu_torch.utils.logger import (
-    setup_custom_logger)
-
-logger = setup_custom_logger(__name__)
 
 
 def serialize_table(table: pa.Table) -> pa.Buffer:
@@ -109,64 +113,93 @@ class ShardPlan:
 
 def _map_task(filename: str, global_file_index: int, num_reducers: int,
               seed: int, epoch: int, plan: ShardPlan,
-              transport: TcpTransport,
-              map_transform: Optional[sh.MapTransform]) -> sh.MapOutput:
+              transport: TcpTransport, stats_collector=None,
+              map_transform: Optional[sh.MapTransform] = None,
+              file_cache: Optional[sh.FileTableCache] = None):
     """Map one local file, send each remote reducer its rows and keep the
-    map output (lazy) for the local reducers."""
-    out = sh.shuffle_map(filename, num_reducers, seed, epoch,
-                         global_file_index, map_transform)
-    for reducer in range(num_reducers):
+    map output (lazy) for the local reducers. A retried map sends its
+    chunks again; the receivers keep the first copy of each."""
+    shard = sh.shuffle_map(filename, num_reducers, seed, epoch,
+                           global_file_index, stats_collector, map_transform,
+                           file_cache)
+    for reducer, chunk in enumerate(shard):
         owner = plan.reducer_host(reducer)
         if owner != transport.host_id:
             transport.send(owner, (epoch, reducer, global_file_index),
-                           serialize_table(out.materialize(reducer)))
-    return out
+                           serialize_table(chunk.materialize()))
+    return shard
 
 
 def _reduce_task(reducer: int, seed: int, epoch: int, plan: ShardPlan,
                  transport: TcpTransport,
-                 local_maps: Dict[int, cf.Future],
-                 reduce_transform: Optional[sh.ReduceTransform]
-                 ) -> pa.Table:
+                 local_maps: Dict[int, ex.TaskRef], stats_collector=None,
+                 reduce_transform: Optional[sh.ReduceTransform] = None,
+                 spill_manager=None,
+                 gather_threads: Optional[int] = None):
     """This reducer's rows of every global file, in file order (local map
     outputs and tables received from their hosts), then the seeded
-    permutation."""
+    permutation and the memory policy (``shuffle.account_and_maybe_spill``,
+    with no lineage: a corrupt spill of rows that crossed the wire stays a
+    loud failure)."""
     chunks: List[sh.Chunk] = []
     for file_index in range(plan.num_files):
         src = plan.file_host(file_index)
         if src == transport.host_id:
-            chunks.append(local_maps[file_index].result())
+            chunks.append(local_maps[file_index].result()[reducer])
         else:
             chunks.append(deserialize_table(
                 transport.recv(src, (epoch, reducer, file_index))))
-    return sh.shuffle_reduce(reducer, seed, epoch, chunks, reduce_transform)
+    shuffled = sh.shuffle_reduce(reducer, seed, epoch, chunks,
+                                 reduce_transform, stats_collector,
+                                 gather_threads)
+    return sh.account_and_maybe_spill(shuffled, spill_manager, epoch=epoch,
+                                      task=reducer)
 
 
 def shuffle_epoch_distributed(
         epoch: int, filenames: Sequence[str],
         batch_consumer: sh.BatchConsumer, plan: ShardPlan,
-        transport: TcpTransport, pool: cf.Executor, seed: int,
+        transport: TcpTransport, pool: ex.Executor, seed: int,
+        trial_start: float, stats_collector=None,
         map_transform: Optional[sh.MapTransform] = None,
-        reduce_transform: Optional[sh.ReduceTransform] = None
-) -> List[cf.Future]:
+        file_cache: Optional[sh.FileTableCache] = None,
+        reduce_transform: Optional[sh.ReduceTransform] = None,
+        spill_manager=None, concurrent_epochs: int = 2
+) -> List[ex.TaskRef]:
     """One epoch on this host: map the local files, reduce the owned
     reducers and route them to the local trainers (local rank ``k`` gets
-    its global trainer's reducers, then ``None``). Every map is submitted
-    before any reduce: a reducer blocks in its pool thread on ``recv``,
-    and the maps it waits for (here and on the other hosts, which submit
-    in the same order) then always hold a thread first. Returns the
-    reduce and map futures: their completion means every chunk this host
-    sends in the epoch has been sent."""
+    its global trainer's reducers, then ``None``).
+
+    Every map is submitted before any reduce: a reducer blocks in its
+    pool thread on ``recv``, and the maps it waits for (here and on the
+    other hosts, which submit in the same order) then always hold a
+    thread first. Maps go through the executor's retries; reduces through
+    ``submit_once``, since a reduce consumes its messages once and a retry
+    could only wait for them until the timeout. Returns the reduce and map
+    refs: their completion means every chunk this host sends in the epoch
+    has been sent."""
+    if stats_collector is not None:
+        stats_collector.epoch_start(epoch)
     host = transport.host_id
     maps = {fi: pool.submit(_map_task, filenames[fi], fi, plan.num_reducers,
-                            seed, epoch, plan, transport, map_transform)
+                            seed, epoch, plan, transport, stats_collector,
+                            map_transform, file_cache)
             for fi in plan.local_files(host)}
-    reduces = {r: pool.submit(_reduce_task, r, seed, epoch, plan, transport,
-                              maps, reduce_transform)
-               for r in plan.local_reducers(host)}
+    local_reducers = plan.local_reducers(host)
+    # A loopback world runs every host on this machine: split its cores.
+    loopback = all(h in ("127.0.0.1", "localhost")
+                   for h, _ in transport.addresses)
+    gather_threads = sh.derive_gather_threads(
+        max(1, concurrent_epochs) * len(local_reducers), pool.num_workers,
+        host_share=transport.world if loopback else 1)
+    reduces = {r: pool.submit_once(_reduce_task, r, seed, epoch, plan,
+                                   transport, maps, stats_collector,
+                                   reduce_transform, spill_manager,
+                                   gather_threads)
+               for r in local_reducers}
     for local_rank, trainer in enumerate(plan.local_trainers(host)):
-        batch_consumer(local_rank, epoch,
-                       [reduces[r] for r in plan.trainer_reducers[trainer]])
+        sh.consume(local_rank, batch_consumer, trial_start, stats_collector,
+                   epoch, [reduces[r] for r in plan.trainer_reducers[trainer]])
         batch_consumer(local_rank, epoch, None)
     return list(reduces.values()) + list(maps.values())
 
@@ -178,46 +211,97 @@ def shuffle_distributed(filenames: Sequence[str],
                         trainers_per_host: int = 1,
                         max_concurrent_epochs: int = 2, seed: int = 0,
                         num_workers: Optional[int] = None,
+                        pool: Optional[ex.Executor] = None,
                         start_epoch: int = 0,
                         map_transform: Optional[sh.MapTransform] = None,
-                        reduce_transform: Optional[sh.ReduceTransform] = None
-                        ) -> float:
+                        file_cache="auto",
+                        reduce_transform: Optional[sh.ReduceTransform] = None,
+                        task_retries: int = 0,
+                        collect_stats: bool = False,
+                        max_inflight_bytes: Optional[int] = None,
+                        spill_dir: Optional[str] = None):
     """The multi-epoch distributed shuffle for ONE host; every host runs
     it with the same arguments, and hosts synchronise only through the
     chunk exchange. At most ``max_concurrent_epochs`` epochs are in flight
     on this host (a host cannot run far ahead anyway: its reducers wait
     for every peer's chunks of their epoch). Epochs before
-    ``start_epoch`` are skipped (a resumed run). Runs on ``num_workers``
-    threads (default: one per core); returns the wall-clock seconds. A
-    failed map or reduce raises here; the other hosts then fail in
-    ``recv`` (dead source or timeout)."""
+    ``start_epoch`` are skipped (a resumed run).
+
+    The engine's pieces, per host, as in ``shuffle.shuffle``:
+    ``file_cache`` (``"auto"``: this host's files cached across epochs),
+    ``task_retries`` (maps only), ``max_inflight_bytes`` and
+    ``spill_dir`` (without a spill dir the budget drains older epochs
+    before a launch; with one, over-budget reducer outputs spill and the
+    consumer unwraps them), and ``collect_stats``: the return value is
+    then THIS host's ``TrialStats`` (its maps, reduces and consumes),
+    else the wall-clock seconds. Runs on ``num_workers`` threads (default:
+    one per core) or a caller's ``pool``. A failed map or reduce raises
+    here; the other hosts then fail in ``recv`` (dead source or
+    timeout)."""
     if not 0 <= start_epoch <= num_epochs:
         raise ValueError(
             f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
     plan = ShardPlan(len(filenames), num_reducers, transport.world,
                      trainers_per_host)
+    host = transport.host_id
+    stats_collector = None
+    if collect_stats:
+        if start_epoch:
+            raise ValueError("collect_stats with start_epoch > 0 is "
+                             "unsupported (the collectors expect every "
+                             "epoch to run)")
+        stats_collector = stats_mod.TrialStatsCollector(
+            num_epochs, num_maps=len(plan.local_files(host)),
+            num_reduces=len(plan.local_reducers(host)),
+            num_consumes=trainers_per_host)
+        stats_collector.trial_start()
+    file_cache = sh.resolve_file_cache(file_cache, num_epochs - start_epoch)
+    over_budget, spill_manager = spill.make_budget_state(
+        file_cache, max_inflight_bytes, spill_dir)
     start = timeit.default_timer()
-    in_progress: Dict[int, List[cf.Future]] = {}
-    pool = cf.ThreadPoolExecutor(
-        max_workers=num_workers or os.cpu_count(),
-        thread_name_prefix=f"rsdl-dist-{transport.host_id}")
+    owns_pool = pool is None
+    if pool is None:
+        pool = ex.Executor(num_workers=num_workers,
+                           thread_name_prefix=f"rsdl-dist-{host}",
+                           task_retries=task_retries)
+    failed = True
     try:
-        for epoch in range(start_epoch, num_epochs):
-            while len(in_progress) >= max(1, max_concurrent_epochs):
-                for fut in in_progress.pop(min(in_progress)):
-                    fut.result()
-            in_progress[epoch] = shuffle_epoch_distributed(
-                epoch, filenames, batch_consumer, plan, transport, pool,
-                seed, map_transform, reduce_transform)
+        in_progress: Dict[int, List[ex.TaskRef]] = {}
+        for spec in plan_ir.static_epoch_specs(filenames, num_epochs,
+                                               start_epoch):
+            throttle_start = timeit.default_timer()
+            # Without a spill tier, budget pressure drains older epochs
+            # before a launch; no wait for consumers beyond that: hosts
+            # must stay loosely in step.
+            while in_progress and (len(in_progress) >= max_concurrent_epochs
+                                   or (spill_manager is None
+                                       and over_budget())):
+                sh.wait_and_raise(in_progress.pop(min(in_progress)))
+            throttled = timeit.default_timer() - throttle_start
+            if stats_collector is not None and throttled > 1e-4:
+                stats_collector.throttle_done(spec.epoch, throttled)
+            in_progress[spec.epoch] = shuffle_epoch_distributed(
+                spec.epoch, filenames, batch_consumer, plan, transport,
+                pool, seed, start, stats_collector, map_transform,
+                file_cache, reduce_transform, spill_manager,
+                concurrent_epochs=min(max_concurrent_epochs,
+                                      num_epochs - start_epoch))
         for epoch in sorted(in_progress):
-            for fut in in_progress.pop(epoch):
-                fut.result()
-    except BaseException:
-        # Fail now: reducers still blocked in recv end at their timeout,
-        # or at once when the caller closes the transport.
-        pool.shutdown(wait=False, cancel_futures=True)
-        raise
-    pool.shutdown()
+            sh.wait_and_raise(in_progress.pop(epoch))
+        failed = False
+    finally:
+        if owns_pool:
+            # On a failure, fail now: reducers still blocked in recv end
+            # at their timeout, or at once when the caller closes the
+            # transport.
+            pool.shutdown(wait_for_tasks=not failed, cancel_pending=failed)
+            if not failed:
+                native.trim_freelist()
+        if spill_manager is not None:
+            spill_manager.report()
+    if stats_collector is not None:
+        stats_collector.trial_done()
+        return stats_collector.get_stats()
     return timeit.default_timer() - start
 
 
@@ -227,41 +311,35 @@ def create_distributed_batch_queue_and_shuffle(
         max_concurrent_epochs: int = 2, seed: int = 0,
         num_workers: Optional[int] = None, start_epoch: int = 0,
         map_transform: Optional[sh.MapTransform] = None,
-        reduce_transform: Optional[sh.ReduceTransform] = None
-) -> Tuple[mq.MultiQueue, cf.Future]:
+        reduce_transform: Optional[sh.ReduceTransform] = None,
+        task_retries: int = 0, file_cache="auto",
+        max_inflight_bytes: Optional[int] = None,
+        spill_dir: Optional[str] = None, collect_stats: bool = False
+) -> Tuple[mq.MultiQueue, ex.TaskRef]:
     """This host's queues and its distributed shuffle on a driver thread.
 
     The returned ``(batch_queue, shuffle_result)`` go to
     ``ShufflingDataset`` / ``DeviceShufflingDataset`` as ``batch_queue=``
     and ``shuffle_result=``, with ``rank`` the local rank in ``[0,
-    trainers_per_host)`` and ``num_trainers = trainers_per_host``. A
-    failure of the shuffle is put into every queue of this host, so a
-    consumer blocked on one raises."""
+    trainers_per_host)`` and ``num_trainers = trainers_per_host``. The
+    result resolves to :func:`shuffle_distributed`'s (this host's
+    ``TrialStats`` with ``collect_stats``). A failure of the shuffle is
+    put into every queue of this host, so a consumer blocked on one
+    raises."""
     if not 0 <= start_epoch <= num_epochs:
         raise ValueError(
             f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
     queue = mq.MultiQueue(num_epochs * trainers_per_host)
     consumer = functools.partial(ds_mod.batch_consumer, queue,
                                  trainers_per_host)
-    on_failure = ds_mod.make_failure_broadcaster(queue)
-    driver = cf.ThreadPoolExecutor(max_workers=1,
-                                   thread_name_prefix="rsdl-dist-driver")
-
-    def run() -> float:
-        try:
-            return shuffle_distributed(
-                filenames, consumer, num_epochs, num_reducers, transport,
-                trainers_per_host=trainers_per_host,
-                max_concurrent_epochs=max_concurrent_epochs, seed=seed,
-                num_workers=num_workers, start_epoch=start_epoch,
-                map_transform=map_transform,
-                reduce_transform=reduce_transform)
-        except BaseException as e:
-            logger.error("host %d: distributed shuffle failed: %r",
-                         transport.host_id, e)
-            on_failure(e)
-            raise
-
-    future = driver.submit(run)
-    driver.shutdown(wait=False)
-    return queue, future
+    return queue, sh.run_in_background(
+        lambda: shuffle_distributed(
+            filenames, consumer, num_epochs, num_reducers, transport,
+            trainers_per_host=trainers_per_host,
+            max_concurrent_epochs=max_concurrent_epochs, seed=seed,
+            num_workers=num_workers, start_epoch=start_epoch,
+            map_transform=map_transform, file_cache=file_cache,
+            reduce_transform=reduce_transform, task_retries=task_retries,
+            collect_stats=collect_stats,
+            max_inflight_bytes=max_inflight_bytes, spill_dir=spill_dir),
+        ds_mod.make_failure_broadcaster(queue))

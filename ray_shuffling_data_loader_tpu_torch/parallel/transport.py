@@ -3,9 +3,16 @@ the JAX package's ``parallel/transport.py``).
 
 One listener per host, one persistent connection per peer, length-prefixed
 frames tagged ``(epoch, reducer, file_index)`` and a blocking tag-matched
-receive. Payloads are raw bytes (the shuffle sends Arrow IPC streams);
-``socket.sendall`` and ``recv_into`` release the GIL, so transfers
-overlap the map and reduce threads.
+receive. Payloads are raw bytes (the shuffle sends Arrow IPC streams).
+A payload is received into a buffer of the native buffer pool
+(``native.alloc_tracked_buffer``), charged to the pipeline's ledger until
+the last reference to it (the table deserialized over it included) is
+gone. Payloads of ``_NATIVE_PUMP_MIN_BYTES`` (1 MB) and more go through
+the native pump: one GIL-free ``writev`` per frame sent
+(``native.frame_send``) and one GIL-free read loop per payload received
+(``native.read_exact_into``); smaller ones through ``socket.sendall`` and
+``recv_into``, which are as fast there. :meth:`TcpTransport.stats`
+splits the frames and bytes by path.
 
 Wire format of a frame (the JAX package's v2), little-endian::
 
@@ -24,8 +31,9 @@ The port has no membership layer: the incarnation and view fields are
 parsed and not fenced, and a heartbeat frame from a JAX peer is dropped.
 
 Delivery: each message is consumed exactly once; a frame whose
-``(src, tag)`` is already in the inbox (a sender's resend after a
-reconnect) is dropped with a warning. A send that fails redials the peer
+``(src, tag)`` is already in the inbox or was already consumed (a
+sender's resend after a reconnect, or a retried map's) is dropped with a
+warning. A send that fails redials the peer
 once and resends. A connection that dies mid-frame marks the sources it
 carried dead; a ``recv`` from a dead source fails after
 ``reconnect_grace_s`` unless a frame from it arrives on a new connection
@@ -45,6 +53,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
@@ -57,6 +66,9 @@ _HEADER = struct.Struct("<IIIIQQQQ")
 #: Epoch of a heartbeat control frame (zero payload, never inboxed).
 _HEARTBEAT_EPOCH = (1 << 64) - 1
 _CHUNK = 1 << 20
+#: Payloads at least this large move through the native pump (the JAX
+#: package's threshold: below it the wrapper costs more than it saves).
+_NATIVE_PUMP_MIN_BYTES = 1 << 20
 
 Tag = Tuple[int, int, int]  # (epoch, reducer_index, file_index)
 
@@ -85,18 +97,39 @@ class PeerUnreachable(TransportError):
         self.last_error = last_error
 
 
-def _recv_into(sock: socket.socket, n: int) -> bytearray:
-    """Read exactly ``n`` bytes into a new ``bytearray``; raises
-    :class:`TransportError` on EOF."""
-    buf = bytearray(n)
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    """Read exactly ``n`` (header) bytes; raises :class:`TransportError`
+    on EOF."""
+    chunks = []
+    while n:
+        chunk = sock.recv(min(n, _CHUNK))
+        if not chunk:
+            raise TransportError("peer closed connection mid-message")
+        chunks.append(chunk)
+        n -= len(chunk)
+    return b"".join(chunks)
+
+
+def _recv_payload(sock: socket.socket, n: int) -> memoryview:
+    """Read an ``n``-byte payload into a ledger-tracked pool buffer; the
+    returned memoryview keeps the buffer (and its ledger charge) alive as
+    long as anything references it. From ``_NATIVE_PUMP_MIN_BYTES`` up,
+    one GIL-free native read loop fills it."""
+    if n == 0:
+        return memoryview(b"")
+    buf = native.alloc_tracked_buffer(n)
     view = memoryview(buf)
+    if n >= _NATIVE_PUMP_MIN_BYTES:
+        if not native.read_exact_into(sock.fileno(), buf, n):
+            raise TransportError("peer closed connection mid-message")
+        return view
     received = 0
     while received < n:
         got = sock.recv_into(view[received:], min(n - received, _CHUNK))
         if not got:
             raise TransportError("peer closed connection mid-message")
         received += got
-    return buf
+    return view
 
 
 def _new_connection(address: Tuple[str, int]) -> socket.socket:
@@ -135,9 +168,12 @@ class TcpTransport:
         self.world = len(addresses)
         self._recv_timeout_s = recv_timeout_s
         self._reconnect_grace_s = reconnect_grace_s
-        # (src, tag) -> payload: a bytearray (remote) or the sender's
+        # (src, tag) -> payload: a memoryview (remote) or the sender's
         # object (self-sends).
         self._inbox: Dict[Tuple[int, Tag], Any] = {}
+        # (src, tag) of every message recv has returned: a resend that
+        # arrives after its original was consumed is dropped too.
+        self._consumed: set = set()
         self._inbox_cv = threading.Condition()
         # src -> (reason, monotonic time of death); dropped when a frame
         # from src arrives on a new connection.
@@ -148,7 +184,11 @@ class TcpTransport:
         self._closed = threading.Event()
         self._counts_lock = threading.Lock()
         self._counts = {"frames_sent": 0, "bytes_sent": 0, "send_s": 0.0,
-                        "frames_received": 0, "bytes_received": 0}
+                        "frames_received": 0, "bytes_received": 0,
+                        "frames_sent_native": 0, "bytes_sent_native": 0,
+                        "send_s_native": 0.0,
+                        "frames_received_native": 0,
+                        "bytes_received_native": 0}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -221,8 +261,10 @@ class TcpTransport:
         self.close()
 
     def stats(self) -> Dict[str, float]:
-        """Frames and payload bytes sent and received so far, and the
-        seconds the senders spent in ``sendall`` (self-sends excluded)."""
+        """Frames and payload bytes sent and received so far and the
+        seconds the senders spent sending (self-sends excluded); the
+        ``*_native`` keys count the part that went through the native
+        pump."""
         with self._counts_lock:
             return dict(self._counts)
 
@@ -260,28 +302,31 @@ class TcpTransport:
                 if not first:
                     return  # clean close at a frame boundary
                 header = (first if len(first) == _HEADER.size else
-                          first + _recv_into(conn,
-                                             _HEADER.size - len(first)))
+                          first + _recv_exact(conn,
+                                              _HEADER.size - len(first)))
                 (magic, src, _incarnation, _view, epoch, reducer,
                  file_index, length) = _HEADER.unpack(header)
                 if magic != _MAGIC:
                     raise TransportError(
                         f"bad magic {magic:#x} from peer (protocol mismatch)")
                 srcs_seen.add(src)
-                payload = _recv_into(conn, length)
+                payload = _recv_payload(conn, length)
                 if epoch == _HEARTBEAT_EPOCH:
                     continue
-                self._count(frames_received=1, bytes_received=length)
+                pumped = int(length >= _NATIVE_PUMP_MIN_BYTES)
+                self._count(frames_received=1, bytes_received=length,
+                            frames_received_native=pumped,
+                            bytes_received_native=pumped * length)
                 key = (src, (epoch, reducer, file_index))
                 with self._inbox_cv:
-                    if key in self._inbox:
-                        # A sender whose sendall failed after the frame was
-                        # delivered resends it on a new connection: keep
-                        # the first.
+                    if key in self._inbox or key in self._consumed:
+                        # A sender whose send failed after the frame was
+                        # delivered resends it on a new connection, and a
+                        # retried map sends its chunks again: keep the
+                        # first.
                         logger.warning(
                             "host %d: dropping duplicate message %s "
-                            "(sender resend after reconnect)",
-                            self.host_id, key)
+                            "(a resend)", self.host_id, key)
                     else:
                         self._inbox[key] = payload
                     # A live frame revives a src that an earlier connection
@@ -306,8 +351,8 @@ class TcpTransport:
 
     def recv(self, src: int, tag: Tag, timeout_s: Optional[float] = None):
         """Block until the message ``tag`` from host ``src`` arrives and
-        return it (a ``bytearray``, or the sender's object for a
-        self-send). Each message is consumed once. Raises
+        return it (a ``memoryview`` over a ledger-tracked buffer, or the
+        sender's object for a self-send). Each message is consumed once. Raises
         :class:`TransportTimeout` after ``timeout_s`` (default: the
         transport's ``recv_timeout_s``), and :class:`TransportError` once
         ``src``'s connection has been dead for ``reconnect_grace_s``."""
@@ -335,6 +380,7 @@ class TcpTransport:
                         f"host {self.host_id}: no message {tag} from host "
                         f"{src} within {timeout_s:g}s")
                 self._inbox_cv.wait(timeout=min(remaining, 1.0))
+            self._consumed.add(key)
             return self._inbox.pop(key)
 
     # -- send path -----------------------------------------------------------
@@ -360,13 +406,17 @@ class TcpTransport:
         nbytes = memoryview(payload).nbytes
         header = _HEADER.pack(_MAGIC, self.host_id, 0, 0, epoch, reducer,
                               file_index, nbytes)
+        pumped = nbytes >= _NATIVE_PUMP_MIN_BYTES
 
         def send_frame(s: socket.socket) -> None:
             # Inside the frame sender: an injected fault takes the redial
             # and resend path a socket error takes.
             rt_faults.inject("transport_send", epoch=epoch, task=reducer)
-            s.sendall(header)
-            s.sendall(payload)
+            if pumped:
+                native.frame_send(s.fileno(), header, payload)
+            else:
+                s.sendall(header)
+                s.sendall(payload)
 
         start = time.monotonic()
         with lock:
@@ -392,8 +442,11 @@ class TcpTransport:
                     raise TransportError(
                         f"host {self.host_id} failed sending to peer {dest} "
                         f"(redial also failed: {e}): {first_err}")
-        self._count(frames_sent=1, bytes_sent=nbytes,
-                    send_s=time.monotonic() - start)
+        took = time.monotonic() - start
+        self._count(frames_sent=1, bytes_sent=nbytes, send_s=took,
+                    frames_sent_native=int(pumped),
+                    bytes_sent_native=int(pumped) * nbytes,
+                    send_s_native=took if pumped else 0.0)
 
 
 def create_local_transports(world: int, recv_timeout_s: float = 600.0,

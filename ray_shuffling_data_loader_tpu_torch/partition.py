@@ -10,6 +10,11 @@ constants, stream tags and arithmetic here are copied, not reinvented:
   counting sort (:func:`plan_partition_flat`);
 - reduce: ``Philox(SeedSequence(seed, spawn_key=(1, epoch, r)))`` draws the
   permutation of the reducer's concatenated rows (:func:`reduce_rng`).
+
+The shuffle runs the map's plan through the native kernels
+(``native.plan_partition_flat``, ``native.partition_counts``,
+``native.assign_dest``); the NumPy functions here are their plain
+versions, equal bit for bit.
 """
 
 from __future__ import annotations
@@ -74,6 +79,40 @@ def plan_partition_flat(num_rows: int, num_reducers: int, seed: int,
     offsets = np.zeros(num_reducers + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return order, offsets
+
+
+def partition_counts(num_rows: int, num_reducers: int, seed: int,
+                     epoch: int, file_index: int, row0: int = 0
+                     ) -> np.ndarray:
+    """Per-reducer counts of rows ``[row0, row0 + num_rows)`` of the
+    file's partition stream (plain version of
+    ``native.partition_counts``)."""
+    assignments = hash_assign(num_rows, num_reducers,
+                              partition_key(seed, epoch, file_index), row0)
+    return np.bincount(assignments,
+                       minlength=num_reducers).astype(np.int64, copy=False)
+
+
+def assign_dest_batch(num_rows: int, num_reducers: int, seed: int,
+                      epoch: int, file_index: int, row0: int,
+                      cursors: np.ndarray) -> np.ndarray:
+    """Destination slots of one record batch of the streaming map: row
+    ``row0 + i`` goes to slot ``cursors[r]`` of its reducer ``r``'s region
+    and ``cursors`` (int64, one per reducer) advance in place (plain
+    version of ``native.assign_dest``, as int64)."""
+    assignments = hash_assign(num_rows, num_reducers,
+                              partition_key(seed, epoch, file_index), row0)
+    counts = np.bincount(assignments, minlength=num_reducers)
+    order = np.argsort(assignments, kind="stable")
+    starts = np.zeros(num_reducers, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    dest = np.empty(num_rows, dtype=np.int64)
+    # In stable-sorted order reducer r's rows are one run; its k-th row
+    # (original order) lands at cursors[r] + k.
+    dest[order] = (np.repeat(cursors[:num_reducers], counts)
+                   + np.arange(num_rows) - np.repeat(starts, counts))
+    cursors += counts
+    return dest
 
 
 def reduce_rng(seed: int, epoch: int,

@@ -1,0 +1,464 @@
+"""The epoch-plan IR: one declarative object per shuffle epoch (own copy
+of the JAX package's ``plan/ir.py``, without the serving plane's
+``ShardMap`` and the queue-resume query, which come with rebalancing).
+
+Every task of the shuffle is a pure function of ``(seed, epoch, task)``.
+This module makes that explicit, serializable data:
+
+- :class:`PlanNode`: one task (``map`` / ``reduce`` / ``route``) with its
+  lineage key, its dependency edges and an optional cost annotation.
+- :class:`EpochPlan`: the per-epoch DAG ``files -> map partitions ->
+  reduce slices -> queue routes``, built by :func:`build_epoch_plan`,
+  checked by :meth:`EpochPlan.validate` and round-tripped by
+  :meth:`EpochPlan.to_json` / :func:`from_json` (stable key order, byte
+  for byte the JAX package's serialization of the same plan).
+- The plan queries: :func:`queue_index` / :func:`queue_epoch` /
+  :func:`queue_rank` (the route-key arithmetic) and :func:`route_slices`
+  (the contiguous reducer->trainer split, remainder first like
+  ``np.array_split``).
+- :class:`EpochSpec` / :func:`static_epoch_specs` / :func:`epoch_range`:
+  what the shuffle driver iterates.
+
+Execution of a plan lives in :mod:`plan.scheduler`. Stdlib only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+import re
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+
+#: Serialization format version (bumped on breaking shape changes).
+PLAN_VERSION = 1
+
+#: The tenant id shape of the JAX package's tenancy plane (a plan may
+#: carry one; the port serializes it as the JAX package does).
+_TENANT_ID_RE = re.compile(r"^[a-z0-9][a-z0-9_.-]{0,63}$")
+
+#: Stage names, in dependency order.
+STAGES = ("map", "reduce", "route")
+
+
+class PlanError(ValueError):
+    """A plan failed validation (or deserialization)."""
+
+
+# ---------------------------------------------------------------------------
+# Lineage / route key derivation — THE one place for this arithmetic.
+# ---------------------------------------------------------------------------
+
+
+def queue_index(epoch: int, rank: int, num_trainers: int) -> int:
+    """The multiqueue index carrying ``rank``'s tables for ``epoch``
+    (the wire contract of multiqueue.py / multiqueue_service.py)."""
+    return epoch * num_trainers + rank
+
+
+def queue_epoch(queue_idx: int, num_trainers: int) -> int:
+    """Inverse of :func:`queue_index`: the epoch a queue belongs to."""
+    return queue_idx // num_trainers
+
+
+def queue_rank(queue_idx: int, num_trainers: int) -> int:
+    """Inverse of :func:`queue_index`: the trainer rank a queue feeds."""
+    return queue_idx % num_trainers
+
+
+def split_sizes(total: int, num_parts: int) -> List[int]:
+    """Sizes of the contiguous reducer->trainer split: remainder-first,
+    exactly ``np.array_split(range(total), num_parts)`` (the reference's
+    routing arithmetic, reference: shuffle.py:188-189; mirrored from
+    ``partition.split_sizes`` so this module stays stdlib-only)."""
+    base, rem = divmod(total, num_parts)
+    return [base + 1 if i < rem else base for i in range(num_parts)]
+
+
+def route_slices(num_reducers: int, num_trainers: int
+                 ) -> List[Tuple[int, int]]:
+    """Per-trainer ``(start, stop)`` reducer-index spans (contiguous,
+    remainder-first)."""
+    out: List[Tuple[int, int]] = []
+    start = 0
+    for size in split_sizes(num_reducers, num_trainers):
+        out.append((start, start + size))
+        start += size
+    return out
+
+
+def node_id(stage: str, epoch: int, task: int) -> str:
+    """Stable node id: ``stage:eE:tT``."""
+    return f"{stage}:e{epoch}:t{task}"
+
+
+# ---------------------------------------------------------------------------
+# IR data model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LineageKey:
+    """The ``(seed, epoch, task)`` triple that makes a task pure: the
+    same key always reproduces the same output, which is what makes
+    recomputation, replay, checkpoint resume and speculative duplicate
+    execution all provably safe."""
+
+    seed: int
+    epoch: int
+    task: int
+
+    def as_tuple(self) -> Tuple[int, int, int]:
+        return (self.seed, self.epoch, self.task)
+
+    def __str__(self) -> str:
+        return f"{self.seed}:{self.epoch}:{self.task}"
+
+
+@dataclasses.dataclass
+class PlanNode:
+    """One task of an epoch plan.
+
+    ``meta`` carries the stage-specific payload (map: ``file`` path and
+    ``file_index``; reduce: nothing extra; route: ``rank``, ``queue``
+    and the contiguous ``reducers`` span it consumes). ``cost_s`` is an
+    advisory duration annotation (seconds, e.g. a stage's measured
+    median); it never affects correctness."""
+
+    id: str
+    stage: str
+    key: LineageKey
+    deps: Tuple[str, ...] = ()
+    cost_s: Optional[float] = None
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "id": self.id,
+            "stage": self.stage,
+            "key": list(self.key.as_tuple()),
+            "deps": list(self.deps),
+        }
+        if self.cost_s is not None:
+            d["cost_s"] = round(float(self.cost_s), 6)
+        if self.meta:
+            d["meta"] = dict(sorted(self.meta.items()))
+        return d
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "PlanNode":
+        try:
+            seed, epoch, task = data["key"]
+            return cls(id=str(data["id"]), stage=str(data["stage"]),
+                       key=LineageKey(int(seed), int(epoch), int(task)),
+                       deps=tuple(str(d) for d in data.get("deps", ())),
+                       cost_s=(None if data.get("cost_s") is None
+                               else float(data["cost_s"])),
+                       meta=dict(data.get("meta", {})))
+        except (KeyError, TypeError, ValueError) as e:
+            raise PlanError(f"malformed plan node {data!r}: {e}") from e
+
+
+@dataclasses.dataclass
+class EpochPlan:
+    """The declarative task graph of ONE shuffle epoch.
+
+    Node order is deterministic (maps by file index, reduces by reducer
+    index, routes by rank), so two plans built from the same inputs
+    serialize byte-identically, and as the JAX package serializes them.
+
+    ``window`` (a streaming window's provenance) and ``tenant_id`` (the
+    tenant an epoch is served for) are the JAX package's optional plan
+    fields; the port's static schedule leaves both None, and None
+    serializes to nothing."""
+
+    seed: int
+    epoch: int
+    num_reducers: int
+    num_trainers: int
+    filenames: List[str]
+    nodes: Dict[str, PlanNode] = dataclasses.field(default_factory=dict)
+    version: int = PLAN_VERSION
+    window: Optional[Dict[str, Any]] = None
+    tenant_id: Optional[str] = None
+
+    # -- queries --------------------------------------------------------
+
+    def stage_nodes(self, stage: str) -> List[PlanNode]:
+        return [n for n in self.nodes.values() if n.stage == stage]
+
+    def maps(self) -> List[PlanNode]:
+        return self.stage_nodes("map")
+
+    def reduces(self) -> List[PlanNode]:
+        return self.stage_nodes("reduce")
+
+    def routes(self) -> List[PlanNode]:
+        return self.stage_nodes("route")
+
+    def node(self, nid: str) -> PlanNode:
+        try:
+            return self.nodes[nid]
+        except KeyError:
+            raise PlanError(f"unknown plan node {nid!r}") from None
+
+    def map_key(self, file_index: int) -> LineageKey:
+        return self.node(node_id("map", self.epoch, file_index)).key
+
+    def reduce_key(self, reduce_index: int) -> LineageKey:
+        return self.node(node_id("reduce", self.epoch, reduce_index)).key
+
+    def dependents(self) -> Dict[str, List[str]]:
+        """Reverse edges: node id -> ids depending on it."""
+        out: Dict[str, List[str]] = {nid: [] for nid in self.nodes}
+        for node in self.nodes.values():
+            for dep in node.deps:
+                if dep in out:
+                    out[dep].append(node.id)
+        return out
+
+    def annotate_costs(self, stage_costs: Mapping[str, float]) -> None:
+        """Stamp advisory per-stage cost annotations (seconds) onto every
+        node of each stage (e.g. the stages' median task seconds from
+        ``TrialStats``)."""
+        for node in self.nodes.values():
+            cost = stage_costs.get(node.stage)
+            if cost is not None:
+                node.cost_s = float(cost)
+
+    # -- validation -----------------------------------------------------
+
+    def validate(self) -> None:
+        """Raise :class:`PlanError` unless the plan is well-formed:
+        unique stage/epoch/task-consistent ids, closed acyclic dependency
+        edges, reduces depending on every map, and route nodes covering
+        the reducer range contiguously exactly once."""
+        if self.version != PLAN_VERSION:
+            raise PlanError(
+                f"plan version {self.version} != {PLAN_VERSION}")
+        if self.num_reducers < 1 or self.num_trainers < 1:
+            raise PlanError("num_reducers and num_trainers must be >= 1")
+        if self.window is not None:
+            if not isinstance(self.window, dict):
+                raise PlanError("window metadata must be a dict")
+            try:
+                if int(self.window["index"]) < 0:
+                    raise PlanError("window index must be >= 0")
+            except (KeyError, TypeError, ValueError) as e:
+                raise PlanError(
+                    f"malformed window metadata {self.window!r}: {e}") from e
+        if self.tenant_id is not None:
+            if not isinstance(self.tenant_id, str) \
+                    or not _TENANT_ID_RE.match(self.tenant_id):
+                raise PlanError(
+                    f"invalid tenant_id {self.tenant_id!r}: want "
+                    "^[a-z0-9][a-z0-9_.-]{0,63}$")
+        maps, reduces, routes = [], [], []
+        for nid, node in self.nodes.items():
+            if node.id != nid:
+                raise PlanError(f"node indexed as {nid!r} carries id "
+                                f"{node.id!r}")
+            if node.stage not in STAGES:
+                raise PlanError(f"{nid}: unknown stage {node.stage!r}")
+            if node.id != node_id(node.stage, node.key.epoch, node.key.task):
+                raise PlanError(f"{nid}: id does not encode its stage/"
+                                f"lineage key {node.key}")
+            if node.key.seed != self.seed or node.key.epoch != self.epoch:
+                raise PlanError(
+                    f"{nid}: lineage key {node.key} disagrees with plan "
+                    f"(seed={self.seed}, epoch={self.epoch})")
+            for dep in node.deps:
+                if dep not in self.nodes:
+                    raise PlanError(f"{nid}: unknown dep {dep!r}")
+            {"map": maps, "reduce": reduces,
+             "route": routes}[node.stage].append(node)
+        if {n.key.task for n in maps} != set(range(len(self.filenames))):
+            raise PlanError("map tasks do not cover the file list "
+                            f"(files={len(self.filenames)})")
+        if {n.key.task for n in reduces} != set(range(self.num_reducers)):
+            raise PlanError("reduce tasks do not cover "
+                            f"range({self.num_reducers})")
+        if {n.key.task for n in routes} != set(range(self.num_trainers)):
+            raise PlanError("route tasks do not cover "
+                            f"range({self.num_trainers})")
+        map_ids = {n.id for n in maps}
+        for node in reduces:
+            if set(node.deps) != map_ids:
+                raise PlanError(
+                    f"{node.id}: a reduce must depend on every map "
+                    "(its permutation gathers one chunk per file)")
+        covered: List[int] = []
+        for node in sorted(routes, key=lambda n: n.key.task):
+            span = node.meta.get("reducers")
+            expect_queue = queue_index(self.epoch, node.key.task,
+                                       self.num_trainers)
+            if node.meta.get("queue") != expect_queue:
+                raise PlanError(f"{node.id}: queue {node.meta.get('queue')}"
+                                f" != queue_index() {expect_queue}")
+            if span is None:
+                raise PlanError(f"{node.id}: route without a reducers span")
+            covered.extend(span)
+            want_deps = {node_id("reduce", self.epoch, r) for r in span}
+            if set(node.deps) != want_deps:
+                raise PlanError(f"{node.id}: deps do not match its "
+                                "reducers span")
+        if covered != list(range(self.num_reducers)):
+            raise PlanError("route nodes do not cover the reducer range "
+                            "contiguously exactly once")
+        self._check_acyclic()
+
+    def _check_acyclic(self) -> None:
+        indegree = {nid: len(n.deps) for nid, n in self.nodes.items()}
+        ready = [nid for nid, d in indegree.items() if d == 0]
+        dependents = self.dependents()
+        seen = 0
+        while ready:
+            nid = ready.pop()
+            seen += 1
+            for child in dependents[nid]:
+                indegree[child] -= 1
+                if indegree[child] == 0:
+                    ready.append(child)
+        if seen != len(self.nodes):
+            raise PlanError("dependency cycle detected")
+
+    # -- serialization --------------------------------------------------
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "version": self.version,
+            "seed": self.seed,
+            "epoch": self.epoch,
+            "num_reducers": self.num_reducers,
+            "num_trainers": self.num_trainers,
+            "filenames": list(self.filenames),
+            "nodes": [n.as_dict() for n in self.nodes.values()],
+        }
+        if self.window is not None:
+            # After "nodes" on purpose: absent for static plans.
+            d["window"] = dict(sorted(self.window.items()))
+        if self.tenant_id is not None:
+            # Absent unless set, as "window".
+            d["tenant_id"] = self.tenant_id
+        return d
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        """Stable serialization: fixed top-level key order, nodes in
+        build order, node dicts with sorted meta — byte-identical for
+        equal plans."""
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=False)
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "EpochPlan":
+        try:
+            window = data.get("window")
+            plan = cls(seed=int(data["seed"]), epoch=int(data["epoch"]),
+                       num_reducers=int(data["num_reducers"]),
+                       num_trainers=int(data["num_trainers"]),
+                       filenames=[str(f) for f in data["filenames"]],
+                       version=int(data.get("version", PLAN_VERSION)),
+                       window=dict(window) if window is not None else None,
+                       tenant_id=data.get("tenant_id"))
+        except (KeyError, TypeError, ValueError) as e:
+            raise PlanError(f"malformed plan: {e}") from e
+        for node_data in data.get("nodes", ()):
+            node = PlanNode.from_dict(node_data)
+            if node.id in plan.nodes:
+                raise PlanError(f"duplicate node id {node.id!r}")
+            plan.nodes[node.id] = node
+        return plan
+
+
+def from_json(text: str) -> EpochPlan:
+    try:
+        data = json.loads(text)
+    except json.JSONDecodeError as e:
+        raise PlanError(f"plan is not valid JSON: {e}") from e
+    if not isinstance(data, dict):
+        raise PlanError("plan JSON must be an object")
+    return EpochPlan.from_dict(data)
+
+
+def build_epoch_plan(filenames: Iterable[str], num_reducers: int,
+                     num_trainers: int, seed: int, epoch: int,
+                     window: Optional[Dict[str, Any]] = None,
+                     tenant_id: Optional[str] = None) -> EpochPlan:
+    """Build (and validate) the canonical plan of one epoch:
+    one map node per file, one reduce node per reducer (depending on
+    every map), one route node per trainer rank consuming its contiguous
+    reducer span and naming its queue index. ``window`` and
+    ``tenant_id`` stamp the optional fields of :class:`EpochPlan`."""
+    plan = EpochPlan(seed=seed, epoch=epoch, num_reducers=num_reducers,
+                     num_trainers=num_trainers,
+                     filenames=[str(f) for f in filenames],
+                     window=dict(window) if window is not None else None,
+                     tenant_id=tenant_id)
+    map_ids = []
+    for file_index, filename in enumerate(plan.filenames):
+        nid = node_id("map", epoch, file_index)
+        plan.nodes[nid] = PlanNode(
+            id=nid, stage="map", key=LineageKey(seed, epoch, file_index),
+            meta={"file": filename, "file_index": file_index})
+        map_ids.append(nid)
+    reduce_ids = []
+    for reduce_index in range(num_reducers):
+        nid = node_id("reduce", epoch, reduce_index)
+        plan.nodes[nid] = PlanNode(
+            id=nid, stage="reduce",
+            key=LineageKey(seed, epoch, reduce_index),
+            deps=tuple(map_ids))
+        reduce_ids.append(nid)
+    for rank, (start, stop) in enumerate(route_slices(num_reducers,
+                                                      num_trainers)):
+        nid = node_id("route", epoch, rank)
+        plan.nodes[nid] = PlanNode(
+            id=nid, stage="route", key=LineageKey(seed, epoch, rank),
+            deps=tuple(reduce_ids[start:stop]),
+            meta={"rank": rank,
+                  "queue": queue_index(epoch, rank, num_trainers),
+                  "reducers": list(range(start, stop))})
+    plan.validate()
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Epoch specs: what the generalized shuffle driver iterates
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochSpec:
+    """One epoch's worth of work, as the shuffle driver sees it before a
+    plan is built: the epoch index, the files it shuffles and the plan's
+    optional fields. The driver loop in ``shuffle.py`` consumes an
+    iterator of these (:func:`static_epoch_specs` for the static file
+    list). ``num_reducers`` overrides the driver-wide reducer count for
+    this epoch (None: the driver's)."""
+
+    epoch: int
+    filenames: Tuple[str, ...]
+    window: Optional[Dict[str, Any]] = None
+    tenant_id: Optional[str] = None
+    num_reducers: Optional[int] = None
+
+
+def static_epoch_specs(filenames: Iterable[str], num_epochs: int,
+                       start_epoch: int = 0,
+                       tenant_id: Optional[str] = None
+                       ) -> Iterable[EpochSpec]:
+    """The classic epochs-over-a-fixed-file-list schedule as an epoch-spec
+    iterator: every epoch reshuffles the same files, ``start_epoch``
+    resumes mid-trial."""
+    files = tuple(str(f) for f in filenames)
+    for epoch in range(start_epoch, num_epochs):
+        yield EpochSpec(epoch=epoch, filenames=files,
+                        tenant_id=tenant_id)
+
+
+def epoch_range(start_epoch: int, num_epochs: Optional[int]):
+    """Epoch indices for a consumer: ``range`` for a bounded trial,
+    ``itertools.count`` when ``num_epochs`` is None (an unbounded
+    schedule)."""
+    if num_epochs is None:
+        return itertools.count(start_epoch)
+    return range(start_epoch, num_epochs)

@@ -3,21 +3,34 @@
 injector).
 
 The parser accepts the JAX package's whole set of site names
-(:data:`SITES`), so one spec string means the same in both packages. In
-the port three sites have an injection point: each host-to-device copy
-of ``device_dataset`` (per batch or per bulk chunk) calls
-``inject("device_transfer", task=seq)`` before each attempt, with the
-loader's own copy sequence number as the key; ``parallel/transport.py``
-calls ``inject("transport_send", epoch, task=reducer)`` inside its frame
-sender and ``inject("transport_recv", epoch, task=reducer)`` before a
-receive pops its message. The other sites come with the modules that own
-them.
+(:data:`SITES`), so one spec string means the same in both packages. The
+port's injection points:
+
+- ``map_read`` (``shuffle.py``): once per map task, before its read, keyed
+  ``(epoch, task=file_index)``; an injected fault is a lost map task,
+  which the executor's ``task_retries`` or the reduce's lineage recovery
+  (``shuffle.EpochLineage``) recomputes;
+- ``reduce_gather`` (``shuffle.py``): once per reduce attempt, before it
+  gathers its chunks, keyed ``(epoch, task=reducer)``;
+- ``spill_write`` / ``spill_read`` (``spill.py``): a failed write keeps
+  the table in memory; a failed read-back is recomputed from lineage;
+- ``device_transfer``: each host-to-device copy of ``device_dataset``
+  (per batch or per bulk chunk), before each attempt, with the loader's
+  own copy sequence number as the key;
+- ``transport_send`` / ``transport_recv`` (``parallel/transport.py``):
+  inside the frame sender and before a receive pops its message, keyed
+  ``(epoch, task=reducer)``.
+
+The other sites come with the modules that own them. A map's
+:class:`QuarantinedFile` report (``on_bad_file="skip"``) lives here too.
 
 A chaos spec (``RSDL_CHAOS_SPEC``, or :func:`install`) is a
 comma-separated list of rules::
 
     rule := site[@rate][:epochN][:taskN|fileN|rankN][:afterN][:xN][:delayN]
 
+    map_read:epoch1:file3        fail the read of file 3 in epoch 1
+    map_read:file5:x2            fail file 5's first two reads per epoch
     device_transfer:task3        fail copy attempt 3
     device_transfer@0.05         fail ~5% of copy attempts (seeded)
     device_transfer:delay50      slow every copy attempt by 50 ms
@@ -61,6 +74,22 @@ SITES = frozenset({
 
 _SPEC_ENVS = ("RSDL_CHAOS_SPEC", "RSDL_FAULTS_SPEC")
 _SEED_ENVS = ("RSDL_CHAOS_SEED", "RSDL_FAULTS_SEED")
+
+
+@dataclasses.dataclass
+class QuarantinedFile:
+    """Report for an input file dropped by ``on_bad_file="skip"``: the
+    map returns it instead of a map shard, the reduce skips it, and it is
+    recorded in ``stats.fault_stats()`` (never silent)."""
+
+    filename: str
+    epoch: int
+    file_index: int
+    error: str
+    timestamp: float = dataclasses.field(default_factory=time.time)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class InjectedFault(RuntimeError):

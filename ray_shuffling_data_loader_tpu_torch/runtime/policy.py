@@ -14,7 +14,13 @@ mean the same in both packages: ``RSDL_DEVICE_REBATCH=0`` turns every
 The keys, their defaults and their parsers are the JAX package's. The
 transport's dial reads only the ``retry_*`` keys, as the component
 ``transport`` (``RSDL_TRANSPORT_RETRY_MAX_ATTEMPTS`` deepens only its
-redial budget), with the JAX package's explicit overrides.
+redial budget), with the JAX package's explicit overrides. The shuffle
+engine reads its keys as the component ``shuffle``
+(``RSDL_SHUFFLE_ON_BAD_FILE``, ``RSDL_SHUFFLE_FUSED_PIPELINE``, the
+budget wait), the plan scheduler as ``plan`` (``RSDL_PLAN_*``), the spill
+tier as ``spill`` and the executor as ``executor``; the per-stage retry
+policies are the components ``map_read``, ``reduce``, ``lineage``,
+``spill`` and ``executor`` (``RSDL_LINEAGE_RETRY_MAX_ATTEMPTS``, ...).
 
 Stdlib only.
 """
@@ -40,7 +46,8 @@ def _parse_tristate(raw: str):
     return _parse_bool(word)
 
 
-#: key -> (library default, parser for env-var strings).
+#: The device binding's and the retry policies' keys: key -> (library
+#: default, parser for env-var strings).
 _KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     # Bulk device re-batching: "auto" / True / False.
     "device_rebatch": ("auto", _parse_tristate),
@@ -67,15 +74,51 @@ _KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "retry_deadline_s": (0.0, float),
 }
 
+#: The shuffle engine's keys: resolved one at a time (:func:`resolve`),
+#: never part of the device binding's :func:`resolve_all`.
+_ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
+    # How long an epoch launch waits for consumers to release tables when
+    # over max_inflight_bytes, before it proceeds with a warning.
+    "budget_wait_timeout_s": (30.0, float),
+    # Upper bound between predicate re-checks in release-event waits: a
+    # safety heartbeat, not a polling cadence.
+    "release_heartbeat_s": (0.25, float),
+    # Free-list trim cooldown under sustained budget pressure (spill.py).
+    "trim_cooldown_s": (1.0, float),
+    # Executor backend: "thread", "process" or "auto". The port resolves
+    # "auto" to "thread"; "process" raises until the process pool lands.
+    "executor_backend": ("auto", str),
+    # Streaming map (decode -> partition -> gather fused over record
+    # batches): "auto"/True where it keeps the cache and bit-identity
+    # contracts, False for the read-then-plan map everywhere. The
+    # partition stream is the same either way.
+    "shuffle_fused_pipeline": ("auto", _parse_tristate),
+    # What the map does with a corrupt or unreadable input file after its
+    # read retries: "raise" (lineage recovery retries the map; only an
+    # exhausted recovery fails the run) or "skip" (quarantine the file into
+    # a QuarantinedFile report and shuffle the others).
+    "on_bad_file": ("raise", str),
+    # Plan scheduler: speculative re-execution of stragglers (off by
+    # default), its threshold (max(min_s, multiplier x the stage's rolling
+    # median)) and check cadence, and work stealing between lanes.
+    "plan_speculation": (False, _parse_bool),
+    "plan_speculation_multiplier": (4.0, float),
+    "plan_speculation_min_s": (1.0, float),
+    "plan_speculation_check_s": (0.05, float),
+    "plan_stealing": (True, _parse_bool),
+}
+
+_ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}
+
 _lock = threading.Lock()
 #: component -> {key -> default} registered by embedding applications.
 _component_defaults: Dict[str, Dict[str, Any]] = {}
 
 
 def _check_key(key: str) -> None:
-    if key not in _KEYS:
+    if key not in _ALL_KEYS:
         raise ValueError(f"unknown policy key {key!r} "
-                         f"(known: {sorted(_KEYS)})")
+                         f"(known: {sorted(_ALL_KEYS)})")
 
 
 def register_defaults(component: str, **defaults: Any) -> None:
@@ -102,7 +145,7 @@ def resolve(component: str, key: str, override: Any = None,
     ``override`` is the explicit-kwarg rung (``None``: not given);
     ``default`` replaces the library default, the lowest rung."""
     _check_key(key)
-    library_default, parser = _KEYS[key]
+    library_default, parser = _ALL_KEYS[key]
     if override is not None:
         return parser(override) if isinstance(override, str) else override
     raw = _env_raw(component, key)
@@ -116,8 +159,9 @@ def resolve(component: str, key: str, override: Any = None,
 
 
 def resolve_all(component: str, **overrides: Any) -> Dict[str, Any]:
-    """Resolve every key for a component; ``overrides`` are explicit
-    kwargs (unknown keys raise, so typos fail loudly)."""
+    """Resolve every device-binding and retry key for a component (the
+    loader's ``runtime_policy``); ``overrides`` are explicit kwargs
+    (unknown keys raise, so typos fail loudly)."""
     unknown = set(overrides) - set(_KEYS)
     if unknown:
         raise ValueError(f"unknown policy keys: {sorted(unknown)} "

@@ -1,0 +1,348 @@
+"""Disk spill tier for reducer outputs (own copy of the JAX package's
+``spill.py``).
+
+When a shuffle runs with ``spill_dir`` and its transient buffer-ledger
+bytes exceed ``max_inflight_bytes``, freshly produced reducer outputs are
+written to Arrow IPC files and replaced by lazy :class:`SpilledTable`
+handles; the consumer loads each handle once, memory-mapped (a page-in,
+not a decode), right before it re-batches (:func:`unwrap`). Without
+``spill_dir`` the budget only throttles epoch launches (``shuffle.py``).
+Every spill file carries a CRC-32 taken at write time and checked at
+load; a corrupt or unreadable spill is recomputed from its reducer's
+lineage where the writer armed one (the single-host reduce does), and
+stays a loud :class:`SpillCorruption` otherwise. ``spill_write`` and
+``spill_read`` are fault sites (``runtime/faults.py``).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import tempfile
+import threading
+import time
+import timeit
+import weakref
+from typing import Callable, Optional
+
+import pyarrow as pa
+
+from ray_shuffling_data_loader_tpu_torch import native
+from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
+from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.utils.humanize import (
+    human_readable_size)
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+
+class SpillCorruption(RuntimeError):
+    """A spill file's bytes no longer match the CRC recorded at write
+    time (bad disk, torn write, bit rot)."""
+
+
+def _file_crc(path: str) -> int:
+    """CRC-32 (zlib-compatible) of a file's bytes, streamed through the
+    native kernel (the file was just written, so this reads from the page
+    cache)."""
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                break
+            crc = native.crc32(chunk, crc)
+    return crc & 0xFFFFFFFF
+
+# Process-wide spill totals across every SpillManager (a manager may be
+# gone by the time its consumer looks).
+_totals_lock = threading.Lock()
+_totals = {"spills": 0, "spilled_bytes": 0, "loads": 0, "load_s": 0.0}
+
+
+def process_spill_totals() -> dict:
+    """``{spills, spilled_bytes, loads, load_s}`` since import, over every
+    :class:`SpillManager` of the process: files written and their bytes,
+    handles loaded back and the seconds their loads took (CRC check and
+    memory map, or a lineage recompute). Monotonic: snapshot before and
+    after a run."""
+    with _totals_lock:
+        return dict(_totals)
+
+
+def _add_totals(**deltas) -> None:
+    with _totals_lock:
+        for key, value in deltas.items():
+            _totals[key] += value
+
+
+class SpilledTable:
+    """Lazy handle to one reducer output on disk.
+
+    ``load()`` verifies the file's CRC against the one recorded at write
+    time (end-to-end frame integrity: a spill that sat on a dying scratch
+    volume must not silently feed damaged rows to training), memory-maps
+    the IPC file, unlinks it (the mapping keeps the pages alive on
+    POSIX), accounts the bytes to the buffer ledger like any in-flight
+    table, and caches the result so repeated loads are safe.
+
+    A corrupt or unreadable spill is **recomputed from lineage** when the
+    writer supplied a ``recompute`` closure (the single-host reduce path
+    does — a reducer output is a pure function of ``(seed, epoch,
+    reducer)`` and the input files): the bad file is quarantined into a
+    structured ``QuarantinedFile`` report and the recompute, bounded by
+    the spill RetryPolicy, yields a bit-identical table. Without lineage
+    (the cross-host path, whose inputs crossed the wire) the failure
+    stays loud — there is no second copy.
+
+    The handle holds its :class:`SpillManager` alive: the scratch
+    directory is removed by the manager's finalizer only after the LAST
+    outstanding handle is gone, so a slow consumer still draining the
+    batch queue after the shuffle driver returned can always load.
+    """
+
+    __slots__ = ("_path", "num_rows", "_table", "_lock", "_manager",
+                 "_crc", "_recompute", "_epoch", "_task", "__weakref__")
+
+    def __init__(self, path: str, num_rows: int, manager: "SpillManager",
+                 crc: Optional[int] = None,
+                 recompute: Optional[Callable[[], pa.Table]] = None,
+                 epoch: Optional[int] = None, task: Optional[int] = None):
+        self._path = path
+        self.num_rows = num_rows
+        self._table: Optional[pa.Table] = None
+        self._lock = threading.Lock()
+        self._manager = manager
+        self._crc = crc
+        self._recompute = recompute
+        self._epoch = epoch
+        self._task = task
+        # A handle dropped without ever being loaded (abandoned run)
+        # deletes its file; idempotent with load()'s unlink.
+        weakref.finalize(self, _unlink_quiet, path)
+
+    def _read_back(self) -> pa.Table:
+        # Fault site: a spilled output that cannot be read back is lost
+        # data — recovered from lineage below when possible, loud
+        # otherwise.
+        rt_faults.inject("spill_read", epoch=self._epoch, task=self._task)
+        if self._crc is not None and _file_crc(self._path) != self._crc:
+            raise SpillCorruption(
+                f"spill file {self._path} failed its CRC check "
+                f"(bytes changed since the write)")
+        with pa.memory_map(self._path) as source:
+            return pa.ipc.open_file(source).read_all()
+
+    def load(self) -> pa.Table:
+        with self._lock:
+            if self._table is None:
+                load_start = timeit.default_timer()
+                try:
+                    self._table = self._read_back()
+                except (OSError, pa.ArrowInvalid, SpillCorruption,
+                        rt_faults.InjectedFault) as e:
+                    if self._recompute is None:
+                        raise
+                    # Quarantine, then recompute from lineage: the report
+                    # is recorded (never silent) and the reducer output,
+                    # a pure function of (seed, epoch, reducer) and the
+                    # files, comes back bit for bit.
+                    report = rt_faults.QuarantinedFile(
+                        filename=self._path,
+                        epoch=self._epoch if self._epoch is not None
+                        else -1,
+                        file_index=self._task if self._task is not None
+                        else -1,
+                        error=f"{type(e).__name__}: {e}")
+                    stats_mod.fault_stats().record_quarantine(report)
+                    logger.error(
+                        "spill read-back failed (%s); quarantined %s "
+                        "and recomputing reducer output from lineage",
+                        e, self._path)
+                    start = timeit.default_timer()
+                    retry = rt_retry.RetryPolicy.for_component("spill")
+                    self._table = retry.call(
+                        self._recompute,
+                        describe=f"spill recompute e{self._epoch} "
+                                 f"r{self._task}")
+                    assert self._table.num_rows == self.num_rows, (
+                        self._table.num_rows, self.num_rows)
+                    stats_mod.fault_stats().record_recompute(
+                        "spill", timeit.default_timer() - start)
+                _unlink_quiet(self._path)
+                native.account_table(self._table)
+                _add_totals(loads=1,
+                            load_s=timeit.default_timer() - load_start)
+            return self._table
+
+
+def _unlink_quiet(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+
+
+class SpillManager:
+    """Per-shuffle spill policy + scratch directory.
+
+    ``over_budget`` is the shuffle driver's own transient-bytes predicate,
+    so spill and epoch-launch throttling read the same meter. The scratch
+    directory's lifetime is reference-managed: every handle pins the
+    manager, and the manager's finalizer removes the directory — so
+    teardown happens after the last consumer, not when the driver exits.
+    """
+
+    def __init__(self, spill_dir: str,
+                 over_budget: Optional[Callable[[], bool]]):
+        os.makedirs(spill_dir, exist_ok=True)
+        self._dir = tempfile.mkdtemp(prefix="rsdl-spill-", dir=spill_dir)
+        self._over_budget = over_budget
+        self._seq = 0
+        self._lock = threading.Lock()
+        self.spill_count = 0
+        self.spilled_bytes = 0
+        weakref.finalize(self, shutil.rmtree, self._dir, True)
+
+    def maybe_spill(self, table: pa.Table, recompute=None,
+                    epoch: Optional[int] = None,
+                    task: Optional[int] = None):
+        """Spill ``table`` if the pipeline is over its transient budget;
+        returns the table itself or a :class:`SpilledTable` handle.
+
+        ``recompute`` (a zero-arg closure rebuilding this exact table
+        from its deterministic lineage) arms the handle's
+        corrupt-read-back recovery; ``epoch``/``task`` key the handle's
+        fault site and quarantine report."""
+        # Snapshot: report() may detach the predicate concurrently (driver
+        # finishing while a caller-owned pool still runs reduce tasks).
+        over_budget = self._over_budget
+        if table.num_rows == 0 or over_budget is None or not over_budget():
+            return table
+        with self._lock:
+            seq = self._seq
+            self._seq += 1
+        path = os.path.join(self._dir, f"reduce_{seq}.arrow")
+        try:
+            rt_faults.inject("spill_write", task=seq)
+            with pa.OSFile(path, "wb") as sink:
+                with pa.ipc.new_file(sink, table.schema) as writer:
+                    writer.write_table(table)
+        except (OSError, rt_faults.InjectedFault) as e:
+            # Graceful degradation: a failed spill write (disk full, dying
+            # scratch volume, injected fault) keeps the in-memory table —
+            # the pipeline runs hotter than its budget but loses nothing.
+            logger.warning(
+                "spill write failed (%s); keeping reducer output in "
+                "memory (over-budget until consumers release)", e)
+            _unlink_quiet(path)
+            return table
+        size = os.path.getsize(path)
+        # CRC recorded at write time, verified at load: the read-back is
+        # the only copy, so integrity must be end-to-end, not assumed.
+        try:
+            crc = _file_crc(path)
+        except OSError as e:
+            logger.warning("spill CRC read failed (%s); keeping reducer "
+                           "output in memory", e)
+            _unlink_quiet(path)
+            return table
+        with self._lock:
+            self.spill_count += 1
+            self.spilled_bytes += size
+        _add_totals(spills=1, spilled_bytes=size)
+        return SpilledTable(path, table.num_rows, self, crc=crc,
+                            recompute=recompute, epoch=epoch, task=task)
+
+    def report(self) -> None:
+        """Log spill totals and detach the budget predicate.
+
+        Called when the shuffle driver finishes. Dropping the predicate
+        matters: it closes over the driver's FileTableCache, and every
+        outstanding :class:`SpilledTable` pins this manager for scratch-dir
+        lifetime — without the detach, one undrained spilled batch would
+        keep the whole decoded-file cache in memory. The scratch dir
+        itself is removed by the finalizer once the last handle is gone.
+        """
+        if self.spill_count:
+            logger.info("spilled %d reducer outputs (%s) to disk",
+                        self.spill_count,
+                        human_readable_size(self.spilled_bytes))
+        self._over_budget = None
+
+
+def unwrap(table_or_handle):
+    """Materialize a possibly-spilled table (consumer-side hook)."""
+    if isinstance(table_or_handle, SpilledTable):
+        return table_or_handle.load()
+    return table_or_handle
+
+
+def make_budget_state(file_cache, max_inflight_bytes: Optional[int],
+                      spill_dir: Optional[str]):
+    """``(over_budget, spill_manager_or_None)`` for a shuffle driver.
+
+    Shared by the single-host and distributed drivers so the
+    transient-bytes definition stays identical: ledger growth since THIS
+    call, minus the given file cache's growth (duck-typed via
+    ``bytes_cached``; the ledger is process-global, so other pipelines'
+    static usage cancels out and only their concurrent growth is
+    attributed here). How to react to the predicate — drain-and-poll vs
+    launch-and-spill — stays in the callers.
+
+    The baseline is the bytes in use at this call, without the free
+    list's: free-list bytes held then are reclaimable, and the first
+    over-budget probe trims them, so counting them in the baseline would
+    hide as much growth from the budget afterwards. (The JAX package's
+    baseline includes them; the spill decisions change no table.)
+    """
+    def cache_bytes() -> int:
+        return getattr(file_cache, "bytes_cached", 0)
+
+    ledger_at_start = native.buffer_ledger().bytes_in_use()
+    cache_at_start = cache_bytes()
+    # A free-list trim releases warm buffers process-wide, and re-paying
+    # mmap and first-touch faults on every receive defeats recycling, so
+    # under sustained pressure trim at most once per cooldown window. (A
+    # trim notifies runtime.release, so other waiters re-check at once.)
+    trim_cooldown_s = rt_policy.resolve("spill", "trim_cooldown_s")
+    last_trim = [float("-inf")]
+
+    def over_budget() -> bool:
+        if max_inflight_bytes is None:
+            return False
+        ledger = native.buffer_ledger()
+
+        def transient() -> int:
+            # Freelist bytes are real RSS the pool is holding for reuse, so
+            # the budget must see them — but they are reclaimable, so give
+            # them back before declaring the pipeline over budget.
+            return (ledger.bytes_in_use() + ledger.freelist_bytes()
+                    - ledger_at_start - (cache_bytes() - cache_at_start))
+
+        if transient() <= max_inflight_bytes:
+            return False
+        now = time.monotonic()
+        if (ledger.freelist_bytes()
+                and now - last_trim[0] >= trim_cooldown_s):
+            last_trim[0] = now
+            ledger.trim_freelist()
+            return transient() > max_inflight_bytes
+        # Inside the cooldown the freelist is still reclaimable — don't
+        # declare over-budget (and spill/stall) on bytes a trim would
+        # release; judge only the non-reclaimable share.
+        return (transient() - ledger.freelist_bytes()
+                > max_inflight_bytes)
+
+    manager = None
+    if spill_dir is not None and max_inflight_bytes is not None:
+        manager = SpillManager(spill_dir, over_budget)
+    elif spill_dir is not None:
+        logger.warning(
+            "spill_dir=%r ignored: spilling triggers on the transient-byte "
+            "budget, and max_inflight_bytes is not set", spill_dir)
+    return over_budget, manager

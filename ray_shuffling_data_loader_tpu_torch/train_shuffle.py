@@ -22,6 +22,13 @@ the ranks issue the same collectives when their epochs hold different
 numbers of batches. ``--mock-train-step-time S`` replaces the step with a
 sleep (the loader alone).
 
+The shuffle engine's knobs are the JAX entry point's: ``--file-cache``
+(``auto``: decoded files kept in RAM across epochs; ``none``: re-decoded
+every epoch; ``disk`` raises until the storage tiers are ported),
+``--max-inflight-bytes`` (the transient memory budget) and
+``--spill-dir`` (with it, over-budget reducer outputs spill to Arrow IPC
+files there).
+
 The process group runs NCCL on cards and gloo with ``--cpu``;
 ``--process-group-backend gloo`` asks for gloo on CUDA tensors, which
 ranks that share one card need (NCCL refuses two ranks on one device).
@@ -30,7 +37,8 @@ Prints one line per epoch and rank; ``--stats-dir`` writes each rank's
 ``host_{rank}_epochs.csv``. ``--record-dir`` also loads the ``key``
 column and writes each rank's ``rank_{rank}.json`` (losses, step and
 all-reduce milliseconds, gather launches, rows/s, ``stall_pct``,
-transport counters) and ``rank_{rank}.npz`` (every key delivered per
+transport counters, the shuffle's per-epoch stage seconds from its
+``TrialStats``, the file cache's and the buffer ledger's counters) and ``rank_{rank}.npz`` (every key delivered per
 epoch, and each batch's ``device_dataset.batch_digest``): the loader
 then also keeps each epoch's last partial batch, which, like any batch
 after the vote stops, is recorded but not trained on.
@@ -65,6 +73,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use-old-data", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--file-cache", choices=["auto", "none", "disk"],
+                   default="auto",
+                   help="decoded-table cache: auto (RAM), none (re-decode "
+                        "every epoch), disk (not ported yet: raises)")
+    p.add_argument("--max-inflight-bytes", type=int, default=None,
+                   help="transient pipeline memory budget (bytes)")
+    p.add_argument("--spill-dir", type=str, default=None,
+                   help="with --max-inflight-bytes: spill over-budget "
+                        "reducer outputs to Arrow IPC files here")
     p.add_argument("--cpu", action="store_true",
                    help="run on the host instead of the card")
     p.add_argument("--tiny-model", action="store_true",
@@ -115,7 +132,9 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from ray_shuffling_data_loader_tpu_torch import data_generation as dg
-    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch import (executor, native,
+                                                     shuffle, train)
+    from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
     from ray_shuffling_data_loader_tpu_torch.device_dataset import (
         DeviceShufflingDataset, batch_digest, make_cast_transform)
     from ray_shuffling_data_loader_tpu_torch.models import dlrm
@@ -178,6 +197,12 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, rank=0,
         max_concurrent_epochs=args.max_concurrent_epochs, seed=args.seed,
         drop_last=not record, device=device, **spec)
+    engine_kwargs = dict(
+        file_cache=None if args.file_cache == "none" else args.file_cache,
+        max_inflight_bytes=args.max_inflight_bytes,
+        spill_dir=args.spill_dir, collect_stats=record)
+    native.buffer_ledger().reset_peak()
+    cache_before = shuffle.file_cache_totals()
     transport = shuffle_result = None
     if world > 1 and os.environ.get("RSDL_HOSTS"):
         # The global shuffle: rows of any rank's files reach any rank.
@@ -201,7 +226,8 @@ def main(argv=None) -> int:
                 max_concurrent_epochs=args.max_concurrent_epochs,
                 seed=args.seed, map_transform=make_cast_transform(
                     spec["feature_columns"], spec["feature_types"],
-                    spec["label_column"], spec["label_type"])))
+                    spec["label_column"], spec["label_type"]),
+                **engine_kwargs))
         ds = DeviceShufflingDataset(sorted_files, batch_queue=batch_queue,
                                     shuffle_result=shuffle_result,
                                     **dataset_kwargs)
@@ -211,7 +237,7 @@ def main(argv=None) -> int:
                        if i % world == rank]
         ds = DeviceShufflingDataset(local_files,
                                     num_reducers=args.num_reducers,
-                                    **dataset_kwargs)
+                                    **dataset_kwargs, **engine_kwargs)
 
     waits = ds.batch_wait_stats.wait_times
     keys: List[List[np.ndarray]] = [[] for _ in range(args.num_epochs)]
@@ -296,10 +322,9 @@ def main(argv=None) -> int:
           f"total stall {run_wait_total:.2f}s "
           f"(mean {run_wait_total / max(1, run_wait_count) * 1e3:.1f}"
           "ms/batch)", flush=True)
-    if shuffle_result is not None:
-        # Every chunk this rank sends has been sent before its transport
-        # closes.
-        shuffle_result.result()
+    # Every chunk this rank sends has been sent before its transport
+    # closes; with --record-dir the result is this rank's TrialStats.
+    trial = ds.shuffle_result.result()
     if args.stats_dir:
         os.makedirs(args.stats_dir, exist_ok=True)
         path = os.path.join(args.stats_dir, f"host_{rank}_epochs.csv")
@@ -325,6 +350,11 @@ def main(argv=None) -> int:
             "stall_pct": 100.0 * sum(waits[1:]) / wall,
             "transport": (transport.stats() if transport is not None
                           else None),
+            "shuffle_stages": stats_mod.trial_summary(trial),
+            "file_cache": {k: v - cache_before[k] for k, v in
+                           shuffle.file_cache_totals().items()},
+            "ledger_peak_bytes": native.buffer_ledger().peak_bytes(),
+            "executor_backend": executor.last_worker_pool()["backend"],
         }
         with open(os.path.join(args.record_dir, f"rank_{rank}.json"),
                   "w") as f:
