@@ -11,7 +11,10 @@ printing one JSON line:
 1. ``env``: torch/CUDA versions, the card's name and power limit, PIL's
    version, ``g++`` and the codec headers the native image decoder needs,
    and the decoder the ``resnet`` phase uses (``"native"`` where it can be
-   built, else ``"pil"``).
+   built, else ``"pil"``); the host's cores, the process pool's segment
+   dir, its free bytes and whether it is writable, and the backend
+   ``"auto"`` resolves to for the DLRM spec (the process pool on a host
+   of several cores).
 2. ``build``: builds ``kernels/gather.cu`` and ``kernels/flash_attention.cu``
    for sm_90a from the sources, one ``nvcc`` each, started together, and
    reports ``ptxas``'s registers and spills for every kernel instantiation.
@@ -36,10 +39,12 @@ printing one JSON line:
    -> Adam, one micro-step per 2048 rows. Checks rows per epoch, finite
    losses, the first staged batch against a host-side shuffle, the kernel
    path's loss against the ``take`` path's, and exactly one gather launch
-   per micro-step. The shuffle runs the engine's defaults (file cache
-   ``"auto"``, the thread backend) with ``collect_stats``: the line
-   carries each epoch's map, reduce and consume seconds (``TrialStats``),
-   the file cache's hits and bytes and the buffer ledger's peak bytes.
+   per micro-step. The shuffle runs the engine's defaults (``"auto"``,
+   which must resolve to the process pool here: the phase fails
+   otherwise; its segments are the file cache) with ``collect_stats``:
+   the line carries the backend, the pool's width and worker pids, the
+   segment cache's hits and bytes, each epoch's map, reduce and consume
+   seconds (``TrialStats``) and the buffer ledger's peak bytes.
 5. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
@@ -77,20 +82,30 @@ printing one JSON line:
    recover at least one copy with the same digests; (d) the ``bert``
    phase's tokens (4 batches per reducer table) in both bindings, digests
    equal, copies per epoch.
-8. ``engine``: the shuffle engine on the ``train`` phase's files in three
+8. ``engine``: the shuffle engine on the ``train`` phase's files in five
    turns, each a fresh DLRM ``mlperf`` from the same seed taking one
    micro-step on the first 2,048 rows of every loader batch (bulk
-   binding, the key column loaded, the last partial batch kept): (1) no
-   file cache and the read-then-plan map; (2) the defaults under a
-   memory budget of a quarter of the ``train`` phase's peak ledger bytes
-   with a spill directory, so reducer outputs spill and are mapped back;
-   (3) the streaming map with both executor attempts of map 3's read
-   failing in each epoch (``task_retries=1``), so a reduce recomputes it
-   from its lineage. Each turn: every key once per epoch, each full
-   batch's digest equal to the ``train`` phase's, the first loss within
-   1e-6 relative of the ``train`` phase's first micro-step; its
-   ``TrialStats``, cache, spill (files, bytes, read-back seconds),
-   ledger, retry and recovery counts, rows/s and wait per batch.
+   binding, the key column loaded, the last partial batch kept). On the
+   thread backend: (1) no file cache and the read-then-plan map; (2) the
+   defaults under a memory budget of a quarter of the ``train`` phase's
+   peak ledger bytes with a spill directory, so reducer outputs spill and
+   are mapped back; (3) the streaming map with both executor attempts of
+   map 3's read failing in each epoch (``task_retries=1``), so a reduce
+   recomputes it from its lineage. (4) ``pool_kill``: the process pool
+   of 4 workers; the first map call holds until a thread of this script
+   has SIGKILLed its worker, which it does as soon as the task has
+   written its pid (no sleep decides when); the task is recomputed from
+   lineage on a respawned pool. (5) ``tiered``: ``file_cache="tiered"``
+   (a RAM LRU over a CRC'd disk tier) over a ``SimulatedObjectStore``
+   source (2 ms first byte, 512 MB/s, seed 0) with the idle-lane
+   prefetch, on threads (the file cache is the thread plane's). Each
+   turn: every key once per epoch, each full batch's digest equal to the
+   ``train`` phase's, the first loss within 1e-6 relative of the
+   ``train`` phase's first micro-step, one gather launch per micro-step;
+   its ``TrialStats``, cache, storage tiers (hot and disk hits, prefetch
+   tasks run and canceled, bytes written to disk), pool (segment-cache
+   hits, respawns), spill (files, bytes, read-back seconds), ledger,
+   retry and recovery counts, rows/s and wait per batch.
 9. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
@@ -599,18 +614,30 @@ def dlrm_files(tmp: str):
 
 
 def engine_lines(cache_before: dict, faults_before: dict,
-                 spills_before: dict) -> dict:
-    """What the shuffle engine did since the snapshots: file cache hits
-    and bytes, spilled files and bytes and their read-back seconds, the
-    buffer ledger's peak bytes (since its last reset), retries and
-    recoveries, and the executor backend it resolved."""
+                 spills_before: dict, pool_before: dict,
+                 storage_before: dict) -> dict:
+    """What the shuffle engine did since the snapshots: the executor
+    backend it resolved, the pool's width and worker pids, the process
+    pool's segment-cache hits and bytes and worker respawns, file cache
+    hits and bytes, the storage tiers' hits, prefetches and bytes on
+    disk, spilled files and bytes and their read-back seconds, the buffer
+    ledger's peak bytes (since its last reset), retries and
+    recoveries."""
     from ray_shuffling_data_loader_tpu_torch import (executor, native,
-                                                     shuffle, spill, stats)
+                                                     procpool, shuffle,
+                                                     spill, stats, storage)
     cache = shuffle.file_cache_totals()
     spills = spill.process_spill_totals()
     faults = stats.fault_stats().snapshot()
+    pool = procpool.pool_totals()
+    tiers = storage.storage_totals()
+    last_pool = executor.last_worker_pool()
     return {
-        "executor_backend": executor.last_worker_pool()["backend"],
+        "executor_backend": last_pool["backend"],
+        "pool_workers": last_pool["workers"],
+        "pool_pids": last_pool["pids"],
+        "process_pool": {k: pool[k] - pool_before[k] for k in pool},
+        "storage": {k: tiers[k] - storage_before[k] for k in tiers},
         "file_cache": {k: cache[k] - cache_before[k] for k in cache},
         "spill": {k: spills[k] - spills_before[k] for k in spills},
         "ledger_peak_bytes": native.buffer_ledger().peak_bytes(),
@@ -632,11 +659,13 @@ def loader_context(phase: str) -> dict:
 
 def engine_snapshots():
     """The counters :func:`engine_lines` reads, and a fresh ledger peak."""
-    from ray_shuffling_data_loader_tpu_torch import (native, shuffle, spill,
-                                                     stats)
+    from ray_shuffling_data_loader_tpu_torch import (native, procpool,
+                                                     shuffle, spill, stats,
+                                                     storage)
     native.buffer_ledger().reset_peak()
     return (shuffle.file_cache_totals(), stats.fault_stats().snapshot(),
-            spill.process_spill_totals())
+            spill.process_spill_totals(), procpool.pool_totals(),
+            storage.storage_totals())
 
 
 def train_phase(emb, files, gen_s: float) -> dict:
@@ -693,6 +722,14 @@ def train_phase(emb, files, gen_s: float) -> dict:
         raise AssertionError(
             f"{launches} gather launches in {all_losses.numel()} "
             "micro-steps; expected one per micro-step")
+    # "auto" on the card's cores: the process pool, its segments the
+    # cache of epoch 1.
+    if engine["executor_backend"] != "process":
+        raise AssertionError(f"the train phase's shuffle ran on the "
+                             f"{engine['executor_backend']} backend, not "
+                             "the process pool that 'auto' picks here")
+    if engine["process_pool"]["segment_cache_hits"] < 1:
+        raise AssertionError(f"no segment-cache hit: {engine}")
 
     # The first staged batch equals the host-side shuffle's.
     host = dataset.ShufflingDataset(
@@ -1316,15 +1353,20 @@ ENGINE_LOSS_RTOL = 1e-6
 # Both executor attempts (task_retries=1) of map 3's read fail in each
 # epoch, so a reduce recomputes the map from its lineage.
 ENGINE_CHAOS = "map_read:file3:x2"
+# The pool_kill turn's pool width.
+POOL_KILL_WORKERS = 4
 
 
-def _engine_turn(name: str, files, want_digests, first_loss: float,
-                 fused: bool, chaos=None, **engine_kw) -> dict:
+def _engine_turn(emb, name: str, files, want_digests, first_loss: float,
+                 fused: bool, chaos=None, launch=None, **engine_kw) -> dict:
     """One turn: the bulk binding over ``DeviceShufflingDataset`` with the
     key column loaded and the last partial batch kept; checks every
     key once per epoch, each full batch's digest (model columns) against
-    the train phase's and the first micro-step's loss against the train
-    phase's first."""
+    the train phase's, the first micro-step's loss against the train
+    phase's first and one gather launch per micro-step (the count set to
+    0 just before the turn and read just after). ``launch(spec)``, where
+    given, starts the shuffle itself and returns ``(queue, result)`` for
+    the dataset to consume."""
     from ray_shuffling_data_loader_tpu_torch import (
         data_generation, device_dataset, stats, train)
     from ray_shuffling_data_loader_tpu_torch.models import dlrm
@@ -1350,11 +1392,19 @@ def _engine_turn(name: str, files, want_digests, first_loss: float,
     if chaos is not None:
         faults.install(chaos)
     digests, losses, rows = [], [], 0
+    emb.reset_launch_counts()
     try:
-        ds = device_dataset.DeviceShufflingDataset(
-            files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
-            num_reducers=NUM_REDUCERS, seed=SEED, drop_last=False,
-            collect_stats=True, **engine_kw, **spec)
+        if launch is not None:
+            queue, result = launch(spec)
+            ds = device_dataset.DeviceShufflingDataset(
+                files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
+                num_reducers=NUM_REDUCERS, seed=SEED, drop_last=False,
+                batch_queue=queue, shuffle_result=result, **spec)
+        else:
+            ds = device_dataset.DeviceShufflingDataset(
+                files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
+                num_reducers=NUM_REDUCERS, seed=SEED, drop_last=False,
+                collect_stats=True, **engine_kw, **spec)
         t_first = None
         for epoch in range(NUM_EPOCHS):
             ds.set_epoch(epoch)
@@ -1376,6 +1426,7 @@ def _engine_turn(name: str, files, want_digests, first_loss: float,
                                      "repeated")
         torch.cuda.synchronize()
         wall = timeit.default_timer() - t_first
+        launches = emb.launch_counts["gather_rows"]
         trial = ds.shuffle_result.result()
     finally:
         faults.clear()
@@ -1393,12 +1444,16 @@ def _engine_turn(name: str, files, want_digests, first_loss: float,
     if rel > ENGINE_LOSS_RTOL:
         raise AssertionError(f"{name}: first loss {float(all_losses[0])} vs "
                              f"the train phase's {first_loss}")
+    if launches != len(losses):
+        raise AssertionError(f"{name}: {launches} gather launches in "
+                             f"{len(losses)} micro-steps")
     wait = ds.batch_wait_stats.summary()
     del model, micro_step
     return {
         "turn": name, "fused_map": fused, "chaos": chaos,
         **{k: v for k, v in engine_kw.items() if k != "spill_dir"},
         "binding": ds.binding, "batches": len(losses),
+        "gather_launches": launches,
         "rows_per_s": rows / wall, "wall_s": wall,
         "batch_wait_mean_ms": wait["mean"] * 1e3,
         "batch_wait_max_ms": wait["max"] * 1e3,
@@ -1407,40 +1462,132 @@ def _engine_turn(name: str, files, want_digests, first_loss: float,
         "shuffle_stages": stats.trial_summary(trial), **lines}
 
 
+def _pool_kill_launch(files, marker: str, killed: dict):
+    """``launch`` of the pool_kill turn: the shuffle on a process pool of
+    ``POOL_KILL_WORKERS`` workers, its first map call held
+    (``procpool.HoldOnFirstCall`` around the dataset's own cast) until a
+    thread has SIGKILLed the worker holding it, which it does as soon as
+    the task has written its pid. No sleep decides when."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     executor, procpool)
+
+    def launch(spec):
+        cast = device_dataset.make_cast_transform(
+            spec["feature_columns"], spec["feature_types"],
+            spec["label_column"], spec["label_type"])
+        queue, result = dataset.create_batch_queue_and_shuffle(
+            files, NUM_EPOCHS, 1, num_reducers=NUM_REDUCERS, seed=SEED,
+            map_transform=procpool.HoldOnFirstCall(marker, 300.0, cast),
+            executor_backend="process", num_workers=POOL_KILL_WORKERS,
+            collect_stats=True)
+
+        def kill():
+            try:
+                deadline = timeit.default_timer() + 300.0
+                text = ""
+                while not text and timeit.default_timer() < deadline:
+                    if os.path.exists(marker):
+                        with open(marker) as f:
+                            text = f.read()
+                    if not text:
+                        threading.Event().wait(0.01)
+                if not text:
+                    raise AssertionError("no map task reported its start")
+                pid = int(text)
+                pids = executor.last_worker_pool()["pids"]
+                if pid not in pids:
+                    raise AssertionError(f"pid {pid} is not a pool worker "
+                                         f"({pids})")
+                os.kill(pid, signal.SIGKILL)
+                killed["pid"] = pid
+            except BaseException as e:  # noqa: BLE001 - raised by the turn
+                killed["error"] = e
+            finally:
+                open(marker + ".go", "w").close()
+
+        killed["thread"] = threading.Thread(target=kill, daemon=True)
+        killed["thread"].start()
+        return queue, result
+
+    return launch
+
+
 def engine_phase(emb, files, trained: dict, tmp: str) -> dict:
-    """Three turns of the engine on the train phase's data: (1) no file
-    cache and the read-then-plan map; (2) the defaults under a memory
-    budget of a quarter of the train phase's peak ledger bytes with a
-    spill directory, so reducer outputs spill; (3) the streaming map with
-    ``ENGINE_CHAOS`` and ``task_retries=1``, so the lost map is recomputed
-    from its lineage in each epoch (no cache: with it, epoch 1 would
-    serve the file from the cache and never read it)."""
+    """Five turns of the engine on the train phase's data, the first
+    three on the thread backend: (1) no file cache and the read-then-plan
+    map; (2) the defaults under a memory budget of a quarter of the train
+    phase's peak ledger bytes with a spill directory, so reducer outputs
+    spill; (3) the streaming map with ``ENGINE_CHAOS`` and
+    ``task_retries=1``, so the lost map is recomputed from its lineage in
+    each epoch (no cache: with it, epoch 1 would serve the file from the
+    cache and never read it); (4) ``pool_kill``: the process pool of 4
+    workers with one worker SIGKILLed inside a map task, whose task is
+    resubmitted from lineage and the worker respawned; (5) ``tiered``:
+    ``file_cache="tiered"`` (threads: the file cache is the thread plane's)
+    over a ``SimulatedObjectStore`` source with the idle-lane prefetch,
+    so epoch 1 reads the hot tier."""
+    from ray_shuffling_data_loader_tpu_torch import storage
+
     start = timeit.default_timer()
     want, first = trained["digests"], trained["first_loss"]
     budget = trained["ledger_peak_bytes"] // 4
-    emb.reset_launch_counts()
     turns = [
-        _engine_turn("uncached", files, want, first, fused=False,
-                     file_cache=None),
-        _engine_turn("spill", files, want, first, fused=True,
+        _engine_turn(emb, "uncached", files, want, first, fused=False,
+                     file_cache=None, executor_backend="thread"),
+        _engine_turn(emb, "spill", files, want, first, fused=True,
                      max_inflight_bytes=budget,
-                     spill_dir=os.path.join(tmp, "spill")),
-        _engine_turn("lineage", files, want, first, fused=True,
-                     chaos=ENGINE_CHAOS, file_cache=None, task_retries=1),
+                     spill_dir=os.path.join(tmp, "spill"),
+                     executor_backend="thread"),
+        _engine_turn(emb, "lineage", files, want, first, fused=True,
+                     chaos=ENGINE_CHAOS, file_cache=None, task_retries=1,
+                     executor_backend="thread"),
     ]
-    launches = emb.launch_counts["gather_rows"]
+    killed: dict = {}
+    turns.append(_engine_turn(
+        emb, "pool_kill", files, want, first, fused=True,
+        launch=_pool_kill_launch(files, os.path.join(tmp, "started"),
+                                 killed)))
+    killed["thread"].join(timeout=60)
+    if "error" in killed:
+        raise killed["error"]
+    turns[-1]["killed_pid"] = killed["pid"]
+    sim = storage.SimulatedObjectStore(seed=SEED)
+    previous = storage.set_source(sim)
+    try:
+        turns.append(_engine_turn(emb, "tiered", files, want, first,
+                                  fused=True, file_cache="tiered",
+                                  executor_backend="thread"))
+    finally:
+        storage.set_source(previous)
+    turns[-1]["source"] = {
+        "name": sim.name, "first_byte_ms": sim.first_byte_ms,
+        "mb_per_s": sim.mb_per_s, "jitter_pct": sim.jitter_pct,
+        "seed": sim.seed, "fetches": sim.fetches,
+        "bytes_read": sim.bytes_read}
     steps = sum(t["batches"] for t in turns)
-    if launches != steps:
-        raise AssertionError(f"{launches} gather launches in {steps} "
-                             "micro-steps")
+    launches = sum(t["gather_launches"] for t in turns)
     if turns[1]["spill"]["spills"] < 1:
         raise AssertionError(f"nothing spilled under {budget} bytes")
     if (turns[2]["recoveries"].get("lineage") != NUM_EPOCHS
             or turns[2]["injected"] != 2 * NUM_EPOCHS):
         raise AssertionError(f"the lost maps were not recomputed once per "
                              f"epoch: {turns[2]}")
+    kill = turns[3]
+    if (kill["executor_backend"] != "process"
+            or kill["recoveries"].get("lineage", 0) < 1
+            or kill["process_pool"]["respawns"] < 1
+            or kill["killed_pid"] in kill["pool_pids"]):
+        raise AssertionError(f"the killed worker's task was not recomputed "
+                             f"on a respawned pool: {kill}")
+    tiers = turns[4]["storage"]
+    if tiers["hot_hits"] + tiers["disk_hits"] < 1:
+        raise AssertionError(f"no tiered hit: {tiers}")
     return {"turns": turns, "budget_bytes": budget,
             "gather_launches": launches,
+            "launches_by_turn": {t["turn"]: t["gather_launches"]
+                                 for t in turns},
             "launches_per_micro_step": launches / steps,
             "phase_s": timeit.default_timer() - start}
 
@@ -2087,7 +2234,7 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
     """ResNet-50 on the decoded-image stream. Returns the phase's line and
     its shards (written to ``tmp``, for the resume phase)."""
     from ray_shuffling_data_loader_tpu_torch import (
-        dataset, device_dataset, train)
+        dataset, device_dataset, executor, train)
     from ray_shuffling_data_loader_tpu_torch.models import resnet
     from ray_shuffling_data_loader_tpu_torch.workloads import imagenet
 
@@ -2138,6 +2285,9 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
     t_end = timeit.default_timer()
     launches = _port_launches(fa, emb)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The decode closure keeps this loader on threads ("auto"); the host
+    # check below shuffles without it, on the process pool.
+    backend = executor.last_worker_pool()["backend"]
 
     if rows_per_epoch != [IMG_COUNT] * NUM_EPOCHS:
         raise AssertionError(
@@ -2182,6 +2332,7 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
     wall = t_end - t_first
     steps = int(all_losses.numel())
     return {
+        "executor_backend": backend,
         "decoder": decoder,
         "images": {"count": IMG_COUNT, "files": IMG_FILES, "format": "png",
                    "size": [IMG_SIZE, IMG_SIZE, 3], "classes": IMG_CLASSES,
@@ -2215,7 +2366,10 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
 
 def _run_resumable(ds, loader, step, micro: int, batches: int):
     """Up to ``batches`` loader batches through ``resume_iterator``, one
-    micro-step per ``micro`` rows; returns the micro-step losses."""
+    micro-step per ``micro`` rows; returns the micro-step losses. Closes
+    the dataset, abandoned mid-epoch: its producer thread must not be
+    left copying to the device when the interpreter exits (a daemon
+    thread ended inside torch's C++ aborts the process)."""
     from ray_shuffling_data_loader_tpu_torch import checkpoint, train
     losses = []
     it = checkpoint.resume_iterator(ds, loader)
@@ -2224,6 +2378,7 @@ def _run_resumable(ds, loader, step, micro: int, batches: int):
         if n == batches:
             break
     it.close()
+    ds.close()
     return torch.cat(losses)
 
 
@@ -2241,9 +2396,11 @@ def _resume_check(build, make_ds, micro: int, tmp: str, batch: int
             seed=SEED, epoch=0, batches_consumed=0, num_epochs=1,
             num_trainers=1, rank=0, batch_size=batch)
 
+    from ray_shuffling_data_loader_tpu_torch import executor
     trainer, step, _ = build(SEED)
     want = _run_resumable(make_ds(0), fresh_loader(), step, micro,
                           RESUME_BATCHES)
+    backend = executor.last_worker_pool()["backend"]
     want_state = {k: v.clone() for k, v in
                   trainer.model.state_dict().items()}
     del trainer, step
@@ -2296,7 +2453,7 @@ def _resume_check(build, make_ds, micro: int, tmp: str, batch: int
             "param_max_abs": param_scale, "bit_equal": bit_equal,
             "losses": want.tolist(),
             "save_s": save_s, "save_bytes": save_bytes,
-            "restore_s": restore_s}
+            "restore_s": restore_s, "executor_backend": backend}
 
 
 def resume_phase(fa, emb, decoder: str, image_files) -> dict:
@@ -2403,6 +2560,25 @@ def image_decoder_env() -> dict:
             "resnet_decoder": "pil" if missing else "native"}
 
 
+def pool_env() -> dict:
+    """The host's cores, the process pool's segment dir, its free bytes
+    and whether it is writable, and what ``"auto"`` resolves to for the
+    DLRM spec (its cast transform crosses to the workers)."""
+    from ray_shuffling_data_loader_tpu_torch import (executor, procpool,
+                                                     transforms)
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+    spec = dlrm_criteo.dlrm_spec()
+    cast = transforms.make_cast_transform(
+        spec["feature_columns"], spec["feature_types"],
+        spec["label_column"], spec["label_type"])
+    shm_dir = procpool.shm_base_dir()
+    return {"cpu_count": os.cpu_count(), "shm_dir": shm_dir,
+            "shm_free_bytes": shutil.disk_usage(shm_dir).free,
+            "shm_available": procpool.shm_available(),
+            "auto_backend_dlrm": executor.resolve_backend(
+                transforms=(cast, None))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2420,7 +2596,7 @@ def main() -> int:
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": name, "nvidia_smi": smi, "hbm_peak_bytes_s": peak,
-          "tf32": False, **decoder_env})
+          "tf32": False, **decoder_env, **pool_env()})
     decoder = decoder_env["resnet_decoder"]
 
     start = timeit.default_timer()
@@ -2486,6 +2662,8 @@ def main() -> int:
             "train": trained["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],
+            "engine_pool_kill": engine["launches_by_turn"]["pool_kill"],
+            "engine_tiered": engine["launches_by_turn"]["tiered"],
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "distributed": dist_run["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},

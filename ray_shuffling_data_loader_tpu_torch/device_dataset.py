@@ -76,6 +76,10 @@ from ray_shuffling_data_loader_tpu_torch.runtime import (
     watchdog as rt_watchdog)
 from ray_shuffling_data_loader_tpu_torch.shuffle import column_to_rows
 from ray_shuffling_data_loader_tpu_torch.stats import BatchWaitStats
+# The cast lives in a module without torch, so the process pool's workers
+# can unpickle it; re-exported under its old names.
+from ray_shuffling_data_loader_tpu_torch.transforms import (  # noqa: F401
+    CastTransform, make_cast_transform)
 from ray_shuffling_data_loader_tpu_torch.utils.config import resolve_device
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -123,49 +127,6 @@ def _column_to_numpy(column: pa.ChunkedArray, name: Any,
     fixed-size list column, ``(B, W)`` (:func:`shuffle.column_to_rows`)."""
     arr = column_to_rows(column, name)
     return np.ascontiguousarray(arr.astype(dtype, copy=False))
-
-
-class CastTransform:
-    """Map-time cast of spec'd numeric, null-free columns to their final
-    dtypes (an unchecked ``ndarray.astype``), before any shuffling."""
-
-    __slots__ = ("targets",)
-
-    #: Per-row and row-count preserving: the streaming map
-    #: (``shuffle._fused_stream_columns``) may apply it per record batch
-    #: instead of per file, with the same bytes either way.
-    row_elementwise = True
-
-    def __init__(self, targets):
-        self.targets = {k: np.dtype(v) for k, v in targets.items()}
-
-    def __call__(self, table: pa.Table) -> pa.Table:
-        columns = []
-        changed = False
-        for field in table.schema:
-            col = table.column(field.name)
-            target = self.targets.get(field.name)
-            if (target is not None and col.null_count == 0
-                    and (pa.types.is_integer(field.type)
-                         or pa.types.is_floating(field.type))
-                    and np.issubdtype(target, np.number)
-                    and pa.from_numpy_dtype(target) != field.type):
-                col = pa.array(col.combine_chunks().to_numpy(
-                    zero_copy_only=False).astype(target, copy=False))
-                changed = True
-            columns.append(col)
-        if not changed:
-            return table
-        return pa.table(columns, names=table.column_names)
-
-
-def make_cast_transform(feature_columns: Sequence[Any],
-                        feature_types: Sequence[np.dtype],
-                        label_column: Any,
-                        label_type: np.dtype) -> CastTransform:
-    targets = dict(zip(feature_columns, feature_types))
-    targets[label_column] = label_type
-    return CastTransform(targets)
 
 
 def convert_to_arrays(table: pa.Table, feature_columns: List[Any],

@@ -1,5 +1,6 @@
 """Futures-based task executor with ``wait(num_returns)`` semantics (own
-copy of the JAX package's ``executor.py``, thread backend).
+copy of the JAX package's ``executor.py``): the thread backend here, the
+process backend in ``procpool.py``.
 
 Map and reduce tasks are host threads: pyarrow's Parquet decode and
 ``take``, NumPy and the native kernels release the GIL in the heavy
@@ -9,9 +10,9 @@ reducers, the batch queues); :func:`wait` returns once ``num_returns`` of
 the given refs have completed, in input order.
 
 ``executor_backend`` (kwarg > ``RSDL_EXECUTOR_BACKEND`` > ``"auto"``):
-the port has the thread backend only, so ``"auto"`` resolves to
-``"thread"``, and ``"process"`` raises (the process pool is ROADMAP queue
-A item 1).
+:func:`resolve_backend` decides as the JAX package does
+(``procpool.resolve_backend``), except that an explicit ``"process"``
+that cannot run raises instead of running on threads.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -31,19 +31,13 @@ logger = setup_custom_logger(__name__)
 BACKENDS = ("auto", "thread", "process")
 
 
-def resolve_backend(override: Optional[str] = None) -> str:
-    """The executor backend a shuffle that owns its pool runs on. Raises
-    for ``"process"`` (not ported yet) and for an unknown name."""
-    backend = rt_policy.resolve("executor", "executor_backend",
-                                override=override)
-    if backend not in BACKENDS:
-        raise ValueError(f"executor_backend must be one of {BACKENDS}, "
-                         f"got {backend!r}")
-    if backend == "process":
-        raise NotImplementedError(
-            "executor_backend='process' is not ported yet: the process "
-            "pool is ROADMAP queue A item 1 (use 'thread' or 'auto')")
-    return "thread"
+def resolve_backend(override: Optional[str] = None,
+                    num_workers: Optional[int] = None,
+                    transforms: Sequence[Any] = ()) -> str:
+    """``"thread"`` or ``"process"``: the backend a shuffle that owns its
+    pool runs on (``procpool.resolve_backend``)."""
+    from ray_shuffling_data_loader_tpu_torch import procpool
+    return procpool.resolve_backend(override, num_workers, transforms)
 
 
 class TaskRef:
@@ -145,7 +139,7 @@ class Executor:
     through :meth:`submit_once`.
     """
 
-    #: Data-plane discriminator (the JAX package's process pool says
+    #: Data-plane discriminator (``procpool.ProcessPoolExecutor`` says
     #: "process").
     backend = "thread"
 

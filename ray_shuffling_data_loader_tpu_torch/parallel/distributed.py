@@ -255,7 +255,8 @@ def shuffle_distributed(filenames: Sequence[str],
             num_reduces=len(plan.local_reducers(host)),
             num_consumes=trainers_per_host)
         stats_collector.trial_start()
-    file_cache = sh.resolve_file_cache(file_cache, num_epochs - start_epoch)
+    file_cache, owns_file_cache = sh.resolve_file_cache(
+        file_cache, num_epochs - start_epoch)
     over_budget, spill_manager = spill.make_budget_state(
         file_cache, max_inflight_bytes, spill_dir)
     start = timeit.default_timer()
@@ -297,6 +298,8 @@ def shuffle_distributed(filenames: Sequence[str],
             pool.shutdown(wait_for_tasks=not failed, cancel_pending=failed)
             if not failed:
                 native.trim_freelist()
+        if owns_file_cache:
+            file_cache.close()
         if spill_manager is not None:
             spill_manager.report()
     if stats_collector is not None:

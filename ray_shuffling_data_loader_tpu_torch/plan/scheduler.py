@@ -1,8 +1,7 @@
 """Plan-driven execution engine: dependency-ordered dispatch, speculative
-re-execution of stragglers and work-stealing placement (own copy of the
-JAX package's ``plan/scheduler.py``; its idle-lane cache prefetch, stage
-barriers and membership rewrites come with the storage tiers, the process
-pool and membership).
+re-execution of stragglers, work-stealing placement, stage barriers and
+idle-lane prefetch (own copy of the JAX package's ``plan/scheduler.py``;
+its membership rewrites come with membership).
 
 It executes an :class:`plan.ir.EpochPlan` on any pool with the
 ``executor.Executor`` contract:
@@ -22,6 +21,19 @@ It executes an :class:`plan.ir.EpochPlan` on any pool with the
   placed on lanes (one per pool worker, ``task % lanes``); an idle lane
   whose queue is empty takes the oldest ready node of the longest
   sibling queue. Outputs are the same either way.
+- **Stage barriers** (``barriers={stage: fn}``): ``fn`` runs once on the
+  driver thread when every node of the stage has resolved, before any
+  dependent dispatches. The process pool collects its maps' segment
+  replies in one (with its lineage re-run), never blocking a pool
+  dispatcher thread.
+- **Idle-lane prefetch** (``prefetcher=``, ``storage/prefetch.py``): a
+  lane with no real work, nothing to steal and no speculation candidate
+  runs a cache-warming task instead, on a daemon thread of its own (never
+  a pool worker, so a remote fetch holds no slot a real task would queue
+  behind). The lane stays claimable: real work landing on it cancels the
+  prefetch (a fetch already running finishes and still warms the cache).
+  Warms still running when the plan resolves are left to finish: they
+  warm the files the next epoch reads.
 
 One named driver thread per plan runs the loop, woken by completion
 events (it polls only while speculation is on).
@@ -108,17 +120,26 @@ class PlanScheduler:
 
     ``dispatchers`` maps a stage name to a callable submitting one attempt
     of a node; stages without one (``route``) are not scheduled: they are
-    the driver's consumption plan. :meth:`start` returns at once; each
-    node's result is a ``TaskRef`` (:meth:`ref_for` / :meth:`refs`).
+    the driver's consumption plan. ``barriers`` maps a stage name to a
+    hook run once on the driver thread when that stage has resolved,
+    before its dependents dispatch; ``prefetcher`` (duck-typed: ``next()``
+    gives a task with ``run``/``cancel``, or None) feeds idle lanes.
+    :meth:`start` returns at once; each node's result is a ``TaskRef``
+    (:meth:`ref_for` / :meth:`refs`).
     """
 
     def __init__(self, plan: ir.EpochPlan, pool,
                  dispatchers: Dict[str, Dispatcher],
-                 policy: Optional[SchedulerPolicy] = None):
+                 barriers: Optional[Dict[str, Callable[[], None]]] = None,
+                 policy: Optional[SchedulerPolicy] = None,
+                 prefetcher=None):
         plan.validate()
         self.plan = plan
         self.policy = policy if policy is not None else SchedulerPolicy()
         self._dispatchers = dict(dispatchers)
+        self._barriers = dict(barriers or {})
+        self._prefetcher = prefetcher
+        self._lane_prefetch: Dict[int, object] = {}
         self._lanes = max(1, pool.num_workers)
         self._name = f"rsdl-plan-e{plan.epoch}"
         self._events: "queue_mod.Queue[tuple]" = queue_mod.Queue()
@@ -128,6 +149,8 @@ class PlanScheduler:
         self._lane_queues: List["collections.deque[_NodeState]"] = [
             collections.deque() for _ in range(self._lanes)]
         self._durations: Dict[str, "collections.deque[float]"] = {}
+        self._stage_outstanding: Dict[str, int] = {}
+        self._barrier_done: set = set()
         self._states: Dict[str, _NodeState] = {}
         self._started = False
         self._driver: Optional[threading.Thread] = None
@@ -140,6 +163,8 @@ class PlanScheduler:
                            if plan.nodes[dep].stage in scheduled)
             self._states[node.id] = _NodeState(
                 node, node.key.task % self._lanes, indegree)
+            self._stage_outstanding[node.stage] = \
+                self._stage_outstanding.get(node.stage, 0) + 1
         self._dependents = {
             nid: [d for d in dependents.get(nid, ()) if d in self._states]
             for nid in self._states}
@@ -151,7 +176,7 @@ class PlanScheduler:
         assert not self._started, "scheduler already started"
         self._started = True
         for state in self._states.values():
-            if state.indegree == 0:
+            if state.indegree == 0 and self._deps_barriers_done(state.node):
                 self._lane_queues[state.lane].append(state)
         self._driver = threading.Thread(target=self._drive,
                                         name=self._name, daemon=True)
@@ -166,6 +191,12 @@ class PlanScheduler:
         nodes = sorted((s.node for s in self._states.values()
                         if s.node.stage == stage), key=lambda n: n.key.task)
         return [self.ref_for(n.id) for n in nodes]
+
+    def futures(self, stage: str) -> List[cf.Future]:
+        """The stage's futures in task order."""
+        nodes = sorted((s.node for s in self._states.values()
+                        if s.node.stage == stage), key=lambda n: n.key.task)
+        return [self._states[n.id].future for n in nodes]
 
     # -- driver loop -----------------------------------------------------
 
@@ -202,6 +233,14 @@ class PlanScheduler:
             # results go with their last reference, not at a later
             # garbage collection.
             self._dispatchers.clear()
+            self._barriers.clear()
+
+    def _deps_barriers_done(self, node: ir.PlanNode) -> bool:
+        for dep in node.deps:
+            stage = self.plan.nodes[dep].stage
+            if stage in self._barriers and stage not in self._barrier_done:
+                return False
+        return True
 
     def _fill_lanes(self) -> None:
         for lane in range(self._lanes):
@@ -209,7 +248,36 @@ class PlanScheduler:
                 state = self._take_work(lane)
                 if state is None:
                     break
+                self._cancel_prefetch(lane)  # real work outranks a warm
                 self._dispatch(state, attempt=0, lane=lane)
+        if self._prefetcher is not None:
+            self._fill_prefetch()
+
+    def _cancel_prefetch(self, lane: int) -> None:
+        task = self._lane_prefetch.pop(lane, None)
+        if task is not None:
+            task.cancel()
+
+    def _fill_prefetch(self) -> None:
+        """The bottom of the priority order: a lane with no real work and
+        nothing to steal runs a warm on a daemon thread of its own and
+        stays claimable."""
+        for lane in range(self._lanes):
+            if (self._lane_busy[lane] or lane in self._lane_prefetch
+                    or self._lane_queues[lane]):
+                continue
+            task = self._prefetcher.next()
+            if task is None:
+                return
+
+            def warm(task=task, lane=lane):
+                try:
+                    task.run()
+                finally:
+                    self._events.put(("__prefetch__", lane))
+            self._lane_prefetch[lane] = task
+            threading.Thread(target=warm, daemon=True,
+                             name=f"{self._name}-prefetch-l{lane}").start()
 
     def _take_work(self, lane: int) -> Optional[_NodeState]:
         own = self._lane_queues[lane]
@@ -247,6 +315,10 @@ class PlanScheduler:
         ref.add_done_callback(lambda _f: self._events.put((nid, attempt)))
 
     def _handle_done(self, nid: str, attempt: int) -> None:
+        if nid == "__prefetch__":
+            # A warm ended (or was canceled): free its lane's slot.
+            self._lane_prefetch.pop(attempt, None)
+            return
         state = self._states.get(nid)
         if state is None:
             return
@@ -273,13 +345,29 @@ class PlanScheduler:
         self._on_resolved(state)
 
     def _on_resolved(self, state: _NodeState) -> None:
+        node = state.node
         self._unresolved -= 1
         self._lane_busy[state.lane] = False
-        for child_id in self._dependents[state.node.id]:
+        self._stage_outstanding[node.stage] -= 1
+        if self._stage_outstanding[node.stage] == 0:
+            hook = self._barriers.get(node.stage)
+            if hook is not None:
+                hook()
+            self._barrier_done.add(node.stage)
+        for child_id in self._dependents[node.id]:
             child = self._states[child_id]
             child.indegree -= 1
-            if child.indegree == 0:
+            if child.indegree == 0 and self._deps_barriers_done(child.node):
                 self._lane_queues[child.lane].append(child)
+        # The barrier may have released nodes whose indegree reached 0
+        # earlier in the stage (held back only by the hook).
+        if node.stage in self._barrier_done and node.stage in self._barriers:
+            for child in self._states.values():
+                if (child.indegree == 0 and not child.future.done()
+                        and not child.attempts
+                        and child not in self._lane_queues[child.lane]
+                        and self._deps_barriers_done(child.node)):
+                    self._lane_queues[child.lane].append(child)
 
     # -- speculation ----------------------------------------------------
 
@@ -309,7 +397,7 @@ class PlanScheduler:
             if elapsed <= threshold:
                 continue
             state.backup_launched = True
-            idle.pop()
+            self._cancel_prefetch(idle.pop())  # speculation outranks it
             logger.warning(
                 "%s: task %s running %.3fs (> %.3fs threshold); "
                 "launching speculative backup", self._name, node.id,

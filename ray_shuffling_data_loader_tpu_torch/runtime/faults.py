@@ -19,7 +19,13 @@ port's injection points:
   own copy sequence number as the key;
 - ``transport_send`` / ``transport_recv`` (``parallel/transport.py``):
   inside the frame sender and before a receive pops its message, keyed
-  ``(epoch, task=reducer)``.
+  ``(epoch, task=reducer)``;
+- ``storage_read`` / ``storage_stall`` (``storage/__init__.py``): before
+  each fetch of a dataset file by a map, keyed ``(epoch, task=file)``.
+
+The process pool's workers (``procpool.py``) inherit the environment and
+so reproduce an ``RSDL_CHAOS_SPEC`` spec at the same sites; a spec
+installed programmatically lives in its process only.
 
 The other sites come with the modules that own them. A map's
 :class:`QuarantinedFile` report (``on_bad_file="skip"``) lives here too.
@@ -245,6 +251,18 @@ def clear() -> None:
     with _install_lock:
         _injector = None
         _ACTIVE = False
+
+
+def active() -> bool:
+    """Whether a chaos spec is installed (from the environment or by
+    :func:`install`)."""
+    return _ACTIVE
+
+
+def spec_from_env() -> bool:
+    """Whether the environment carries a chaos spec: one that the
+    process pool's workers, which inherit it, reproduce."""
+    return any(os.environ.get(name, "").strip() for name in _SPEC_ENVS)
 
 
 def configure_from_env() -> Optional[FaultInjector]:

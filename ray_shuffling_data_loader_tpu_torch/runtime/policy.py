@@ -18,9 +18,13 @@ redial budget), with the JAX package's explicit overrides. The shuffle
 engine reads its keys as the component ``shuffle``
 (``RSDL_SHUFFLE_ON_BAD_FILE``, ``RSDL_SHUFFLE_FUSED_PIPELINE``, the
 budget wait), the plan scheduler as ``plan`` (``RSDL_PLAN_*``), the spill
-tier as ``spill`` and the executor as ``executor``; the per-stage retry
-policies are the components ``map_read``, ``reduce``, ``lineage``,
-``spill`` and ``executor`` (``RSDL_LINEAGE_RETRY_MAX_ATTEMPTS``, ...).
+tier as ``spill``, the executor and the process pool as ``executor``
+(``RSDL_EXECUTOR_WORKERS``, ``RSDL_EXECUTOR_SHM_DIR``, ...) and the
+storage plane as ``storage`` (``RSDL_STORAGE_BACKEND``,
+``RSDL_STORAGE_SIM_*``); the per-stage retry policies are the components
+``map_read``, ``reduce``, ``lineage``, ``spill``, ``executor``,
+``storage`` and ``procpool`` (the pool's worker respawns;
+``RSDL_LINEAGE_RETRY_MAX_ATTEMPTS``, ...).
 
 Stdlib only.
 """
@@ -85,9 +89,33 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "release_heartbeat_s": (0.25, float),
     # Free-list trim cooldown under sustained budget pressure (spill.py).
     "trim_cooldown_s": (1.0, float),
-    # Executor backend: "thread", "process" or "auto". The port resolves
-    # "auto" to "thread"; "process" raises until the process pool lands.
+    # Executor backend: "thread", "process" or "auto" (the process pool
+    # where the host has more than one core, the pool more than one
+    # worker, a writable shared-memory dir, transforms that unpickle in
+    # a worker, no programmatically installed chaos and no storage source
+    # installed with storage.set_source; else threads).
     "executor_backend": ("auto", str),
+    # The process pool's width (0: one worker per host core).
+    "executor_workers": (0, int),
+    # Where the pool's segments live ("": /dev/shm where writable, else
+    # the system temp dir).
+    "executor_shm_dir": ("", str),
+    # Byte budget of the decoded-table segments the pool keeps across
+    # epochs (0: half the free bytes of the segment filesystem).
+    "executor_shm_bytes": (0, int),
+    # Storage plane (storage/): the source dataset reads resolve to when
+    # none is installed with storage.set_source ("local" or "sim").
+    "storage_backend": ("local", str),
+    # Idle-lane prefetch of the next epoch's files into a tiered cache.
+    "storage_prefetch": (True, _parse_bool),
+    # SimulatedObjectStore: first-byte latency (ms), bandwidth (MB/s),
+    # multiplicative jitter (+/- per cent), transient error rate and the
+    # seed of its draws (each a pure function of seed, path and attempt).
+    "storage_sim_first_byte_ms": (2.0, float),
+    "storage_sim_mb_per_s": (512.0, float),
+    "storage_sim_jitter_pct": (10.0, float),
+    "storage_sim_error_rate": (0.0, float),
+    "storage_sim_seed": (0, int),
     # Streaming map (decode -> partition -> gather fused over record
     # batches): "auto"/True where it keeps the cache and bit-identity
     # contracts, False for the read-then-plan map everywhere. The

@@ -31,6 +31,18 @@ The engine:
 - **File cache** (``file_cache="auto"``): a :class:`FileTableCache` of
   decoded, map-transformed tables keyed by file name, so later epochs
   skip the read and decode; a hit is never transformed again.
+  ``"disk"`` keeps them as Arrow IPC files on local scratch
+  (:class:`DiskTableCache`); ``"tiered"`` is a :class:`TieredStore` (a
+  RAM LRU over a CRC'd, ledger-charged disk tier over the storage source),
+  whose next-epoch files the plan scheduler warms on idle lanes.
+- **Storage**: every map reads through ``storage`` (the installed
+  source: local files, HTTP range reads or the simulated object store),
+  where the ``storage_read`` and ``storage_stall`` fault sites fire.
+- **Backends** (``executor_backend``, ``executor.resolve_backend``): the
+  thread pool, or the process pool (``procpool.py``), whose workers run
+  the same map and reduce bodies and hand tables over as Arrow IPC
+  segments in shared memory; there, the pool's segments are the file
+  cache. Both give the same reducer outputs.
 - **Recovery**: a failed map is recomputed from its ``(seed, epoch,
   file)`` lineage by the first reduce that observes it
   (:class:`EpochLineage`); a failed reduce body is re-run in its task;
@@ -55,8 +67,7 @@ binary column (encoded images) is concatenated and permuted with Arrow's
 ``take`` instead. In the distributed shuffle (``parallel/distributed.py``)
 a reducer also takes its rows of a remote file as a table received from
 the host that mapped it, in global file order, so the output is the
-same. The executor's ``"process"`` backend and the ``"disk"`` and
-``"tiered"`` file caches are not ported yet and raise.
+same.
 """
 
 from __future__ import annotations
@@ -71,19 +82,25 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 
 import numpy as np
 import pyarrow as pa
-import pyarrow.parquet as pq
 
 from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch import partition
 from ray_shuffling_data_loader_tpu_torch import spill
 from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
+from ray_shuffling_data_loader_tpu_torch import storage as rt_storage
 from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.plan import scheduler as plan_sched
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import release as rt_release
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+# The disk caches live in storage/; re-exported under the JAX package's
+# names here, as fileio is.
+from ray_shuffling_data_loader_tpu_torch.storage.cache import (  # noqa: F401
+    DiskTableCache, DiskTier, TieredStore)
+from ray_shuffling_data_loader_tpu_torch.utils import fileio  # noqa: F401
+from ray_shuffling_data_loader_tpu_torch.utils.singleflight import SingleFlight
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -278,7 +295,7 @@ class FileTableCache:
         self.max_bytes = max_bytes
         self._bytes = 0
         self._tables: Dict[str, pa.Table] = {}
-        self._loading: Dict[str, threading.Event] = {}
+        self._loads = SingleFlight()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -287,19 +304,20 @@ class FileTableCache:
         """The cached table, waiting for a load of ``key`` in flight; None
         makes the caller ``key``'s loader, which must :meth:`release` it."""
         while True:
+            flight = None
             with self._lock:
                 table = self._tables.get(key)
-                loading = self._loading.get(key)
                 if table is not None:
                     self.hits += 1
-                elif loading is None:
-                    self._loading[key] = threading.Event()
-                    self.misses += 1
-            if table is not None or loading is None:
+                else:
+                    flight = self._loads.claim(key)
+                    if flight is None:
+                        self.misses += 1
+            if flight is None:
                 _count_cache(hits=int(table is not None),
                              misses=int(table is None))
                 return table
-            loading.wait()
+            flight.wait()
 
     def put(self, key: str, table: pa.Table) -> bool:
         """Insert if the budget allows; True if the table is cached."""
@@ -317,10 +335,7 @@ class FileTableCache:
     def release(self, key: str) -> None:
         """End the caller's load of ``key``: wake the gets waiting on it
         (which find the table, or, where it was not cached, load it)."""
-        with self._lock:
-            loading = self._loading.pop(key, None)
-        if loading is not None:
-            loading.set()
+        self._loads.release(key)
 
     @property
     def bytes_cached(self) -> int:
@@ -342,22 +357,44 @@ def default_file_cache() -> Optional[FileTableCache]:
     return None
 
 
-def resolve_file_cache(spec, epochs_remaining: int
-                       ) -> Optional[FileTableCache]:
-    """The cache a ``file_cache`` argument names: ``"auto"`` (a RAM cache
-    when a file will be mapped more than once), ``None``, or a
-    :class:`FileTableCache`. ``"disk"`` and ``"tiered"`` raise: the
-    storage tiers are not ported yet."""
+def default_disk_cache_bytes(cache_dir: Optional[str] = None) -> int:
+    """The disk budget of ``file_cache="disk"``/``"tiered"``: half the
+    free space of the scratch filesystem."""
+    import shutil
+    import tempfile
+    try:
+        return shutil.disk_usage(cache_dir or tempfile.gettempdir()).free // 2
+    except OSError:
+        return 16 << 30
+
+
+def resolve_file_cache(spec, epochs_remaining: int):
+    """``(cache, owned)`` for a ``file_cache`` argument: ``"auto"`` (a RAM
+    :class:`FileTableCache` when a file will be mapped more than once),
+    ``"disk"`` (a :class:`DiskTableCache` of
+    :func:`default_disk_cache_bytes`), ``"tiered"`` (a :class:`TieredStore`:
+    the RAM budget over a ledger-charged :class:`DiskTier` over the
+    installed storage source), None, or an instance (anything with the
+    ``get``/``put``/``bytes_cached`` protocol). ``owned`` is True where
+    this call made a disk-backed cache, which the driver closes after the
+    run."""
     if spec == "auto":
-        return default_file_cache() if epochs_remaining > 1 else None
+        return (default_file_cache() if epochs_remaining > 1 else None,
+                False)
     if spec in ("disk", "tiered"):
-        raise NotImplementedError(
-            f"file_cache={spec!r} is not ported yet: the disk and tiered "
-            "file caches are ROADMAP queue A item 2 (use 'auto' or None)")
-    if spec is None or isinstance(spec, FileTableCache):
-        return spec
-    raise ValueError(f"file_cache must be 'auto', None or a "
-                     f"FileTableCache, got {spec!r}")
+        if epochs_remaining <= 1:
+            return None, False
+        if spec == "disk":
+            return DiskTableCache(max_bytes=default_disk_cache_bytes()), True
+        ram = default_file_cache()
+        return TieredStore(
+            ram.max_bytes if ram is not None else 1 << 30,
+            disk=DiskTier(max_bytes=default_disk_cache_bytes()),
+            source=rt_storage.get_source()), True
+    if spec is None or hasattr(spec, "get") and hasattr(spec, "put"):
+        return spec, False
+    raise ValueError(f"file_cache must be 'auto', 'disk', 'tiered', None "
+                     f"or a cache, got {spec!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -517,7 +554,7 @@ def _fused_stream_columns(filename: str, num_reducers: int, seed: int,
     if map_transform is not None and not getattr(
             map_transform, "row_elementwise", False):
         return None
-    pf = pq.ParquetFile(filename)
+    pf = rt_storage.open_parquet(filename, epoch=epoch, task=file_index)
     try:
         num_rows = pf.metadata.num_rows
         if num_rows <= 0 or num_rows >= 2**31:
@@ -583,6 +620,20 @@ def _fused_stream_map(filename: str, num_reducers: int, seed: int,
     return FusedMapShard(table, offsets, out_cols)
 
 
+def _read_map_table(filename: str, epoch: int, file_index: int,
+                    read_retry: Optional[rt_retry.RetryPolicy],
+                    inject: bool = True) -> pa.Table:
+    """The map's read: the ``map_read`` fault site (unless the caller has
+    fired it for this task already), then the storage read with its
+    sites, the fetch retried in place under ``read_retry``. The sites
+    fire outside the retry: an injected fault is a lost task for lineage
+    recovery, not an IO blip."""
+    if inject:
+        rt_faults.inject("map_read", epoch=epoch, task=file_index)
+    return rt_storage.read_table(filename, epoch=epoch, task=file_index,
+                                 retry=read_retry)
+
+
 def _quarantine(filename: str, epoch: int, file_index: int,
                 error: BaseException) -> rt_faults.QuarantinedFile:
     report = rt_faults.QuarantinedFile(
@@ -643,13 +694,14 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
             return done(shard, end)
     table = file_cache.get(filename) if file_cache is not None else None
     if table is None:
+        # FileTableCache and TieredStore make a missing get's caller the
+        # file's loader until it releases the file (DiskTableCache has no
+        # such wait).
+        release = getattr(file_cache, "release", None)
         try:
-            if inject:
-                rt_faults.inject("map_read", epoch=epoch, task=file_index)
             try:
-                table = (pq.read_table(filename) if read_retry is None else
-                         read_retry.call(pq.read_table, filename,
-                                         describe=f"read {filename}"))
+                table = _read_map_table(filename, epoch, file_index,
+                                        read_retry, inject=inject)
             except (OSError, pa.ArrowInvalid) as e:
                 if on_bad_file != "skip":
                     raise
@@ -663,8 +715,8 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
                 table = table.combine_chunks()
                 file_cache.put(filename, table)
         finally:
-            if file_cache is not None:
-                file_cache.release(filename)
+            if release is not None:
+                release(filename)
         # Charged for the table's lifetime, in the cache or in this
         # epoch's shard alone.
         native.account_table(table)
@@ -1044,15 +1096,49 @@ def _shuffle_epoch_thread(plan: plan_ir.EpochPlan, pool: ex.Executor,
                             lineage, fault_policies.get("reduce"),
                             spill_recompute(reduce_index))
 
+    # A tiered cache's files, warmed on idle lanes for the next epoch
+    # (which reads the same list), below every real task in priority.
+    prefetcher = None
+    maker = getattr(file_cache, "make_prefetcher", None)
+    if maker is not None and rt_policy.resolve("storage",
+                                               "storage_prefetch"):
+        prefetcher = maker(plan)
     scheduler = plan_sched.PlanScheduler(
         plan, pool, dispatchers={
             "map": lambda node, attempt: pool.submit(run_map, node,
                                                      attempt),
             "reduce": lambda node, attempt: pool.submit(run_reduce, node,
-                                                        attempt)})
+                                                        attempt)},
+        prefetcher=prefetcher)
     holder["scheduler"] = scheduler
     scheduler.start()
     return scheduler.refs("reduce")
+
+
+def _shuffle_epoch_process(plan: plan_ir.EpochPlan, pool, stats_collector,
+                           map_transform, reduce_transform, spill_manager,
+                           gather_threads, on_bad_file) -> List[ex.TaskRef]:
+    """The epoch on the process pool (``procpool.process_epoch``), with
+    the transforms pickled once. A spilled reducer output recovers from
+    its lineage in the driver, as on the thread backend."""
+    import pickle
+    from ray_shuffling_data_loader_tpu_torch import procpool
+    epoch, seed = plan.epoch, plan.seed
+    num_reducers = plan.num_reducers
+    filenames = list(plan.filenames)
+
+    def spill_recompute(reduce_index: int):
+        return functools.partial(
+            recompute_reducer_output, filenames, num_reducers, seed, epoch,
+            reduce_index, map_transform, reduce_transform, on_bad_file)
+
+    return procpool.process_epoch(
+        plan, pool, stats_collector,
+        pickle.dumps(map_transform) if map_transform is not None else None,
+        pickle.dumps(reduce_transform)
+        if reduce_transform is not None else None,
+        spill_manager, gather_threads, on_bad_file,
+        spill_recompute if spill_manager is not None else None)
 
 
 def shuffle_epoch(epoch: int, filenames: Sequence[str],
@@ -1080,11 +1166,16 @@ def shuffle_epoch(epoch: int, filenames: Sequence[str],
     if gather_threads is None:
         gather_threads = derive_gather_threads(num_reducers,
                                                pool.num_workers)
-    reduce_refs = _shuffle_epoch_thread(
-        plan, pool, stats_collector, map_transform, file_cache,
-        reduce_transform, spill_manager, gather_threads, on_bad_file,
-        fault_policies if fault_policies is not None
-        else default_fault_policies())
+    if getattr(pool, "backend", "thread") == "process":
+        reduce_refs = _shuffle_epoch_process(
+            plan, pool, stats_collector, map_transform, reduce_transform,
+            spill_manager, gather_threads, on_bad_file)
+    else:
+        reduce_refs = _shuffle_epoch_thread(
+            plan, pool, stats_collector, map_transform, file_cache,
+            reduce_transform, spill_manager, gather_threads, on_bad_file,
+            fault_policies if fault_policies is not None
+            else default_fault_policies())
     for route in sorted(plan.routes(), key=lambda n: n.key.task):
         rank = route.key.task
         consume(rank, batch_consumer, trial_start, stats_collector, epoch,
@@ -1124,16 +1215,17 @@ def shuffle(filenames: Sequence[str], batch_consumer: BatchConsumer,
     ``max_concurrent_epochs`` in flight (the JAX package's signature;
     see the module docstring for the engine).
 
-    - ``num_workers``: pool threads (default one per core); ``pool``: a
-      caller's executor instead (not shut down here).
-    - ``file_cache``: ``"auto"``, None or a :class:`FileTableCache`.
+    - ``num_workers``: pool threads or processes (default one per core);
+      ``pool``: a caller's executor instead (not shut down here).
+    - ``file_cache``: ``"auto"``, ``"disk"``, ``"tiered"``, None or a
+      cache (ignored on the process backend, whose segments cache).
     - ``task_retries``: extra attempts of a failed task in the executor.
     - ``max_inflight_bytes`` / ``spill_dir``: the memory budget and its
       spill tier.
     - ``on_bad_file``: ``"raise"`` or ``"skip"`` (policy key
       ``RSDL_SHUFFLE_ON_BAD_FILE``).
-    - ``executor_backend``: ``"auto"``/``"thread"``; ``"process"``
-      raises.
+    - ``executor_backend``: ``"auto"``, ``"thread"`` or ``"process"``
+      (:func:`executor.resolve_backend`).
 
     Returns the ``TrialStats`` with ``collect_stats`` (which needs
     ``start_epoch == 0``; off by default, as the port's shuffle returned
@@ -1191,13 +1283,33 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
     start = timeit.default_timer()
     owns_pool = pool is None
     if pool is None:
-        ex.resolve_backend(executor_backend)
-        pool = ex.Executor(num_workers=num_workers, task_retries=task_retries)
-    # Caching pays only where a file is mapped more than once.
-    file_cache = resolve_file_cache(
-        file_cache, epochs_hint if epochs_hint is not None else 1)
+        backend = ex.resolve_backend(
+            executor_backend, num_workers=num_workers,
+            transforms=(map_transform, reduce_transform))
+        if backend == "process":
+            from ray_shuffling_data_loader_tpu_torch import procpool
+            pool = procpool.ProcessPoolExecutor(num_workers=num_workers,
+                                                task_retries=task_retries)
+        else:
+            pool = ex.Executor(num_workers=num_workers,
+                               task_retries=task_retries)
+    if getattr(pool, "backend", "thread") == "process":
+        # The pool's segments are the file cache on this plane (a table
+        # cache in the driver would hold a second copy); the budget
+        # discounts their growth through the pool's bytes_cached.
+        file_cache, owns_file_cache = None, False
+        budget_cache = pool
+    else:
+        # Caching pays only where a file is mapped more than once.
+        file_cache, owns_file_cache = resolve_file_cache(
+            file_cache, epochs_hint if epochs_hint is not None else 1)
+        budget_cache = file_cache
+        if hasattr(file_cache, "set_transform"):
+            # The cache holds transformed tables: a warm applies the same
+            # transform, or a prefetched hit would change the stream.
+            file_cache.set_transform(map_transform)
     over_budget, spill_manager = spill.make_budget_state(
-        file_cache, max_inflight_bytes, spill_dir)
+        budget_cache, max_inflight_bytes, spill_dir)
     # Up to max_concurrent_epochs epochs' reduces share this pool.
     overlap = (max(1, max_concurrent_epochs) if epochs_hint is None
                else max(1, min(max_concurrent_epochs, epochs_hint)))
@@ -1249,6 +1361,10 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
     finally:
         if owns_pool:
             pool.shutdown(wait_for_tasks=True, cancel_pending=True)
+        if owns_file_cache:
+            # Reducer outputs are gathered copies, never views of cached
+            # tables, and every ref has drained: no reader is left.
+            file_cache.close()
         if spill_manager is not None:
             # The scratch directory goes with the last handle (consumers
             # may still be draining spilled outputs).

@@ -76,7 +76,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--file-cache", choices=["auto", "none", "disk"],
                    default="auto",
                    help="decoded-table cache: auto (RAM), none (re-decode "
-                        "every epoch), disk (not ported yet: raises)")
+                        "every epoch), disk (Arrow IPC files on local "
+                        "scratch)")
     p.add_argument("--max-inflight-bytes", type=int, default=None,
                    help="transient pipeline memory budget (bytes)")
     p.add_argument("--spill-dir", type=str, default=None,

@@ -31,6 +31,9 @@ from ray_shuffling_data_loader_tpu_torch.models import bert as tbert
 from ray_shuffling_data_loader_tpu_torch.ops import flash_attention as tfa
 from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm as tmlm
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 NUM_SEQS, NUM_FILES, SEQ_LEN, VOCAB = 3000, 3, 32, 1000
 BATCH, NUM_EPOCHS, NUM_REDUCERS, SEED = 120, 2, 3, 5
 MICRO, LR = 40, 1e-4

@@ -70,6 +70,37 @@ def test_the_flash_library_hashes_its_hopper_header(tmp_path):
     assert build.library_path("rsdl_torch_flash", source) != before
 
 
+def _setup_keyword(setup_py, name):
+    """The ``setup()`` call's ``name`` keyword in ``setup_py``, as ast."""
+    with open(setup_py) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+                == "setup"):
+            for keyword in node.keywords:
+                if keyword.arg == name:
+                    return keyword.value
+    raise AssertionError(f"setup.py has no setup({name}=...)")
+
+
+def test_find_packages_takes_the_storage_plane_and_the_pool_worker():
+    # An installed port starts its pool's workers as ``python -m
+    # <procpool.WORKER_MODULE>`` and reads through ``storage``: both must
+    # be in what setup.py's find_packages returns.
+    from setuptools import find_packages
+
+    from ray_shuffling_data_loader_tpu_torch import procpool
+    call = _setup_keyword(os.path.join(REPO_ROOT, "setup.py"), "packages")
+    include = ast.literal_eval(
+        next(k.value for k in call.keywords if k.arg == "include"))
+    packages = find_packages(where=REPO_ROOT, include=include)
+    assert "ray_shuffling_data_loader_tpu_torch.storage" in packages
+    worker_package, worker_module = procpool.WORKER_MODULE.rsplit(".", 1)
+    assert worker_package in packages
+    assert os.path.isfile(os.path.join(
+        REPO_ROOT, *worker_package.split("."), worker_module + ".py"))
+
+
 def _package_data(setup_py):
     """``package_data`` of the ``setup()`` call in ``setup_py``, read with
     ``ast`` (setup.py is not run)."""

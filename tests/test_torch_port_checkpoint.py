@@ -29,6 +29,9 @@ from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
 from ray_shuffling_data_loader_tpu_torch.workloads.dlrm_criteo import (
     dlrm_spec)
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 _queue_ids = itertools.count()
 
 

@@ -25,6 +25,9 @@ from ray_shuffling_data_loader_tpu import jax_dataset as jjd
 from ray_shuffling_data_loader_tpu_torch.device_dataset import (
     DeviceShufflingDataset)
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 _queue_ids = itertools.count()
 
 

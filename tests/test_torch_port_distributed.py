@@ -35,6 +35,9 @@ from ray_shuffling_data_loader_tpu_torch.parallel import distributed as tdist
 from ray_shuffling_data_loader_tpu_torch.parallel import transport as ttp
 from ray_shuffling_data_loader_tpu_torch.runtime import faults
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 RECV_TIMEOUT_S = 30.0
 JOIN_S = 60.0
 KEY = jdg.KEY_COLUMN

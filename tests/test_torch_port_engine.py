@@ -10,7 +10,9 @@ is also held against the plain shuffle the port ran before the engine
 Configurations: the file cache on and off, the streaming map on and off,
 a quarantined corrupt file and a lost map recomputed from its lineage;
 plus the epoch plan's JSON, the scheduler's speculation, ``TrialStats``,
-the executor and the backends and caches that are not ported.
+the executor, the process backend and the disk and tiered caches
+against the JAX stream, and ``"auto"``'s choice against the JAX rule
+(the process pool's own tests are ``test_torch_port_procpool.py``).
 """
 
 import importlib
@@ -39,6 +41,9 @@ from ray_shuffling_data_loader_tpu_torch.device_dataset import (
 from ray_shuffling_data_loader_tpu_torch.plan import ir as tir
 from ray_shuffling_data_loader_tpu_torch.plan import scheduler as tsched
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as tfaults
+
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
 
 # The JAX package's name ``shuffle`` is its function; this is the module.
 jsh = importlib.import_module("ray_shuffling_data_loader_tpu.shuffle")
@@ -199,7 +204,7 @@ def test_a_file_is_loaded_once_while_two_epochs_map_it(files):
                 map_transform=transform, file_cache=cache)
     assert len(calls) == len(files)
     assert (cache.hits, cache.misses) == (len(files), len(files))
-    assert cache._loading == {}
+    assert cache._loads._flights == {}
 
 
 def test_a_failed_load_wakes_the_maps_waiting_for_it(files, tmp_path):
@@ -306,21 +311,32 @@ def test_trial_stats_count_the_stages_as_jax(files):
 
 
 @pytest.mark.parametrize("what", ["process", "disk", "tiered"])
-def test_unported_backend_and_caches_raise_naming_the_roadmap(files, what):
+def test_backend_and_caches_match_jax_stream(files, what):
+    """The process pool and the disk and tiered caches give the JAX
+    package's stream (its thread backend's: both of its backends give
+    the same one)."""
     kw = ({"executor_backend": what} if what == "process"
           else {"file_cache": what})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_stream(files, **kw)
+    want, _ = jax_stream(files)
+    got, _ = port_stream(files, max_concurrent_epochs=1, **kw)
+    assert_same(got, want, what)
+    assert tex.last_worker_pool()["backend"] == (
+        "process" if what == "process" else "thread")
 
 
-def test_auto_backend_resolves_to_threads(files, monkeypatch):
+def test_auto_backend_resolves_as_in_jax(files, monkeypatch):
     monkeypatch.delenv("RSDL_EXECUTOR_BACKEND", raising=False)
-    assert tex.resolve_backend() == "thread"
-    assert tex.resolve_backend("auto") == "thread"
-    port_stream(files)
-    assert tex.last_worker_pool()["backend"] == "thread"
-    monkeypatch.setenv("RSDL_EXECUTOR_BACKEND", "process")
-    with pytest.raises(NotImplementedError, match="process pool"):
+    jpool = importlib.import_module("ray_shuffling_data_loader_tpu.procpool")
+    for workers in (None, 1, 2):
+        assert (tex.resolve_backend("auto", num_workers=workers)
+                == jpool.resolve_backend("auto", num_workers=workers))
+    assert tex.resolve_backend(num_workers=1) == "thread"
+    want = "process" if (os.cpu_count() or 1) > 1 else "thread"
+    assert tex.resolve_backend(num_workers=2) == want
+    monkeypatch.setenv("RSDL_EXECUTOR_BACKEND", "thread")
+    assert tex.resolve_backend(num_workers=2) == "thread"
+    monkeypatch.setenv("RSDL_EXECUTOR_BACKEND", "bogus")
+    with pytest.raises(ValueError, match="executor_backend"):
         tex.resolve_backend()
 
 

@@ -29,6 +29,9 @@ from ray_shuffling_data_loader_tpu_torch.device_dataset import (
 from ray_shuffling_data_loader_tpu_torch.native import image as tnative
 from ray_shuffling_data_loader_tpu_torch.workloads import imagenet as tim
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 H = W = 32
 NUM_IMAGES, NUM_FILES, NUM_CLASSES = 96, 3, 10
 NUM_REDUCERS, BATCH, NUM_EPOCHS, SEED = 4, 16, 2, 0

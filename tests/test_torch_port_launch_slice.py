@@ -16,6 +16,8 @@ import torch
 
 from ray_shuffling_data_loader_tpu_torch import launch_slice
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
 
 def test_parse_splits_train_args_at_double_dash():
     args = launch_slice.parse_args(

@@ -40,6 +40,9 @@ from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
 from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptrainer
 from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm as tmlm
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 DLRM_RTOL, BERT_RTOL = 1e-5, 1e-4
 JOIN_TIMEOUT_S = 240
 STEPS = 3

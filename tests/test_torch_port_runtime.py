@@ -33,6 +33,9 @@ from ray_shuffling_data_loader_tpu_torch.device_dataset import (
 from ray_shuffling_data_loader_tpu_torch.runtime import faults, policy, retry
 from ray_shuffling_data_loader_tpu_torch.runtime import watchdog
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 _queue_ids = itertools.count()
 
 # The keys the port copies, with the JAX package's defaults.

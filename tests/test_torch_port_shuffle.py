@@ -30,6 +30,9 @@ from ray_shuffling_data_loader_tpu_torch.device_dataset import (
     DeviceShufflingDataset, make_cast_transform)
 from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo as twl
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 NUM_ROWS = 20_000
 NUM_FILES = 4
 NUM_TRAINERS = 2

@@ -32,6 +32,9 @@ from ray_shuffling_data_loader_tpu_torch.device_dataset import (
 from ray_shuffling_data_loader_tpu_torch.models import dlrm as tdlrm
 from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo as twl
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 1000
 MICRO = 200

@@ -42,6 +42,9 @@ from ray_shuffling_data_loader_tpu_torch.parallel import transport as ttp
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as tfaults
 from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo as twl
 
+from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
+
+
 jsh = importlib.import_module("ray_shuffling_data_loader_tpu.shuffle")
 
 NUM_EPOCHS = 2
