@@ -45,7 +45,29 @@ printing one JSON line:
    the line carries the backend, the pool's width and worker pids, the
    segment cache's hits and bytes, each epoch's map, reduce and consume
    seconds (``TrialStats``) and the buffer ledger's peak bytes.
-5. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
+5. ``telemetry``: the ``train`` phase's DLRM run (its files, the process
+   pool of 8, the bulk binding, 2 epochs, Adam) in two turns in this call:
+   (a) ``RSDL_TELEMETRY=0``, (b) the default (recording on) with
+   ``RSDL_TELEMETRY_DIR`` and ``RSDL_TRACE_DIR`` in a temporary directory.
+   Prints each turn's step ms, rows/s and ``stall_pct`` and (b)'s rows/s
+   over (a)'s; each epoch's verdict (bottleneck stage, the batch-wait
+   share, p50/p95/p99 per stage); the recorder's events and drops;
+   ``measure_record_overhead`` and ``measure_disabled_overhead`` on this
+   host; the federated exposition (its families, one shard per process:
+   the driver and the 8 workers); ``birth_to_delivered`` and
+   ``birth_to_device`` p50/p99 from the latency sketch; each epoch's
+   critical path (top three stages, what-if) over the merged dumps of
+   the driver and the workers; the device-memory sampler against
+   ``torch.cuda.memory_allocated()``; and a ``torch.profiler`` capture
+   of every thread over a fresh loader's fill and 5 micro-steps (the
+   loader's ranges by stage name, ``train#N`` per step, the gather kernel
+   on the same timeline). Fails unless both turns' digests equal the
+   ``train`` stream, one gather launch per micro-step, ``map_read`` for
+   each file and epoch and ``reduce_gather`` for each reducer and epoch
+   in the workers' dumps, ``batch_wait`` for each batch, a shard from
+   every worker and a verdict for each epoch. Every loader phase also
+   prints its epochs' verdicts (``"verdicts"``).
+6. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
    H=12, S=512, D=64 with and without a key-side bias that masks keys; a
@@ -56,7 +78,7 @@ printing one JSON line:
    bound (and the share of it reached) and, as a yardstick,
    ``scaled_dot_product_attention``'s forward and backward (and each
    kernel's time over it).
-6. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
+7. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
    Parquet files -> seeded shuffle (8 reducers) -> ``DeviceShufflingDataset``
    (1 trainer, batch 256, 2 epochs, seed 0) -> on-device MLM masking ->
    ``bert_base()`` (bf16 compute, random weights from seed 0) with the flash
@@ -65,7 +87,7 @@ printing one JSON line:
    shuffle, the flash path's loss against the inline path's (within 1e-2
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
-7. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
+8. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
    turns within this call (per-batch, bulk, bulk, per-batch), each a fresh
    DLRM ``mlperf`` trained on the ``train`` phase's data for 2 epochs (bulk
    through ``device_rebatch="auto"``, the default on the card). Every
@@ -82,7 +104,7 @@ printing one JSON line:
    recover at least one copy with the same digests; (d) the ``bert``
    phase's tokens (4 batches per reducer table) in both bindings, digests
    equal, copies per epoch.
-8. ``engine``: the shuffle engine on the ``train`` phase's files in five
+9. ``engine``: the shuffle engine on the ``train`` phase's files in five
    turns, each a fresh DLRM ``mlperf`` from the same seed taking one
    micro-step on the first 2,048 rows of every loader batch (bulk
    binding, the key column loaded, the last partial batch kept). On the
@@ -106,7 +128,7 @@ printing one JSON line:
    tasks run and canceled, bytes written to disk), pool (segment-cache
    hits, respawns), spill (files, bytes, read-back seconds), ledger,
    retry and recovery counts, rows/s and wait per batch.
-9. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+10. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
    masking bias: output, dq, dk, dv and dbias against whole-sequence
@@ -127,7 +149,7 @@ printing one JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-10. ``distributed``: a world of two processes on the one card, started by
+11. ``distributed``: a world of two processes on the one card, started by
    the port's launcher (``launch_slice --local``, ``RSDL_HOSTS`` on two
    free loopback ports), each a ``train_shuffle --distributed`` rank with
    its process group over gloo on CUDA tensors (NCCL refuses two ranks on
@@ -153,7 +175,7 @@ printing one JSON line:
    ranks' batches concatenated from the same weights, the later ones
    within 1e-3 (the all-reduce sums the gradients in another order);
    step ms and the all-reduce's share of it.
-11. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+12. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -164,7 +186,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-12. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+13. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -188,8 +210,10 @@ without that line. Needs CUDA; imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -657,6 +681,38 @@ def loader_context(phase: str) -> dict:
             "prior_shuffle": PRIOR_SHUFFLE[phase]}
 
 
+def fresh_telemetry() -> None:
+    """A fresh flight recorder and bottleneck attributor (the policy's
+    settings: recording on unless ``RSDL_TELEMETRY=0``), so the verdicts
+    read after the next loader run are that run's alone (the attributor
+    keys its epochs by number, and every phase starts at epoch 0)."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import telemetry
+    telemetry.configure()
+
+
+def _verdict_line(epoch: int, verdict) -> dict:
+    if verdict is None:
+        return {"epoch": epoch, "bottleneck_stage": None}
+    return {"epoch": epoch, "bottleneck_stage": verdict["bottleneck_stage"],
+            "stall_pct": verdict["stall_pct"],
+            "batch_wait_s": verdict["batch_wait_s"],
+            "wall_s": verdict["wall_s"],
+            "stages": {stage: {k: d[k] for k in ("count", "total_s",
+                                                 "p50_ms", "p95_ms",
+                                                 "p99_ms")}
+                       for stage, d in verdict["stages"].items()}}
+
+
+def epoch_verdicts(num_epochs: int) -> list:
+    """Each epoch's telemetry verdict since :func:`fresh_telemetry`: the
+    bottleneck stage, the batch-wait share of the epoch's wall clock and
+    each stage's count, seconds and p50/p95/p99."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import telemetry
+    attribution = telemetry.attribution()
+    return [_verdict_line(e, attribution.epoch_verdict(e))
+            for e in range(num_epochs)]
+
+
 def engine_snapshots():
     """The counters :func:`engine_lines` reads, and a fresh ledger peak."""
     from ray_shuffling_data_loader_tpu_torch import (native, procpool,
@@ -683,6 +739,7 @@ def train_phase(emb, files, gen_s: float) -> dict:
     micro_step = train.make_micro_step(model, optimizer)
 
     snapshots = engine_snapshots()
+    fresh_telemetry()
     ds = device_dataset.DeviceShufflingDataset(
         files, NUM_EPOCHS, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
         seed=SEED, collect_stats=True, **spec)
@@ -708,6 +765,7 @@ def train_phase(emb, files, gen_s: float) -> dict:
             rows += label.shape[0]
         rows_per_epoch.append(rows)
     t_end = timeit.default_timer()
+    verdicts = epoch_verdicts(NUM_EPOCHS)
     launches = emb.launch_counts["gather_rows"]
     trial = ds.shuffle_result.result()
     engine = engine_lines(*snapshots)
@@ -787,6 +845,7 @@ def train_phase(emb, files, gen_s: float) -> dict:
         "gather_launches": launches,
         "launches_per_micro_step": launches / steps,
         "binding": ds.binding,
+        "verdicts": verdicts,
         "transfer": ds.transfer_stats(),
         "datagen_s": gen_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -987,6 +1046,7 @@ def bert_phase(fa, files, gen_s: float) -> dict:
         torch.Generator(device="cuda").manual_seed(SEED + 1),
         attention_fn)
 
+    fresh_telemetry()
     ds = device_dataset.DeviceShufflingDataset(
         files, NUM_EPOCHS, 1, BERT_BATCH, 0, num_reducers=NUM_REDUCERS,
         seed=SEED, **spec)
@@ -1009,6 +1069,7 @@ def bert_phase(fa, files, gen_s: float) -> dict:
             rows += label.shape[0]
         rows_per_epoch.append(rows)
     t_end = timeit.default_timer()
+    verdicts = epoch_verdicts(NUM_EPOCHS)
     launches = dict(fa.launch_counts)
 
     if rows_per_epoch != [BERT_SEQS] * NUM_EPOCHS:
@@ -1101,6 +1162,7 @@ def bert_phase(fa, files, gen_s: float) -> dict:
                             "logits_max_abs_diff_first_1024_vocab":
                                 logits_diff},
         "binding": ds.binding,
+        "verdicts": verdicts,
         "transfer": ds.transfer_stats(),
         "datagen_s": gen_s,
         "peak_mem_gb": peak_gb,
@@ -1158,6 +1220,7 @@ def _rebatch_turn(emb, files, binding: str, epochs: int, **ds_kw):
                       .manual_seed(SEED))
     micro_step = train.make_micro_step(model, train.make_optimizer(model))
     kw = {} if binding == "bulk" else {"device_rebatch": False}
+    fresh_telemetry()
     ds = device_dataset.DeviceShufflingDataset(
         files, epochs, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
         seed=SEED, **kw, **ds_kw, **dlrm_criteo.dlrm_spec())
@@ -1183,6 +1246,7 @@ def _rebatch_turn(emb, files, binding: str, epochs: int, **ds_kw):
             torch.cuda.synchronize()
             chunk_ms.append((timeit.default_timer() - t0) * 1e3)
     t_end = timeit.default_timer()
+    verdicts = epoch_verdicts(epochs)
     launches = emb.launch_counts["gather_rows"]
     all_losses = torch.cat(losses).cpu()
     steps = int(all_losses.numel())
@@ -1196,6 +1260,7 @@ def _rebatch_turn(emb, files, binding: str, epochs: int, **ds_kw):
     del model, micro_step
     return {
         "binding": binding,
+        "verdicts": verdicts,
         "rows_per_s": steps * MICROBATCH / wall,
         "stall_pct": 100.0 * sum(waits[1:]) / wall,
         "step_ms_median": float(np.median(chunk_ms)) / (LOADER_BATCH
@@ -1346,6 +1411,242 @@ def rebatch_phase(emb, dlrm_paths, token_paths) -> dict:
     }
 
 
+# Telemetry phase: the train phase's DLRM run with recording off, then on
+# (the default), in one call; then a profiler capture of a fresh loader's
+# fill and the first micro-steps.
+TELEMETRY_PROFILE_STEPS = 5
+# The loader's profiler ranges (utils/tracing.py trace_span names).
+LOADER_RANGES = ("table_convert", "table_transfer", "batch_convert",
+                 "batch_transfer")
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block (the pool's workers take
+    the environment at their pool's start)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _latency_between(before: dict, after: dict, hop: str) -> dict:
+    """Per queue: count, p50 and p99 (ms) of the delivery-latency sketch's
+    ``hop`` over what this process observed between two parsed
+    expositions of its registry."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import latency, metrics
+    name = f"{latency.DELIVERY_METRIC}_centroid"
+    earlier = before.get(name, {})
+    diff = {labels: value - earlier.get(labels, 0.0)
+            for labels, value in after.get(name, {}).items()
+            if value > earlier.get(labels, 0.0)}
+    quantiles = metrics.sketch_quantiles({name: diff},
+                                         latency.DELIVERY_METRIC,
+                                         qs=(0.5, 0.99), hop=hop)
+    return {dict(labels).get("queue"): {"count": int(q["count"]),
+                                        "p50_ms": q["p50"] * 1e3,
+                                        "p99_ms": q["p99"] * 1e3}
+            for labels, q in quantiles.items()}
+
+
+def _critical_paths(merged: dict, epochs: int) -> list:
+    """Each epoch's critical path over the merged dumps: the top three
+    stages (ms and share) and what halving each would save."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import trace
+    out = []
+    for epoch in range(epochs):
+        analysis = trace.analyze(merged["events"], epoch=epoch)
+        top = analysis["critical_path"][:3]
+        out.append({"epoch": epoch, "wall_ms": analysis["wall_ms"],
+                    "critical_path": top,
+                    "whatif": {c["stage"]: analysis["whatif"].get(c["stage"])
+                               for c in top}})
+    return out
+
+
+def _profile_capture(emb, files, tmp: str) -> dict:
+    """``utils.tracing.profile_trace`` (``torch.profiler`` over every
+    thread, exported as Chrome-trace JSON) around a fresh loader's fill
+    and ``TELEMETRY_PROFILE_STEPS`` DLRM micro-steps, each one
+    ``tracing.step_span``: the loader's ranges by stage name and the
+    gather kernel on one timeline."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.utils import tracing
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    ds = device_dataset.DeviceShufflingDataset(
+        files[:2], 1, 1, LOADER_BATCH, 0, num_reducers=NUM_REDUCERS,
+        seed=SEED, **dlrm_criteo.dlrm_spec())
+    ds.set_epoch(0)
+    log_dir = os.path.join(tmp, "profile")
+    emb.reset_launch_counts()
+    try:
+        with tracing.profile_trace(log_dir) as prof:
+            batches = iter(ds)
+            features, label = next(batches)
+            for i in range(TELEMETRY_PROFILE_STEPS):
+                lo = i * MICROBATCH
+                with tracing.step_span(i):
+                    micro_step([f[lo:lo + MICROBATCH] for f in features],
+                               label[lo:lo + MICROBATCH])
+            torch.cuda.synchronize()
+        launches = emb.launch_counts["gather_rows"]
+        for _ in batches:
+            pass
+    finally:
+        ds.close()
+    ranges, kernel = {}, {"launches": 0, "device_ms": 0.0}
+    for evt in prof.key_averages():
+        if evt.key in LOADER_RANGES or evt.key.startswith("train#"):
+            ranges[evt.key] = {"count": evt.count,
+                               "cpu_ms": evt.cpu_time_total / 1e3}
+        elif (evt.device_type == torch.autograd.DeviceType.CUDA
+              and "gather_rows" in evt.key):
+            us = getattr(evt, "self_device_time_total", None)
+            kernel["launches"] += evt.count
+            kernel["device_ms"] += (us if us is not None
+                                    else evt.self_cuda_time_total) / 1e3
+    # One timeline: each range's and the kernel's first start and last
+    # end, in ms from the capture's first event.
+    spans = {}
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events)
+    for e in events:
+        name = ("gather_rows" if "gather_rows" in e.name
+                and e.device_type == torch.autograd.DeviceType.CUDA
+                else e.name)
+        if name in LOADER_RANGES or name.startswith("train#") \
+                or name == "gather_rows":
+            lo, hi = spans.get(name, (math.inf, -math.inf))
+            spans[name] = (min(lo, (e.time_range.start - t0) / 1e3),
+                           max(hi, (e.time_range.end - t0) / 1e3))
+    steps = [f"train#{i}" for i in range(TELEMETRY_PROFILE_STEPS)]
+    if any(ranges.get(k, {}).get("count") != 1 for k in steps):
+        raise AssertionError(f"profile: step ranges {ranges}")
+    if launches != TELEMETRY_PROFILE_STEPS or \
+            kernel["launches"] != TELEMETRY_PROFILE_STEPS:
+        raise AssertionError(f"profile: {launches} gather launches "
+                             f"({kernel['launches']} in the capture) in "
+                             f"{TELEMETRY_PROFILE_STEPS} micro-steps")
+    del model, micro_step
+    return {"steps": TELEMETRY_PROFILE_STEPS, "ranges": ranges,
+            "gather_kernel": kernel,
+            "timeline_ms": {k: list(v) for k, v in sorted(spans.items())},
+            "loader_ranges_seen": sorted(set(ranges) & set(LOADER_RANGES)),
+            "trace_files": sorted(os.listdir(log_dir))}
+
+
+def telemetry_phase(emb, files, trained: dict, tmp: str) -> dict:
+    """The ``train`` phase's DLRM run (its files, the pool of 8, the bulk
+    binding, 2 epochs) in two turns: (a) ``RSDL_TELEMETRY=0``, (b) the
+    default with ``RSDL_TELEMETRY_DIR`` and ``RSDL_TRACE_DIR`` set; then
+    what the recording saw, and a profiler capture. Fails unless (b)'s
+    digests equal the ``train`` stream, every stage kind appears
+    (``map_read`` per file and epoch, ``reduce_gather`` per reducer and
+    epoch from the workers' dumps, ``batch_wait`` per batch), every pool
+    worker wrote a metrics shard and each epoch has a verdict."""
+    from ray_shuffling_data_loader_tpu_torch import executor, stats
+    from ray_shuffling_data_loader_tpu_torch.runtime import (
+        metrics, telemetry, trace)
+
+    start = timeit.default_timer()
+    # (a) Recording off, here and (through the environment) in the pool.
+    with _env(RSDL_TELEMETRY="0"):
+        off, off_digests, _ = _rebatch_turn(emb, files, "bulk", NUM_EPOCHS)
+        off_events = telemetry.recorder().total_recorded
+    # (b) The default: recording on, shards and dumps into tmp.
+    tel_dir = os.path.join(tmp, "metrics")
+    trace_dir = os.path.join(tmp, "traces")
+    with _env(RSDL_TELEMETRY_DIR=tel_dir, RSDL_TRACE_DIR=trace_dir):
+        metrics.maybe_start_shard_writer()
+        before = metrics.parse_exposition(metrics.render())
+        on, on_digests, _ = _rebatch_turn(emb, files, "bulk", NUM_EPOCHS)
+        worker_pids = executor.last_worker_pool()["pids"]
+        after = metrics.parse_exposition(metrics.render())
+        rec = telemetry.recorder()
+        events, total = rec.events(), rec.total_recorded
+        summary = telemetry.attribution().run_summary()
+        telemetry.dump(reason="chip_smoke telemetry phase")
+        metrics.write_shard()
+        shards = metrics.read_shards(tel_dir)
+        _samples, types, fed_pids = metrics.federated_series()
+    fresh_telemetry()
+    hbm = {"sampler_bytes": stats.get_memory_stats(sample_hbm=True)
+           .hbm_bytes, "memory_allocated": torch.cuda.memory_allocated()}
+    merged = trace.merge_dumps(
+        sorted(glob.glob(os.path.join(trace_dir, "rsdl-telemetry-*.jsonl"))))
+
+    _same_digests("telemetry (a)", off_digests, trained["digests"])
+    _same_digests("telemetry (b)", on_digests, trained["digests"])
+    batches = NUM_ROWS // LOADER_BATCH
+    keys = {kind: sorted({(e.get("epoch"), e.get("task"))
+                          for e in merged["events"] if e["kind"] == kind})
+            for kind in ("map_read", "reduce_gather")}
+    want = {"map_read": [(e, f) for e in range(NUM_EPOCHS)
+                         for f in range(NUM_FILES)],
+            "reduce_gather": [(e, r) for e in range(NUM_EPOCHS)
+                              for r in range(NUM_REDUCERS)]}
+    waits = [sum(1 for e in events if e["kind"] == "batch_wait"
+                 and e.get("epoch") == epoch) for epoch in range(NUM_EPOCHS)]
+    problems = [f"{k} keys {keys[k]}" for k in want if keys[k] != want[k]]
+    if min(waits) < batches:
+        problems.append(f"batch_wait events by epoch {waits}")
+    missing = sorted(set(worker_pids) - set(shards))
+    if missing or os.getpid() not in shards:
+        problems.append(f"no metrics shard from {missing or 'the driver'}")
+    if any(v["bottleneck_stage"] is None for v in on["verdicts"]):
+        problems.append(f"an epoch has no verdict: {on['verdicts']}")
+    if off_events:
+        problems.append(f"{off_events} events recorded with recording off")
+    if hbm["sampler_bytes"] <= 0:
+        problems.append(f"the device-memory sampler read {hbm}")
+    if problems:
+        raise AssertionError("telemetry: " + "; ".join(problems))
+    profile = _profile_capture(emb, files, tmp)
+    turn_keys = ("step_ms_median", "rows_per_s", "stall_pct", "fill_s",
+                 "micro_steps", "gather_launches", "binding")
+    return {
+        "turns": {"off": {k: off[k] for k in turn_keys},
+                  "on": {k: on[k] for k in turn_keys}},
+        "rows_per_s_on_over_off": on["rows_per_s"] / off["rows_per_s"],
+        "verdicts": on["verdicts"],
+        "run_bottleneck": (summary or {}).get("bottleneck_stage"),
+        "recorder": {"events": total, "capacity": rec.capacity,
+                     "retained": min(total, rec.capacity),
+                     "dropped": max(0, total - rec.capacity),
+                     "off_turn_events": off_events},
+        "record_overhead_us": telemetry.measure_record_overhead() * 1e6,
+        "disabled_overhead_us": telemetry.measure_disabled_overhead() * 1e6,
+        "exposition": {"families": len(types), "processes": len(fed_pids),
+                       "driver_pid": os.getpid(),
+                       "worker_pids": sorted(worker_pids),
+                       "shard_pids": sorted(shards)},
+        "latency": {hop: _latency_between(before, after, hop)
+                    for hop in ("birth_to_delivered", "birth_to_device")},
+        "stage_events": {"map_read": len(keys["map_read"]),
+                         "reduce_gather": len(keys["reduce_gather"]),
+                         "batch_wait_by_epoch": waits},
+        "dumps": len(merged["processes"]),
+        "critical_path": _critical_paths(merged, NUM_EPOCHS),
+        "hbm": hbm,
+        "profile": profile,
+        "gather_launches": off["gather_launches"] + on["gather_launches"],
+        "digests_equal": True,
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
 # Engine phase: the shuffle engine's configurations on the train phase's
 # files, each turn a fresh DLRM mlperf (weights from SEED) taking one
 # micro-step on the first MICROBATCH rows of every loader batch.
@@ -1393,6 +1694,7 @@ def _engine_turn(emb, name: str, files, want_digests, first_loss: float,
         faults.install(chaos)
     digests, losses, rows = [], [], 0
     emb.reset_launch_counts()
+    fresh_telemetry()
     try:
         if launch is not None:
             queue, result = launch(spec)
@@ -1426,6 +1728,7 @@ def _engine_turn(emb, name: str, files, want_digests, first_loss: float,
                                      "repeated")
         torch.cuda.synchronize()
         wall = timeit.default_timer() - t_first
+        verdicts = epoch_verdicts(NUM_EPOCHS)
         launches = emb.launch_counts["gather_rows"]
         trial = ds.shuffle_result.result()
     finally:
@@ -1453,6 +1756,7 @@ def _engine_turn(emb, name: str, files, want_digests, first_loss: float,
         "turn": name, "fused_map": fused, "chaos": chaos,
         **{k: v for k, v in engine_kw.items() if k != "spill_dir"},
         "binding": ds.binding, "batches": len(losses),
+        "verdicts": verdicts,
         "gather_launches": launches,
         "rows_per_s": rows / wall, "wall_s": wall,
         "batch_wait_mean_ms": wait["mean"] * 1e3,
@@ -1719,6 +2023,7 @@ def spmd_bert_run(fa, pmesh, tmp: str) -> dict:
     micro_step = train.make_bert_spmd_micro_step(
         mesh, model, train.make_optimizer(model, lr=train.BERT_LR),
         torch.Generator(device="cuda").manual_seed(SEED + 1), "ring")
+    fresh_telemetry()
     ds = device_dataset.DeviceShufflingDataset(
         files, 1, data_size, BERT_BATCH, data_rank,
         num_reducers=NUM_REDUCERS, seed=SEED,
@@ -1737,6 +2042,7 @@ def spmd_bert_run(fa, pmesh, tmp: str) -> dict:
         torch.cuda.synchronize()
         chunk_ms.append((timeit.default_timer() - t0) * 1e3)
     t_end = timeit.default_timer()
+    verdicts = epoch_verdicts(1)
     launches = dict(fa.launch_counts)
     # Where a micro-step's time goes (after the main path's counts were
     # read; these steps keep training the same model).
@@ -1793,6 +2099,7 @@ def spmd_bert_run(fa, pmesh, tmp: str) -> dict:
         "launches_per_micro_step": {k: c / steps
                                     for k, c in launches.items()},
         "binding": ds.binding,
+        "verdicts": verdicts,
         "vs_bert_path": {"losses": via, "max_rel_diff": rel,
                          "rtol": 1e-2},
         "profile": breakdown,
@@ -2254,6 +2561,7 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
                           .manual_seed(SEED))
     optimizer = train.make_sgd(model)
     micro_step = train.make_resnet_micro_step(model, optimizer)
+    fresh_telemetry()
     ds = device_dataset.DeviceShufflingDataset(
         files, NUM_EPOCHS, 1, IMG_BATCH, 0, num_reducers=NUM_REDUCERS,
         seed=SEED, reduce_transform=decode, **spec)
@@ -2283,6 +2591,7 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
             rows += label.shape[0]
         rows_per_epoch.append(rows)
     t_end = timeit.default_timer()
+    verdicts = epoch_verdicts(NUM_EPOCHS)
     launches = _port_launches(fa, emb)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # The decode closure keeps this loader on threads ("auto"); the host
@@ -2356,6 +2665,7 @@ def resnet_phase(fa, emb, decoder: str, tmp: str):
         "decode": decode.summary(),
         "port_kernel_launches": launches,
         "binding": ds.binding,
+        "verdicts": verdicts,
         "transfer": ds.transfer_stats(),
         "staged_dtype": str(first_batch[0].dtype),
         "datagen_s": gen_s,
@@ -2623,6 +2933,10 @@ def main() -> int:
         emit({"phase": "train", "card": smi,
               **{k: v for k, v in trained.items() if k != "digests"}})
 
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tel-") as tmp:
+            tel = telemetry_phase(emb, dlrm_paths, trained, tmp)
+        emit({"phase": "telemetry", "card": smi, **tel})
+
         token_paths, token_gen_s = bert_files(btmp)
         bert_run = bert_phase(fa, token_paths, token_gen_s)
         emit({"phase": "bert", "card": smi, **loader_context("bert"),
@@ -2660,6 +2974,7 @@ def main() -> int:
         "launches": trained["gather_launches"],
         "launches_by_path": {
             "train": trained["gather_launches"],
+            "telemetry": tel["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],
             "engine_pool_kill": engine["launches_by_turn"]["pool_kill"],

@@ -16,6 +16,13 @@ The shuffle engine's arguments pass through as in the JAX package's
 ``file_cache``, ``max_inflight_bytes``, ``spill_dir``, ``on_bad_file``
 and ``executor_backend``; ``collect_stats=True`` makes the shuffle's
 result (``ShufflingDataset.shuffle_result``) a ``stats.TrialStats``.
+
+Telemetry, as in the JAX package's dataset: each blocking pop of a
+reducer output is a ``queue_wait`` span keyed ``(epoch, task=queue
+index)``; each table taken is observed on the ``birth_to_delivered`` hop
+of the delivery-latency sketch (``queue`` label: the rank) with the
+rank's freshness gauge; the end of an epoch's tables logs the epoch's
+bottleneck verdict (``telemetry.epoch_complete``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
 from ray_shuffling_data_loader_tpu_torch import shuffle as sh
 from ray_shuffling_data_loader_tpu_torch import spill
+from ray_shuffling_data_loader_tpu_torch.runtime import latency as rt_latency
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.utils.config import (
     default_num_reducers)
 
@@ -162,6 +172,8 @@ class ShufflingDataset:
         self._skip_batches = 0
         self._epoch: Optional[int] = None
         self._last_epoch: Optional[int] = None
+        self._lat_queue = str(rank)
+        self._lat_anchors = rt_latency.ClockAnchors()
 
     @property
     def batch_size(self) -> int:
@@ -215,7 +227,16 @@ class ShufflingDataset:
         queue_idx = mq.queue_index(self._epoch, self._rank,
                                    self._num_trainers)
         while True:
-            ref = self._batch_queue.get(queue_idx)
+            # The epoch-tagged wait: where the consumer blocks when the
+            # shuffle cannot keep up (the queue's own queue_get events
+            # carry no epoch). Begin/end, so that a get that dies still
+            # records the time spent here.
+            wait_span = rt_telemetry.span_begin(
+                "queue_wait", epoch=self._epoch, task=queue_idx)
+            try:
+                ref = self._batch_queue.get(queue_idx)
+            finally:
+                rt_telemetry.span_end(wait_span)
             if ref is None:
                 break
             if isinstance(ref, ShuffleFailure):
@@ -226,15 +247,33 @@ class ShufflingDataset:
             if to_skip and table.num_rows <= to_skip:
                 to_skip -= table.num_rows
                 continue
+            self._observe_delivered(table)
             if to_skip:
                 table = table.slice(to_skip)
                 to_skip = 0
             yield table
+            # Not pinned by this frame while the next get blocks (the
+            # budget wait wakes on its ledger release).
+            ref = table = None
         self._last_epoch = self._epoch
+        rt_telemetry.epoch_complete(self._epoch, source="dataset")
         if (self._epoch == self._num_epochs - 1
                 and self._shuffle_result is not None):
             self._shuffle_result.result()
             self.shutdown()
+
+    def _observe_delivered(self, table: pa.Table) -> None:
+        """The ``birth_to_delivered`` hop of a reducer output, from its
+        ``rsdl.birth`` stamp, and the rank's freshness gauge."""
+        meta = table.schema.metadata
+        birth = rt_latency.parse_stamp(
+            meta.get(rt_latency.BIRTH_META_KEY) if meta else None)
+        if birth is None:
+            return
+        age = self._lat_anchors.latency_s(birth)
+        rt_latency.observe_hop(rt_latency.HOP_BIRTH_TO_DELIVERED,
+                               self._lat_queue, age)
+        rt_latency.set_freshness(self._lat_queue, age)
 
     def __iter__(self) -> Iterator[pa.Table]:
         return slice_batches(self.iter_tables(), self._batch_size,

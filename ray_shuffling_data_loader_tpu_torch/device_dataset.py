@@ -50,6 +50,25 @@ retried on transient errors (``runtime/retry.py``) and is the
 ``device_transfer`` fault site (``runtime/faults.py``).
 ``batch_wait_stats`` records how long the consumer was blocked on each
 batch.
+
+Telemetry, at the JAX binding's record sites (``runtime/telemetry.py``):
+every conversion is a ``convert`` span and every copy a
+``device_transfer`` span keyed by epoch (``batch_*`` per batch,
+``table_*`` per reducer table or bulk chunk), plus one ``device_transfer``
+attempt marker per copy attempt keyed by the fault site's sequence; the
+consumer records ``batch_wait`` for each item it takes (0 for a bulk
+chunk's later batches) and ``train_step`` for the gap between handing out
+a batch and asking for the next, and ends each epoch with its verdict
+(``telemetry.epoch_complete``). (The JAX binding takes that gap's start
+when the consumer resumes it, after the step, so its ``train_step``
+samples hold only its own bookkeeping; the port takes it when the batch
+is handed out, as the JAX comment defines the stage. The event counts are
+the same.) The ``train_step`` gap is the host's:
+the step enqueues its kernels and returns, so device time lands in
+whichever call synchronises next (on the card, mostly the step's own
+loss read-back). A :class:`runtime.latency.LatencyProbe` on the converter
+observes the ``delivered_to_device`` and ``birth_to_device`` hops when a
+copy has been issued.
 """
 
 from __future__ import annotations
@@ -70,8 +89,11 @@ from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
 from ray_shuffling_data_loader_tpu_torch.dataset import (ShufflingDataset,
                                                          slice_batches)
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import latency as rt_latency
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.runtime import (
     watchdog as rt_watchdog)
 from ray_shuffling_data_loader_tpu_torch.shuffle import column_to_rows
@@ -83,6 +105,7 @@ from ray_shuffling_data_loader_tpu_torch.transforms import (  # noqa: F401
 from ray_shuffling_data_loader_tpu_torch.utils.config import resolve_device
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
+from ray_shuffling_data_loader_tpu_torch.utils.tracing import trace_span
 
 logger = setup_custom_logger(__name__)
 
@@ -296,8 +319,19 @@ class _BatchConverter:
         self.device_bytes = 0  # staged, queued or being consumed
         self.peak_device_bytes = 0
         self.peak_chunk_bytes = 0
+        # Delivery latency at the device boundary, installed by the owning
+        # DeviceShufflingDataset (None: no probe).
+        self.latency_probe: Optional[rt_latency.LatencyProbe] = None
+
+    def _note_device_done(self) -> None:
+        """A copy has been issued (asynchronous on CUDA: the boundary the
+        ``device_transfer`` spans measure too)."""
+        if self.latency_probe is not None:
+            self.latency_probe.device_done()
 
     def convert(self, table: pa.Table):
+        if self.latency_probe is not None:
+            self.latency_probe.table_arrived(table)
         return convert_to_arrays(
             table, self._feature_columns, self._feature_shapes,
             self._feature_types, self._label_column, self._label_shape,
@@ -312,6 +346,12 @@ class _BatchConverter:
 
         def _put():
             self._transfer_seq += 1
+            # An attempt marker (no duration: not a stage sample) with the
+            # fault site's key, so an injected copy fault joins the
+            # telemetry on (kind, epoch, task); the stage's samples are
+            # the epoch-tagged transfer spans.
+            rt_telemetry.record("device_transfer", task=self._transfer_seq,
+                                attempt=True)
             rt_faults.inject("device_transfer", task=self._transfer_seq)
             return thunk()
 
@@ -373,6 +413,7 @@ class _BatchConverter:
             staged = _Staged(out[:-1], out[-1], event, 0)
         if event is not None and not self.double_buffer:
             event.synchronize()
+        self._note_device_done()
         return self._account(staged)
 
     def transfer_table(self, arrays_label, n_batches: int,
@@ -383,6 +424,7 @@ class _BatchConverter:
         features, label = arrays_label
         out, event = self._device_put_retried(
             lambda: self._copy(list(features) + [label]))
+        self._note_device_done()
         return self._account(_Staged(out[:-1], out[-1], event, n_batches))
 
     def slice_batch(self, staged: _Staged, batch_index: int,
@@ -422,10 +464,25 @@ def _produce_epoch_batches(dataset: ShufflingDataset,
     """Per-batch producer for one epoch; False when the consumer is
     gone."""
     for table in dataset:
-        if not put(("batch", epoch,
-                    converter.transfer(converter.convert(table)))):
+        if not put(("batch", epoch, _convert_transfer(converter, table,
+                                                      epoch))):
             return False
     return True
+
+
+def _convert_transfer(converter: _BatchConverter, table: pa.Table,
+                      epoch: Optional[int]) -> _Staged:
+    """One exact-size batch: its ``convert`` span, then its copy's
+    ``device_transfer`` span."""
+    with trace_span("batch_convert", kind="convert", epoch=epoch):
+        arrays = converter.convert(table)
+    return _transfer(converter, arrays, epoch)
+
+
+def _transfer(converter: _BatchConverter, arrays_label,
+              epoch: Optional[int]) -> _Staged:
+    with trace_span("batch_transfer", kind="device_transfer", epoch=epoch):
+        return converter.transfer(arrays_label)
 
 
 def _persistent_producer(dataset: ShufflingDataset,
@@ -529,12 +586,13 @@ def _produce_epoch_tables(dataset: ShufflingDataset,
         pieces_f = [np.concatenate([p[0][i] for p in carry], axis=0)
                     for i in range(len(carry[0][0]))]
         pieces_l = np.concatenate([p[1] for p in carry], axis=0)
-        return converter.transfer((pieces_f, pieces_l))
+        return _transfer(converter, (pieces_f, pieces_l), epoch)
 
     tables = dataset.iter_tables()
     emitted = False  # anything put() or carried yet this epoch
     for table in tables:
-        features, label = converter.convert(table)
+        with trace_span("table_convert", kind="convert", epoch=epoch):
+            features, label = converter.convert(table)
         n = table.num_rows
         if any(f.shape[0] != n for f in features) or label.shape[0] != n:
             # The spec's reshape repacks the sample dimension (a flat
@@ -552,8 +610,8 @@ def _produce_epoch_tables(dataset: ShufflingDataset,
                 for batch_table in slice_batches(
                         itertools.chain([table], tables), bs,
                         dataset.drop_last):
-                    if not put(("batch", epoch, converter.transfer(
-                            converter.convert(batch_table)))):
+                    if not put(("batch", epoch, _convert_transfer(
+                            converter, batch_table, epoch))):
                         return False
                 return True
             raise ValueError(
@@ -591,17 +649,20 @@ def _produce_epoch_tables(dataset: ShufflingDataset,
                 nb = min(k, full_batches - done)
                 lo = offset + done * bs
                 hi = lo + nb * bs
-                staged = _supervised_transfer_table(
-                    converter, ([f[lo:hi] for f in features], label[lo:hi]),
-                    nb, bs, queue_depth)
+                with trace_span("table_transfer", kind="device_transfer",
+                                epoch=epoch):
+                    staged = _supervised_transfer_table(
+                        converter,
+                        ([f[lo:hi] for f in features], label[lo:hi]),
+                        nb, bs, queue_depth)
                 if not put(("table", epoch, staged)):
                     return False
                 done += nb
             for b in range(done, full_batches):
                 lo = offset + b * bs
-                if not put(("batch", epoch, converter.transfer(
-                        ([f[lo:lo + bs] for f in features],
-                         label[lo:lo + bs])))):
+                if not put(("batch", epoch, _transfer(
+                        converter, ([f[lo:lo + bs] for f in features],
+                                    label[lo:lo + bs]), epoch))):
                     return False
             offset += full_batches * bs
         if offset < n:
@@ -761,6 +822,11 @@ class DeviceShufflingDataset:
         #: ``transfer_stats()["fallback_engaged"]`` says if a stall or
         #: the spec later dropped the bulk one.
         self.binding = "bulk" if device_rebatch else "per_batch"
+        # The delivery-latency loop closed at the device boundary: the
+        # delivered->device and birth->device hops per source table and
+        # this rank's freshness gauge.
+        self._converter.latency_probe = rt_latency.LatencyProbe(
+            queue=str(rank))
         self.batch_wait_stats = BatchWaitStats()
         # Persistent-prefetch state (one producer thread for ALL epochs).
         self._persistent = persistent_prefetch
@@ -928,14 +994,23 @@ class DeviceShufflingDataset:
             weakref.finalize(self, _release_producer, self._stop, self._out)
             self._thread.start()
         held: Optional[_Staged] = None
+        handed_t = None  # when the last batch was handed out (yielded)
         try:
             while True:
                 converter.release(held)
                 held = None
                 wait_start = timeit.default_timer()
+                if handed_t is not None:
+                    # The gap between handing out a batch and this get is
+                    # the consumer's own work: the train_step stage.
+                    rt_telemetry.record("train_step", epoch=epoch,
+                                        dur_s=wait_start - handed_t,
+                                        t=wait_start)
+                    handed_t = None
                 item = self._out.get()
-                self.batch_wait_stats.record(
-                    timeit.default_timer() - wait_start)
+                wait_s = timeit.default_timer() - wait_start
+                self.batch_wait_stats.record(wait_s)
+                rt_telemetry.record("batch_wait", epoch=epoch, dur_s=wait_s)
                 if isinstance(item, BaseException):
                     raise item
                 kind, item_epoch, staged = item
@@ -945,6 +1020,7 @@ class DeviceShufflingDataset:
                     converter.release(staged)
                     continue
                 if kind == "end":
+                    rt_telemetry.epoch_complete(epoch, source="device")
                     break
                 held = staged
                 if kind == "table":
@@ -958,7 +1034,15 @@ class DeviceShufflingDataset:
                     wd = converter.watchdog
                     for b in range(start, staged.n_batches):
                         if b > start:
+                            now = timeit.default_timer()
                             self.batch_wait_stats.record(0.0)
+                            rt_telemetry.record("batch_wait", epoch=epoch,
+                                                dur_s=0.0, t=now)
+                            if handed_t is not None:
+                                rt_telemetry.record(
+                                    "train_step", epoch=epoch,
+                                    dur_s=now - handed_t, t=now)
+                                handed_t = None
                             batch = converter.slice_batch(staged, b, bs)
                         elif wd is not None:
                             with wd.watch(
@@ -971,12 +1055,14 @@ class DeviceShufflingDataset:
                         else:
                             self._arrive(staged)
                             batch = converter.slice_batch(staged, b, bs)
+                        handed_t = timeit.default_timer()
                         yield batch
                     continue
                 if self._consumer_skip:
                     self._consumer_skip -= 1
                     continue
                 self._arrive(staged)
+                handed_t = timeit.default_timer()
                 yield staged.features, staged.label
         finally:
             # Runs on completion AND when the epoch is left mid-way: the
@@ -1038,10 +1124,12 @@ class DeviceShufflingDataset:
                     continue
             return False
 
+        epoch = self._dataset._epoch
+
         def producer() -> None:
-            converter.epoch = self._dataset._epoch
+            converter.epoch = epoch
             try:
-                if _produce_epoch_batches(self._dataset, converter, None,
+                if _produce_epoch_batches(self._dataset, converter, epoch,
                                           lambda item: put(item[2])):
                     put(done)
             except BaseException as e:  # noqa: BLE001 - forwarded
@@ -1051,20 +1139,30 @@ class DeviceShufflingDataset:
                                   name="rsdl-torch-prefetch")
         thread.start()
         held: Optional[_Staged] = None
+        handed_t = None
         try:
             while True:
                 converter.release(held)
                 held = None
                 wait_start = timeit.default_timer()
+                if handed_t is not None:
+                    rt_telemetry.record("train_step", epoch=epoch,
+                                        dur_s=wait_start - handed_t,
+                                        t=wait_start)
+                    handed_t = None
                 item = out.get()
-                self.batch_wait_stats.record(
-                    timeit.default_timer() - wait_start)
+                wait_s = timeit.default_timer() - wait_start
+                self.batch_wait_stats.record(wait_s)
+                rt_telemetry.record("batch_wait", epoch=epoch, dur_s=wait_s)
                 if item is done:
+                    if epoch is not None:
+                        rt_telemetry.epoch_complete(epoch, source="device")
                     break
                 if isinstance(item, BaseException):
                     raise item
                 held = item
                 self._arrive(item)
+                handed_t = timeit.default_timer()
                 yield item.features, item.label
         finally:
             # Done or left mid-epoch: release the producer (it would block

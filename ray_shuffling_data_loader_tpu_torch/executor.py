@@ -152,6 +152,21 @@ class Executor:
             raise ValueError(f"task_retries must be >= 0, got {task_retries}")
         self._num_workers = num_workers
         self._task_retries = task_retries
+        # The pool's width and submissions by pool name (the thread-name
+        # prefix that SIGUSR1 stack dumps show, so the two join), and this
+        # process as the thread backend's live "worker".
+        from ray_shuffling_data_loader_tpu_torch.runtime import (
+            metrics as rt_metrics)
+        rt_metrics.gauge("rsdl_executor_workers",
+                         "thread-pool width by pool name",
+                         pool=thread_name_prefix).set(num_workers)
+        self._tasks_submitted = rt_metrics.counter(
+            "rsdl_executor_tasks_total", "tasks submitted by pool name",
+            pool=thread_name_prefix)
+        rt_metrics.gauge("rsdl_executor_worker_up",
+                         "1 while the pid is a live pool worker",
+                         pool=thread_name_prefix,
+                         pid=str(os.getpid())).set(1)
         if retry_policy is None and task_retries:
             from ray_shuffling_data_loader_tpu_torch.runtime import retry
             retry_policy = retry.RetryPolicy.for_component(
@@ -170,6 +185,7 @@ class Executor:
     def submit(self, fn: Callable, *args, **kwargs) -> TaskRef:
         if self._shutdown:
             raise RuntimeError("executor is shut down")
+        self._tasks_submitted.inc()
         if self._retry_policy is not None:
             return TaskRef(self._pool.submit(self._run_with_retries, fn,
                                              args, kwargs))
@@ -181,6 +197,7 @@ class Executor:
         fail with a misleading timeout."""
         if self._shutdown:
             raise RuntimeError("executor is shut down")
+        self._tasks_submitted.inc()
         return TaskRef(self._pool.submit(fn, *args, **kwargs))
 
     def _run_with_retries(self, fn: Callable, args, kwargs) -> Any:

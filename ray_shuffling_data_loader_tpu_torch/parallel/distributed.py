@@ -153,7 +153,7 @@ def _reduce_task(reducer: int, seed: int, epoch: int, plan: ShardPlan,
                                  reduce_transform, stats_collector,
                                  gather_threads)
     return sh.account_and_maybe_spill(shuffled, spill_manager, epoch=epoch,
-                                      task=reducer)
+                                      task=reducer, seed=seed)
 
 
 def shuffle_epoch_distributed(

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+from ray_shuffling_data_loader_tpu_torch.utils import tracing
 
 LossFn = Callable[..., torch.Tensor]
 
@@ -106,11 +107,16 @@ class SpmdTrainer:
             [] if time_collectives else None)
         self._step = make_train_step(model, loss_fn, optimizer,
                                      self.collective_ms)
+        self._step_count = 0
 
     def train_step(self, *batch) -> torch.Tensor:
         """One optimizer step on this rank's block of the batch; returns
-        the global loss (on the device, no sync)."""
-        return self._step(*batch)
+        the global loss (on the device, no sync). The step is one
+        ``train#N`` range on the profiler's timeline."""
+        with tracing.step_span(self._step_count):
+            loss = self._step(*batch)
+        self._step_count += 1
+        return loss
 
     def block_until_ready(self) -> None:
         if self.mesh.device_type == "cuda":

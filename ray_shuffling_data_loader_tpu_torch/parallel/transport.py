@@ -55,6 +55,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -360,7 +362,8 @@ class TcpTransport:
             timeout_s = self._recv_timeout_s
         rt_faults.inject("transport_recv", epoch=tag[0], task=tag[1])
         key = (src, tag)
-        deadline = time.monotonic() + timeout_s
+        start = time.monotonic()
+        deadline = start + timeout_s
         with self._inbox_cv:
             while key not in self._inbox:
                 if self._closed.is_set():
@@ -381,7 +384,10 @@ class TcpTransport:
                         f"{src} within {timeout_s:g}s")
                 self._inbox_cv.wait(timeout=min(remaining, 1.0))
             self._consumed.add(key)
-            return self._inbox.pop(key)
+            payload = self._inbox.pop(key)
+        rt_telemetry.record("transport_recv", epoch=tag[0], task=tag[1],
+                            dur_s=time.monotonic() - start, src=src)
+        return payload
 
     # -- send path -----------------------------------------------------------
 
@@ -447,6 +453,10 @@ class TcpTransport:
                     frames_sent_native=int(pumped),
                     bytes_sent_native=int(pumped) * nbytes,
                     send_s_native=took if pumped else 0.0)
+        # The frame's (epoch, reducer, file) tag is the cross-host trace
+        # context: the receiver records transport_recv with the same key.
+        rt_telemetry.record("transport_send", epoch=epoch, task=reducer,
+                            dur_s=took, dest=dest, nbytes=nbytes)
 
 
 def create_local_transports(world: int, recv_timeout_s: float = 600.0,

@@ -51,7 +51,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch.plan import ir
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -288,8 +291,17 @@ class PlanScheduler:
         victim = max(self._lane_queues, key=len)
         if not victim:
             return None
+        state = victim.popleft()
         _bump("steals")
-        return victim.popleft()
+        rt_metrics.counter(
+            "rsdl_plan_steals_total",
+            "ready plan nodes pulled by an idle lane instead of waiting "
+            "on static placement", stage=state.node.stage).inc()
+        rt_telemetry.record("plan_steal", epoch=state.node.key.epoch,
+                            task=state.node.key.task,
+                            stage=state.node.stage, lane=lane,
+                            home=state.lane)
+        return state
 
     def _dispatch(self, state: _NodeState, attempt: int, lane: int) -> None:
         node = state.node
@@ -326,9 +338,15 @@ class PlanScheduler:
         if entry is None:
             return
         ref, started = entry
+        node = state.node
         if state.future.done():
             _bump("speculative_wasted")  # a sibling attempt already won
+            rt_metrics.counter(
+                "rsdl_plan_speculative_wasted_total",
+                "completed attempts whose result was discarded "
+                "(first-completion-wins)", stage=node.stage).inc()
             return
+        dur = time.monotonic() - started
         try:
             result = ref.result()
         except BaseException as e:  # noqa: BLE001 - consumer semantics
@@ -336,10 +354,17 @@ class PlanScheduler:
         else:
             state.future.set_result(result)
         self._durations.setdefault(
-            state.node.stage, collections.deque(maxlen=_MEDIAN_WINDOW)
-        ).append(time.monotonic() - started)
+            node.stage, collections.deque(maxlen=_MEDIAN_WINDOW)
+        ).append(dur)
         if attempt > 0:
             _bump("speculative_won")
+            rt_metrics.counter(
+                "rsdl_plan_speculative_won_total",
+                "speculative backup attempts that finished first",
+                stage=node.stage).inc()
+            rt_telemetry.record("plan_speculate_win",
+                                epoch=node.key.epoch, task=node.key.task,
+                                stage=node.stage, dur_s=dur)
         for other_ref, _ in list(state.attempts.values()):
             other_ref.cancel()
         self._on_resolved(state)
@@ -403,4 +428,11 @@ class PlanScheduler:
                 "launching speculative backup", self._name, node.id,
                 elapsed, threshold)
             _bump("speculative_launched")
+            rt_metrics.counter(
+                "rsdl_plan_speculative_launched_total",
+                "speculative backup attempts launched for straggling "
+                "plan nodes", stage=node.stage).inc()
+            rt_telemetry.record("plan_speculate", epoch=node.key.epoch,
+                                task=node.key.task, stage=node.stage,
+                                elapsed_s=elapsed, threshold_s=threshold)
             self._dispatch(state, attempt=1, lane=-1)

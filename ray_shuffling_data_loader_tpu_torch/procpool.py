@@ -41,9 +41,19 @@ the driver, and a transform defined in any module the driver can import
 unpickles there (not one defined in ``__main__``: see
 :func:`shippable`).
 
-The JAX pool's ``rsdl_executor_*`` metrics and telemetry spans wait for
-the port's metrics (ROADMAP queue A item 4); the pool reports its width
-and pids through ``executor.note_worker_pool`` and its recomputes through
+Telemetry, as in the JAX pool: the driver keeps the
+``rsdl_executor_workers``/``_tasks_total``/``_worker_up`` and
+``rsdl_pool_worker_restarts_total`` metrics, records a
+``pool_worker_crash`` event per dead worker and feeds the workers'
+``map_read``/``reduce_gather`` durations to its bottleneck attribution
+(``telemetry.observe_stage``: no ring event, so merged dumps count each
+span once). Each worker records those events in its own flight recorder,
+counts its tasks (``rsdl_worker_tasks_total``), writes its metrics shard
+under ``RSDL_TELEMETRY_DIR`` (named by its own pid), dumps its recorder on
+``SIGUSR1`` and, with ``RSDL_TRACE_DIR`` set, when it ends; a reducer
+output is stamped (``rsdl.trace``, ``rsdl.birth``) in the worker before
+its segment is written. The pool reports its width and pids through
+``executor.note_worker_pool`` and its recomputes through
 ``stats.fault_stats()``.
 """
 
@@ -72,8 +82,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ray_shuffling_data_loader_tpu_torch import executor as ex
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.utils.singleflight import SingleFlight
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -103,10 +116,14 @@ WORKER_MODULE = "ray_shuffling_data_loader_tpu_torch.procpool_worker"
 _PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _totals_lock = threading.Lock()
-_totals = {"pools": 0, "tasks": 0, "segment_cache_hits": 0,
-           "segment_cache_bytes": 0, "respawns": 0, "templates": 0,
+_totals = {"pools": 0, "segment_cache_hits": 0,
+           "segment_cache_bytes": 0, "templates": 0,
            "template_import_s": 0.0, "ready_s": 0.0, "worker_starts": 0,
            "worker_import_s": 0.0}
+#: Names of the process pools made in this process: their children of
+#: ``rsdl_executor_tasks_total`` are the pool's tasks (the thread
+#: executor counts under its own names).
+_pool_names: set = set()
 
 
 def pool_totals() -> Dict[str, float]:
@@ -119,9 +136,22 @@ def pool_totals() -> Dict[str, float]:
     its constructor's start until every worker said ready;
     ``worker_starts`` and ``worker_import_s``: workers started
     (respawns included) and the seconds each took, once forked, to load
-    the port's modules."""
+    the port's modules. ``tasks`` and ``respawns`` are the registry's
+    ``rsdl_executor_tasks_total`` (over the process pools) and
+    ``rsdl_pool_worker_restarts_total``."""
     with _totals_lock:
-        return dict(_totals)
+        out = dict(_totals)
+        names = set(_pool_names)
+    tasks = rt_metrics.get("rsdl_executor_tasks_total")
+    restarts = rt_metrics.get("rsdl_pool_worker_restarts_total")
+    out["tasks"] = int(sum(
+        m.value for labels, m in
+        (tasks.children().items() if tasks is not None else ())
+        if dict(labels).get("pool") in names))
+    out["respawns"] = int(sum(
+        m.value for m in
+        (restarts.children().values() if restarts is not None else ())))
+    return out
 
 
 def _count(**deltas) -> None:
@@ -449,6 +479,7 @@ def _worker_task_map(payload: dict) -> dict:
     filename = payload["filename"]
     epoch, file_index = payload["epoch"], payload["file_index"]
     seed = payload["seed"]
+    rt_telemetry.set_trace_seed(seed)
     start = timeit.default_timer()
     table = None
     table_seg = payload.get("table_seg")
@@ -524,6 +555,8 @@ def _worker_task_map(payload: dict) -> dict:
             _seg_table_cache[write_seg] = table
         table_seg = write_seg
     end_read = timeit.default_timer()
+    rt_telemetry.record("map_read", epoch=epoch, task=file_index,
+                        dur_s=end_read - start)
     if grouped:
         # The stream placed every row; the index carries the offsets only.
         idx_bytes = write_index_segment(payload["idx_seg"], grouped_offsets,
@@ -556,33 +589,40 @@ def _worker_task_reduce(payload: dict) -> dict:
 
     reduce_index = payload["reduce_index"]
     epoch, seed = payload["epoch"], payload["seed"]
+    rt_telemetry.set_trace_seed(seed)
     start = timeit.default_timer()
     reduce_transform = _load_blob(payload.get("reduce_transform"))
 
     def gather_and_shuffle():
-        faults.inject("reduce_gather", epoch=epoch, task=reduce_index)
-        chunks = []
-        for source in payload["sources"]:
-            table_seg, idx_seg, cacheable = source[:3]
-            grouped = len(source) > 3 and bool(source[3])
-            # Epoch-scoped segments are unlinked when the epoch drains:
-            # keeping them mapped here would pin their pages past it.
-            table = (_cached_segment_table(table_seg) if cacheable
-                     else open_table_segment(table_seg))
-            offsets, flat = read_index_segment(idx_seg)
-            if grouped:
-                lo = int(offsets[reduce_index])
-                hi = int(offsets[reduce_index + 1])
-                chunks.append(table.slice(lo, hi - lo))
-            else:
-                chunks.append(sh.MapShard(table, flat, offsets)[reduce_index])
-        return sh.shuffle_reduce(reduce_index, seed, epoch, chunks,
-                                 reduce_transform=reduce_transform,
-                                 gather_threads=payload.get("gather_threads"))
+        with rt_telemetry.span("reduce_gather", epoch=epoch,
+                               task=reduce_index):
+            faults.inject("reduce_gather", epoch=epoch, task=reduce_index)
+            chunks = []
+            for source in payload["sources"]:
+                table_seg, idx_seg, cacheable = source[:3]
+                grouped = len(source) > 3 and bool(source[3])
+                # Epoch-scoped segments are unlinked when the epoch
+                # drains: keeping them mapped here would pin their pages.
+                table = (_cached_segment_table(table_seg) if cacheable
+                         else open_table_segment(table_seg))
+                offsets, flat = read_index_segment(idx_seg)
+                if grouped:
+                    lo = int(offsets[reduce_index])
+                    hi = int(offsets[reduce_index + 1])
+                    chunks.append(table.slice(lo, hi - lo))
+                else:
+                    chunks.append(
+                        sh.MapShard(table, flat, offsets)[reduce_index])
+            return sh.shuffle_reduce(
+                reduce_index, seed, epoch, chunks,
+                reduce_transform=reduce_transform,
+                gather_threads=payload.get("gather_threads"))
 
     retry = rt_retry.RetryPolicy.for_component("reduce")
     shuffled = retry.call(gather_and_shuffle,
                           describe=f"reduce e{epoch} r{reduce_index}")
+    # Born here: the stamp rides the segment's schema to the driver.
+    shuffled = sh.stamp_lineage(shuffled, seed, epoch, reduce_index)
     out_seg = payload["out_seg"]
     nbytes = write_table_segment(shuffled, out_seg)
     return {
@@ -619,6 +659,33 @@ def worker_main(conn: Connection, worker_index: int) -> None:
 
     signal.signal(signal.SIGTERM, on_sigterm)
     threading.current_thread().name = f"rsdl-proc-worker-{worker_index}"
+    # Federation and dumps, started in the forked worker itself (a thread
+    # or a handler of the template would not survive the fork): the
+    # per-pid shard under RSDL_TELEMETRY_DIR, a recorder dump on SIGUSR1.
+    rt_telemetry.install_signal_dump()
+    rt_metrics.maybe_start_shard_writer()
+    tasks_done = rt_metrics.counter(
+        "rsdl_worker_tasks_total",
+        "tasks completed inside pool worker processes",
+        worker=str(worker_index))
+    try:
+        _serve_tasks(conn, tasks_done)
+    finally:
+        # A worker ends in os._exit, which runs no exit handler: flush
+        # its shard and, with a trace dir, its recorder here.
+        _flush_worker_telemetry()
+
+
+def _flush_worker_telemetry() -> None:
+    try:
+        rt_metrics.write_shard()
+        if rt_policy.resolve("telemetry", "trace_dir"):
+            rt_telemetry.dump(reason="worker exit")
+    except OSError:
+        logger.exception("worker telemetry flush failed")
+
+
+def _serve_tasks(conn: Connection, tasks_done) -> None:
     # A service loop, not a retry: it ends with the connection.
     # rsdl-lint: disable=unbounded-retry
     while True:
@@ -631,6 +698,7 @@ def worker_main(conn: Connection, worker_index: int) -> None:
         task_id, kind, payload = msg
         try:
             reply = (task_id, True, _TASK_HANDLERS[kind](payload))
+            tasks_done.inc()
         except (KeyboardInterrupt, SystemExit):
             raise
         except BaseException as e:  # noqa: BLE001 - shipped to the driver
@@ -956,6 +1024,17 @@ class ProcessPoolExecutor:
         self._ledger_ids: List[int] = []
         self.cache_hits = 0
         _count(pools=1)
+        with _totals_lock:
+            _pool_names.add(name)
+        rt_metrics.gauge("rsdl_executor_workers",
+                         "pool width by pool name",
+                         pool=name).set(self._num_workers)
+        self._tasks_submitted = rt_metrics.counter(
+            "rsdl_executor_tasks_total", "tasks submitted by pool name",
+            pool=name)
+        self._worker_restarts = rt_metrics.counter(
+            "rsdl_pool_worker_restarts_total",
+            "pool worker processes respawned after death", pool=name)
         # Built here once, before the workers load it.
         native.library()
         self._workers: List[_Worker] = [
@@ -967,6 +1046,7 @@ class ProcessPoolExecutor:
         for t in self._dispatchers:
             t.start()
         ex.note_worker_pool("process", self._num_workers, self.worker_pids())
+        self._publish_worker_pids()
 
     # -- Executor contract ---------------------------------------------
 
@@ -977,6 +1057,13 @@ class ProcessPoolExecutor:
     def worker_pids(self) -> List[int]:
         return [w.proc.pid for w in self._workers
                 if w.proc is not None and w.proc.pid is not None]
+
+    def _publish_worker_pids(self) -> None:
+        """Per-pid pool membership: 1 for each live worker's pid."""
+        for pid in self.worker_pids():
+            rt_metrics.gauge("rsdl_executor_worker_up",
+                             "1 while the pid is a live pool worker",
+                             pool=self._name, pid=str(pid)).set(1)
 
     def submit(self, fn: Callable, *args, **kwargs) -> ProcTaskRef:
         blob = pickle.dumps((fn, args, kwargs))
@@ -1005,7 +1092,7 @@ class ProcessPoolExecutor:
             else:
                 self._global_q.append(task)
             self._lock.notify_all()
-        _count(tasks=1)
+        self._tasks_submitted.inc()
         return ProcTaskRef(task.future, transform)
 
     def shutdown(self, wait_for_tasks: bool = True,
@@ -1216,6 +1303,7 @@ class ProcessPoolExecutor:
         if worker.proc is not None:
             worker.proc.join(timeout=5.0)
         exitcode = worker.proc.exitcode if worker.proc else None
+        rt_telemetry.record("pool_worker_crash", rc=exitcode, worker=index)
         if task is not None:
             task.attempts += 1
             if task.retryable and task.attempts <= self._task_resubmits:
@@ -1249,13 +1337,19 @@ class ProcessPoolExecutor:
             worker.conn.close()
         except OSError:
             pass
+        dead_pid = worker.proc.pid if worker.proc is not None else None
         replacement = self._spawn_worker(index)
         replacement.restarts = worker.restarts
         self._workers[index] = replacement
         with self._lock:
             self.respawns += 1
-        _count(respawns=1)
+        self._worker_restarts.inc()
         ex.note_worker_pool("process", self._num_workers, self.worker_pids())
+        if dead_pid is not None:
+            rt_metrics.gauge("rsdl_executor_worker_up",
+                             "1 while the pid is a live pool worker",
+                             pool=self._name, pid=str(dead_pid)).set(0)
+        self._publish_worker_pids()
         return True
 
     def _dispatch_loop(self, index: int) -> None:
@@ -1466,6 +1560,10 @@ def process_epoch(plan,
                             bool(res.get("grouped"))))
             if stats_collector is not None:
                 stats_collector.map_done(epoch, res["dur_s"], res["read_s"])
+            # The worker recorded the event in its own ring; the driver's
+            # attribution gets the duration only.
+            rt_telemetry.observe_stage("map_read", epoch=epoch,
+                                       task=file_index, dur_s=res["read_s"])
         if transient["bytes"]:
             transient["buf_id"] = native.buffer_ledger().register(
                 transient["bytes"])
@@ -1515,13 +1613,16 @@ def process_epoch(plan,
             weakref.finalize(table, _unlink_quiet, res["out_seg"])
             if stats_collector is not None:
                 stats_collector.reduce_done(epoch, res["dur_s"])
+            rt_telemetry.observe_stage("reduce_gather", epoch=epoch,
+                                       task=reduce_index,
+                                       dur_s=res["dur_s"])
             with cleanup_lock:
                 pending["reduces"] -= 1
                 if pending["reduces"] == 0:
                     epoch_cleanup()
             return sh.account_and_maybe_spill(
                 table, spill_manager, recompute=recompute, epoch=epoch,
-                task=reduce_index)
+                task=reduce_index, seed=seed)
 
         return finalize
 

@@ -215,6 +215,10 @@ class FaultInjector:
             if rule.delay_ms is not None:
                 # A latency fault: slow the call instead of failing it;
                 # later rules may still fail this same call.
+                from ray_shuffling_data_loader_tpu_torch.runtime import (
+                    telemetry)
+                telemetry.record(site, epoch=epoch, task=task,
+                                 fault="delay", delay_ms=rule.delay_ms)
                 time.sleep(rule.delay_ms / 1e3)
                 continue
             return InjectedFault(site, epoch, task, rule.text)
@@ -290,7 +294,12 @@ def inject(site: str, epoch: Optional[int] = None,
     fault = injector.check(site, epoch, task)
     if fault is not None:
         from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
-        stats_mod.fault_stats().record_injected(site)
+        from ray_shuffling_data_loader_tpu_torch.runtime import telemetry
+        stats_mod.fault_stats().record_injected(site, epoch, task)
+        # kind = the fault-site name: the chaos event and the stage's own
+        # events join on (kind, epoch, task).
+        telemetry.record(site, epoch=epoch, task=task, fault="injected",
+                         rule=fault.rule)
         logger.warning("%s", fault)
         raise fault
 

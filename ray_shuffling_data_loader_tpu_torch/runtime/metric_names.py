@@ -1,0 +1,155 @@
+"""The metric-name catalog: every ``rsdl_*`` registry name, in one place
+(own copy of the JAX package's ``runtime/metric_names.py``: the same
+names, kinds and labels, so the two packages' exposition text can be
+compared line for line).
+
+Readers address metrics BY NAME across process boundaries (the shard
+federation, the snapshot functions of ``stats``, ``procpool``,
+``storage``, ``shuffle`` and ``spill``); a renamed or ad-hoc metric
+breaks them without failing a call. Every literal name passed to
+``metrics.counter`` / ``gauge`` / ``histogram`` / ``sketch`` / ``get`` in
+the port appears here.
+
+Keys map name -> (kind, label keys). Stdlib-only, import-free.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+#: name -> (kind, labels). Histogram names implicitly expose their
+#: ``_bucket`` / ``_sum`` / ``_count`` series in the text format.
+METRIC_NAMES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    # -- telemetry spine (runtime/telemetry.py) --
+    "rsdl_events_total": ("counter", ("kind",)),
+    "rsdl_stage_seconds": ("histogram", ("stage",)),
+    "rsdl_batch_wait_seconds": ("histogram", ()),
+    "rsdl_trace_cp_seconds": ("gauge", ("stage",)),
+    "rsdl_trace_straggler_task": ("gauge", ("stage",)),
+    "rsdl_trace_straggler_seconds": ("gauge", ("stage",)),
+    # -- watchdog / stats (stats.py) --
+    "rsdl_watchdog_events_total": ("counter", ()),
+    "rsdl_watchdog_escalations_total": ("counter", ()),
+    "rsdl_watchdog_fallbacks_total": ("counter", ()),
+    "rsdl_watchdog_stalls_total": ("counter", ("name",)),
+    # -- fault injection / recovery (stats.py) --
+    "rsdl_faults_injected_total": ("counter", ()),
+    "rsdl_faults_injected_by_site_total": ("counter", ("site",)),
+    "rsdl_fault_retries_total": ("counter", ()),
+    "rsdl_fault_recomputes_total": ("counter", ()),
+    "rsdl_fault_quarantines_total": ("counter", ()),
+    "rsdl_fault_exhausted_total": ("counter", ()),
+    "rsdl_fault_recovery_seconds": ("histogram", ()),
+    "rsdl_fault_recovery_max_seconds": ("gauge", ()),
+    # -- executor data plane (executor.py / procpool.py) --
+    "rsdl_executor_workers": ("gauge", ("pool",)),
+    "rsdl_executor_tasks_total": ("counter", ("pool",)),
+    "rsdl_executor_worker_up": ("gauge", ("pool", "pid")),
+    "rsdl_pool_worker_restarts_total": ("counter", ("pool",)),
+    "rsdl_worker_tasks_total": ("counter", ("worker",)),
+    # -- epoch-plan scheduler (plan/scheduler.py) --
+    "rsdl_plan_speculative_launched_total": ("counter", ("stage",)),
+    "rsdl_plan_speculative_won_total": ("counter", ("stage",)),
+    "rsdl_plan_speculative_wasted_total": ("counter", ("stage",)),
+    "rsdl_plan_steals_total": ("counter", ("stage",)),
+    # -- queue service (multiqueue.py / multiqueue_service.py) --
+    "rsdl_queue_depth": ("gauge", ("queue",)),
+    "rsdl_queue_frames_replayed_total": ("counter", ()),
+    "rsdl_queue_frames_nacked_total": ("counter", ()),
+    "rsdl_queue_frames_corrupt_total": ("counter", ()),
+    "rsdl_queue_client_reconnects_total": ("counter", ()),
+    "rsdl_queue_lease_expiries_total": ("counter", ()),
+    "rsdl_queue_consumers_alive": ("gauge", ()),
+    "rsdl_queue_server_restarts_total": ("counter", ()),
+    # -- sharded serving plane (multiqueue_service v3, per-shard) --
+    "rsdl_queue_payload_bytes_total": ("counter", ("shard",)),
+    "rsdl_queue_bytes_on_wire_total": ("counter", ("shard",)),
+    "rsdl_queue_handle_hits_total": ("counter", ("shard",)),
+    "rsdl_queue_handle_misses_total": ("counter", ("shard",)),
+    "rsdl_queue_compression_saved_bytes_total": ("counter", ("shard",)),
+    "rsdl_queue_shard_depth": ("gauge", ("shard",)),
+    "rsdl_queue_serve_shards": ("gauge", ()),
+    # -- delivery-latency plane (runtime/latency.py; queue label is the
+    #    TRAINER RANK — bounded — never a raw queue id/seq/pid; the
+    #    metric-label-cardinality lint rule enforces the label sets
+    #    declared here) --
+    "rsdl_delivery_latency_seconds": ("sketch", ("hop", "queue")),
+    "rsdl_delivery_freshness_seconds": ("gauge", ("queue",)),
+    # -- tenancy plane (tenancy/: per-tenant QoS over the queue,
+    #    storage and admission planes; the tenant label is the bounded
+    #    configured-tenant vocabulary, validated by
+    #    tenancy.validate_tenant_id) --
+    "rsdl_tenant_bytes_delivered_total": ("counter", ("tenant",)),
+    "rsdl_tenant_replay_bytes": ("gauge", ("tenant",)),
+    "rsdl_tenant_budget_bytes": ("gauge", ("tenant",)),
+    "rsdl_tenant_delivery_latency_seconds": ("sketch", ("hop", "tenant")),
+    "rsdl_tenant_storage_hits_total": ("counter", ("tenant",)),
+    "rsdl_tenant_storage_misses_total": ("counter", ("tenant",)),
+    "rsdl_tenant_storage_evictions_total": ("counter", ("tenant",)),
+    "rsdl_tenant_cache_bytes": ("gauge", ("tenant",)),
+    "rsdl_tenant_cache_quota_bytes": ("gauge", ("tenant",)),
+    "rsdl_tenant_prefetch_throttled_total": ("counter", ("tenant",)),
+    "rsdl_admission_decisions_total": ("counter", ("action",)),
+    "rsdl_admission_waiting": ("gauge", ()),
+    "rsdl_admission_used_bytes": ("gauge", ()),
+    # -- elastic membership (membership/ + parallel/transport.py): view
+    #    lifecycle, failure-detector verdicts, and the generation fence --
+    "rsdl_member_view_id": ("gauge", ()),
+    "rsdl_member_live": ("gauge", ()),
+    "rsdl_member_suspect": ("gauge", ()),
+    "rsdl_member_incarnation": ("gauge", ("rank",)),
+    "rsdl_member_heartbeats_total": ("counter", ()),
+    "rsdl_member_suspects_total": ("counter", ()),
+    "rsdl_member_flaps_total": ("counter", ()),
+    "rsdl_member_downs_total": ("counter", ()),
+    "rsdl_member_joins_total": ("counter", ()),
+    "rsdl_member_transitions_total": ("counter", ("kind",)),
+    "rsdl_member_fenced_frames_total": ("counter", ()),
+    "rsdl_member_last_transition_unixtime": ("gauge", ()),
+    # -- rebalance plane (rebalance/ + the serving-plane actuator in
+    #    multiqueue_service.py): journaled placement decisions, the
+    #    placement-generation fence, and move accounting --
+    "rsdl_rebalance_generation": ("gauge", ()),
+    "rsdl_rebalance_overrides": ("gauge", ()),
+    "rsdl_rebalance_decisions_total": ("counter", ("kind",)),
+    "rsdl_rebalance_moves_total": ("counter", ()),
+    "rsdl_rebalance_last_move_unixtime": ("gauge", ()),
+    "rsdl_rebalance_fenced_frames_total": ("counter", ()),
+    # -- spill tier (spill.py) --
+    "rsdl_spills_total": ("counter", ()),
+    "rsdl_spilled_bytes_total": ("counter", ()),
+    # -- storage plane (storage/: tiered cache + plan-driven prefetch;
+    #    the tier label is the fixed {hot, disk, remote} vocabulary) --
+    "rsdl_storage_hits_total": ("counter", ("tier",)),
+    "rsdl_storage_misses_total": ("counter", ("tier",)),
+    "rsdl_storage_evictions_total": ("counter", ("tier",)),
+    "rsdl_storage_corrupt_total": ("counter", ("tier",)),
+    "rsdl_storage_tier_bytes": ("gauge", ("tier",)),
+    "rsdl_storage_remote_bytes_read_total": ("counter", ()),
+    "rsdl_storage_prefetch_issued_total": ("counter", ()),
+    "rsdl_storage_prefetch_hits_total": ("counter", ()),
+    "rsdl_storage_prefetch_canceled_total": ("counter", ()),
+    # -- streaming plane (streaming/: windowed shuffle over unbounded
+    #    input; watermarks are STREAM time — the newest admitted event's
+    #    timestamp — not wall clock) --
+    "rsdl_stream_window": ("gauge", ()),
+    "rsdl_stream_windows_closed_total": ("counter", ()),
+    "rsdl_stream_events_admitted_total": ("counter", ()),
+    "rsdl_stream_rows_ingested_total": ("counter", ()),
+    "rsdl_stream_late_events_total": ("counter", ("policy",)),
+    "rsdl_stream_ingest_watermark": ("gauge", ()),
+    "rsdl_stream_serve_watermark": ("gauge", ()),
+    "rsdl_stream_watermark_lag_seconds": ("gauge", ()),
+    "rsdl_stream_window_close_seconds": ("histogram", ()),
+    # -- ops plane: history / health / incidents (runtime/{history,health}) --
+    "rsdl_process_rss_bytes": ("gauge", ()),
+    "rsdl_ledger_bytes_in_use": ("gauge", ()),
+    "rsdl_health_state": ("gauge", ("detector",)),
+    "rsdl_health_breaches_total": ("counter", ("detector",)),
+    "rsdl_incident_capsules_total": ("counter", ()),
+    # -- federation (runtime/metrics.py merged view) --
+    "rsdl_federated_processes": ("gauge", ()),
+}
+
+#: The lint rule's membership set.
+NAMES = frozenset(METRIC_NAMES)

@@ -1,0 +1,950 @@
+"""Typed metrics registry with Prometheus text-format exposition (own copy
+of the JAX package's ``runtime/metrics.py``: the same types, rendering,
+parser and shard federation, so the same operations render byte-identical
+text in both packages).
+
+One registry per process: counters, gauges, fixed-bucket histograms and
+fixed-centroid sketches behind get-or-create accessors keyed by name and
+labels (``counter("rsdl_faults_injected_by_site_total", site="map_read")``),
+rendered as Prometheus text (:meth:`Registry.render`), written to a file
+(:func:`write_file`) or served on a loopback HTTP port
+(:func:`start_http_server`), and parsed back by :func:`parse_exposition`.
+
+Design constraints, in order:
+
+- **Stdlib-only**: the process pool's workers load it without torch.
+- **Hot-path cheap**: a counter ``inc`` is one lock round-trip; call
+  sites look a metric up once and keep the object.
+- **Mergeable**: histogram buckets and sketch centroids are fixed, so
+  per-epoch histograms merge by adding counts and per-process shards
+  (:func:`write_shard`, :func:`merge_series`) sum exactly.
+"""
+
+from __future__ import annotations
+
+import bisect
+import os
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Sketch", "Registry", "REGISTRY",
+    "counter", "gauge", "histogram", "sketch", "get", "render",
+    "parse_exposition", "parse_exposition_typed", "write_file",
+    "start_http_server", "start_exporter", "DEFAULT_LATENCY_BUCKETS",
+    "DEFAULT_LATENCY_CENTROIDS", "sketch_quantiles",
+    "telemetry_dir", "write_shard", "read_shards", "merge_series",
+    "federated_series", "render_federated", "maybe_start_shard_writer",
+]
+
+#: Exponential-ish latency bucket upper bounds in SECONDS (``+Inf`` is
+#: implicit). Spans 100us..60s — queue waits through cold map decodes.
+DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+#: Fixed latency-sketch centroids in SECONDS: 12 per decade,
+#: geometrically spaced over 100us..100s (73 values, ratio 10^(1/12)
+#: ~= 1.21 — quantile estimates land within ~±10% of truth, which is
+#: the error a p99 SLO can live with). FIXED on purpose: every process
+#: assigns an observation to the same centroid, so per-pid counts sum
+#: EXACTLY under the shard federation (`merge_series`) — the property
+#: mergeable-quantile structures (t-digest et al.) only approximate.
+DEFAULT_LATENCY_CENTROIDS: Tuple[float, ...] = tuple(
+    round(10.0 ** (exp / 12.0), 9) for exp in range(-48, 25))
+
+
+class Counter:
+    """Monotonic float counter."""
+
+    __slots__ = ("_lock", "_value")
+    kind = "counter"
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError(f"counters only go up, got {amount}")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Set/inc/dec current-value metric."""
+
+    __slots__ = ("_lock", "_value")
+    kind = "gauge"
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
+
+    def max(self, value: float) -> None:
+        """Keep the running maximum (recovery-latency style gauges)."""
+        with self._lock:
+            if value > self._value:
+                self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Histogram:
+    """Fixed-bucket histogram with cumulative Prometheus semantics.
+
+    ``bounds`` are upper bucket bounds (``+Inf`` implicit). Internally
+    counts are per-bucket (NON-cumulative) so :meth:`merge` is a plain
+    elementwise add; exposition renders the cumulative ``_bucket`` lines
+    the text format requires. :meth:`percentile` interpolates linearly
+    within the winning bucket — the conventional estimate for
+    fixed-bucket histograms (upper-bounded by the bucket edge).
+    """
+
+    __slots__ = ("bounds", "_counts", "_sum", "_count", "_lock")
+    kind = "histogram"
+
+    def __init__(self, bounds: Iterable[float] = DEFAULT_LATENCY_BUCKETS):
+        self.bounds: Tuple[float, ...] = tuple(sorted(bounds))
+        if not self.bounds:
+            raise ValueError("histogram needs at least one bucket bound")
+        self._counts = [0] * (len(self.bounds) + 1)  # last = +Inf
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        index = bisect.bisect_left(self.bounds, value)
+        with self._lock:
+            self._counts[index] += 1
+            self._sum += value
+            self._count += 1
+
+    def merge(self, other: "Histogram") -> None:
+        """Add ``other``'s counts into this histogram (same bounds)."""
+        if other.bounds != self.bounds:
+            raise ValueError("cannot merge histograms with different "
+                             f"bounds: {self.bounds} vs {other.bounds}")
+        with other._lock:
+            counts = list(other._counts)
+            osum, ocount = other._sum, other._count
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._sum += osum
+            self._count += ocount
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def bucket_counts(self) -> List[int]:
+        """Per-bucket (non-cumulative) counts; last entry is +Inf."""
+        with self._lock:
+            return list(self._counts)
+
+    def percentile(self, q: float) -> float:
+        """Estimated q-quantile (q in [0, 1]) by linear interpolation
+        inside the winning bucket; 0.0 when empty. Values landing in the
+        +Inf bucket report the largest finite bound (a floor, explicit
+        rather than invented)."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"q must be in [0, 1], got {q}")
+        with self._lock:
+            total = self._count
+            counts = list(self._counts)
+        if total == 0:
+            return 0.0
+        rank = q * total
+        seen = 0.0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if seen + c >= rank:
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = (self.bounds[i] if i < len(self.bounds)
+                      else self.bounds[-1])
+                frac = (rank - seen) / c if c else 0.0
+                return lo + (hi - lo) * min(1.0, max(0.0, frac))
+            seen += c
+        return self.bounds[-1]
+
+
+class Sketch:
+    """Mergeable fixed-centroid latency sketch (the delivery-latency
+    plane's quantile primitive, runtime/latency.py).
+
+    Observations snap to the nearest of a FIXED geometric centroid set
+    (boundaries at geometric midpoints), so the sketch is a sparse
+    ``{centroid: count}`` map. Quantiles read the cumulative walk over
+    centroids; merging is plain per-centroid addition — **exact** under
+    `merge_series`-style summation across process shards, unlike
+    adaptive-centroid sketches whose merge is lossy. Exposition renders
+    one ``name_centroid{c="<seconds>"} count`` line per NON-ZERO
+    centroid plus ``_sum``/``_count``, so the text format stays sparse
+    and round-trips through :func:`parse_exposition`.
+    """
+
+    __slots__ = ("centroids", "_bounds", "_counts", "_sum", "_count",
+                 "_lock")
+    kind = "sketch"
+
+    def __init__(self,
+                 centroids: Iterable[float] = DEFAULT_LATENCY_CENTROIDS):
+        self.centroids: Tuple[float, ...] = tuple(sorted(centroids))
+        if not self.centroids:
+            raise ValueError("sketch needs at least one centroid")
+        # Assignment boundaries: geometric midpoints between adjacent
+        # centroids (natural for a log-spaced set).
+        self._bounds = [
+            (self.centroids[i] * self.centroids[i + 1]) ** 0.5
+            for i in range(len(self.centroids) - 1)]
+        self._counts = [0] * len(self.centroids)
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        value = max(0.0, float(value))
+        index = bisect.bisect_right(self._bounds, value)
+        with self._lock:
+            self._counts[index] += 1
+            self._sum += value
+            self._count += 1
+
+    def merge(self, other: "Sketch") -> None:
+        """Add ``other``'s centroid counts into this sketch (exact)."""
+        if other.centroids != self.centroids:
+            raise ValueError("cannot merge sketches with different "
+                             "centroid sets")
+        with other._lock:
+            counts = list(other._counts)
+            osum, ocount = other._sum, other._count
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._sum += osum
+            self._count += ocount
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def centroid_counts(self) -> Dict[float, int]:
+        """Sparse ``{centroid_seconds: count}`` of non-zero centroids."""
+        with self._lock:
+            return {c: n for c, n in zip(self.centroids, self._counts)
+                    if n}
+
+    def percentile(self, q: float) -> float:
+        """q-quantile (q in [0, 1]) over the centroid mass; 0.0 when
+        empty. By construction within one centroid-spacing ratio of the
+        true quantile."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"q must be in [0, 1], got {q}")
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+        return _centroid_quantile(
+            {c: n for c, n in zip(self.centroids, counts) if n}, total, q)
+
+
+def _centroid_quantile(counts: Dict[float, int], total: int,
+                       q: float) -> float:
+    """Quantile over a sparse {centroid: count} mass (shared by
+    :meth:`Sketch.percentile` and :func:`sketch_quantiles`)."""
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    seen = 0.0
+    last = 0.0
+    for centroid in sorted(counts):
+        last = centroid
+        seen += counts[centroid]
+        if seen >= rank:
+            return centroid
+    return last
+
+
+Labels = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(labels: Dict[str, str]) -> Labels:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class _Family:
+    """All children of one metric name (one per label set)."""
+
+    __slots__ = ("name", "kind", "help", "buckets", "_children", "_lock")
+
+    def __init__(self, name: str, kind: str, help_text: str,
+                 buckets: Optional[Tuple[float, ...]] = None):
+        self.name = name
+        self.kind = kind
+        self.help = help_text
+        self.buckets = buckets
+        self._children: Dict[Labels, object] = {}
+        self._lock = threading.Lock()
+
+    def child(self, labels: Dict[str, str]):
+        key = _label_key(labels)
+        with self._lock:
+            metric = self._children.get(key)
+            if metric is None:
+                if self.kind == "counter":
+                    metric = Counter()
+                elif self.kind == "gauge":
+                    metric = Gauge()
+                elif self.kind == "sketch":
+                    # The centroid set is deliberately NOT configurable:
+                    # fixed centroids are what make cross-pid merges
+                    # exact (every process bins identically).
+                    metric = Sketch()
+                else:
+                    metric = Histogram(self.buckets
+                                       or DEFAULT_LATENCY_BUCKETS)
+                self._children[key] = metric
+            return metric
+
+    def children(self) -> Dict[Labels, object]:
+        with self._lock:
+            return dict(self._children)
+
+
+class Registry:
+    """Name -> family index with get-or-create typed accessors."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families: Dict[str, _Family] = {}
+
+    def _family(self, name: str, kind: str, help_text: str,
+                buckets=None) -> _Family:
+        with self._lock:
+            family = self._families.get(name)
+            if family is None:
+                family = _Family(name, kind, help_text,
+                                 tuple(buckets) if buckets else None)
+                self._families[name] = family
+            elif family.kind != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as "
+                    f"{family.kind}, requested {kind}")
+            return family
+
+    # name/help_text are positional-only so label keys may legally be
+    # "name" or "help_text" (e.g. rsdl_watchdog_stalls_total{name=...}).
+    def counter(self, name: str, help_text: str = "", /,
+                **labels: str) -> Counter:
+        return self._family(name, "counter", help_text).child(labels)
+
+    def gauge(self, name: str, help_text: str = "", /,
+              **labels: str) -> Gauge:
+        return self._family(name, "gauge", help_text).child(labels)
+
+    def histogram(self, name: str, help_text: str = "", /, buckets=None,
+                  **labels: str) -> Histogram:
+        return self._family(name, "histogram", help_text,
+                            buckets=buckets).child(labels)
+
+    def sketch(self, name: str, help_text: str = "", /,
+               **labels: str) -> Sketch:
+        return self._family(name, "sketch", help_text).child(labels)
+
+    def get(self, name: str, labels: Optional[Dict[str, str]] = None):
+        """Look up a registered metric: the family when ``labels`` is
+        None and the family is labeled, else the child. Returns None
+        for unknown names (observability lookups must never raise)."""
+        with self._lock:
+            family = self._families.get(name)
+        if family is None:
+            return None
+        children = family.children()
+        if labels is not None:
+            return children.get(_label_key(labels))
+        if list(children.keys()) == [()]:
+            return children[()]
+        return family
+
+    def families(self) -> Dict[str, _Family]:
+        with self._lock:
+            return dict(self._families)
+
+    # -- exposition ---------------------------------------------------------
+
+    def render(self) -> str:
+        """Prometheus text format (v0.0.4) of every registered metric."""
+        out: List[str] = []
+        for name in sorted(self._families):
+            family = self._families[name]
+            if family.help:
+                out.append(f"# HELP {name} {family.help}")
+            out.append(f"# TYPE {name} {family.kind}")
+            for labels, metric in sorted(family.children().items()):
+                label_txt = _format_labels(labels)
+                if family.kind in ("counter", "gauge"):
+                    out.append(f"{name}{label_txt} {_fmt(metric.value)}")
+                    continue
+                if family.kind == "sketch":
+                    # Sparse: one line per non-zero centroid. Counts are
+                    # NON-cumulative so federation summing is exact.
+                    for centroid, count in sorted(
+                            metric.centroid_counts().items()):
+                        ct = _label_key(dict(labels)
+                                        | {"c": _fmt(centroid)})
+                        out.append(f"{name}_centroid{_format_labels(ct)} "
+                                   f"{count}")
+                    out.append(f"{name}_sum{label_txt} {_fmt(metric.sum)}")
+                    out.append(f"{name}_count{label_txt} {metric.count}")
+                    continue
+                cumulative = 0
+                counts = metric.bucket_counts()
+                for bound, count in zip(metric.bounds, counts):
+                    cumulative += count
+                    le = _label_key(dict(labels) | {"le": _fmt(bound)})
+                    out.append(f"{name}_bucket{_format_labels(le)} "
+                               f"{cumulative}")
+                cumulative += counts[-1]
+                le = _label_key(dict(labels) | {"le": "+Inf"})
+                out.append(
+                    f"{name}_bucket{_format_labels(le)} {cumulative}")
+                out.append(f"{name}_sum{label_txt} {_fmt(metric.sum)}")
+                out.append(f"{name}_count{label_txt} {metric.count}")
+        return "\n".join(out) + "\n"
+
+
+def _fmt(value: float) -> str:
+    if value == int(value) and abs(value) < 1e15:
+        return str(int(value))
+    return repr(float(value))
+
+
+def _format_labels(labels: Labels) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape(v)}"' for k, v in labels)
+    return "{" + inner + "}"
+
+
+def _escape(value: str) -> str:
+    return (str(value).replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+#: THE process-wide registry; the module-level helpers below proxy it.
+REGISTRY = Registry()
+
+
+def counter(name: str, help_text: str = "", /, **labels: str) -> Counter:
+    return REGISTRY.counter(name, help_text, **labels)
+
+
+def gauge(name: str, help_text: str = "", /, **labels: str) -> Gauge:
+    return REGISTRY.gauge(name, help_text, **labels)
+
+
+def histogram(name: str, help_text: str = "", /, buckets=None,
+              **labels: str) -> Histogram:
+    return REGISTRY.histogram(name, help_text, buckets=buckets, **labels)
+
+
+def sketch(name: str, help_text: str = "", /, **labels: str) -> Sketch:
+    return REGISTRY.sketch(name, help_text, **labels)
+
+
+def get(name: str, labels: Optional[Dict[str, str]] = None):
+    return REGISTRY.get(name, labels)
+
+
+def render() -> str:
+    return REGISTRY.render()
+
+
+# ---------------------------------------------------------------------------
+# Hand-rolled exposition parser (round-trip contract for tools + tests)
+# ---------------------------------------------------------------------------
+
+
+def parse_exposition_typed(
+        text: str) -> "tuple[Dict[str, Dict[Labels, float]], Dict[str, str]]":
+    """:func:`parse_exposition` plus the ``# TYPE`` metadata: returns
+    ``(samples, types)`` where ``types`` maps family name -> kind. The
+    federation merge needs the kinds to re-render a merged exposition
+    that itself round-trips."""
+    types: Dict[str, str] = {}
+    for raw in text.splitlines():
+        line = raw.strip()
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            if len(parts) == 4:
+                types[parts[2]] = parts[3]
+    return parse_exposition(text), types
+
+
+def parse_exposition(text: str) -> Dict[str, Dict[Labels, float]]:
+    """Parse Prometheus text format into ``{name: {labels: value}}``.
+
+    Covers exactly what :meth:`Registry.render` emits (names, quoted
+    label values with escapes, int/float/``+Inf`` values); histogram
+    series appear under their ``_bucket``/``_sum``/``_count`` names.
+    Unparseable lines raise ``ValueError`` — a dump that does not
+    round-trip is a bug, not noise.
+    """
+    out: Dict[str, Dict[Labels, float]] = {}
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        name, labels, value_txt = _parse_sample(line)
+        value = float("inf") if value_txt == "+Inf" else float(value_txt)
+        out.setdefault(name, {})[labels] = value
+    return out
+
+
+def _parse_sample(line: str) -> Tuple[str, Labels, str]:
+    if "{" in line:
+        name, rest = line.split("{", 1)
+        label_txt, rest = rest.split("}", 1)
+        labels = _parse_labels(label_txt)
+        value = rest.strip()
+    else:
+        parts = line.split()
+        if len(parts) != 2:
+            raise ValueError(f"unparseable exposition line: {line!r}")
+        name, value = parts
+        labels = ()
+    if not name or not value:
+        raise ValueError(f"unparseable exposition line: {line!r}")
+    return name.strip(), labels, value
+
+
+def _parse_labels(text: str) -> Labels:
+    labels: List[Tuple[str, str]] = []
+    i = 0
+    while i < len(text):
+        eq = text.index("=", i)
+        key = text[i:eq].strip().lstrip(",").strip()
+        assert text[eq + 1] == '"', f"unquoted label value in {text!r}"
+        j = eq + 2
+        value: List[str] = []
+        while text[j] != '"':
+            if text[j] == "\\":
+                nxt = text[j + 1]
+                value.append({"n": "\n", '"': '"', "\\": "\\"}.get(nxt, nxt))
+                j += 2
+                continue
+            value.append(text[j])
+            j += 1
+        labels.append((key, "".join(value)))
+        i = j + 1
+    return tuple(sorted(labels))
+
+
+def sketch_quantiles(samples: Dict[str, "Dict[Labels, float]"],
+                     name: str,
+                     qs: Tuple[float, ...] = (0.5, 0.95, 0.99),
+                     **label_filter: str
+                     ) -> "Dict[Labels, Dict[str, float]]":
+    """Quantiles of a sketch family from PARSED exposition samples
+    (one process's, or the federation-merged view — the centroid counts
+    sum exactly either way).
+
+    Groups ``<name>_centroid`` samples by their labels minus the
+    structural ``c`` label, optionally restricted by ``label_filter``
+    equality; returns ``{group_labels: {"p50": s, ..., "count": n}}``
+    (quantile keys are ``p<100q>`` in seconds). Every reader of the
+    delivery-latency plane goes through this one function.
+    """
+    grouped: Dict[Labels, Dict[float, int]] = {}
+    for labels, value in samples.get(f"{name}_centroid", {}).items():
+        d = dict(labels)
+        centroid_txt = d.pop("c", None)
+        if centroid_txt is None:
+            continue
+        if any(d.get(k) != str(v) for k, v in label_filter.items()):
+            continue
+        key = tuple(sorted(d.items()))
+        counts = grouped.setdefault(key, {})
+        centroid = float(centroid_txt)
+        counts[centroid] = counts.get(centroid, 0.0) + value
+    out: Dict[Labels, Dict[str, float]] = {}
+    for key, counts in grouped.items():
+        total = int(sum(counts.values()))
+        stats = {"count": float(total)}
+        for q in qs:
+            stats[f"p{int(round(q * 100))}"] = _centroid_quantile(
+                counts, total, q)
+        out[key] = stats
+    return out
+
+
+def distribution_masses(samples: Dict[str, "Dict[Labels, float]"],
+                        family: str, kind: str
+                        ) -> "Dict[Labels, Dict[float, float]]":
+    """Per-group bucket/centroid mass of one distribution family from
+    PARSED exposition samples: ``{group_labels: {edge: mass}}``.
+
+    For histograms the cumulative ``_bucket`` series is differenced into
+    per-bucket mass (edge = ``le`` upper bound, ``+Inf`` included); for
+    sketches the ``_centroid`` counts are already masses (edge = the
+    centroid value). Group labels drop the structural ``le``/``c``
+    label. This is the one shape the differential engine
+    (``runtime/regress.py``) compares distributions in, so histogram
+    and sketch families diff through identical bucket-overlap math.
+    """
+    struct_label = "le" if kind == "histogram" else "c"
+    series = samples.get(
+        f"{family}_bucket" if kind == "histogram" else f"{family}_centroid",
+        {})
+    grouped: Dict[Labels, Dict[float, float]] = {}
+    for labels, value in series.items():
+        d = dict(labels)
+        edge_txt = d.pop(struct_label, None)
+        if edge_txt is None:
+            continue
+        edge = float("inf") if edge_txt == "+Inf" else float(edge_txt)
+        key = tuple(sorted(d.items()))
+        grouped.setdefault(key, {})[edge] = \
+            grouped.get(key, {}).get(edge, 0.0) + value
+    if kind != "histogram":
+        return grouped
+    out: Dict[Labels, Dict[float, float]] = {}
+    for key, cumulative in grouped.items():
+        masses: Dict[float, float] = {}
+        prev = 0.0
+        for edge in sorted(cumulative):
+            masses[edge] = max(0.0, cumulative[edge] - prev)
+            prev = cumulative[edge]
+        out[key] = masses
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-process federation: per-pid exposition shards + merge reader
+# ---------------------------------------------------------------------------
+#
+# Since the data plane moved into spawn-mode pool workers (procpool.py),
+# most map/reduce samples live in OTHER processes' registries — a
+# driver-only exposition under-counts exactly the processes doing the
+# work. The federation contract mirrors RSDL_TRACE_DIR: every process
+# whose environment carries RSDL_TELEMETRY_DIR writes its registry as a
+# per-pid shard file there (periodically + at exit), and readers merge
+# the shards into cluster-wide totals. Counters and histogram series sum
+# exactly; gauges also SUM in the merged view (pool widths, queue depths
+# and ledger bytes are additive across processes) — the per-pid view
+# (read_shards) keeps the unaggregated truth.
+
+_SHARD_PREFIX = "rsdl-metrics-"
+
+
+def telemetry_dir() -> Optional[str]:
+    """The federation shard directory (RSDL_TELEMETRY_DIR), or None."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+    return rt_policy.resolve("metrics", "telemetry_dir") or None
+
+
+def shard_path(directory: str, pid: Optional[int] = None) -> str:
+    return os.path.join(directory, f"{_SHARD_PREFIX}{pid or os.getpid()}.prom")
+
+
+def write_shard(directory: Optional[str] = None) -> Optional[str]:
+    """Atomically write THIS process's exposition as its per-pid shard;
+    returns the path (None when no directory is configured)."""
+    directory = directory or telemetry_dir()
+    if not directory:
+        return None
+    os.makedirs(directory, exist_ok=True)
+    path = shard_path(directory)
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(render())
+    os.replace(tmp, path)
+    return path
+
+
+def read_shards(directory: str, skip_pid: Optional[int] = None
+                ) -> "Dict[int, tuple]":
+    """Parse every shard in ``directory``: ``{pid: (samples, types,
+    age_s)}``. Unparseable/torn shards are skipped (the writer is atomic,
+    but a reader must survive a shard mid-replace on exotic filesystems);
+    ``age_s`` is seconds since the shard was last rewritten."""
+    out: Dict[int, tuple] = {}
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return out
+    now = time.time()
+    for name in names:
+        if not name.startswith(_SHARD_PREFIX) or not name.endswith(".prom"):
+            continue
+        try:
+            pid = int(name[len(_SHARD_PREFIX):-len(".prom")])
+        except ValueError:
+            continue
+        if skip_pid is not None and pid == skip_pid:
+            continue
+        path = os.path.join(directory, name)
+        try:
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+            samples, types = parse_exposition_typed(text)
+        except (OSError, ValueError, AssertionError):
+            continue
+        try:
+            # Shard age vs a file mtime: both are wall clock by nature
+            # (freshness display only, never a deadline).
+            # rsdl-lint: disable=wallclock-interval
+            age_s = max(0.0, now - os.stat(path).st_mtime)
+        except OSError:
+            age_s = 0.0
+        out[pid] = (samples, types, age_s)
+    return out
+
+
+def merge_series(shards: Iterable["tuple"]) -> "tuple":
+    """Sum ``(samples, types)`` pairs element-wise into one
+    ``(samples, types)``. Counter/histogram series merge exactly by
+    construction (cumulative counts add); gauges sum — the cluster-wide
+    aggregate — and the per-pid shards remain the per-process view."""
+    merged: Dict[str, Dict[Labels, float]] = {}
+    types: Dict[str, str] = {}
+    for entry in shards:
+        samples, kinds = entry[0], entry[1]
+        for name, series in samples.items():
+            into = merged.setdefault(name, {})
+            for labels, value in series.items():
+                into[labels] = into.get(labels, 0.0) + value
+        types.update(kinds)
+    return merged, types
+
+
+def federated_series() -> "tuple":
+    """``(samples, types, pids)`` of the cluster-wide view: this
+    process's LIVE registry merged with every other pid's shard under
+    the telemetry dir (no dir configured: just the live registry)."""
+    own = parse_exposition_typed(render())
+    directory = telemetry_dir()
+    pids = [os.getpid()]
+    shards = [own]
+    if directory:
+        for pid, entry in sorted(read_shards(directory,
+                                             skip_pid=os.getpid()).items()):
+            pids.append(pid)
+            shards.append(entry)
+    samples, types = merge_series(shards)
+    samples["rsdl_federated_processes"] = {(): float(len(pids))}
+    types["rsdl_federated_processes"] = "gauge"
+    return samples, types, pids
+
+
+def render_merged(samples: Dict[str, Dict[Labels, float]],
+                  types: Dict[str, str]) -> str:
+    """Render merged series back to exposition text (round-trips through
+    :func:`parse_exposition_typed`). TYPE lines are emitted per family
+    (histogram series look up their ``_bucket``/``_sum``/``_count``
+    base name)."""
+    out: List[str] = []
+    typed_done = set()
+    for name in sorted(samples):
+        base = name
+        for suffix in ("_bucket", "_centroid", "_sum", "_count"):
+            if name.endswith(suffix) and name[:-len(suffix)] in types:
+                base = name[:-len(suffix)]
+                break
+        if base in types and base not in typed_done:
+            typed_done.add(base)
+            out.append(f"# TYPE {base} {types[base]}")
+        for labels, value in sorted(samples[name].items()):
+            out.append(f"{name}{_format_labels(labels)} {_fmt(value)}")
+    return "\n".join(out) + "\n"
+
+
+def render_federated() -> str:
+    samples, types, _ = federated_series()
+    return render_merged(samples, types)
+
+
+_shard_writer_lock = threading.Lock()
+_shard_writer_started = False
+
+
+def maybe_start_shard_writer(interval_s: Optional[float] = None) -> bool:
+    """Start this process's periodic shard writer iff RSDL_TELEMETRY_DIR
+    is configured (idempotent; registers an atexit final flush so even a
+    short-lived worker's last counts land). Every participating process
+    — driver, procpool worker, supervised queue server — calls this at
+    startup; the env inherits through spawn/fork like RSDL_TRACE_DIR."""
+    global _shard_writer_started
+    if telemetry_dir() is None:
+        return False
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+    interval_s = rt_policy.resolve("metrics", "metrics_shard_interval_s",
+                                   override=interval_s)
+    with _shard_writer_lock:
+        if _shard_writer_started:
+            return True
+        _shard_writer_started = True
+    import atexit
+
+    def _flush() -> None:
+        try:
+            write_shard()
+        except OSError:
+            pass  # scratch volume went away at teardown; nothing to save
+
+    def _loop() -> None:
+        stop = threading.Event()
+        while not stop.wait(interval_s):
+            _flush()
+
+    atexit.register(_flush)
+    _flush()
+    threading.Thread(target=_loop, daemon=True,
+                     name="rsdl-metrics-shard").start()
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Exposition transports: file + localhost HTTP
+# ---------------------------------------------------------------------------
+
+
+def _exposition_text() -> str:
+    """What the transports serve: the federated view when a telemetry
+    dir is configured (cluster-wide truth), else this registry alone."""
+    if telemetry_dir() is not None:
+        try:
+            return render_federated()
+        except (OSError, ValueError):
+            pass  # torn shard dir mid-teardown; fall back to own registry
+    return render()
+
+
+def write_file(path: str) -> str:
+    """Atomically write the current exposition to ``path``; returns it.
+    With RSDL_TELEMETRY_DIR set this is the MERGED multi-process view."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(_exposition_text())
+    os.replace(tmp, path)
+    return path
+
+
+def start_http_server(port: int = 0, host: str = "127.0.0.1"):
+    """Serve ``/metrics`` on localhost; returns ``(server, port)``.
+
+    Loopback-only by default — the endpoint is an operator tool, not a
+    service surface. The server runs on a named daemon thread; call
+    ``server.shutdown()`` to stop it.
+    """
+    import http.server
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 - stdlib API
+            if self.path.rstrip("/") not in ("", "/metrics", "/healthz"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = _exposition_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # silence per-request stderr spam
+            pass
+
+    server = http.server.ThreadingHTTPServer((host, port), _Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="rsdl-metrics-http")
+    thread.start()
+    return server, server.server_address[1]
+
+
+_exporter_lock = threading.Lock()
+_exporter_stop: Optional[threading.Event] = None
+
+
+def start_exporter(path: Optional[str] = None, port: Optional[int] = None,
+                   interval_s: float = 5.0):
+    """Periodic file exposition and/or HTTP endpoint, policy-resolvable.
+
+    With no arguments, resolves ``metrics_file`` / ``metrics_port`` /
+    ``metrics_interval_s`` from the runtime policy registry
+    (``RSDL_METRICS_FILE=/run/rsdl.prom`` is the zero-code way to
+    watch any run). Returns
+    ``(stop_event, http_port_or_None)``; idempotent — a second call
+    stops the previous file-writer loop first.
+    """
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+    if path is None:
+        path = rt_policy.resolve("metrics", "metrics_file") or None
+    if port is None:
+        port = rt_policy.resolve("metrics", "metrics_port") or None
+    interval_s = rt_policy.resolve("metrics", "metrics_interval_s",
+                                   default=interval_s)
+    global _exporter_stop
+    with _exporter_lock:
+        if _exporter_stop is not None:
+            _exporter_stop.set()
+        stop = _exporter_stop = threading.Event()
+    # Join the federation as a writer too (no-op without a dir): the
+    # driver's shard is what per-pid views (read_shards) show for it.
+    maybe_start_shard_writer()
+    http_port = None
+    if port is not None:
+        _, http_port = start_http_server(int(port))
+    if path:
+        def _loop():
+            while not stop.wait(interval_s):
+                try:
+                    write_file(path)
+                except OSError:
+                    pass  # scratch volume hiccup; next tick retries
+            try:
+                write_file(path)  # final flush on stop
+            except OSError:
+                pass
+
+        write_file(path)
+        threading.Thread(target=_loop, daemon=True,
+                         name="rsdl-metrics-export").start()
+    return stop, http_port

@@ -24,7 +24,11 @@ storage plane as ``storage`` (``RSDL_STORAGE_BACKEND``,
 ``RSDL_STORAGE_SIM_*``); the per-stage retry policies are the components
 ``map_read``, ``reduce``, ``lineage``, ``spill``, ``executor``,
 ``storage`` and ``procpool`` (the pool's worker respawns;
-``RSDL_LINEAGE_RETRY_MAX_ATTEMPTS``, ...).
+``RSDL_LINEAGE_RETRY_MAX_ATTEMPTS``, ...). The telemetry spine reads its
+keys as the JAX package does: ``telemetry`` (``RSDL_TELEMETRY``,
+``RSDL_TELEMETRY_CAPACITY``, ``RSDL_TRACE_DIR``, ...) and ``metrics``
+(``RSDL_METRICS_FILE``, ``RSDL_TELEMETRY_DIR``, ...), with the JAX
+defaults: recording is on.
 
 Stdlib only.
 """
@@ -134,6 +138,30 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "plan_speculation_min_s": (1.0, float),
     "plan_speculation_check_s": (0.05, float),
     "plan_stealing": (True, _parse_bool),
+    # Telemetry spine (runtime/telemetry.py): the flight recorder on or
+    # off, its ring capacity (events), and where on-demand, escalation
+    # and SIGUSR1 dumps land ("": the trace dir, else the temp dir).
+    "telemetry": (True, _parse_bool),
+    "telemetry_capacity": (4096, int),
+    "telemetry_dump_dir": ("", str),
+    # Causal tracing (runtime/trace.py): when set, every process dumps
+    # its flight recorder into this directory at exit (and dump()
+    # defaults there); the pool's workers inherit it through the
+    # environment.
+    "trace_dir": ("", str),
+    # Batch-wait share of an epoch's wall clock above which the verdict
+    # names a producer stage instead of train_step.
+    "bottleneck_stall_threshold_pct": (10.0, float),
+    # Metrics exposition (runtime/metrics.py): Prometheus text file path
+    # ("": off), loopback HTTP port (0: off), file rewrite cadence.
+    "metrics_file": ("", str),
+    "metrics_port": (0, int),
+    "metrics_interval_s": (5.0, float),
+    # Multi-process federation: when set, every process (the driver and
+    # the pool's workers) periodically writes a per-pid exposition shard
+    # into this directory, and the exporters merge the shards.
+    "telemetry_dir": ("", str),
+    "metrics_shard_interval_s": (2.0, float),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}

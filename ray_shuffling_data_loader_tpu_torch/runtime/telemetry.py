@@ -1,0 +1,807 @@
+"""Structured-event flight recorder and per-epoch bottleneck attribution
+(own copy of the JAX package's ``runtime/telemetry.py``: the same event
+kinds, stages, verdicts and dump format).
+
+**Flight recorder**: a fixed-size ring of structured events ``(t_mono,
+kind, epoch, task, batch, dur_s, tid, attrs)`` recorded by every stage of
+the port's pipeline (map read, reduce gather, queue put/get, transport
+send/recv, spill write/read, device transfer, batch wait, train step)
+and by the watchdog, fault injection, retries and recomputes. Kinds reuse
+the fault-site names of :mod:`runtime.faults`, so a chaos run's fault
+events and its stage events join on ``(kind, epoch, task)``. The ring is
+dumped as JSONL on demand (:func:`dump`), on a watchdog escalation, on
+``SIGUSR1`` (:func:`install_signal_dump`) with every thread's stack, and
+at exit into ``RSDL_TRACE_DIR`` when that is set.
+
+**Bottleneck attribution**: stage events feed per-epoch fixed-bucket
+histograms, and :meth:`StageAttribution.epoch_verdict` turns an epoch into
+``{bottleneck_stage, stall_pct, p50/p95/p99 per stage}``. When the
+consumer's batch-wait share of the epoch's wall clock is above the policy
+threshold, the verdict names the producer stage with the most busy time;
+otherwise the loader keeps up and the verdict is ``train_step``.
+
+Every event also feeds the metrics registry (``rsdl_events_total`` by
+kind, ``rsdl_stage_seconds`` by stage).
+
+Cost: with ``RSDL_TELEMETRY=0`` the public names are rebound to no-ops,
+so ``record()`` is one call of an empty function. Enabled, it is one
+``monotonic()`` read, one tuple and a few lock round-trips, measured by
+:func:`measure_record_overhead`.
+
+Stdlib-only: the process pool's workers load it without torch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import signal
+import sys
+import threading
+import time
+import traceback
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+from ray_shuffling_data_loader_tpu_torch.utils.logger import setup_custom_logger
+
+logger = setup_custom_logger(__name__)
+
+#: Event kind -> attribution stage. Kinds reuse the fault-site
+#: vocabulary (runtime/faults.py) wherever the stage has a fault site,
+#: so chaos and telemetry events join on (kind, epoch, task). Kinds not
+#: in this table (queue_put, queue_get, transport_send/recv,
+#: spill_write/read, watchdog_stall, fault bookkeeping) are recorded and
+#: exported but are not latency-decomposition stages: queue_get's wait
+#: is owned by the dataset layer's epoch-tagged ``queue_wait`` event
+#: (counting both would double-bill the same blocked time).
+STAGE_BY_KIND: Dict[str, str] = {
+    "map_read": "map_read",
+    "reduce_gather": "reduce",
+    "queue_wait": "queue_wait",
+    "queue_fetch": "fetch",
+    "convert": "convert",
+    "device_transfer": "device_transfer",
+    "train_step": "train_step",
+}
+
+#: The decomposition's stage order (CSV columns, verdict tables).
+STAGES: Tuple[str, ...] = ("map_read", "reduce", "queue_wait", "fetch",
+                           "convert", "device_transfer", "train_step")
+
+#: Stages that do WORK (bottleneck candidates). Wait stages are
+#: symptoms: a consumer blocked in queue_wait means an upstream work
+#: stage is slow, and the verdict should name that stage.
+_WORK_STAGES: Tuple[str, ...] = ("map_read", "reduce", "fetch", "convert",
+                                 "device_transfer")
+
+Event = Tuple[float, str, Optional[int], Optional[int], Optional[int],
+              Optional[float], Optional[int], Optional[dict]]
+
+
+class FlightRecorder:
+    """Fixed-size ring buffer of structured events.
+
+    Overwrite semantics: the ring holds the most recent ``capacity``
+    events; ``total_recorded`` keeps counting past the wrap so readers
+    can tell how much history was shed.
+    """
+
+    def __init__(self, capacity: int = 4096):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._buf: List[Optional[Event]] = [None] * capacity
+        self._idx = 0
+        self._lock = threading.Lock()
+
+    def record(self, event: Event) -> None:
+        with self._lock:
+            self._buf[self._idx % self.capacity] = event
+            self._idx += 1
+
+    @property
+    def total_recorded(self) -> int:
+        with self._lock:
+            return self._idx
+
+    def events(self) -> List[Dict[str, Any]]:
+        """Retained events, oldest first, as dicts (None fields elided)."""
+        with self._lock:
+            idx = self._idx
+            if idx <= self.capacity:
+                raw = self._buf[:idx]
+            else:
+                pivot = idx % self.capacity
+                raw = self._buf[pivot:] + self._buf[:pivot]
+        out = []
+        for ev in raw:
+            if ev is None:
+                continue
+            t_mono, kind, epoch, task, batch, dur_s, tid, attrs = ev
+            d: Dict[str, Any] = {"t_mono": t_mono, "kind": kind}
+            if epoch is not None:
+                d["epoch"] = epoch
+            if task is not None:
+                d["task"] = task
+            if batch is not None:
+                d["batch"] = batch
+            if dur_s is not None:
+                d["dur_s"] = dur_s
+            if tid is not None:
+                d["tid"] = tid
+            if attrs:
+                d.update(attrs)
+            out.append(d)
+        return out
+
+
+class StageAttribution:
+    """Online per-epoch latency decomposition over stage events.
+
+    Bounded state: per (epoch, stage) one fixed-bucket histogram plus
+    totals, pruned to the most recent ``max_epochs`` epochs. Epoch-less
+    stage events (e.g. a bare queue drained outside any dataset epoch)
+    land in the run aggregate only.
+    """
+
+    _MAX_EPOCHS = 64
+
+    def __init__(self, stall_threshold_pct: float = 10.0):
+        self._lock = threading.Lock()
+        self.stall_threshold_pct = stall_threshold_pct
+        # epoch -> stage -> Histogram (epoch None = unattributed)
+        self._hists: Dict[Optional[int], Dict[str, metrics.Histogram]] = {}
+        # epoch -> (batch_wait_total_s, batch_count)
+        self._waits: Dict[Optional[int], List[float]] = {}
+        # epoch -> [first_t, last_t] monotonic bounds (wall clock of epoch)
+        self._bounds: Dict[Optional[int], List[float]] = {}
+        self._verdict_logged: set = set()
+
+    def observe(self, stage: str, epoch: Optional[int], dur_s: float,
+                t: float) -> None:
+        with self._lock:
+            per_epoch = self._hists.setdefault(epoch, {})
+            hist = per_epoch.get(stage)
+            if hist is None:
+                hist = per_epoch[stage] = metrics.Histogram()
+            bounds = self._bounds.setdefault(epoch, [t - dur_s, t])
+            bounds[0] = min(bounds[0], t - dur_s)
+            bounds[1] = max(bounds[1], t)
+            if epoch is not None and len(self._hists) > self._MAX_EPOCHS:
+                self._prune_locked()
+        hist.observe(dur_s)
+
+    def observe_wait(self, epoch: Optional[int], dur_s: float,
+                     t: float) -> None:
+        with self._lock:
+            wait = self._waits.setdefault(epoch, [0.0, 0])
+            wait[0] += dur_s
+            wait[1] += 1
+            bounds = self._bounds.setdefault(epoch, [t - dur_s, t])
+            bounds[0] = min(bounds[0], t - dur_s)
+            bounds[1] = max(bounds[1], t)
+
+    def _prune_locked(self) -> None:
+        real = sorted(e for e in self._hists if e is not None)
+        for stale in real[:len(real) - self._MAX_EPOCHS]:
+            self._hists.pop(stale, None)
+            self._waits.pop(stale, None)
+            self._bounds.pop(stale, None)
+
+    def _verdict_locked(self, epochs: List[Optional[int]]
+                        ) -> Optional[Dict[str, Any]]:
+        merged: Dict[str, metrics.Histogram] = {}
+        wait_total = 0.0
+        wait_count = 0
+        wall = 0.0
+        seen = False
+        for epoch in epochs:
+            for stage, hist in self._hists.get(epoch, {}).items():
+                seen = True
+                agg = merged.get(stage)
+                if agg is None:
+                    agg = merged[stage] = metrics.Histogram(hist.bounds)
+                agg.merge(hist)
+            if epoch in self._waits:
+                seen = True
+                wait_total += self._waits[epoch][0]
+                wait_count += int(self._waits[epoch][1])
+            if epoch in self._bounds:
+                lo, hi = self._bounds[epoch]
+                wall += max(0.0, hi - lo)
+        if not seen:
+            return None
+        stall_pct = 100.0 * wait_total / wall if wall > 0 else 0.0
+        stages = {}
+        for stage in STAGES:
+            hist = merged.get(stage)
+            if hist is None or hist.count == 0:
+                continue
+            stages[stage] = {
+                "count": hist.count,
+                "total_s": round(hist.sum, 6),
+                "p50_ms": round(hist.percentile(0.50) * 1e3, 3),
+                "p95_ms": round(hist.percentile(0.95) * 1e3, 3),
+                "p99_ms": round(hist.percentile(0.99) * 1e3, 3),
+            }
+        work = {s: d["total_s"] for s, d in stages.items()
+                if s in _WORK_STAGES}
+        if stall_pct <= self.stall_threshold_pct:
+            # The consumer rarely waited: the pipeline keeps up and the
+            # trainer's own step is the bottleneck — the goal state.
+            bottleneck = "train_step"
+        elif work:
+            bottleneck = max(work, key=work.get)
+        else:
+            bottleneck = "queue_wait" if "queue_wait" in stages else "unknown"
+        return {
+            "bottleneck_stage": bottleneck,
+            "stall_pct": round(stall_pct, 3),
+            "batch_wait_s": round(wait_total, 6),
+            "batches_waited": wait_count,
+            "wall_s": round(wall, 6),
+            "stages": stages,
+        }
+
+    def epoch_verdict(self, epoch: int) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return self._verdict_locked([epoch])
+
+    def run_summary(self) -> Optional[Dict[str, Any]]:
+        """Verdict over every retained epoch (plus unattributed events)."""
+        with self._lock:
+            return self._verdict_locked(list(self._hists)
+                                        + [e for e in self._waits
+                                           if e not in self._hists])
+
+    def epoch_complete(self, epoch: int, source: str = "") -> None:
+        """Log the epoch's one-line verdict (once per epoch per process;
+        the dataset layer and the JAX binding both call this and the
+        first completion wins)."""
+        with self._lock:
+            if epoch in self._verdict_logged:
+                return
+            self._verdict_logged.add(epoch)
+            verdict = self._verdict_locked([epoch])
+        if verdict is None:
+            return
+        busiest = verdict["stages"].get(verdict["bottleneck_stage"], {})
+        logger.info(
+            "epoch %d bottleneck=%s stall=%.1f%% (wait %.2fs over %.2fs"
+            "%s); %s p95=%.1fms over %d events",
+            epoch, verdict["bottleneck_stage"], verdict["stall_pct"],
+            verdict["batch_wait_s"], verdict["wall_s"],
+            f", {source}" if source else "",
+            verdict["bottleneck_stage"], busiest.get("p95_ms", 0.0),
+            busiest.get("count", 0))
+
+
+# ---------------------------------------------------------------------------
+# Process-wide wiring (the runtime/faults.py fast-path pattern: the
+# disabled case is one global load, no env lookup, no lock)
+# ---------------------------------------------------------------------------
+
+_ENABLED = True
+_lock = threading.Lock()
+_recorder: Optional[FlightRecorder] = None
+_attribution: Optional[StageAttribution] = None
+_events_counter_cache: Dict[str, metrics.Counter] = {}
+_stage_hist_cache: Dict[str, metrics.Histogram] = {}
+#: thread ident -> currently-open span kind (the sampling profiler
+#: reads this to bill stack samples to pipeline stages). Plain-dict
+#: writes are GIL-atomic; no lock on the hot path.
+_active_kinds: Dict[int, str] = {}
+#: Lineage seed of the run this process participates in (trace.py's
+#: deterministic trace/span ids derive from it). Stamped into dumps.
+_trace_seed: Optional[int] = None
+_exit_dump_registered = False
+
+
+def _apply_enabled_locked() -> None:
+    """Swap the public entry points between the real implementations and
+    no-ops: the RSDL_TELEMETRY=0 hard-off fast path. Every caller uses
+    module-attribute access (``rt_telemetry.record(...)``), so the swap
+    takes effect process-wide; the disabled cost is one no-op call
+    (:func:`measure_disabled_overhead` measures it)."""
+    g = globals()
+    if _ENABLED:
+        g["record"] = _record_impl
+        g["span"] = _span_impl
+        g["span_begin"] = _span_begin_impl
+        g["span_end"] = _span_end_impl
+        g["stamp"] = _stamp_impl
+    else:
+        g["record"] = _noop_record
+        g["span"] = _noop_span
+        g["span_begin"] = _noop_span_begin
+        g["span_end"] = _noop_span_end
+        g["stamp"] = _noop_stamp
+
+
+def _register_exit_dump_locked() -> None:
+    """With a trace dir configured (RSDL_TRACE_DIR), every process dumps
+    its recorder there at interpreter exit — the per-process half of the
+    multi-process merge contract (:func:`runtime.trace.merge_dumps`). The dir is
+    re-resolved at fire time so a scene that unsets the env after its
+    run leaves no stray dump."""
+    global _exit_dump_registered
+    if _exit_dump_registered:
+        return
+    _exit_dump_registered = True
+    import atexit
+
+    def _exit_dump() -> None:
+        from ray_shuffling_data_loader_tpu_torch.runtime import policy
+        if not policy.resolve("telemetry", "trace_dir"):
+            return
+        try:
+            dump(reason="atexit")
+        except OSError:
+            logger.exception("telemetry exit dump failed")
+
+    atexit.register(_exit_dump)
+
+
+def _init_locked() -> None:
+    global _recorder, _attribution, _ENABLED
+    if _recorder is not None:
+        return
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    _ENABLED = policy.resolve("telemetry", "telemetry")
+    _recorder = FlightRecorder(
+        capacity=int(policy.resolve("telemetry", "telemetry_capacity")))
+    _attribution = StageAttribution(stall_threshold_pct=policy.resolve(
+        "telemetry", "bottleneck_stall_threshold_pct"))
+    _apply_enabled_locked()
+    if policy.resolve("telemetry", "trace_dir"):
+        _register_exit_dump_locked()
+
+
+def recorder() -> FlightRecorder:
+    """THE process-wide flight recorder."""
+    with _lock:
+        _init_locked()
+        return _recorder
+
+
+def attribution() -> StageAttribution:
+    """THE process-wide bottleneck attributor."""
+    with _lock:
+        _init_locked()
+        return _attribution
+
+
+def enabled() -> bool:
+    with _lock:
+        _init_locked()
+    return _ENABLED
+
+
+def configure(enabled_flag: Optional[bool] = None,
+              capacity: Optional[int] = None) -> None:
+    """Reconfigure in place (tests, bench): a fresh ring / attributor,
+    resolving unset arguments from the policy registry."""
+    global _ENABLED, _recorder, _attribution
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    with _lock:
+        _ENABLED = (policy.resolve("telemetry", "telemetry")
+                    if enabled_flag is None else bool(enabled_flag))
+        _recorder = FlightRecorder(capacity=int(
+            policy.resolve("telemetry", "telemetry_capacity",
+                           override=capacity)))
+        _attribution = StageAttribution(stall_threshold_pct=policy.resolve(
+            "telemetry", "bottleneck_stall_threshold_pct"))
+        _apply_enabled_locked()
+        if policy.resolve("telemetry", "trace_dir"):
+            _register_exit_dump_locked()
+
+
+def set_trace_seed(seed: int) -> None:
+    """Declare the lineage seed this process's run derives from. The
+    deterministic trace/span ids (runtime/trace.py) are functions of
+    ``(seed, epoch, task)``; stamping the seed here puts it into every
+    dump's meta so offline merges can re-derive the same ids the other
+    processes used. Recorded once per distinct seed."""
+    global _trace_seed
+    if _trace_seed == seed:
+        return
+    _trace_seed = seed
+    record("trace_meta", seed=seed)
+
+
+def trace_seed() -> Optional[int]:
+    return _trace_seed
+
+
+#: Thread-local marker set while a SPECULATIVE backup attempt runs
+#: (plan/scheduler.py first-completion-wins duplicates). Events recorded
+#: under it carry a ``spec`` attr and skip the attribution/histogram
+#: observation, so a duplicated attempt can never double-count a stage
+#: in trace merge or bottleneck attribution — the original attempt owns
+#: the canonical span for its lineage key.
+_speculative = threading.local()
+
+
+@contextlib.contextmanager
+def speculative(attempt: int = 1) -> Iterator[None]:
+    """Mark the enclosed work as a speculative duplicate attempt."""
+    prev = getattr(_speculative, "attempt", 0)
+    _speculative.attempt = attempt
+    try:
+        yield
+    finally:
+        _speculative.attempt = prev
+
+
+def speculative_attempt() -> int:
+    """The calling thread's active speculative attempt (0 = original)."""
+    return getattr(_speculative, "attempt", 0)
+
+
+def _record_impl(kind: str, epoch: Optional[int] = None,
+                 task: Optional[int] = None, batch: Optional[int] = None,
+                 dur_s: Optional[float] = None, t: Optional[float] = None,
+                 **attrs: Any) -> None:
+    """Record one structured event (free when telemetry is disabled).
+
+    ``t`` is the event's END in ``time.monotonic()`` terms (defaults to
+    now); events with ``dur_s`` therefore span ``[t - dur_s, t]``. The
+    recording thread's ident rides along so multi-thread traces export
+    with real tids (Perfetto pid/tid mapping).
+    """
+    if not _ENABLED:
+        return
+    rec = _recorder
+    if rec is None:
+        rec = recorder()
+        if not _ENABLED:
+            return
+    spec = getattr(_speculative, "attempt", 0)
+    if spec:
+        attrs = {**attrs, "spec": spec}
+    now = time.monotonic() if t is None else t
+    rec.record((now, kind, epoch, task, batch, dur_s,
+                threading.get_ident(), attrs or None))
+    if spec:
+        # Ring-only: the duplicate attempt is visible evidence (joined to
+        # the original by its lineage key) but must not double-count the
+        # stage in counters, histograms or bottleneck attribution.
+        return
+    events_counter = _events_counter_cache.get(kind)
+    if events_counter is None:
+        events_counter = _events_counter_cache[kind] = metrics.counter(
+            "rsdl_events_total", "flight-recorder events by kind",
+            kind=kind)
+    events_counter.inc()
+    if dur_s is None:
+        return
+    if kind == "batch_wait":
+        attribution().observe_wait(epoch, dur_s, now)
+        hist = _stage_hist_cache.get("batch_wait")
+        if hist is None:
+            hist = _stage_hist_cache["batch_wait"] = metrics.histogram(
+                "rsdl_batch_wait_seconds",
+                "consumer time blocked waiting on the next batch")
+        hist.observe(dur_s)
+        return
+    stage = STAGE_BY_KIND.get(kind)
+    if stage is None:
+        return
+    attribution().observe(stage, epoch, dur_s, now)
+    hist = _stage_hist_cache.get(stage)
+    if hist is None:
+        hist = _stage_hist_cache[stage] = metrics.histogram(
+            "rsdl_stage_seconds", "per-event stage latency", stage=stage)
+    hist.observe(dur_s)
+
+
+@contextlib.contextmanager
+def _span_impl(kind: str, epoch: Optional[int] = None,
+               task: Optional[int] = None, batch: Optional[int] = None,
+               **attrs: Any) -> Iterator[None]:
+    """Record the enclosed block as one duration event (disabled: the
+    overhead is the generator frame alone). While open, the thread's
+    active kind is published for the sampling profiler's stage
+    attribution)."""
+    if not _ENABLED:
+        yield
+        return
+    ident = threading.get_ident()
+    prev = _active_kinds.get(ident)
+    _active_kinds[ident] = kind
+    start = time.monotonic()
+    try:
+        yield
+    finally:
+        end = time.monotonic()
+        if prev is None:
+            _active_kinds.pop(ident, None)
+        else:
+            _active_kinds[ident] = prev
+        record(kind, epoch=epoch, task=task, batch=batch,
+               dur_s=end - start, t=end, **attrs)
+
+
+def _span_begin_impl(kind: str, epoch: Optional[int] = None,
+                     task: Optional[int] = None,
+                     batch: Optional[int] = None,
+                     **attrs: Any) -> Optional[tuple]:
+    """Open a span that cannot be a ``with`` block (a wait measured
+    across loop iterations, a handoff between threads). Returns an
+    opaque token for :func:`span_end` — which MUST run on all exit
+    paths (``finally``); the ``span-unbalanced`` rsdl-lint rule enforces
+    the shape."""
+    if not _ENABLED:
+        return None
+    ident = threading.get_ident()
+    prev = _active_kinds.get(ident)
+    _active_kinds[ident] = kind
+    return (kind, epoch, task, batch, attrs, time.monotonic(), prev, ident)
+
+
+def _span_end_impl(token: Optional[tuple], **late_attrs: Any) -> None:
+    """Close a :func:`span_begin` token, recording the duration event.
+    ``None`` tokens (telemetry disabled at begin time) are a no-op, so
+    callers never need to guard."""
+    if token is None:
+        return
+    kind, epoch, task, batch, attrs, start, prev, ident = token
+    if prev is None:
+        _active_kinds.pop(ident, None)
+    else:
+        _active_kinds[ident] = prev
+    end = time.monotonic()
+    if late_attrs:
+        attrs = {**attrs, **late_attrs}
+    record(kind, epoch=epoch, task=task, batch=batch,
+           dur_s=end - start, t=end, **attrs)
+
+
+def active_kinds() -> Dict[int, str]:
+    """Snapshot of thread ident -> currently-open span kind."""
+    return dict(_active_kinds)
+
+
+def observe_stage(kind: str, epoch: Optional[int] = None,
+                  task: Optional[int] = None, dur_s: float = 0.0) -> None:
+    """Feed the bottleneck attribution + stage histograms with a duration
+    measured in ANOTHER process.
+
+    The process-pool workers (procpool.py) record the real ``map_read`` /
+    ``reduce_gather`` events in their own flight recorders (dumped via
+    ``RSDL_TRACE_DIR``); re-recording them in the driver's ring would
+    double-count the spans when the per-process dumps are merged
+    (:func:`runtime.trace.merge_dumps`). This entry point updates only the driver-side
+    attribution state and latency histograms — no ring event.
+    """
+    if not _ENABLED:
+        return
+    stage = STAGE_BY_KIND.get(kind)
+    if stage is None:
+        return
+    attribution().observe(stage, epoch, dur_s, time.monotonic())
+    hist = _stage_hist_cache.get(stage)
+    if hist is None:
+        hist = _stage_hist_cache[stage] = metrics.histogram(
+            "rsdl_stage_seconds", "per-event stage latency", stage=stage)
+    hist.observe(dur_s)
+
+
+# -- RSDL_TELEMETRY=0 hard-off fast path: the public names rebind to
+# these no-ops (one call frame, no env lookup, no branch chain).
+
+def _noop_record(kind: str, *args: Any, **kwargs: Any) -> None:
+    return None
+
+
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def _noop_span(kind: str, *args: Any, **kwargs: Any):
+    return _NULL_SPAN
+
+
+def _noop_span_begin(*args: Any, **kwargs: Any) -> None:
+    return None
+
+
+def _noop_span_end(token: Any = None, **kwargs: Any) -> None:
+    return None
+
+
+def _stamp_impl() -> float:
+    """Clock read for hot-path duration measurement (``time.monotonic``).
+
+    Queue put/get and transport frames take two clock reads each, on
+    per-item fast paths. Under the hard-off rebind this name becomes
+    a constant-return no-op, so RSDL_TELEMETRY=0 strips the clock reads
+    along with the record calls:
+    ``start = stamp(); ...; record(kind, dur_s=stamp() - start)`` costs
+    two no-op calls when telemetry is off.
+    """
+    return time.monotonic()
+
+
+def _noop_stamp() -> float:
+    return 0.0
+
+
+# Public entry points (swapped by _apply_enabled_locked when policy
+# resolves telemetry off).
+record = _record_impl
+span = _span_impl
+span_begin = _span_begin_impl
+span_end = _span_end_impl
+stamp = _stamp_impl
+
+
+def _update_trace_gauges(epoch: int) -> None:
+    """Per-epoch critical-path exposition: run the trace analyzer over the recorder's
+    retained events for this epoch and publish per-stage critical-path
+    seconds plus the top straggler. Best-effort — exposition must never
+    take down the pipeline."""
+    try:
+        from ray_shuffling_data_loader_tpu_torch.runtime import trace as rt_trace
+        analysis = rt_trace.analyze(recorder().events(), epoch=epoch)
+        for entry in analysis["critical_path"]:
+            metrics.gauge(
+                "rsdl_trace_cp_seconds",
+                "critical-path seconds attributed to the stage "
+                "(latest analyzed epoch)",
+                stage=entry["stage"]).set(entry["cp_ms"] / 1e3)
+        stragglers = [s for s in analysis["stragglers"]
+                      if s["cp_ms"] > 0 and s["task"] is not None]
+        if stragglers:
+            top = stragglers[0]
+            metrics.gauge(
+                "rsdl_trace_straggler_task",
+                "task id of the current critical-path straggler",
+                stage=top["stage"]).set(float(top["task"]))
+            metrics.gauge(
+                "rsdl_trace_straggler_seconds",
+                "critical-path seconds of the current straggler task",
+                stage=top["stage"]).set(top["cp_ms"] / 1e3)
+    except Exception:  # noqa: BLE001 - observability stays best-effort
+        logger.exception("trace gauge update failed (epoch %d)", epoch)
+
+
+def epoch_complete(epoch: int, source: str = "") -> None:
+    """Epoch-end hook for dataset layers: logs the one-line verdict and
+    refreshes the critical-path exposition gauges."""
+    if not _ENABLED:
+        return
+    attribution().epoch_complete(epoch, source=source)
+    _update_trace_gauges(epoch)
+
+
+# ---------------------------------------------------------------------------
+# Dumps: JSONL events + named-thread stacks (on demand / watchdog / SIGUSR1)
+# ---------------------------------------------------------------------------
+
+
+def _thread_stacks() -> List[Dict[str, Any]]:
+    frames = sys._current_frames()
+    by_ident = {t.ident: t for t in threading.enumerate()}
+    out = []
+    for ident, frame in frames.items():
+        thread = by_ident.get(ident)
+        buf = io.StringIO()
+        traceback.print_stack(frame, file=buf)
+        out.append({
+            "kind": "thread_stack",
+            "thread": thread.name if thread else f"ident-{ident}",
+            "ident": ident,
+            "daemon": bool(thread.daemon) if thread else None,
+            "stack": buf.getvalue().rstrip().splitlines(),
+        })
+    return out
+
+
+_dump_seq = 0
+
+
+def dump(path: Optional[str] = None, reason: str = "on-demand") -> str:
+    """Write the flight recorder + thread stacks as JSONL; returns the
+    path. Default location: ``telemetry_dump_dir`` policy key
+    (``RSDL_TELEMETRY_DUMP_DIR``), else the system temp dir."""
+    global _dump_seq
+    if path is None:
+        from ray_shuffling_data_loader_tpu_torch.runtime import policy
+        import tempfile
+        directory = (policy.resolve("telemetry", "trace_dir")
+                     or policy.resolve("telemetry", "telemetry_dump_dir")
+                     or tempfile.gettempdir())
+        os.makedirs(directory, exist_ok=True)
+        with _lock:
+            _dump_seq += 1
+            seq = _dump_seq
+        path = os.path.join(
+            directory, f"rsdl-telemetry-{os.getpid()}-{seq}.jsonl")
+    rec = recorder()
+    with open(path, "w", encoding="utf-8") as f:
+        # time.time() here is a SERIALIZED timestamp (never used in
+        # interval math): it anchors t_mono offsets to wall clock for
+        # whoever reads the dump — the cross-process clock alignment
+        # runtime/trace.py merges on.
+        f.write(json.dumps({
+            "kind": "dump_meta", "reason": reason, "pid": os.getpid(),
+            "time_unix": time.time(), "t_mono": time.monotonic(),
+            "events_total": rec.total_recorded,
+            "events_retained": min(rec.total_recorded, rec.capacity),
+            "trace_seed": _trace_seed,
+            "role": os.path.basename(sys.argv[0]) or "python",
+        }) + "\n")
+        for event in rec.events():
+            f.write(json.dumps(event) + "\n")
+        for stack in _thread_stacks():
+            f.write(json.dumps(stack) + "\n")
+    logger.warning("telemetry dump (%s): %s", reason, path)
+    return path
+
+
+def install_signal_dump(signum: int = signal.SIGUSR1) -> bool:
+    """Install a SIGUSR1 (by default) handler that writes a flight
+    recorder dump. Returns False (no-op) off the main thread or on
+    platforms without the signal — callers need not guard."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+
+    def _handler(_signum, _frame):
+        try:
+            dump(reason=f"signal {_signum}")
+        except OSError:
+            logger.exception("telemetry signal dump failed")
+
+    try:
+        signal.signal(signum, _handler)
+    except (ValueError, OSError, AttributeError):
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Overhead self-measurement
+# ---------------------------------------------------------------------------
+
+
+def measure_record_overhead(samples: int = 2000) -> float:
+    """Seconds per ENABLED ``record()`` call, measured against throwaway
+    doubles of everything the real path touches — ring, events counter,
+    stage histogram, attribution observe — so the number is the full
+    per-event cost, not just the ring append (the live recorder is not
+    polluted). Multiplied by the events recorded in a timed window it
+    gives the recording's self-measured share of that window."""
+    probe = FlightRecorder(capacity=256)
+    probe_counter = metrics.Counter()
+    probe_attr = StageAttribution()
+    probe_hist = metrics.Histogram()
+    start = time.perf_counter()
+    for i in range(samples):
+        now = time.monotonic()
+        probe.record((now, "probe", 0, i, None, 1e-6,
+                      threading.get_ident(), None))
+        probe_counter.inc()
+        probe_attr.observe("map_read", 0, 1e-6, now)
+        probe_hist.observe(1e-6)
+    elapsed = time.perf_counter() - start
+    return elapsed / samples
+
+
+def measure_disabled_overhead(samples: int = 2000) -> float:
+    """Seconds per call of the RSDL_TELEMETRY=0 hard-off fast path (the
+    no-op ``record`` the public name rebinds to)."""
+    start = time.perf_counter()
+    for i in range(samples):
+        _noop_record("probe", epoch=0, task=i, dur_s=1e-6)
+    elapsed = time.perf_counter() - start
+    return elapsed / samples
+
+
+# Honor env-driven SIGUSR1 installation at import: RSDL_TELEMETRY_SIGUSR1=1
+# makes any driver dumpable with `kill -USR1 <pid>`, zero code.
+if os.environ.get("RSDL_TELEMETRY_SIGUSR1", "").strip().lower() in (
+        "1", "true", "yes", "on"):
+    install_signal_dump()

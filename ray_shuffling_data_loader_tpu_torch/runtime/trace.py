@@ -1,0 +1,502 @@
+"""Causal cross-process trace analysis over flight-recorder dumps (own
+copy of the JAX package's ``runtime/trace.py``: the same ids, DAG,
+critical path and Perfetto export).
+
+**Deterministic trace context.** Every pipeline task is a pure function
+of the lineage key ``(seed, epoch, task)``. :func:`trace_id` /
+:func:`span_id` derive stable identifiers from that key alone, so two
+processes that never exchanged a header agree on the id of "epoch 3,
+reduce task 2". Reducer outputs carry their key as ``rsdl.trace`` schema
+metadata, and the transport's frames carry ``(epoch, reducer, file)``
+tags that both ends record.
+
+**Merge, DAG and critical path.** :func:`merge_dumps` aligns per-process
+recorder dumps onto one clock (each dump anchors ``t_mono`` to
+``time_unix`` at dump time: same-host alignment). :func:`analyze` builds a
+per-epoch DAG ordered by stage rank (map -> reduce -> queue/transport ->
+fetch -> convert -> device transfer -> train step) and walks the backward
+critical path from the last-finishing terminal span: each step attributes
+the wall-clock segment its span blocked, then jumps to the
+latest-finishing upstream span. Out of that come ``self_time_ms`` (the
+per-stage union of busy intervals), the per-``(stage, task)`` straggler
+ranking and the what-if table ("2x faster reduce => -X% epoch time"),
+monotone in the speedup by construction (:func:`whatif_saving_pct`).
+
+**Perfetto export.** :func:`to_perfetto` emits chrome-trace JSON (``ph:
+"X"`` duration events with real pid/tid plus process and thread names).
+
+Stdlib-only and import-free: it can be loaded by path on a host without
+numpy, pyarrow or torch.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+#: Causal rank of each event kind the DAG orders on. Lower rank =
+#: further upstream. Work stages keep the attribution-stage naming
+#: (runtime/telemetry.py STAGE_BY_KIND); link kinds (queue/transport
+#: hops) sit between the work stages they connect. Kinds absent here
+#: (faults, watchdog, leases) are carried through merges and exports
+#: but take no part in the critical path.
+STAGE_RANK: Dict[str, int] = {
+    "map_read": 0,
+    "reduce": 10,
+    "reduce_gather": 10,
+    "spill_write": 15,
+    "spill_read": 16,
+    "queue_put": 20,
+    "transport_send": 20,
+    "transport_recv": 25,
+    "queue_get": 30,
+    "frame_recv": 30,
+    "fetch": 35,
+    "queue_fetch": 35,
+    "queue_wait": 40,
+    "convert": 50,
+    "device_transfer": 60,
+    "train_step": 70,
+}
+
+#: Kind -> canonical stage name (the telemetry attribution vocabulary).
+CANONICAL_STAGE: Dict[str, str] = {
+    "reduce_gather": "reduce",
+    "queue_fetch": "fetch",
+}
+
+#: Pure wait kinds: symptoms, not work — excluded from straggler
+#: ranking and what-if (speeding up "waiting" is not an action).
+WAIT_KINDS = frozenset({"queue_wait", "batch_wait"})
+
+_EPS = 1e-9
+
+
+def trace_id(seed: int, epoch: int) -> str:
+    """Deterministic 16-hex-digit trace id for one epoch of one run.
+
+    Any process that knows the lineage key derives the same id — no
+    header needs to cross the wire for two dumps to agree.
+    """
+    digest = hashlib.sha1(f"rsdl-trace:{seed}:{epoch}".encode()).hexdigest()
+    return digest[:16]
+
+
+def span_id(seed: int, epoch: int, kind: str, task: Optional[int]) -> str:
+    """Deterministic 16-hex-digit span id for one task's stage span."""
+    digest = hashlib.sha1(
+        f"rsdl-span:{seed}:{epoch}:{kind}:{task}".encode()).hexdigest()
+    return digest[:16]
+
+
+# ---------------------------------------------------------------------------
+# Dump loading + multi-process merge
+# ---------------------------------------------------------------------------
+
+
+def load_dump(path: str) -> Dict[str, Any]:
+    """One recorder JSONL dump -> ``{"meta", "events", "threads"}``.
+
+    Torn tails are tolerated (a dump written while the process died may
+    end mid-line); ``threads`` maps thread ident -> name from the
+    dump's ``thread_stack`` records.
+    """
+    meta: Dict[str, Any] = {}
+    events: List[Dict[str, Any]] = []
+    threads: Dict[int, str] = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue  # torn tail: keep what parsed
+            kind = rec.get("kind")
+            if kind == "dump_meta":
+                meta = rec
+            elif kind == "thread_stack":
+                ident = rec.get("ident")
+                if ident is not None:
+                    threads[int(ident)] = rec.get("thread", f"tid-{ident}")
+            else:
+                events.append(rec)
+    meta.setdefault("pid", 0)
+    meta.setdefault("path", path)
+    return {"meta": meta, "events": events, "threads": threads}
+
+
+def merge_dumps(paths: Sequence[str]) -> Dict[str, Any]:
+    """Merge per-process dumps onto one clock.
+
+    Keeps only the LATEST dump per pid (highest ``events_total``): the
+    ring is cumulative, so a process's later dump supersedes its
+    earlier one — two dumps from one pid would double-count every
+    retained event. Event times are aligned by each dump's
+    ``time_unix - t_mono`` anchor (same-host alignment); every merged
+    event gains ``pid``, absolute ``t1``/``t0`` seconds, and the
+    originating thread's name when known.
+    """
+    by_pid: Dict[int, Dict[str, Any]] = {}
+    for path in paths:
+        dump = load_dump(path)
+        pid = dump["meta"]["pid"]
+        prev = by_pid.get(pid)
+        if prev is None or (dump["meta"].get("events_total", 0)
+                            >= prev["meta"].get("events_total", 0)):
+            by_pid[pid] = dump
+    events: List[Dict[str, Any]] = []
+    processes: List[Dict[str, Any]] = []
+    threads: Dict[Tuple[int, int], str] = {}
+    for pid, dump in sorted(by_pid.items()):
+        meta = dump["meta"]
+        processes.append(meta)
+        anchor = meta.get("time_unix", 0.0) - meta.get("t_mono", 0.0)
+        for ident, name in dump["threads"].items():
+            threads[(pid, ident)] = name
+        for raw in dump["events"]:
+            ev = dict(raw)
+            ev["pid"] = pid
+            t_mono = float(ev.get("t_mono", 0.0))
+            dur = float(ev.get("dur_s") or 0.0)
+            ev["t1"] = anchor + t_mono
+            ev["t0"] = ev["t1"] - dur
+            tid = ev.get("tid")
+            if tid is not None and (pid, tid) in threads:
+                ev["thread"] = threads[(pid, tid)]
+            events.append(ev)
+    events.sort(key=lambda e: e["t1"])
+    return {"processes": processes, "events": events, "threads": threads}
+
+
+def _normalize_in_process(events: Iterable[Dict[str, Any]], pid: int = 0
+                          ) -> List[Dict[str, Any]]:
+    """Recorder ``events()`` dicts (single process, monotonic clock) ->
+    the merged-event shape :func:`analyze` consumes."""
+    out = []
+    for raw in events:
+        ev = dict(raw)
+        ev.setdefault("pid", pid)
+        t_mono = float(ev.get("t_mono", 0.0))
+        dur = float(ev.get("dur_s") or 0.0)
+        ev["t1"] = t_mono
+        ev["t0"] = t_mono - dur
+        out.append(ev)
+    out.sort(key=lambda e: e["t1"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DAG + critical path
+# ---------------------------------------------------------------------------
+
+
+def _spans(events: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Durational stage/link spans (the DAG's nodes). Speculative
+    duplicate attempts (``spec`` attr, plan/scheduler.py) are excluded:
+    they share the original's lineage key by construction, and counting
+    both would double-bill the stage."""
+    return [e for e in events
+            if e.get("dur_s") and e.get("kind") in STAGE_RANK
+            and not e.get("fault") and not e.get("spec")]
+
+
+def _epoch_windows(spans: Sequence[Dict[str, Any]]
+                   ) -> Dict[int, Tuple[float, float]]:
+    windows: Dict[int, List[float]] = {}
+    for s in spans:
+        epoch = s.get("epoch")
+        if epoch is None:
+            continue
+        w = windows.setdefault(int(epoch), [s["t0"], s["t1"]])
+        w[0] = min(w[0], s["t0"])
+        w[1] = max(w[1], s["t1"])
+    return {e: (w[0], w[1]) for e, w in windows.items()}
+
+
+def assign_epochs(spans: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Give epoch-less spans (e.g. ``device_transfer`` attempt sequences)
+    the epoch whose window contains their midpoint, so per-epoch DAGs
+    see the whole pipeline. Spans matching no window stay epoch-less."""
+    windows = _epoch_windows(spans)
+    if not windows:
+        return spans
+    for s in spans:
+        if s.get("epoch") is not None:
+            continue
+        mid = (s["t0"] + s["t1"]) / 2.0
+        for epoch, (lo, hi) in windows.items():
+            if lo - _EPS <= mid <= hi + _EPS:
+                s["epoch"] = epoch
+                break
+    return spans
+
+
+def _union_length(intervals: List[Tuple[float, float]]) -> float:
+    """Total covered length of possibly-overlapping intervals (parallel
+    tasks of one stage are not double-billed)."""
+    if not intervals:
+        return 0.0
+    intervals.sort()
+    total = 0.0
+    cur_lo, cur_hi = intervals[0]
+    for lo, hi in intervals[1:]:
+        if lo > cur_hi:
+            total += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    return total + (cur_hi - cur_lo)
+
+
+def _critical_path_epoch(spans: List[Dict[str, Any]],
+                         window: Tuple[float, float]
+                         ) -> List[Dict[str, Any]]:
+    """Backward critical-path walk over one epoch's spans.
+
+    From the latest-finishing span of the most-downstream stage
+    present, repeatedly: attribute the segment where the current span
+    was the blocker (down to the latest-finishing upstream span's end),
+    then continue from that predecessor. Returns segments in causal
+    (start-to-finish) order: ``{stage, kind, task, pid, t0, t1}``.
+    """
+    if not spans:
+        return []
+    t_begin = window[0]
+    max_rank = max(STAGE_RANK[s["kind"]] for s in spans)
+    terminal = max((s for s in spans if STAGE_RANK[s["kind"]] == max_rank),
+                   key=lambda s: s["t1"])
+    segments: List[Dict[str, Any]] = []
+    visited = {id(terminal)}
+    cur = terminal
+    cursor = terminal["t1"]
+    # Each iteration either consumes one span or stops; bounded by the
+    # span count even in pathological clock configurations.
+    for _ in range(len(spans) + 1):
+        lo = max(cur["t0"], t_begin)
+        pred = None
+        pred_t1 = -float("inf")
+        cur_rank = STAGE_RANK[cur["kind"]]
+        for s in spans:
+            if id(s) in visited or STAGE_RANK[s["kind"]] > cur_rank:
+                continue
+            if s["t1"] <= cursor + _EPS and s["t1"] > pred_t1:
+                pred, pred_t1 = s, s["t1"]
+        seg_lo = max(lo, pred_t1) if pred is not None else lo
+        if cursor - seg_lo > _EPS:
+            segments.append({
+                "stage": CANONICAL_STAGE.get(cur["kind"], cur["kind"]),
+                "kind": cur["kind"],
+                "task": cur.get("task"),
+                "pid": cur.get("pid"),
+                "t0": seg_lo,
+                "t1": cursor,
+            })
+        if pred is None or pred_t1 <= t_begin + _EPS:
+            break
+        visited.add(id(pred))
+        cur = pred
+        cursor = min(pred_t1, seg_lo)
+    segments.reverse()
+    return segments
+
+
+def whatif_saving_pct(cp_ms: float, wall_ms: float,
+                      speedup: float) -> float:
+    """Epoch-time % saved if the stage ran ``speedup``x faster, by the
+    critical-path attribution: only the stage's time ON the path can
+    shrink the epoch, and it shrinks by ``1 - 1/speedup`` of itself.
+    Monotone (non-decreasing) in ``speedup`` by construction."""
+    if wall_ms <= 0 or speedup <= 0:
+        return 0.0
+    saved = cp_ms * (1.0 - 1.0 / speedup)
+    return max(0.0, 100.0 * saved / wall_ms)
+
+
+def analyze(events: Sequence[Dict[str, Any]],
+            epoch: Optional[int] = None,
+            whatif_speedup: float = 2.0) -> Dict[str, Any]:
+    """Full causal analysis over merged (or in-process recorder) events.
+
+    Returns::
+
+        {
+          "epochs": [ids analyzed],
+          "wall_ms": total epoch-window wall,
+          "critical_path": [{"stage", "cp_ms", "pct"} ... desc by cp_ms],
+          "path_segments": causal segment walk (per epoch, flattened),
+          "self_time_ms": {stage: busy-union ms},
+          "stragglers": [{"stage", "task", "self_ms", "cp_ms"} ...],
+          "whatif": {stage: {"speedup", "epoch_time_saved_pct"}},
+        }
+    """
+    if events and "t1" not in events[0]:
+        events = _normalize_in_process(events)
+    spans = assign_epochs(_spans(events))
+    windows = _epoch_windows(spans)
+    epochs = sorted(windows) if epoch is None else \
+        [e for e in sorted(windows) if e == epoch]
+    wall_s = sum(windows[e][1] - windows[e][0] for e in epochs)
+    cp_by_stage: Dict[str, float] = {}
+    cp_by_task: Dict[Tuple[str, Any], float] = {}
+    all_segments: List[Dict[str, Any]] = []
+    self_intervals: Dict[str, List[Tuple[float, float]]] = {}
+    self_by_task: Dict[Tuple[str, Any], float] = {}
+    for e in epochs:
+        epoch_spans = [s for s in spans if s.get("epoch") == e]
+        for s in epoch_spans:
+            stage = CANONICAL_STAGE.get(s["kind"], s["kind"])
+            self_intervals.setdefault(stage, []).append((s["t0"], s["t1"]))
+            if s["kind"] not in WAIT_KINDS:
+                key = (stage, s.get("task"))
+                self_by_task[key] = self_by_task.get(key, 0.0) \
+                    + (s["t1"] - s["t0"])
+        for seg in _critical_path_epoch(epoch_spans, windows[e]):
+            seg["epoch"] = e
+            all_segments.append(seg)
+            dur = seg["t1"] - seg["t0"]
+            cp_by_stage[seg["stage"]] = cp_by_stage.get(seg["stage"], 0.0) \
+                + dur
+            if seg["kind"] not in WAIT_KINDS:
+                key = (seg["stage"], seg["task"])
+                cp_by_task[key] = cp_by_task.get(key, 0.0) + dur
+    wall_ms = wall_s * 1e3
+    critical_path = sorted(
+        ({"stage": stage, "cp_ms": round(ms * 1e3, 3),
+          "pct": round(100.0 * ms / wall_s, 2) if wall_s > 0 else 0.0}
+         for stage, ms in cp_by_stage.items()),
+        key=lambda d: -d["cp_ms"])
+    stragglers = sorted(
+        ({"stage": stage, "task": task,
+          "self_ms": round(self_by_task.get((stage, task), 0.0) * 1e3, 3),
+          "cp_ms": round(cp_by_task.get((stage, task), 0.0) * 1e3, 3)}
+         for stage, task in
+         set(cp_by_task) | set(self_by_task)),
+        key=lambda d: (-d["cp_ms"], -d["self_ms"]))
+    whatif = {
+        stage: {
+            "speedup": whatif_speedup,
+            "epoch_time_saved_pct": round(
+                whatif_saving_pct(ms * 1e3, wall_ms, whatif_speedup), 2),
+        }
+        for stage, ms in cp_by_stage.items()
+        if stage not in WAIT_KINDS
+    }
+    return {
+        "epochs": epochs,
+        "wall_ms": round(wall_ms, 3),
+        "critical_path": critical_path,
+        "path_segments": all_segments,
+        "self_time_ms": {
+            stage: round(_union_length(iv) * 1e3, 3)
+            for stage, iv in self_intervals.items()
+        },
+        "stragglers": stragglers,
+        "whatif": whatif,
+    }
+
+
+def stage_table(analysis: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
+    """Per-stage summary of one :func:`analyze` result, normalized per
+    epoch so two runs with different epoch counts compare directly:
+    ``{stage: {cp_ms, cp_ms_per_epoch, pct, self_ms}}``. The epoch
+    normalization is what lets ``runtime/regress.py`` align stages
+    across rounds by ``(kind, epoch-normalized rank)`` instead of raw
+    wall totals."""
+    n_epochs = max(1, len(analysis.get("epochs") or []))
+    self_ms = analysis.get("self_time_ms", {})
+    table: Dict[str, Dict[str, float]] = {}
+    for entry in analysis.get("critical_path", []):
+        stage = entry["stage"]
+        table[stage] = {
+            "cp_ms": entry["cp_ms"],
+            "cp_ms_per_epoch": round(entry["cp_ms"] / n_epochs, 3),
+            "pct": entry["pct"],
+            "self_ms": self_ms.get(stage, 0.0),
+        }
+    # Stages with self time but no critical-path presence still appear
+    # (cp 0): a stage ENTERING the path between two rounds needs its
+    # baseline row to diff against.
+    for stage, ms in self_ms.items():
+        table.setdefault(stage, {
+            "cp_ms": 0.0, "cp_ms_per_epoch": 0.0, "pct": 0.0,
+            "self_ms": ms,
+        })
+    return table
+
+
+def bench_fields(events: Sequence[Dict[str, Any]],
+                 whatif_speedup: float = 2.0) -> Dict[str, Any]:
+    """The bench-record slice of :func:`analyze`: compact
+    ``critical_path`` / ``self_time_ms`` / ``whatif`` / straggler
+    fields over the recorder's retained window (ring overwrite means
+    *recent* epochs — exactly the steady state a bench wants)."""
+    analysis = analyze(events, whatif_speedup=whatif_speedup)
+    stragglers = [s for s in analysis["stragglers"] if s["cp_ms"] > 0]
+    return {
+        "critical_path": analysis["critical_path"][:8],
+        "self_time_ms": analysis["self_time_ms"],
+        "whatif": analysis["whatif"],
+        "trace_straggler": stragglers[0] if stragglers else None,
+        "trace_epochs_analyzed": len(analysis["epochs"]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Perfetto / chrome-trace export
+# ---------------------------------------------------------------------------
+
+
+def to_perfetto(merged: Dict[str, Any], seed: int = 0) -> Dict[str, Any]:
+    """Merged trace -> chrome-trace JSON (``ui.perfetto.dev`` /
+    ``chrome://tracing``). Duration events get real pid/tid, lineage
+    args, and deterministic trace/span ids; zero-duration events export
+    as instants; process/thread name metadata rides along."""
+    events = merged["events"] if isinstance(merged, dict) else \
+        _normalize_in_process(merged)
+    processes = merged.get("processes", []) if isinstance(merged, dict) \
+        else []
+    threads = merged.get("threads", {}) if isinstance(merged, dict) else {}
+    if not events:
+        return {"traceEvents": [], "displayTimeUnit": "ms"}
+    base = min(e["t0"] for e in events)
+    out: List[Dict[str, Any]] = []
+    for meta in processes:
+        out.append({"ph": "M", "name": "process_name",
+                    "pid": meta["pid"], "tid": 0,
+                    "args": {"name": meta.get("role",
+                                              f"pid {meta['pid']}")}})
+    for (pid, tid), name in threads.items():
+        out.append({"ph": "M", "name": "thread_name", "pid": pid,
+                    "tid": tid, "args": {"name": name}})
+    for e in events:
+        pid = int(e.get("pid") or 0)
+        tid = int(e.get("tid") or pid)
+        epoch = e.get("epoch")
+        task = e.get("task")
+        args: Dict[str, Any] = {
+            k: v for k, v in e.items()
+            if k not in ("t_mono", "t0", "t1", "pid", "tid", "kind",
+                         "dur_s", "thread")
+        }
+        if epoch is not None:
+            args["trace_id"] = trace_id(seed, int(epoch))
+            args["span_id"] = span_id(seed, int(epoch), e["kind"], task)
+        record = {
+            "name": e["kind"],
+            "cat": CANONICAL_STAGE.get(e["kind"], e["kind"]),
+            "pid": pid,
+            "tid": tid,
+            "ts": round((e["t0"] - base) * 1e6, 3),
+            "args": args,
+        }
+        if e.get("dur_s"):
+            record["ph"] = "X"
+            record["dur"] = round(float(e["dur_s"]) * 1e6, 3)
+        else:
+            record["ph"] = "i"
+            record["s"] = "t"
+        out.append(record)
+    return {"traceEvents": out, "displayTimeUnit": "ms"}

@@ -5,8 +5,10 @@ A thread blocked in a wedged host-to-device copy cannot be interrupted,
 so the cure is supervision: the step registers a *watch* around its
 blocking call; one daemon monitor thread sees the missed deadline while
 the call is still stuck, files a :class:`StallReport` into
-``stats.watchdog_stats()``, logs it and runs the step's ``on_stall`` hook
-(the device binding's drops it to per-batch copies). When the call
+``stats.watchdog_stats()`` (a ``watchdog_stall`` event and the
+``rsdl_watchdog_*`` counters), logs it, dumps the flight recorder once
+when the stall outlives a second deadline, and runs the step's
+``on_stall`` hook (the device binding's drops it to per-batch copies). When the call
 returns, the step reads ``handle.stalled`` and goes on degraded.
 
 One process-wide instance (:func:`get_watchdog`) supervises every step;
@@ -140,6 +142,18 @@ class Watchdog:
                     timestamp=time.time())
                 w.report = report
                 stats_mod.watchdog_stats().record_stall(report)
+                if escalation == 2:
+                    # The stall outlived a second deadline: dump the
+                    # flight recorder and the thread stacks once per
+                    # watch, while the stuck call is still stuck.
+                    from ray_shuffling_data_loader_tpu_torch.runtime import (
+                        telemetry)
+                    try:
+                        telemetry.dump(
+                            reason=f"watchdog escalation: {w.name}")
+                    except Exception:  # noqa: BLE001 - supervision survives
+                        logger.exception(
+                            "watchdog telemetry dump failed for %s", w.name)
                 log = logger.warning if escalation == 1 else logger.error
                 log("watchdog: %s has run %.4fs (deadline %.4fs, "
                     "escalation %d)%s", report.name, report.waited_s,

@@ -92,15 +92,19 @@ from ray_shuffling_data_loader_tpu_torch import storage as rt_storage
 from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.plan import scheduler as plan_sched
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import latency as rt_latency
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import release as rt_release
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 # The disk caches live in storage/; re-exported under the JAX package's
 # names here, as fileio is.
 from ray_shuffling_data_loader_tpu_torch.storage.cache import (  # noqa: F401
     DiskTableCache, DiskTier, TieredStore)
 from ray_shuffling_data_loader_tpu_torch.utils import fileio  # noqa: F401
 from ray_shuffling_data_loader_tpu_torch.utils.singleflight import SingleFlight
+from ray_shuffling_data_loader_tpu_torch.utils.tracing import trace_span
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -661,15 +665,32 @@ def shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
     fault site fires once per call that reads the file (a cache hit does
     not read it). With a cache, a hit is the cached table as the transform
     left it; a miss is read, transformed, made single-chunk and cached.
+    A map that returns a shard records one ``map_read`` event (its read,
+    or its whole streaming map) keyed ``(epoch, task=file_index)``, a
+    cache hit included.
     """
     if on_bad_file not in ("raise", "skip"):
         raise ValueError(
             f"on_bad_file must be 'raise' or 'skip', got {on_bad_file!r}")
     if stats_collector is not None:
         stats_collector.map_start(epoch)
+    with trace_span(f"shuffle_map e{epoch} f{file_index}"):
+        return _shuffle_map(filename, num_reducers, seed, epoch, file_index,
+                            stats_collector, map_transform, file_cache,
+                            on_bad_file, read_retry)
+
+
+def _shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
+                 file_index: int, stats_collector, map_transform,
+                 file_cache, on_bad_file: str, read_retry) -> MapOutput:
     start = timeit.default_timer()
 
     def done(shard, read_end: float):
+        if not isinstance(shard, rt_faults.QuarantinedFile):
+            # The kind is the fault site's name: a chaos run's map_read
+            # faults join this event on (kind, epoch, task).
+            rt_telemetry.record("map_read", epoch=epoch, task=file_index,
+                                dur_s=read_end - start)
         if stats_collector is not None:
             stats_collector.map_done(epoch, timeit.default_timer() - start,
                                      read_end - start)
@@ -843,21 +864,23 @@ def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
     if stats_collector is not None:
         stats_collector.reduce_start(epoch)
     start = timeit.default_timer()
-    if not chunks:
-        out = pa.table({})
-    else:
-        sources = [_source(c, reduce_index) for c in chunks]
-        schema = sources[0][3]
-        for _, _, _, s in sources[1:]:
-            if list(s.names) != list(schema.names) or not s.equals(schema):
-                raise ValueError("map outputs disagree on their schema")
-        if any(cols is None for cols, _, _, _ in sources):
-            out = _take_reduce(reduce_index, seed, epoch, chunks)
+    with trace_span(f"shuffle_reduce e{epoch} r{reduce_index}"):
+        if not chunks:
+            out = pa.table({})
         else:
-            out = _fused_reduce(reduce_index, seed, epoch, sources, schema,
-                                gather_threads)
-    if reduce_transform is not None and out.num_columns:
-        out = reduce_transform(out)
+            sources = [_source(c, reduce_index) for c in chunks]
+            schema = sources[0][3]
+            for _, _, _, s in sources[1:]:
+                if (list(s.names) != list(schema.names)
+                        or not s.equals(schema)):
+                    raise ValueError("map outputs disagree on their schema")
+            if any(cols is None for cols, _, _, _ in sources):
+                out = _take_reduce(reduce_index, seed, epoch, chunks)
+            else:
+                out = _fused_reduce(reduce_index, seed, epoch, sources,
+                                    schema, gather_threads)
+        if reduce_transform is not None and out.num_columns:
+            out = reduce_transform(out)
     if stats_collector is not None:
         stats_collector.reduce_done(epoch, timeit.default_timer() - start)
     return out
@@ -974,17 +997,42 @@ class EpochLineage:
             cell.done.set()
 
 
+def stamp_lineage(table: pa.Table, seed: Optional[int], epoch: int,
+                  task: int) -> pa.Table:
+    """``table`` with its lineage as ``rsdl.trace`` schema metadata
+    (``"seed:epoch:task"``, the causal trace context of
+    ``runtime/trace.py``) and its birth stamp as ``rsdl.birth``
+    (``runtime/latency.py``: the pid and both clocks, the delivery
+    latency's t=0). Schema metadata survives slicing, Arrow IPC (spill
+    files, the pool's segments, the transport) and concatenation; it is
+    never part of a table's data. A table that already carries a birth
+    stamp keeps it: a process-pool reducer's output is stamped in the
+    worker that built it, before its segment is written."""
+    meta = dict(table.schema.metadata or {})
+    if rt_latency.BIRTH_META_KEY in meta:
+        return table
+    meta[b"rsdl.trace"] = f"{seed if seed is not None else 0}:" \
+                          f"{epoch}:{task}".encode()
+    meta[rt_latency.BIRTH_META_KEY] = rt_latency.encode_stamp(
+        rt_latency.now_stamp())
+    return table.replace_schema_metadata(meta)
+
+
 def account_and_maybe_spill(shuffled: pa.Table, spill_manager,
                             recompute=None, epoch: Optional[int] = None,
-                            task: Optional[int] = None) -> pa.Table:
+                            task: Optional[int] = None,
+                            seed: Optional[int] = None) -> pa.Table:
     """The post-reduce memory policy of the single-host and distributed
-    reduces: charge the output to the buffer ledger, then spill it if a
-    spill manager is active and the pipeline is over budget (the
-    ``SpilledTable`` handle replaces the table, so its memory goes as
-    soon as the reduce returns). ``recompute`` (the single-host reduce's
+    reduces: stamp the output's lineage and birth (:func:`stamp_lineage`),
+    charge it to the buffer ledger, then spill it if a spill manager is
+    active and the pipeline is over budget (the ``SpilledTable`` handle
+    replaces the table, so its memory goes as soon as the reduce
+    returns). ``recompute`` (the single-host reduce's
     :func:`recompute_reducer_output`) arms the handle's recovery of a
     corrupt spill; the distributed reduce passes None (its inputs crossed
     the wire, so a corrupt spill stays a loud failure)."""
+    if epoch is not None and task is not None:
+        shuffled = stamp_lineage(shuffled, seed, epoch, task)
     native.account_table(shuffled)
     if spill_manager is not None:
         shuffled = spill_manager.maybe_spill(shuffled, recompute=recompute,
@@ -1003,24 +1051,30 @@ def _reduce_task(reduce_index: int, seed: int, epoch: int,
     """One reduce: this reducer's chunk of every map output, then the
     permutation. A failed map is recomputed through ``lineage``; a
     ``QuarantinedFile`` drops its file; the gather and permute re-run
-    under ``retry_policy`` (a pure function of the maps' outputs)."""
+    under ``retry_policy`` (a pure function of the maps' outputs). Each
+    attempt is one ``reduce_gather`` span (fault site, wait on the maps,
+    gather and permute): the unit the attribution bills to ``reduce`` and
+    a ``reduce_gather`` chaos rule perturbs."""
 
     def gather_and_shuffle() -> pa.Table:
-        rt_faults.inject("reduce_gather", epoch=epoch, task=reduce_index)
-        chunks = []
-        for file_index, ref in enumerate(map_refs):
-            try:
-                shard = ref.result()
-            except Exception as e:  # noqa: BLE001 - lineage recovers
-                if lineage is None:
-                    raise
-                shard = lineage.recover(file_index, e)
-            if isinstance(shard, rt_faults.QuarantinedFile):
-                continue
-            chunks.append(shard[reduce_index])
-        return shuffle_reduce(reduce_index, seed, epoch, chunks,
-                              reduce_transform, stats_collector,
-                              gather_threads)
+        with rt_telemetry.span("reduce_gather", epoch=epoch,
+                               task=reduce_index):
+            rt_faults.inject("reduce_gather", epoch=epoch,
+                             task=reduce_index)
+            chunks = []
+            for file_index, ref in enumerate(map_refs):
+                try:
+                    shard = ref.result()
+                except Exception as e:  # noqa: BLE001 - lineage recovers
+                    if lineage is None:
+                        raise
+                    shard = lineage.recover(file_index, e)
+                if isinstance(shard, rt_faults.QuarantinedFile):
+                    continue
+                chunks.append(shard[reduce_index])
+            return shuffle_reduce(reduce_index, seed, epoch, chunks,
+                                  reduce_transform, stats_collector,
+                                  gather_threads)
 
     if retry_policy is None:
         shuffled = gather_and_shuffle()
@@ -1033,7 +1087,7 @@ def _reduce_task(reduce_index: int, seed: int, epoch: int,
             on_recovery=recovered)
     return account_and_maybe_spill(shuffled, spill_manager,
                                    recompute=spill_recompute, epoch=epoch,
-                                   task=reduce_index)
+                                   task=reduce_index, seed=seed)
 
 
 # ---------------------------------------------------------------------------
@@ -1060,8 +1114,8 @@ def _shuffle_epoch_thread(plan: plan_ir.EpochPlan, pool: ex.Executor,
                           on_bad_file, fault_policies) -> List[ex.TaskRef]:
     """The plan's map and reduce nodes dispatched onto the thread pool in
     dependency order; returns the reduce refs. Speculative backup
-    attempts run with no stats collector, so duplicated work never
-    double-counts."""
+    attempts run under ``telemetry.speculative()`` with no stats
+    collector, so duplicated work never double-counts."""
     epoch, seed = plan.epoch, plan.seed
     num_reducers = plan.num_reducers
     filenames = list(plan.filenames)
@@ -1081,20 +1135,23 @@ def _shuffle_epoch_thread(plan: plan_ir.EpochPlan, pool: ex.Executor,
     holder: Dict[str, Any] = {}
 
     def run_map(node, attempt: int):
-        return shuffle_map(node.meta["file"], num_reducers, seed, epoch,
-                           node.key.task,
-                           stats_collector if attempt == 0 else None,
-                           map_transform, file_cache, on_bad_file,
-                           fault_policies.get("read"))
+        with rt_telemetry.speculative(attempt):
+            return shuffle_map(node.meta["file"], num_reducers, seed, epoch,
+                               node.key.task,
+                               stats_collector if attempt == 0 else None,
+                               map_transform, file_cache, on_bad_file,
+                               fault_policies.get("read"))
 
     def run_reduce(node, attempt: int):
         reduce_index = node.key.task
         map_refs = [holder["scheduler"].ref_for(dep) for dep in node.deps]
-        return _reduce_task(reduce_index, seed, epoch, map_refs,
-                            stats_collector if attempt == 0 else None,
-                            reduce_transform, spill_manager, gather_threads,
-                            lineage, fault_policies.get("reduce"),
-                            spill_recompute(reduce_index))
+        with rt_telemetry.speculative(attempt):
+            return _reduce_task(reduce_index, seed, epoch, map_refs,
+                                stats_collector if attempt == 0 else None,
+                                reduce_transform, spill_manager,
+                                gather_threads, lineage,
+                                fault_policies.get("reduce"),
+                                spill_recompute(reduce_index))
 
     # A tiered cache's files, warmed on idle lanes for the next epoch
     # (which reads the same list), below every real task in priority.
@@ -1280,6 +1337,10 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
     ``epochs_hint`` sizes the file cache and the gather threads' overlap
     (None: an unbounded schedule, no cache). Returns the wall-clock
     seconds."""
+    # Every trace and span id of this run derives from (seed, epoch,
+    # task); the seed goes into the recorder's dumps so that a merge
+    # re-derives the ids the other processes used.
+    rt_telemetry.set_trace_seed(seed)
     start = timeit.default_timer()
     owns_pool = pool is None
     if pool is None:

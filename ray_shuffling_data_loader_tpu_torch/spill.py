@@ -30,10 +30,12 @@ import pyarrow as pa
 from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
 from ray_shuffling_data_loader_tpu_torch.utils.humanize import (
     human_readable_size)
+from ray_shuffling_data_loader_tpu_torch.utils.tracing import trace_span
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -58,20 +60,32 @@ def _file_crc(path: str) -> int:
             crc = native.crc32(chunk, crc)
     return crc & 0xFFFFFFFF
 
-# Process-wide spill totals across every SpillManager (a manager may be
-# gone by the time its consumer looks).
+# Process-wide load totals across every SpillManager (a manager may be
+# gone by the time its consumer looks); the spill counts live in the
+# metrics registry, as in the JAX package.
 _totals_lock = threading.Lock()
-_totals = {"spills": 0, "spilled_bytes": 0, "loads": 0, "load_s": 0.0}
+_totals = {"loads": 0, "load_s": 0.0}
+
+
+def _spill_counters():
+    return (rt_metrics.counter("rsdl_spills_total",
+                               "reducer outputs spilled to disk"),
+            rt_metrics.counter("rsdl_spilled_bytes_total",
+                               "bytes of reducer output spilled"))
 
 
 def process_spill_totals() -> dict:
     """``{spills, spilled_bytes, loads, load_s}`` since import, over every
-    :class:`SpillManager` of the process: files written and their bytes,
-    handles loaded back and the seconds their loads took (CRC check and
-    memory map, or a lineage recompute). Monotonic: snapshot before and
-    after a run."""
+    :class:`SpillManager` of the process: files written and their bytes
+    (the registry's ``rsdl_spills_total`` and
+    ``rsdl_spilled_bytes_total``), handles loaded back and the seconds
+    their loads took (CRC check and memory map, or a lineage recompute).
+    Monotonic: snapshot before and after a run."""
+    spills, spilled_bytes = _spill_counters()
     with _totals_lock:
-        return dict(_totals)
+        out = dict(_totals)
+    return {"spills": int(spills.value),
+            "spilled_bytes": int(spilled_bytes.value), **out}
 
 
 def _add_totals(**deltas) -> None:
@@ -141,43 +155,50 @@ class SpilledTable:
         with self._lock:
             if self._table is None:
                 load_start = timeit.default_timer()
-                try:
-                    self._table = self._read_back()
-                except (OSError, pa.ArrowInvalid, SpillCorruption,
-                        rt_faults.InjectedFault) as e:
-                    if self._recompute is None:
-                        raise
-                    # Quarantine, then recompute from lineage: the report
-                    # is recorded (never silent) and the reducer output,
-                    # a pure function of (seed, epoch, reducer) and the
-                    # files, comes back bit for bit.
-                    report = rt_faults.QuarantinedFile(
-                        filename=self._path,
-                        epoch=self._epoch if self._epoch is not None
-                        else -1,
-                        file_index=self._task if self._task is not None
-                        else -1,
-                        error=f"{type(e).__name__}: {e}")
-                    stats_mod.fault_stats().record_quarantine(report)
-                    logger.error(
-                        "spill read-back failed (%s); quarantined %s "
-                        "and recomputing reducer output from lineage",
-                        e, self._path)
-                    start = timeit.default_timer()
-                    retry = rt_retry.RetryPolicy.for_component("spill")
-                    self._table = retry.call(
-                        self._recompute,
-                        describe=f"spill recompute e{self._epoch} "
-                                 f"r{self._task}")
-                    assert self._table.num_rows == self.num_rows, (
-                        self._table.num_rows, self.num_rows)
-                    stats_mod.fault_stats().record_recompute(
-                        "spill", timeit.default_timer() - start)
+                with trace_span("spill_load", kind="spill_read",
+                                epoch=self._epoch, task=self._task):
+                    self._load_locked()
                 _unlink_quiet(self._path)
                 native.account_table(self._table)
                 _add_totals(loads=1,
                             load_s=timeit.default_timer() - load_start)
             return self._table
+
+    def _load_locked(self) -> None:
+        """Read the file back, or recompute the output from its lineage
+        where the read fails and a recompute is armed."""
+        try:
+            self._table = self._read_back()
+        except (OSError, pa.ArrowInvalid, SpillCorruption,
+                rt_faults.InjectedFault) as e:
+            if self._recompute is None:
+                raise
+            # Quarantine, then recompute from lineage: the report
+            # is recorded (never silent) and the reducer output,
+            # a pure function of (seed, epoch, reducer) and the
+            # files, comes back bit for bit.
+            report = rt_faults.QuarantinedFile(
+                filename=self._path,
+                epoch=self._epoch if self._epoch is not None
+                else -1,
+                file_index=self._task if self._task is not None
+                else -1,
+                error=f"{type(e).__name__}: {e}")
+            stats_mod.fault_stats().record_quarantine(report)
+            logger.error(
+                "spill read-back failed (%s); quarantined %s "
+                "and recomputing reducer output from lineage",
+                e, self._path)
+            start = timeit.default_timer()
+            retry = rt_retry.RetryPolicy.for_component("spill")
+            self._table = retry.call(
+                self._recompute,
+                describe=f"spill recompute e{self._epoch} "
+                         f"r{self._task}")
+            assert self._table.num_rows == self.num_rows, (
+                self._table.num_rows, self.num_rows)
+            stats_mod.fault_stats().record_recompute(
+                "spill", timeit.default_timer() - start)
 
 
 def _unlink_quiet(path: str) -> None:
@@ -228,10 +249,13 @@ class SpillManager:
             self._seq += 1
         path = os.path.join(self._dir, f"reduce_{seq}.arrow")
         try:
-            rt_faults.inject("spill_write", task=seq)
-            with pa.OSFile(path, "wb") as sink:
-                with pa.ipc.new_file(sink, table.schema) as writer:
-                    writer.write_table(table)
+            # The fault site inside the span: an injected write failure
+            # still records a spill_write event with this task key.
+            with trace_span("spill_write", kind="spill_write", task=seq):
+                rt_faults.inject("spill_write", task=seq)
+                with pa.OSFile(path, "wb") as sink:
+                    with pa.ipc.new_file(sink, table.schema) as writer:
+                        writer.write_table(table)
         except (OSError, rt_faults.InjectedFault) as e:
             # Graceful degradation: a failed spill write (disk full, dying
             # scratch volume, injected fault) keeps the in-memory table —
@@ -254,7 +278,9 @@ class SpillManager:
         with self._lock:
             self.spill_count += 1
             self.spilled_bytes += size
-        _add_totals(spills=1, spilled_bytes=size)
+        spills, spilled_bytes = _spill_counters()
+        spills.inc()
+        spilled_bytes.inc(size)
         return SpilledTable(path, table.num_rows, self, crc=crc,
                             recompute=recompute, epoch=epoch, task=task)
 

@@ -21,7 +21,9 @@ one is installed (:func:`source_installed`).
 (``shuffle``'s read-then-plan map and its streaming map). They fire the
 ``storage_read`` and ``storage_stall`` fault sites before the fetch and
 outside its retry, so an injected fault reaches lineage recovery instead
-of being absorbed as an IO blip.
+of being absorbed as an IO blip, and record a ``storage_read`` event
+(and, with chaos active, a ``storage_stall`` one) that the faults join
+on ``(kind, epoch, task)``.
 
 Imports no torch: the pool's workers read through it.
 """
@@ -29,6 +31,7 @@ Imports no torch: the pool's workers read through it.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
 import pyarrow as pa
@@ -37,6 +40,8 @@ import pyarrow.parquet as pq
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.storage.cache import (
     DiskTableCache, DiskTier, TieredStore, storage_totals)
 from ray_shuffling_data_loader_tpu_torch.storage.prefetch import (
@@ -101,7 +106,14 @@ def _inject(epoch: Optional[int], task: Optional[int]) -> None:
     # storage_read is the lost GET, storage_stall the slow first byte (a
     # delay rule sleeps instead of raising).
     rt_faults.inject("storage_read", epoch=epoch, task=task)
+    t0 = time.monotonic()
     rt_faults.inject("storage_stall", epoch=epoch, task=task)
+    if rt_faults.active():
+        # The measured stall (the injected delay when a delay rule fired)
+        # as an event, so a storage_stall fault joins on (kind, epoch,
+        # task); not a stage, and never recorded with chaos inactive.
+        rt_telemetry.record("storage_stall", epoch=epoch, task=task,
+                            dur_s=time.monotonic() - t0)
 
 
 def read_table(path: str, epoch: Optional[int] = None,
@@ -112,9 +124,17 @@ def read_table(path: str, epoch: Optional[int] = None,
     retries the fetch, not the fault sites)."""
     src = source if source is not None else get_source()
     _inject(epoch, task)
+    t0 = time.monotonic()
     if retry is None:
-        return src.read_table(path)
-    return retry.call(src.read_table, path, describe=f"storage read {path}")
+        table = src.read_table(path)
+    else:
+        table = retry.call(src.read_table, path,
+                           describe=f"storage read {path}")
+    # An event (not a stage) that a storage_read fault joins on: the
+    # recovery's re-read lands here.
+    rt_telemetry.record("storage_read", epoch=epoch, task=task,
+                        dur_s=time.monotonic() - t0)
+    return table
 
 
 def open_parquet(path: str, epoch: Optional[int] = None,
@@ -124,4 +144,8 @@ def open_parquet(path: str, epoch: Optional[int] = None,
     streaming map's entry), with the same fault sites."""
     src = source if source is not None else get_source()
     _inject(epoch, task)
-    return src.open_parquet(path)
+    t0 = time.monotonic()
+    handle = src.open_parquet(path)
+    rt_telemetry.record("storage_read", epoch=epoch, task=task,
+                        dur_s=time.monotonic() - t0)
+    return handle

@@ -18,8 +18,10 @@ so it plugs into ``shuffle(file_cache=...)``, and offers ``warm`` and
 
 The JAX package's per-tenant hot-tier quotas wait for the port's
 ``tenancy`` (ROADMAP queue A item 8): a ``tenant_quotas`` argument
-raises. Its metric series are this module's counters instead
-(:func:`storage_totals` and the ``hits``/``misses``/... attributes).
+raises. The tier counters are the JAX package's registry series
+(``rsdl_storage_{hits,misses,evictions,corrupt}_total`` by tier,
+``rsdl_storage_prefetch_*_total``, ``rsdl_storage_tier_bytes``), which
+:func:`storage_totals` reads.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import pyarrow as pa
 
 from ray_shuffling_data_loader_tpu_torch import native
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.utils.singleflight import SingleFlight
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -42,24 +45,58 @@ logger = setup_custom_logger(__name__)
 
 _CRC_CHUNK = 1 << 20
 
+#: storage_totals() key -> its registry counter: (name, help, tier).
+_REGISTRY_COUNTS = {
+    f"{tier}_{what}": (f"rsdl_storage_{what}_total", "", tier)
+    for tier, whats in (("hot", ("hits", "misses", "evictions")),
+                        ("disk", ("hits", "misses", "evictions",
+                                  "corrupt")),
+                        ("remote", ("misses",)))
+    for what in whats}
+_REGISTRY_COUNTS.update({
+    "prefetch_issued": ("rsdl_storage_prefetch_issued_total",
+                        "prefetch tasks that started fetching", None),
+    "prefetch_canceled": ("rsdl_storage_prefetch_canceled_total",
+                          "prefetch tasks reclaimed by real work before "
+                          "starting", None),
+    "prefetch_hits": ("rsdl_storage_prefetch_hits_total",
+                      "prefetched entries later hit by a real map task",
+                      None),
+})
+
 _totals_lock = threading.Lock()
-_totals = {name: 0 for name in (
-    "hot_hits", "hot_misses", "hot_evictions", "disk_hits", "disk_misses",
-    "disk_evictions", "disk_corrupt", "disk_bytes_written",
-    "remote_misses", "prefetch_issued",
-    "prefetch_canceled", "prefetch_hits")}
+#: The one count with no registry series of the JAX package.
+_totals = {"disk_bytes_written": 0}
+
+
+def _counter(name: str):
+    metric, help_text, tier = _REGISTRY_COUNTS[name]
+    if tier is None:
+        return rt_metrics.counter(metric, help_text)
+    return rt_metrics.counter(metric, help_text, tier=tier)
 
 
 def storage_totals() -> Dict[str, int]:
     """Process-wide tier counters since import (monotonic: snapshot
-    before and after a run)."""
+    before and after a run): the registry's series, and the disk tier's
+    bytes written."""
     with _totals_lock:
-        return dict(_totals)
+        out = dict(_totals)
+    out.update({name: int(_counter(name).value)
+                for name in _REGISTRY_COUNTS})
+    return out
 
 
 def count(name: str, n: int = 1) -> None:
+    if name in _REGISTRY_COUNTS:
+        _counter(name).inc(n)
+        return
     with _totals_lock:
         _totals[name] += n
+
+
+def _tier_bytes(tier: str):
+    return rt_metrics.gauge("rsdl_storage_tier_bytes", tier=tier)
 
 
 def _file_crc(path: str) -> int:
@@ -143,6 +180,7 @@ class DiskTier:
                 buf_id = entry[3]
                 del self._paths[key]
                 self._bytes -= nbytes
+            _tier_bytes(self.tier).set(self._bytes)
         self._uncharge(buf_id)
         try:
             os.remove(path)
@@ -158,6 +196,7 @@ class DiskTier:
                     self._paths.popitem(last=False)
                 self._bytes -= nbytes
                 dropped.append((path, buf_id))
+            _tier_bytes(self.tier).set(self._bytes)
         for path, buf_id in dropped:
             self._count("evictions")
             self._uncharge(buf_id)
@@ -256,6 +295,7 @@ class DiskTier:
                 self._uncharge(buf_id)
                 return False
             self._paths[key] = (path, disk_bytes, crc, buf_id)
+            _tier_bytes(self.tier).set(self._bytes)
         count("disk_bytes_written", disk_bytes)
         return True
 
@@ -286,6 +326,7 @@ class DiskTier:
             entries = list(self._paths.values())
             self._paths.clear()
             self._bytes = 0
+            _tier_bytes(self.tier).set(0)
         for path, _nbytes, _crc, buf_id in entries:
             self._uncharge(buf_id)
             try:
@@ -421,6 +462,7 @@ class TieredStore:
             self._hot.clear()
             self._hot_bytes_used = 0
             self._prefetched.clear()
+            _tier_bytes("hot").set(0)
         if self.disk is not None:
             self.disk.close()
 
@@ -442,6 +484,7 @@ class TieredStore:
             if ok:
                 self._hot[key] = table
                 self._hot_bytes_used += nbytes
+            _tier_bytes("hot").set(self._hot_bytes_used)
         if evicted:
             # A demotion, not a loss: put wrote the entry through to disk.
             self._count("hot_evictions", evicted)

@@ -30,9 +30,15 @@ from typing import Dict, Optional
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
 from ray_shuffling_data_loader_tpu_torch.utils import fileio
+
+
+def _remote_bytes():
+    return rt_metrics.counter("rsdl_storage_remote_bytes_read_total",
+                              "bytes fetched from the remote storage tier")
 
 
 class StorageSource:
@@ -163,6 +169,7 @@ class HTTPRangeSource(StorageSource):
         data = self._request("GET", path, headers).read()
         with self._bytes_lock:
             self.bytes_read += len(data)
+        _remote_bytes().inc(len(data))
         return data
 
     def read_bytes(self, path: str, offset: int = 0,
@@ -253,6 +260,7 @@ class SimulatedObjectStore(StorageSource):
         with self._lock:
             self.bytes_read += nbytes
             self.fetches += 1
+        _remote_bytes().inc(nbytes)
 
     def read_table(self, path: str) -> pa.Table:
         self._simulate(path, self._inner.size(path))

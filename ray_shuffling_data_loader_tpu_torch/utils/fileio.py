@@ -10,7 +10,7 @@ pyarrow does not know, fsspec (``memory://`` in the tests).
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -75,6 +75,22 @@ def join(base: str, *parts: str) -> str:
     return "/".join([base.rstrip("/"), *parts])
 
 
+def listdir(path: str) -> List[str]:
+    """Files under a directory or prefix, returned with the same scheme
+    as ``path`` so that they round-trip through :func:`read_parquet`."""
+    fs, inner = parse_uri(path)
+    if fs is None:
+        return sorted(
+            os.path.join(inner, name) for name in os.listdir(inner))
+    import pyarrow.fs as pafs
+    scheme = path.split("://", 1)[0]
+    infos = fs.get_file_info(pafs.FileSelector(inner, recursive=False))
+    # info.path has no scheme; fsspec-backed filesystems report it with a
+    # leading '/', native ones (gs/s3) as 'bucket/key': normalise both.
+    return sorted(f"{scheme}://{info.path.lstrip('/')}" for info in infos
+                  if info.type == pafs.FileType.File)
+
+
 def file_size(path: str) -> int:
     """Bytes of ``path``; 0 if it does not exist."""
     fs, inner = parse_uri(path)
@@ -83,3 +99,48 @@ def file_size(path: str) -> int:
     import pyarrow.fs as pafs
     info = fs.get_file_info(inner)
     return info.size if info.type == pafs.FileType.File else 0
+
+
+class _RemoteTextFile:
+    """Buffered text writer for a remote URI. Object stores have no
+    append, so ``mode='a'`` reads the existing object first and uploads
+    the concatenation on close (the CSV reports of
+    ``stats.process_stats`` are small)."""
+
+    def __init__(self, fs, inner: str, mode: str):
+        import io
+        self._fs = fs
+        self._inner = inner
+        self._buf = io.StringIO()
+        self._closed = False
+        if "a" in mode:
+            import pyarrow.fs as pafs
+            if fs.get_file_info(inner).type == pafs.FileType.File:
+                with fs.open_input_stream(inner) as f:
+                    self._buf.write(f.read().decode())
+
+    def write(self, text: str) -> int:
+        return self._buf.write(text)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        with self._fs.open_output_stream(self._inner) as f:
+            f.write(self._buf.getvalue().encode())
+
+    def __enter__(self) -> "_RemoteTextFile":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def open_text(path: str, mode: str = "w"):
+    """Open a text file for writing on any filesystem. ``mode`` is
+    ``'w'`` or ``'a'`` (a trailing ``'+'`` is ignored: the CSV writers
+    never read back through the handle)."""
+    fs, inner = parse_uri(path)
+    if fs is None:
+        return open(inner, mode.replace("+", ""), newline="")
+    return _RemoteTextFile(fs, inner, mode)
