@@ -3,7 +3,9 @@
 
 Drives the port's DLRM, BERT-MLM and ResNet-50 train paths, the sequence-
 and data-parallel entry points at world size 1, the distributed shuffle
-and its training entry point in a world of two processes, and save,
+and its training entry point in a world of two processes, elastic
+membership (failure detection across processes, the generation fence,
+a shrink and a grow under the DLRM step), and save,
 restore and resume mid-epoch, end to end at full width, and checks its
 hand-written kernels against their plain PyTorch versions. Phases, each
 printing one JSON line:
@@ -175,7 +177,31 @@ printing one JSON line:
    ranks' batches concatenated from the same weights, the later ones
    within 1e-3 (the all-reduce sums the gradients in another order);
    step ms and the all-reduce's share of it.
-12. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+12. ``elastic``: the port's elastic membership (``membership/``, the
+   generation-fenced transport). (a) This process's transport (host 0)
+   feeds a ``FailureDetector`` (heartbeat 0.05 s, suspect 0.4 s) through
+   its frame observer while a peer process (host 1, a port transport, no
+   torch) probes it every 0.05 s; after 5 beats the peer is SIGKILLed and
+   the time from the kill to the DOWN verdict is
+   ``member_down_detect_ms`` (the verdict downs rank 1 in a
+   ``MembershipManager``). The peer restarts at the incarnation the
+   manager's join assigns (1) and announces it; a frame stamped
+   incarnation 0 from a socket of its own (the zombie) must be fenced
+   (``rsdl_member_fenced_frames_total`` up by exactly 1, never in the
+   inbox) while the rejoined peer's frame is delivered; after
+   ``fence_view(1)`` a frame of view 0 must be fenced too. (b) On the
+   ``train`` phase's files (8 reducers, seed 0) an ``ElasticShuffleRunner``
+   over ranks 0-3, fixed, for 2 epochs, and one under
+   ``member_crash:rank1:epoch0`` whose rank 1 rejoins and rank 4 joins at
+   the boundary (5 ranks): every reducer table equals the fixed run's,
+   ``rows_lost`` 0; the recomputed reducers, ``resize_stall_ms``, rows/s,
+   the shrunk and grown world. (c) Trainer 0's stream of each epoch, cut
+   into 2,048-row micro-batches by ``dataset.slice_batches``, copied to the
+   card, 32 micro-steps per epoch of a fresh DLRM ``mlperf`` (weights from
+   seed 0), for the elastic and the fixed run under
+   ``torch.use_deterministic_algorithms``: digests and losses equal bit
+   for bit, one gather launch per micro-step.
+13. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -186,7 +212,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-13. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+14. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -2496,6 +2522,355 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
     }
 
 
+# Elastic phase: (a) failure detection and the generation fence over
+# loopback sockets between this process (host 0) and a peer process (host
+# 1); (b) shrink and grow on the train phase's files; (c) DLRM micro-steps
+# on the elastic stream.
+ELASTIC_HEARTBEAT_S, ELASTIC_SUSPECT_S = 0.05, 0.4
+ELASTIC_WARM_BEATS = 5
+ELASTIC_RANKS = (0, 1, 2, 3)
+ELASTIC_CHAOS = "member_crash:rank1:epoch0"
+ELASTIC_STEPS = 64
+ELASTIC_WAIT_S = 60.0
+# The peer of (a): a port transport (host 1) that dials this process,
+# announces its incarnation, probes it every heartbeat and, from its
+# second incarnation on, sends one data frame tagged (0, incarnation, 0);
+# it runs until killed, or until this process is gone. It loads no torch,
+# so it starts in about a second.
+_ELASTIC_PEER = """
+import os, sys, time
+from ray_shuffling_data_loader_tpu_torch.membership import detector
+from ray_shuffling_data_loader_tpu_torch.parallel import transport
+port, incarnation, heartbeat_s = (int(sys.argv[1]), int(sys.argv[2]),
+                                  float(sys.argv[3]))
+t = transport.TcpTransport(1, [("127.0.0.1", port), ("127.0.0.1", 0)],
+                           incarnation=incarnation)
+t.start()
+t.dial(0)
+t.announce(incarnation)
+det = detector.FailureDetector([0], heartbeat_s=heartbeat_s,
+                               suspect_s=3600.0)
+detector.HeartbeatProber(t, det).start()
+if incarnation:
+    t.send(0, (0, incarnation, 0), b"incarnation %d" % incarnation)
+parent = os.getppid()
+while os.getppid() == parent:
+    time.sleep(0.5)
+"""
+
+
+class _Beats:
+    """Frames observed by the smoke's transport, counted per incarnation
+    of host 1, each fed to the failure detector as a beat."""
+
+    def __init__(self, detector):
+        self._detector = detector
+        self._cv = threading.Condition()
+        self.by_incarnation = {}
+
+    def observe(self, src, incarnation, view, is_heartbeat) -> None:
+        self._detector.beat(src)
+        with self._cv:
+            self.by_incarnation[incarnation] = (
+                self.by_incarnation.get(incarnation, 0) + 1)
+            self._cv.notify_all()
+
+    def wait(self, incarnation: int, n: int) -> None:
+        with self._cv:
+            if not self._cv.wait_for(
+                    lambda: self.by_incarnation.get(incarnation, 0) >= n,
+                    timeout=ELASTIC_WAIT_S):
+                raise AssertionError(
+                    f"fewer than {n} frames from incarnation {incarnation} "
+                    f"of the peer within {ELASTIC_WAIT_S} s: "
+                    f"{self.by_incarnation}")
+
+
+def _start_peer(port: int, incarnation: int, log):
+    return subprocess.Popen(
+        [sys.executable, "-c", _ELASTIC_PEER, str(port), str(incarnation),
+         str(ELASTIC_HEARTBEAT_S)], cwd=_REPO, stdout=log,
+        stderr=subprocess.STDOUT)
+
+
+def _raw_frames(port: int, frames) -> None:
+    """Send ``(incarnation, view, tag, payload)`` frames as host 1 over a
+    socket of their own: a zombie process from before the kill, or a
+    straggler of an old view."""
+    import socket
+    import struct
+    header = struct.Struct("<IIIIQQQQ")
+    wire = b"".join(
+        header.pack(0x5244534C, 1, incarnation, view, epoch, reducer,
+                    file_index, len(payload)) + payload
+        for incarnation, view, (epoch, reducer, file_index), payload
+        in frames)
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.sendall(wire)
+
+
+def _detect_and_fence(tmp: str) -> dict:
+    """(a): kill -> DOWN through the detector, the rejoin at the next
+    incarnation, a zombie frame fenced, the rejoined peer's frame
+    delivered, and an old view's frame fenced after ``fence_view``."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import membership
+    from ray_shuffling_data_loader_tpu_torch.membership import detector
+    from ray_shuffling_data_loader_tpu_torch.parallel import transport
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+
+    manager = membership.MembershipManager([0, 1])
+    down_at = []
+    verdict = threading.Event()
+
+    def on_down(rank: int) -> None:
+        down_at.append(timeit.default_timer())
+        manager.member_down(rank, reason="failure detector")
+        det.forget(rank)  # the first beat of its next generation re-arms
+        verdict.set()
+
+    # Rank 1 is tracked from its first beat on (a peer still starting
+    # is not silent).
+    det = detector.FailureDetector([], heartbeat_s=ELASTIC_HEARTBEAT_S,
+                                   suspect_s=ELASTIC_SUSPECT_S,
+                                   on_down=on_down)
+    beats = _Beats(det)
+    t = transport.TcpTransport(0, [("127.0.0.1", 0)] * 2,
+                               recv_timeout_s=ELASTIC_WAIT_S)
+    t.start()
+    port = t.bound_port()
+    t.set_frame_observer(beats.observe)
+    prober = detector.HeartbeatProber(t, det).start()
+    fenced = metrics.counter("rsdl_member_fenced_frames_total")
+    peers = []
+    out = {"heartbeat_s": ELASTIC_HEARTBEAT_S,
+           "suspect_s": ELASTIC_SUSPECT_S}
+    with open(os.path.join(tmp, "peer.log"), "w") as log:
+        try:
+            t0 = timeit.default_timer()
+            peers.append(_start_peer(port, 0, log))
+            beats.wait(0, ELASTIC_WARM_BEATS)
+            out["peer_start_s"] = timeit.default_timer() - t0
+            out["beats_before_kill"] = beats.by_incarnation[0]
+            kill_at = timeit.default_timer()
+            peers[0].send_signal(signal.SIGKILL)
+            if not verdict.wait(ELASTIC_WAIT_S):
+                raise AssertionError("no DOWN verdict for the killed peer")
+            out["member_down_detect_ms"] = (down_at[0] - kill_at) * 1e3
+            peers[0].wait(timeout=ELASTIC_WAIT_S)
+            out["view_after_kill"] = manager.current_view().to_dict()
+            if manager.current_view().ranks != (0,):
+                raise AssertionError(f"view after the kill: "
+                                     f"{manager.current_view()}")
+
+            # The rejoin, at the incarnation the manager assigns.
+            view = manager.member_join(1, reason="rejoin")
+            out["view_after_rejoin"] = view.to_dict()
+            incarnation = view.incarnation(1)
+            if incarnation != 1:
+                raise AssertionError(f"rejoin at incarnation {incarnation}")
+            peers.append(_start_peer(port, incarnation, log))
+            beats.wait(incarnation, ELASTIC_WARM_BEATS)
+            got = bytes(t.recv(1, (0, incarnation, 0)))
+            if got != b"incarnation 1":
+                raise AssertionError(f"the rejoined peer's frame: {got!r}")
+
+            # A zombie of incarnation 0 (a socket of its own), then a frame
+            # at incarnation 1 on the same socket: once that one is
+            # delivered, the zombie's frame has been read and judged.
+            before = fenced.value
+            _raw_frames(port, [(0, 0, (0, 7, 0), b"zombie"),
+                              (1, 0, (0, 8, 0), b"after the zombie")])
+            if bytes(t.recv(1, (0, 8, 0))) != b"after the zombie":
+                raise AssertionError("the frame after the zombie's differs")
+            zombie_fenced = int(fenced.value - before)
+            if zombie_fenced != 1:
+                raise AssertionError(f"{zombie_fenced} frames fenced for one "
+                                     "zombie frame")
+            try:
+                t.recv(1, (0, 7, 0), timeout_s=0.2)
+                raise AssertionError("the zombie's frame reached the inbox")
+            except transport.TransportTimeout:
+                pass
+
+            # The view fence: the peer (whose frames carry view 0) is
+            # stopped, then frames of views 0 and 1 arrive.
+            prober.stop()
+            peers[1].send_signal(signal.SIGKILL)
+            peers[1].wait(timeout=ELASTIC_WAIT_S)
+            t.fence_view(1)
+            before = fenced.value
+            _raw_frames(port, [(1, 0, (0, 9, 0), b"old view"),
+                              (1, 1, (0, 10, 0), b"new view")])
+            if bytes(t.recv(1, (0, 10, 0))) != b"new view":
+                raise AssertionError("the new view's frame differs")
+            view_fenced = int(fenced.value - before)
+            if view_fenced != 1:
+                raise AssertionError(f"{view_fenced} frames fenced for one "
+                                     "frame of the old view")
+            try:
+                t.recv(1, (0, 9, 0), timeout_s=0.2)
+                raise AssertionError("the old view's frame reached the "
+                                     "inbox")
+            except transport.TransportTimeout:
+                pass
+        finally:
+            prober.stop()
+            for p in peers:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            t.close()
+    out.update({
+        "beats_after_rejoin": beats.by_incarnation.get(1, 0),
+        "zombie_frames_fenced": zombie_fenced,
+        "old_view_frames_fenced": view_fenced,
+        "rejoined_frame_delivered": True,
+        "journal_lines": manager.journal.journal_bytes().count(b"\n")})
+    return out
+
+
+def _elastic_runs(files) -> tuple:
+    """(b): the fixed world and the elastic run (rank 1 killed in epoch 0,
+    rank 1 back and rank 4 new at the boundary) on the same files; the
+    elastic run's figures and both runs' reducer tables by epoch."""
+    from ray_shuffling_data_loader_tpu_torch import membership
+    from ray_shuffling_data_loader_tpu_torch.membership import elastic
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults
+
+    faults.clear()
+    t0 = timeit.default_timer()
+    fixed = elastic.ElasticShuffleRunner(
+        files, NUM_REDUCERS, seed=SEED,
+        manager=membership.MembershipManager(ELASTIC_RANKS)).run(NUM_EPOCHS)
+    fixed_s = timeit.default_timer() - t0
+    manager = membership.MembershipManager(ELASTIC_RANKS)
+    runner = elastic.ElasticShuffleRunner(files, NUM_REDUCERS, seed=SEED,
+                                          manager=manager)
+    faults.install(ELASTIC_CHAOS, seed=SEED)
+    try:
+        t0 = timeit.default_timer()
+        grown = [runner.run_epoch(0)]
+        first = dict(runner.last_stats)
+        shrunk = manager.current_view()
+        manager.member_join(1, reason="rejoin")
+        manager.member_join(4, reason="grow")
+        grown.append(runner.run_epoch(1))
+        elastic_s = timeit.default_timer() - t0
+    finally:
+        faults.clear()
+    if shrunk.ranks != (0, 2, 3):
+        raise AssertionError(f"shrunk view {shrunk}")
+    if manager.current_view().ranks != (0, 1, 2, 3, 4):
+        raise AssertionError(f"grown view {manager.current_view()}")
+    for epoch in range(NUM_EPOCHS):
+        if not all(a.equals(b) for a, b in zip(grown[epoch], fixed[epoch])):
+            raise AssertionError(f"epoch {epoch}: an elastic reducer table "
+                                 "differs from the fixed world's")
+    delivered = sum(elastic.total_rows(e) for e in grown)
+    rows_lost = sum(elastic.total_rows(e) for e in fixed) - delivered
+    if rows_lost or first["recomputed"] < 1:
+        raise AssertionError(f"rows_lost {rows_lost}, epoch 0 {first}")
+    return {
+        "chaos": ELASTIC_CHAOS, "ranks": list(ELASTIC_RANKS),
+        "reducer_tables_equal": True, "rows_lost": rows_lost,
+        "recomputed": first["recomputed"],
+        "duplicates_dropped": first["duplicates_dropped"],
+        "resize_stall_ms": first["resize_stall_ms"],
+        "epoch_s": [first["dur_s"], runner.last_stats["dur_s"]],
+        "shrunk_to": len(shrunk.ranks),
+        "grew_to": len(manager.current_view().ranks),
+        "elastic_rows_per_s": delivered / elastic_s,
+        "fixed_rows_per_s": delivered / fixed_s,
+        "fixed_s": fixed_s, "elastic_s": elastic_s,
+    }, fixed, grown
+
+
+def _stream_steps(emb, epochs) -> tuple:
+    """(c): trainer 0's stream of each epoch, sliced by the loader's
+    ``dataset.slice_batches`` into micro-batches, copied to the card and
+    trained by a fresh DLRM ``mlperf`` (weights from seed 0) for
+    ``ELASTIC_STEPS`` micro-steps in all; each batch's digest, the losses
+    and the gather launches."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     train)
+    from ray_shuffling_data_loader_tpu_torch.membership import elastic
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    spec = dlrm_criteo.dlrm_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    per_epoch = ELASTIC_STEPS // len(epochs)
+    digests, losses = [], []
+    emb.reset_launch_counts()
+    for outputs in epochs:
+        stream = elastic.trainer_streams(outputs, 1)[0]
+        batches = dataset.slice_batches(iter(stream), MICROBATCH, True)
+        for _, table in zip(range(per_epoch), batches):
+            features, label = device_dataset.convert_to_arrays(
+                table, spec["feature_columns"],
+                [None] * len(spec["feature_columns"]),
+                spec["feature_types"], spec["label_column"], None,
+                spec["label_type"])
+            cols = [device_dataset._widen(torch.from_numpy(f).cuda())
+                    for f in features]
+            lab = torch.from_numpy(label).cuda()
+            digests.append(device_dataset.batch_digest(cols, lab))
+            losses.append(micro_step(cols, lab))
+    losses = torch.stack(losses).cpu()
+    launches = emb.launch_counts["gather_rows"]
+    del model, micro_step
+    torch.cuda.empty_cache()
+    return torch.stack(digests).cpu(), losses, launches
+
+
+def elastic_phase(emb, dlrm_paths, tmp: str) -> dict:
+    """(a) detection and fencing across two processes, (b) shrink and grow
+    on the ``train`` files equal to the fixed world, (c) the elastic
+    stream's DLRM micro-steps equal to the fixed stream's."""
+    start = timeit.default_timer()
+    detect = _detect_and_fence(tmp)
+    resize, fixed, grown = _elastic_runs(sorted(dlrm_paths))
+    # (c) Both streams under deterministic algorithms: the embedding
+    # backward's index_add_ then sums in a fixed order, so equal inputs
+    # give equal losses bit for bit.
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want_digests, want_losses, fixed_launches = _stream_steps(emb, fixed)
+        del fixed
+        got_digests, got_losses, launches = _stream_steps(emb, grown)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    if not torch.equal(got_digests, want_digests):
+        raise AssertionError("the elastic stream's batch digests differ "
+                             "from the fixed stream's")
+    if not torch.equal(got_losses, want_losses):
+        raise AssertionError(f"losses differ: {got_losses[:4]} vs "
+                             f"{want_losses[:4]}")
+    if not bool(torch.isfinite(got_losses).all()):
+        raise AssertionError("non-finite loss")
+    if launches != ELASTIC_STEPS or fixed_launches != ELASTIC_STEPS:
+        raise AssertionError(f"{launches} and {fixed_launches} gather "
+                             f"launches in {ELASTIC_STEPS} micro-steps")
+    return {
+        "detect": detect, "resize": resize,
+        "train": {"model": "mlperf", "micro_steps": ELASTIC_STEPS,
+                  "microbatch": MICROBATCH, "digests_equal": True,
+                  "losses_bit_equal": True,
+                  "loss_first": float(got_losses[0]),
+                  "loss_last": float(got_losses[-1]),
+                  "deterministic_algorithms": True},
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / ELASTIC_STEPS,
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
 # ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
 # reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
 # NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
@@ -2958,6 +3333,10 @@ def main() -> int:
         emit({"phase": "distributed", "card": smi,
               "prior_shuffle": PRIOR_SHUFFLE["distributed"], **dist_run})
 
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-el-") as tmp:
+            elastic_run = elastic_phase(emb, dlrm_paths, tmp)
+        emit({"phase": "elastic", "card": smi, **elastic_run})
+
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
         emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
@@ -2981,6 +3360,7 @@ def main() -> int:
             "engine_tiered": engine["launches_by_turn"]["tiered"],
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "distributed": dist_run["gather_launches"],
+            "elastic": elastic_run["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],

@@ -16,6 +16,9 @@ batches already consumed (``set_epoch(epoch, skip_batches=)``).
   the optimizer's ``state_dict`` and the state of the generators the next
   step reads (BERT's mask generator), with the loader checkpoint beside
   them, one directory per step.
+- :func:`crc_line` / :func:`parse_crc_line`: the crc'd JSON line every
+  append-only journal shares (the membership journal,
+  ``membership.MembershipJournal``), byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -43,6 +46,35 @@ def _fsync_dir(directory: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+def _canonical(entry: dict) -> str:
+    return json.dumps(entry, sort_keys=True, separators=(",", ":"))
+
+
+def crc_line(entry: dict) -> str:
+    """Encode one journal record in the crc'd-line discipline of the JAX
+    package's append-only journals (membership views here): the ``crc``
+    field covers the canonical encoding (sorted keys, compact separators)
+    of ``entry``, so a torn tail, written by a process that died
+    mid-write, is detected on load and never misread. The bytes equal the
+    JAX package's ``checkpoint.crc_line``, so either package replays a
+    journal the other wrote."""
+    from ray_shuffling_data_loader_tpu_torch import native
+    crc = native.crc32(_canonical(entry).encode()) & 0xFFFFFFFF
+    return _canonical({"crc": crc, "entry": entry})
+
+
+def parse_crc_line(line: str) -> dict:
+    """Decode one :func:`crc_line` record; raises ``ValueError`` on a
+    missing or mismatched CRC (the torn-tail shape loaders skip)."""
+    from ray_shuffling_data_loader_tpu_torch import native
+    record = json.loads(line)
+    entry = record["entry"]
+    if (native.crc32(_canonical(entry).encode()) & 0xFFFFFFFF
+            != record["crc"]):
+        raise ValueError("crc mismatch")
+    return entry
 
 
 @dataclasses.dataclass

@@ -18,7 +18,7 @@ the global batch with its own replica of the parameters:
   package; then the optimizer steps (``train.make_optimizer``: the update
   of ``optax.adam``).
 
-Tensor-parallel ``param_specs`` are not ported yet (ROADMAP item 7).
+Tensor-parallel ``param_specs`` are not ported yet (ROADMAP item 4a).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ class SpmdTrainer:
             overwritten with rank 0's.
         optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
         param_specs: ``None`` (replicate every parameter); tensor-parallel
-            specs are ROADMAP item 7 and raise.
+            specs are ROADMAP item 4a and raise.
         time_collectives: record each step's all-reduce milliseconds in
             ``collective_ms`` (it adds a device synchronisation before and
             after the all-reduce).
@@ -95,7 +95,7 @@ class SpmdTrainer:
         if param_specs is not None:
             raise NotImplementedError(
                 "tensor-parallel param_specs are not ported yet (ROADMAP "
-                "item 7); pass None to replicate every parameter")
+                "item 4a); pass None to replicate every parameter")
         for name, p in model.named_parameters():
             if p.device.type != mesh.device_type:
                 raise ValueError(f"parameter {name} is on {p.device}; the "

@@ -14,21 +14,36 @@ the native pump: one GIL-free ``writev`` per frame sent
 ``recv_into``, which are as fast there. :meth:`TcpTransport.stats`
 splits the frames and bytes by path.
 
-Wire format of a frame (the JAX package's v2), little-endian::
+Wire format of a frame (the JAX package's v2, generation-fenced),
+little-endian::
 
     magic       u32 = 0x5244534C ("RSDL")
     src         u32   sending host id
-    incarnation u32   sender's process generation (written as 0 here)
-    view        u32   sender's membership view (written as 0 here)
+    incarnation u32   sender's process generation (``membership/``)
+    view        u32   sender's membership view id at send time
     epoch       u64   (2**64 - 1: a heartbeat control frame, no payload)
     reducer     u64
     file        u64
     length      u64   payload byte count
     payload     length bytes
 
-A port transport and a JAX transport exchange frames in both directions.
-The port has no membership layer: the incarnation and view fields are
-parsed and not fenced, and a heartbeat frame from a JAX peer is dropped.
+A port transport and a JAX transport exchange frames, heartbeats included,
+in both directions.
+
+Generation fencing: every frame carries the sender's ``(incarnation,
+view)``. The receiver keeps the highest incarnation seen per source and
+drops, loudly (a warning, ``rsdl_member_fenced_frames_total`` and a
+``member_fenced_frame`` record), any frame from an older incarnation (a
+zombie process from before a kill, still flushing its socket) or stamped
+with a view below the :meth:`TcpTransport.fence_view` floor. The fence is
+decided on the header, before a ledger-tracked buffer is charged: a fenced
+payload is read off the socket into a scratch buffer and discarded. A
+rejoined rank announces itself (:meth:`TcpTransport.announce`): its first
+frame's higher incarnation raises the fence. Heartbeat frames go to the
+frame observer (:meth:`TcpTransport.set_frame_observer`, the failure
+detector's feed, which also sees every accepted data frame) and never into
+the inbox. The ``member_partition`` fault site drops a data frame or a
+heartbeat to the matched dest silently.
 
 Delivery: each message is consumed exactly once; a frame whose
 ``(src, tag)`` is already in the inbox or was already consumed (a
@@ -55,6 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import native
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import (
     telemetry as rt_telemetry)
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
@@ -144,6 +160,17 @@ def _new_connection(address: Tuple[str, int]) -> socket.socket:
     return sock
 
 
+def _discard_payload(sock: socket.socket, n: int) -> None:
+    """Read and drop an ``n``-byte payload (a fenced frame's, or a
+    heartbeat's) without charging the buffer ledger."""
+    scratch = bytearray(min(n, _CHUNK))
+    while n:
+        got = sock.recv_into(scratch, min(n, len(scratch)))
+        if not got:
+            raise TransportError("peer closed connection mid-message")
+        n -= got
+
+
 class TcpTransport:
     """Point-to-point tagged message transport between shuffle hosts.
 
@@ -153,6 +180,9 @@ class TcpTransport:
         recv_timeout_s: how long a ``recv`` waits by default.
         reconnect_grace_s: how long a ``recv`` from a source whose
             connection died waits for it to redial.
+        incarnation: this process's generation (``membership/``): a rank
+            that dies and rejoins comes back one higher, so receivers
+            fence the dead generation's frames.
 
     ``start()`` binds the listener; ``connect()`` dials every peer (on all
     hosts, after all have started: the dial retries with backoff to absorb
@@ -161,13 +191,23 @@ class TcpTransport:
 
     def __init__(self, host_id: int, addresses: Sequence[Tuple[str, int]],
                  recv_timeout_s: float = 600.0,
-                 reconnect_grace_s: float = 5.0):
+                 reconnect_grace_s: float = 5.0,
+                 incarnation: int = 0):
         if not 0 <= host_id < len(addresses):
             raise ValueError(
                 f"host_id {host_id} out of range for {len(addresses)} hosts")
         self.host_id = host_id
         self.addresses = list(addresses)
         self.world = len(addresses)
+        self.incarnation = int(incarnation)
+        #: The membership view id stamped on outgoing frames.
+        self.view_id = 0
+        # The fence (under _inbox_cv): the lowest view accepted and the
+        # highest incarnation seen per source.
+        self._min_view = 0
+        self._peer_incarnations: Dict[int, int] = {}
+        # cb(src, incarnation, view, is_heartbeat) for every accepted frame.
+        self._frame_observer = None
         self._recv_timeout_s = recv_timeout_s
         self._reconnect_grace_s = reconnect_grace_s
         # (src, tag) -> payload: a memoryview (remote) or the sender's
@@ -209,19 +249,34 @@ class TcpTransport:
             raise TransportError("start() first")
         return self._listener.getsockname()[1]
 
-    def connect(self, retries: int = 30,
-                initial_backoff_s: float = 0.1) -> None:
-        """Dial every remote peer, each under the ``transport`` component's
-        ``RetryPolicy`` (decorrelated-jitter backoff capped at 5 s, OS
-        errors retried). Raises :class:`PeerUnreachable` naming the first
-        peer that cannot be reached."""
-        policy = rt_retry.RetryPolicy.for_component(
+    @staticmethod
+    def _dial_policy(retries: int, initial_backoff_s: float):
+        return rt_retry.RetryPolicy.for_component(
             "transport", retry_max_attempts=retries + 1,
             retry_initial_backoff_s=initial_backoff_s,
             retry_max_backoff_s=5.0,
             retryable=lambda e: isinstance(e, OSError))
-        # The address table is the dial list.
-        # rsdl-lint: disable=fixed-world-assumption
+
+    def connect(self, retries: int = 30, initial_backoff_s: float = 0.1,
+                on_unreachable: str = "raise") -> List[int]:
+        """Dial every remote peer, each under the ``transport`` component's
+        ``RetryPolicy`` (decorrelated-jitter backoff capped at 5 s, OS
+        errors retried).
+
+        ``on_unreachable="raise"`` raises :class:`PeerUnreachable` naming
+        the first peer that cannot be reached; ``"skip"`` records the peer
+        as unreachable (a ``member_unreachable`` record) and dials the
+        rest: in an elastic world a dead or not yet joined rank is a fact
+        of the view, not an error. Returns the unreachable peers (always
+        empty for ``"raise"``); :meth:`dial` reaches one later."""
+        if on_unreachable not in ("raise", "skip"):
+            raise ValueError(
+                f"on_unreachable must be raise|skip, got "
+                f"{on_unreachable!r}")
+        policy = self._dial_policy(retries, initial_backoff_s)
+        unreachable: List[int] = []
+        # The address table is the dial list; membership decides liveness
+        # on top of it. rsdl-lint: disable=fixed-world-assumption
         for peer in range(self.world):
             if peer == self.host_id:
                 continue
@@ -229,17 +284,76 @@ class TcpTransport:
                 policy.call(self._dial_peer, peer,
                             describe=f"dial peer {peer}")
             except OSError as e:
-                raise PeerUnreachable(self.host_id, peer,
-                                      self.addresses[peer], retries + 1, e)
+                error = PeerUnreachable(self.host_id, peer,
+                                        self.addresses[peer], retries + 1, e)
+                if on_unreachable == "raise":
+                    raise error
+                unreachable.append(peer)
+                logger.warning("host %d: peer %d unreachable, skipping "
+                               "(%s)", self.host_id, peer, error)
+                rt_telemetry.record("member_unreachable", task=peer,
+                                    src=self.host_id)
         logger.info("host %d connected to %d peers", self.host_id,
-                    self.world - 1)
+                    self.world - 1 - len(unreachable))
+        return unreachable
+
+    def dial(self, peer: int, retries: int = 5,
+             initial_backoff_s: float = 0.1) -> None:
+        """Dial one peer (the member-join path: a grown world dials the
+        new rank without dialing everyone again). Raises
+        :class:`PeerUnreachable` on failure."""
+        try:
+            self._dial_policy(retries, initial_backoff_s).call(
+                self._dial_peer, peer, describe=f"dial peer {peer}")
+        except OSError as e:
+            raise PeerUnreachable(self.host_id, peer, self.addresses[peer],
+                                  retries + 1, e)
 
     def _dial_peer(self, peer: int) -> socket.socket:
         sock = _new_connection(self.addresses[peer])
-        # connect() runs before any send, so no sender holds the lock yet.
-        self._peers[peer] = sock
-        self._peer_locks.setdefault(peer, threading.Lock())
+        # The swap happens under the peer's lock: a heartbeat or a send on
+        # another thread (the prober's) never writes to a socket that is
+        # being replaced.
+        lock = self._peer_locks.setdefault(peer, threading.Lock())
+        with lock:
+            old = self._peers.get(peer)
+            self._peers[peer] = sock
+        if old is not None:
+            try:
+                old.close()
+            except OSError:
+                pass
         return sock
+
+    # -- membership hooks ----------------------------------------------------
+
+    def known_peers(self) -> List[int]:
+        """Peers with a dialed connection (the prober's probe set)."""
+        return sorted(self._peers)
+
+    def set_frame_observer(self, callback) -> None:
+        """Install ``cb(src, incarnation, view, is_heartbeat)``, called on
+        the receive thread for every accepted (not fenced) frame: the
+        failure detector's feed."""
+        self._frame_observer = callback
+
+    def announce(self, incarnation: int,
+                 view_id: Optional[int] = None) -> None:
+        """Stamp a new ``(incarnation, view)`` on every outgoing frame: the
+        rejoin path, which raises the fence at the receivers."""
+        self.incarnation = int(incarnation)
+        if view_id is not None:
+            self.view_id = int(view_id)
+
+    def set_view(self, view_id: int) -> None:
+        """Adopt a membership view id for outgoing frames."""
+        self.view_id = int(view_id)
+
+    def fence_view(self, min_view: int) -> None:
+        """Drop incoming frames stamped with a view below ``min_view``: the
+        cut after a resize, once the new view is adopted everywhere."""
+        with self._inbox_cv:
+            self._min_view = int(min_view)
 
     def close(self) -> None:
         self._closed.set()
@@ -306,15 +420,37 @@ class TcpTransport:
                 header = (first if len(first) == _HEADER.size else
                           first + _recv_exact(conn,
                                               _HEADER.size - len(first)))
-                (magic, src, _incarnation, _view, epoch, reducer,
+                (magic, src, incarnation, view, epoch, reducer,
                  file_index, length) = _HEADER.unpack(header)
                 if magic != _MAGIC:
                     raise TransportError(
                         f"bad magic {magic:#x} from peer (protocol mismatch)")
                 srcs_seen.add(src)
-                payload = _recv_payload(conn, length)
-                if epoch == _HEARTBEAT_EPOCH:
+                # The generation fence, decided on the header: a frame from
+                # an older incarnation of src or below the view floor is
+                # read off the socket and dropped without charging the
+                # ledger.
+                with self._inbox_cv:
+                    known = self._peer_incarnations.get(src, 0)
+                    stale = incarnation < known or view < self._min_view
+                    if not stale and incarnation > known:
+                        self._peer_incarnations[src] = incarnation
+                    min_view = self._min_view
+                if stale:
+                    _discard_payload(conn, length)
+                    self._fenced(src, incarnation, view, epoch, reducer,
+                                 known, min_view)
                     continue
+                heartbeat = epoch == _HEARTBEAT_EPOCH
+                if heartbeat:
+                    _discard_payload(conn, length)
+                else:
+                    payload = _recv_payload(conn, length)
+                observer = self._frame_observer
+                if observer is not None:
+                    observer(src, incarnation, view, heartbeat)
+                if heartbeat:
+                    continue  # detector food only, never inboxed
                 pumped = int(length >= _NATIVE_PUMP_MIN_BYTES)
                 self._count(frames_received=1, bytes_received=length,
                             frames_received_native=pumped,
@@ -350,6 +486,19 @@ class TcpTransport:
                 conn.close()
             except OSError:
                 pass
+
+    def _fenced(self, src: int, incarnation: int, view: int, epoch: int,
+                reducer: int, known: int, min_view: int) -> None:
+        rt_metrics.counter("rsdl_member_fenced_frames_total",
+                           "frames rejected by the incarnation/view "
+                           "fence").inc()
+        rt_telemetry.record("member_fenced_frame", epoch=epoch,
+                            task=reducer, src=src, incarnation=incarnation,
+                            view=view)
+        logger.warning(
+            "host %d: FENCED stale frame from host %d (incarnation %d < %d "
+            "or view %d < %d); dropped", self.host_id, src, incarnation,
+            known, view, min_view)
 
     def recv(self, src: int, tag: Tag, timeout_s: Optional[float] = None):
         """Block until the message ``tag`` from host ``src`` arrives and
@@ -409,9 +558,18 @@ class TcpTransport:
                 f"host {self.host_id} has no connection to peer {dest} "
                 "(connect() not called)")
         epoch, reducer, file_index = tag
+        # A partitioned link drops the frame silently, like a blackholing
+        # switch; the record keeps the drop observable.
+        try:
+            rt_faults.inject("member_partition", epoch=epoch, task=dest)
+        except rt_faults.InjectedFault:
+            rt_telemetry.record("member_partition", epoch=epoch, task=dest,
+                                src=self.host_id, fault="frame_dropped")
+            return
         nbytes = memoryview(payload).nbytes
-        header = _HEADER.pack(_MAGIC, self.host_id, 0, 0, epoch, reducer,
-                              file_index, nbytes)
+        header = _HEADER.pack(_MAGIC, self.host_id, self.incarnation,
+                              self.view_id, epoch, reducer, file_index,
+                              nbytes)
         pumped = nbytes >= _NATIVE_PUMP_MIN_BYTES
 
         def send_frame(s: socket.socket) -> None:
@@ -458,19 +616,50 @@ class TcpTransport:
         rt_telemetry.record("transport_send", epoch=epoch, task=reducer,
                             dur_s=took, dest=dest, nbytes=nbytes)
 
+    def send_heartbeat(self, dest: int) -> None:
+        """Best-effort heartbeat control frame to ``dest``: no payload, the
+        epoch sentinel, never inboxed at the receiver (it feeds the failure
+        detector through the frame observer). Socket errors are swallowed:
+        a dead link is what the detector's silence reports, and the prober
+        must not die with it."""
+        if dest == self.host_id:
+            return
+        try:
+            rt_faults.inject("member_partition", task=dest)
+        except rt_faults.InjectedFault:
+            rt_telemetry.record("member_partition", task=dest,
+                                src=self.host_id, fault="heartbeat_dropped")
+            return
+        lock = self._peer_locks.get(dest)
+        if lock is None:
+            return
+        header = _HEADER.pack(_MAGIC, self.host_id, self.incarnation,
+                              self.view_id, _HEARTBEAT_EPOCH, 0, 0, 0)
+        with lock:
+            sock = self._peers.get(dest)
+            if sock is None:
+                return
+            try:
+                sock.sendall(header)
+            except OSError:
+                pass
+
 
 def create_local_transports(world: int, recv_timeout_s: float = 600.0,
-                            reconnect_grace_s: float = 5.0
+                            reconnect_grace_s: float = 5.0,
+                            incarnations: Optional[Sequence[int]] = None
                             ) -> List[TcpTransport]:
     """A fully connected ``world`` of transports on localhost ephemeral
     ports: one machine standing in for a cluster's host network (tests,
-    loopback worlds)."""
+    loopback worlds). ``incarnations`` gives each host's generation."""
     transports = [
         TcpTransport(h,
                      # rsdl-lint: disable=fixed-world-assumption
                      [("127.0.0.1", 0)] * world,
                      recv_timeout_s=recv_timeout_s,
-                     reconnect_grace_s=reconnect_grace_s)
+                     reconnect_grace_s=reconnect_grace_s,
+                     incarnation=(0 if incarnations is None
+                                  else int(incarnations[h])))
         # rsdl-lint: disable=fixed-world-assumption
         for h in range(world)
     ]

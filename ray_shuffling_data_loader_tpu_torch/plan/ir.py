@@ -13,9 +13,10 @@ This module makes that explicit, serializable data:
   :meth:`EpochPlan.to_json` / :func:`from_json` (stable key order, byte
   for byte the JAX package's serialization of the same plan).
 - The plan queries: :func:`queue_index` / :func:`queue_epoch` /
-  :func:`queue_rank` (the route-key arithmetic) and :func:`route_slices`
+  :func:`queue_rank` (the route-key arithmetic), :func:`route_slices`
   (the contiguous reducer->trainer split, remainder first like
-  ``np.array_split``).
+  ``np.array_split``) and its elastic form over a live rank set,
+  :func:`rebalance_spans` / :func:`reduce_placement` (``membership/``).
 - :class:`EpochSpec` / :func:`static_epoch_specs` / :func:`epoch_range`:
   what the shuffle driver iterates.
 
@@ -28,7 +29,8 @@ import dataclasses
 import itertools
 import json
 import re
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import (Any, Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 #: Serialization format version (bumped on breaking shape changes).
 PLAN_VERSION = 1
@@ -85,6 +87,35 @@ def route_slices(num_reducers: int, num_trainers: int
         out.append((start, start + size))
         start += size
     return out
+
+
+def rebalance_spans(num_items: int, live_ranks: Sequence[int]
+                    ) -> Dict[int, Tuple[int, int]]:
+    """Contiguous ``(start, stop)`` item spans placed over an elastic rank
+    set: :func:`route_slices` arithmetic keyed by the live ranks (sorted)
+    instead of ``range(world)``, the membership resize's placement query.
+    A shrunken world hands the dead rank's span to the survivors
+    (remainder first, so uneven but deterministic); a grown world spreads
+    the same items thinner. Placement moves, content never does: the items
+    keep their global indices, so every task's ``(seed, epoch, task)``
+    lineage key, and its output, is unchanged by any resize."""
+    ranks = sorted(int(r) for r in live_ranks)
+    if not ranks:
+        raise PlanError("rebalance_spans needs at least one live rank")
+    spans = route_slices(num_items, len(ranks))
+    return {rank: spans[i] for i, rank in enumerate(ranks)}
+
+
+def reduce_placement(num_reducers: int, live_ranks: Sequence[int]
+                     ) -> Dict[int, int]:
+    """``reducer_index -> owning live rank`` under the
+    :func:`rebalance_spans` placement (the elastic runner's view)."""
+    placement: Dict[int, int] = {}
+    for rank, (start, stop) in rebalance_spans(num_reducers,
+                                               live_ranks).items():
+        for reducer in range(start, stop):
+            placement[reducer] = rank
+    return placement
 
 
 def node_id(stage: str, epoch: int, task: int) -> str:

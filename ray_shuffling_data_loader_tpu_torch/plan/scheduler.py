@@ -1,7 +1,7 @@
 """Plan-driven execution engine: dependency-ordered dispatch, speculative
 re-execution of stragglers, work-stealing placement, stage barriers and
-idle-lane prefetch (own copy of the JAX package's ``plan/scheduler.py``;
-its membership rewrites come with membership).
+idle-lane prefetch (own copy of the JAX package's ``plan/scheduler.py``,
+without the serving plane's ``rebalance_queues``).
 
 It executes an :class:`plan.ir.EpochPlan` on any pool with the
 ``executor.Executor`` contract:
@@ -37,6 +37,9 @@ It executes an :class:`plan.ir.EpochPlan` on any pool with the
 
 One named driver thread per plan runs the loop, woken by completion
 events (it polls only while speculation is on).
+
+:func:`rewrite_for_view` re-places a plan's reduce and route nodes over a
+membership view's live ranks (``membership/``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import queue as queue_mod
 import statistics
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ray_shuffling_data_loader_tpu_torch import executor as ex
 from ray_shuffling_data_loader_tpu_torch.plan import ir
@@ -436,3 +439,46 @@ class PlanScheduler:
                                 task=node.key.task, stage=node.stage,
                                 elapsed_s=elapsed, threshold_s=threshold)
             self._dispatch(state, attempt=1, lane=-1)
+
+
+# ---------------------------------------------------------------------------
+# Membership-aware plan rewrite (membership/)
+# ---------------------------------------------------------------------------
+
+
+def rewrite_for_view(plan: ir.EpochPlan,
+                     live_ranks: Sequence[int]) -> int:
+    """Resize as a plan rewrite: re-place the plan's reduce and route nodes
+    over the live membership rank set.
+
+    A ``member_down`` mid-epoch changes where the plan's nodes run, never
+    what they compute: every node keeps its ``(seed, epoch, task)``
+    lineage key. The dead rank's reduce nodes go to the survivors by
+    :func:`plan.ir.reduce_placement`, and each route node follows the
+    trainer spans' :func:`plan.ir.rebalance_spans` the same way. The
+    placement lands in ``node.meta["host"]`` (advisory, like ``cost_s``).
+    Returns the number of nodes whose host changed."""
+    placement = ir.reduce_placement(plan.num_reducers, live_ranks)
+    trainer_host: Dict[int, int] = {}
+    for host, (start, stop) in ir.rebalance_spans(
+            plan.num_trainers, live_ranks).items():
+        for trainer in range(start, stop):
+            trainer_host[trainer] = host
+    moved = 0
+    for node in plan.reduces():
+        host = placement[node.key.task]
+        if node.meta.get("host") not in (None, host):
+            moved += 1
+        node.meta["host"] = host
+    for node in plan.routes():
+        host = trainer_host[int(node.meta.get("rank", node.key.task))]
+        if node.meta.get("host") not in (None, host):
+            moved += 1
+        node.meta["host"] = host
+    if moved:
+        live = sorted(int(r) for r in live_ranks)
+        rt_telemetry.record("plan_rewrite", epoch=plan.epoch, moved=moved,
+                            live=live)
+        logger.warning("plan epoch %d: rewrote %d node placement(s) onto "
+                       "live ranks %s", plan.epoch, moved, live)
+    return moved

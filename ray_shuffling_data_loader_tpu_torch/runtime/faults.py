@@ -21,7 +21,16 @@ port's injection points:
   inside the frame sender and before a receive pops its message, keyed
   ``(epoch, task=reducer)``;
 - ``storage_read`` / ``storage_stall`` (``storage/__init__.py``): before
-  each fetch of a dataset file by a map, keyed ``(epoch, task=file)``.
+  each fetch of a dataset file by a map, keyed ``(epoch, task=file)``;
+- ``member_crash`` (``membership.MembershipManager.maybe_crash``): the
+  elastic runner asks once per reducer a rank picks up, keyed
+  ``(epoch, task=rank)`` (``rankN`` is sugar for ``taskN``); a match downs
+  the rank through the manager;
+- ``member_partition`` (``parallel/transport.py``): a data frame to a
+  matched dest rank, keyed ``(epoch, task=dest)``, or a heartbeat, keyed
+  ``(None, task=dest)``, vanishes silently;
+- ``member_flap`` (``membership/detector.py``): the prober's heartbeat to
+  a matched peer, keyed ``(None, task=peer)``, is dropped for the round.
 
 The process pool's workers (``procpool.py``) inherit the environment and
 so reproduce an ``RSDL_CHAOS_SPEC`` spec at the same sites; a spec

@@ -28,7 +28,9 @@ storage plane as ``storage`` (``RSDL_STORAGE_BACKEND``,
 keys as the JAX package does: ``telemetry`` (``RSDL_TELEMETRY``,
 ``RSDL_TELEMETRY_CAPACITY``, ``RSDL_TRACE_DIR``, ...) and ``metrics``
 (``RSDL_METRICS_FILE``, ``RSDL_TELEMETRY_DIR``, ...), with the JAX
-defaults: recording is on.
+defaults: recording is on. The failure detector reads its keys as the
+component ``member`` (``RSDL_MEMBER_HEARTBEAT_S``,
+``RSDL_MEMBER_SUSPECT_S``, ``RSDL_MEMBER_PHI``).
 
 Stdlib only.
 """
@@ -162,6 +164,15 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     # into this directory, and the exporters merge the shards.
     "telemetry_dir": ("", str),
     "metrics_shard_interval_s": (2.0, float),
+    # Elastic membership (membership/): the failure detector's probe
+    # cadence (heartbeats also ride every data frame; the prober covers
+    # idle links), the silence after which a quiet rank is declared down,
+    # and the phi-style suspicion threshold (silence in smoothed
+    # inter-arrival units; crossing it marks the rank suspect before the
+    # suspect_s deadline downs it).
+    "member_heartbeat_s": (0.5, float),
+    "member_suspect_s": (3.0, float),
+    "member_phi": (8.0, float),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}

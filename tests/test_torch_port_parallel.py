@@ -131,7 +131,7 @@ def test_mesh_without_a_card_raises(monkeypatch):
 
 def test_trainer_rejects_param_specs():
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4a"):
         ptrainer.SpmdTrainer(None, lambda m: m.weight.sum(), model,
                              torch.optim.Adam(model.parameters()),
                              param_specs={"weight": ("model",)})
