@@ -5,8 +5,10 @@ Drives the port's DLRM, BERT-MLM and ResNet-50 train paths, the sequence-
 and data-parallel entry points at world size 1, the distributed shuffle
 and its training entry point in a world of two processes, elastic
 membership (failure detection across processes, the generation fence,
-a shrink and a grow under the DLRM step), and save,
-restore and resume mid-epoch, end to end at full width, and checks its
+a shrink and a grow under the DLRM step), save, restore and resume
+mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
+mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
+run), end to end at full width, and checks its
 hand-written kernels against their plain PyTorch versions. Phases, each
 printing one JSON line:
 
@@ -223,6 +225,29 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
+15. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+   ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
+   processes of this script (``--tp-rank``) on the one card, gloo on CUDA
+   tensors. First, here, the kernels at the shapes the ranks give them:
+   the gather on the 8 ``mlperf`` tables' ``(V, 64)`` column blocks of
+   both ranks, B=2048, bf16, bit for bit; the flash kernels on 6 heads
+   (B=8, S=512, D=64, with and without a bias) within 2e-2; device times
+   beside the bound. Then each model one process and per rank from the
+   same weights (seed 0) and batch: (a) DLRM ``mlperf`` (2,048 rows,
+   Adam), one gather launch per step per rank on those blocks; (b)
+   ``bert_base()`` (8 sequences of 512, Adam, flash), 12 launches of each
+   flash kernel per step per rank on 6 heads; (c) ``resnet50()`` (16
+   images of 224x224, SGD), no port kernel. Each: the ranks' first and
+   second losses (the forward, then the step after one update) within
+   1e-3 relative of one process's (ResNet-50's second within 5e-3; bf16:
+   the row-parallel parts are rounded before their sum), the parameters
+   the specs replicate equal on both ranks after 8 steps (sha256), step ms
+   beside one process's, the model axis's collectives per step (calls,
+   payload bytes and ms, timed one by one in 2 more steps), the ms of the
+   gradient all-reduce the trainer skips over the data axis of one rank,
+   and peak device memory per rank beside one process's; BERT's MLM head
+   bytes (the table's all-gather against partial logits). (d)
+   ``parallel.dryrun.dryrun_multichip(2)`` and ``(4)``, both at once.
 
 Every phase that drives ``DeviceShufflingDataset`` names the binding it
 ran (``"binding"``: the bulk one, the default on the card, unless a turn
@@ -3228,6 +3253,407 @@ def resume_phase(fa, emb, decoder: str, image_files) -> dict:
             "bert_base": bert_run}
 
 
+# Tensor-parallel phase: the port's Megatron layout (``parallel.tp``) on a
+# ("data", "model") mesh of (1, 2): two processes on the one card, gloo on
+# CUDA tensors (NCCL refuses two ranks on one device).
+TP_WORLD = 2
+# Steps per model and rank: the first losses, then timed steps, then steps
+# with the model axis's collectives timed one by one.
+TP_STEPS, TP_TIMED_STEPS, TP_COLLECTIVE_STEPS = 2, 4, 2
+TP_BERT_MICRO, TP_RESNET_MICRO = 8, 16
+# Relative bars on each rank's first loss (the forward) and second loss
+# (after one update: the backward, the collectives' backward and the
+# optimizer) against one process's. bf16 compute: each rank rounds its
+# row-parallel product before the sum, where one process rounds the whole
+# product once. Set from the readings on an H100 80GB HBM3 at 700 W (first
+# / second: DLRM 1.4e-5 / 5.5e-5, BERT 1.7e-5 / 1.1e-4, ResNet-50 3.1e-5
+# / 8.7e-4); ResNet's SGD step takes its loss from 8.0 to 4.3, which
+# magnifies the first gradient's rounding in the second loss.
+TP_LOSS_RTOL = {"dlrm": (1e-3, 1e-3), "bert": (1e-3, 1e-3),
+                "resnet": (1e-3, 5e-3)}
+TP_TIMEOUT_S = 300
+
+
+def _tp_dlrm_batch():
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cols = [torch.randint(-1000, v + 1000, (MICROBATCH,), device="cuda",
+                          dtype=torch.int32, generator=g)
+            for v in dlrm.MLPERF.vocab_sizes]
+    labels = (torch.rand((MICROBATCH, 1), device="cuda", generator=g)
+              < 0.25).float()
+    return cols, labels
+
+
+def _tp_bert_batch():
+    from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, BERT_VOCAB, (TP_BERT_MICRO, BERT_SEQ_LEN),
+                           device="cuda", dtype=torch.int32, generator=g)
+    return bert_mlm.mlm_mask(tokens, g, BERT_VOCAB)
+
+
+def _tp_resnet_batch():
+    g = torch.Generator(device="cuda").manual_seed(7)
+    images = torch.randint(0, 256, (TP_RESNET_MICRO, IMG_SIZE, IMG_SIZE, 3),
+                           device="cuda", dtype=torch.uint8, generator=g)
+    labels = torch.randint(0, IMG_CLASSES, (TP_RESNET_MICRO,), device="cuda",
+                           generator=g)
+    return images.to(torch.float32) / 255.0, labels
+
+
+def _tp_models():
+    """name -> (build() -> model from seed ``SEED``, batch() -> the global
+    batch, specs(config), loss_of(mesh, attention_fn) -> loss_fn(model,
+    *batch), optimizer(model)); a ``None`` mesh is one process."""
+    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm, resnet
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    return {
+        "dlrm": (lambda: dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                                   generator=gen()),
+                 _tp_dlrm_batch, dlrm.param_specs,
+                 lambda mesh, fa: (lambda m, *b: dlrm.loss_fn(
+                     m, None, list(b[:-1]), b[-1])),
+                 train.make_optimizer),
+        "bert": (lambda: bert.Bert(bert.bert_base(), device="cuda",
+                                   generator=gen()),
+                 _tp_bert_batch, bert.param_specs,
+                 lambda mesh, fa: (lambda m, x, y: bert.loss_fn(
+                     m, x, y, attention_fn=fa, mesh=mesh)),
+                 lambda m: train.make_optimizer(m, lr=train.BERT_LR)),
+        "resnet": (lambda: resnet.ResNet(resnet.resnet50(IMG_CLASSES),
+                                         device="cuda", generator=gen()),
+                   _tp_resnet_batch, resnet.param_specs,
+                   lambda mesh, fa: resnet.loss_fn, train.make_sgd),
+    }
+
+
+def _flat_batch(batch):
+    cols, labels = batch
+    return (*cols, labels) if isinstance(cols, list) else (cols, labels)
+
+
+def _timed_steps(step, batch, n: int) -> float:
+    torch.cuda.synchronize()
+    start = timeit.default_timer()
+    for _ in range(n):
+        step(*batch)
+    torch.cuda.synchronize()
+    return (timeit.default_timer() - start) * 1e3 / n
+
+
+def _tp_references(fa) -> dict:
+    """Each model's first losses, step ms and peak device memory in one
+    process (no mesh), from the same weights and batch as the ranks."""
+    out = {}
+    for name, (build, batch_of, _, loss_of, optimizer_of) in \
+            _tp_models().items():
+        torch.cuda.empty_cache()
+        model = build()
+        optimizer = optimizer_of(model)
+        loss_fn = loss_of(None, fa.make_flash_attention_fn())
+
+        def step(*batch):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, *batch)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        batch = _flat_batch(batch_of())
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(*batch)) for _ in range(TP_STEPS)]
+        out[name] = {"losses": losses,
+                     "step_ms": _timed_steps(step, batch, TP_TIMED_STEPS),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del model, optimizer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _digests(model, specs) -> dict:
+    """sha256 of every parameter the specs replicate."""
+    import hashlib
+    return {name: hashlib.sha256(p.detach().float().cpu().numpy()
+                                 .tobytes()).hexdigest()[:16]
+            for name, p in model.named_parameters()
+            if all(a is None for a in specs[name])}
+
+
+def _skipped_all_reduce_ms(model, mesh) -> list:
+    """Wall ms of the gradient all-reduce that ``SpmdTrainer`` skips over
+    a data axis of one rank (each of 2 runs, after the steps): every
+    gradient and the loss in one flat buffer over gloo, as
+    ``parallel.trainer.make_train_step`` would run it."""
+    import torch.distributed as dist
+
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+    group = pmesh.batch_group(mesh)
+    if dist.get_world_size(group) != 1:
+        raise AssertionError("the tp mesh's data axis is not one rank")
+    tensors = [p.grad for p in model.parameters()] + [
+        torch.zeros(1, device="cuda")]
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start = timeit.default_timer()
+        pmesh.flat_collective(tensors, lambda flat: dist.all_reduce(
+            flat, group=group))
+        torch.cuda.synchronize()
+        out.append((timeit.default_timer() - start) * 1e3)
+    return out
+
+
+def _tp_rank_model(name, mesh, fa, emb) -> dict:
+    """One model through ``SpmdTrainer(param_specs=)`` on this rank."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptr
+    build, batch_of, specs_of, loss_of, optimizer_of = _tp_models()[name]
+    torch.cuda.empty_cache()
+    model = build()
+    specs = specs_of(model.config)
+    heads = []
+    flash = fa.make_flash_attention_fn()
+
+    def attention_fn(q, k, v, bias=None):
+        heads.append(q.shape[1])
+        return flash(q, k, v, bias)
+
+    start = timeit.default_timer()
+    trainer = ptr.SpmdTrainer(mesh, loss_of(mesh, attention_fn), model,
+                              optimizer_of(model), param_specs=specs)
+    torch.cuda.synchronize()
+    build_s = timeit.default_timer() - start
+    model = trainer.model
+    stats = model.tp.stats
+    batch = _flat_batch(batch_of())
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    emb.reset_launch_counts()
+    losses = [float(trainer.train_step(*batch)) for _ in range(TP_STEPS)]
+    step_ms = _timed_steps(trainer.train_step, batch, TP_TIMED_STEPS)
+    stats.reset()
+    stats.timed = True
+    _timed_steps(trainer.train_step, batch, TP_COLLECTIVE_STEPS)
+    stats.timed = False
+    torch.cuda.synchronize()
+    skipped_ms = _skipped_all_reduce_ms(model, mesh)
+    steps = TP_STEPS + TP_TIMED_STEPS + TP_COLLECTIVE_STEPS
+    per_step = {key: {op: v / TP_COLLECTIVE_STEPS for op, v in d.items()}
+                for key, d in stats.snapshot().items()}
+    return {
+        "losses": losses, "steps": steps, "build_s": build_s,
+        "step_ms": step_ms, "collectives_per_step": per_step,
+        "collective_ms_per_step": sum(per_step["ms"].values()),
+        "collective_bytes_per_step": sum(per_step["bytes"].values()),
+        "skipped_all_reduce_ms": skipped_ms,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+        "launches": {**fa.launch_counts, **emb.launch_counts},
+        "attention_heads": sorted(set(heads)),
+        "gather_shards": sorted({tuple(p.shape) for n, p in
+                                 model.named_parameters()
+                                 if n.startswith("embeddings.")
+                                 and p.shape[0] > emb.ONE_HOT_MAX_VOCAB}),
+        "replicated_digests": _digests(model, specs),
+    }
+
+
+def tp_worker(rank: int, init: str, out_dir: str) -> int:
+    """One rank of the ``tp`` phase's world: each model in turn on a
+    ``("data", "model")`` mesh of (1, ``TP_WORLD``); writes its results."""
+    import torch.distributed as dist
+
+    from ray_shuffling_data_loader_tpu_torch.ops import embedding as emb
+    from ray_shuffling_data_loader_tpu_torch.ops import flash_attention as fa
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP_WORLD)
+    try:
+        mesh = pmesh.make_mesh(TP_WORLD)
+        out = {name: _tp_rank_model(name, mesh, fa, emb)
+               for name in _tp_models()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _tp_world(tmp: str) -> list:
+    """Start ``TP_WORLD`` ranks of this script (``--tp-rank``) and return
+    their results; a rank that fails or outlives ``TP_TIMEOUT_S`` fails
+    the phase with its log."""
+    import signal
+    env = dict(os.environ, OMP_NUM_THREADS=str(
+        max(1, (os.cpu_count() or 1) // TP_WORLD)))
+    procs = []
+    for rank in range(TP_WORLD):
+        log = open(os.path.join(tmp, f"tp_rank{rank}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank",
+             str(rank), f"file://{tmp}/rendezvous", tmp], cwd=_REPO,
+            env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True))
+        log.close()
+    deadline = timeit.default_timer() + TP_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - timeit.default_timer()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the tp world ran past {TP_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    for rank, proc in enumerate(procs):
+        if proc.returncode:
+            with open(os.path.join(tmp, f"tp_rank{rank}.log")) as f:
+                raise AssertionError(f"tp rank {rank} exited "
+                                     f"{proc.returncode}:\n{f.read()[-6000:]}")
+    out = []
+    for rank in range(TP_WORLD):
+        with open(os.path.join(tmp, f"tp_rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _tp_kernel_checks(fa, emb, hbm: float, flop_peak: float) -> dict:
+    """The gather and flash kernels at the shapes the ranks give them,
+    against their plain versions (these launches are not the path's),
+    with device times beside the bound."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tables, idx_sets = main_path_group(emb, g)
+    out = {"gather": {}, "flash": {}}
+    for rank in range(TP_WORLD):
+        shards = [tp.shard_tensor(t, 1, 1, TP_WORLD, rank) for t in tables]
+        _check_grouped(emb, f"column block {rank}", shards, idx_sets[0],
+                       torch.bfloat16)
+    out["gather"] = {"shapes": [list(s.shape) for s in shards],
+                     "max_abs_err": 0.0,
+                     **time_group(emb, shards, idx_sets, hbm)}
+    del tables, shards, idx_sets
+    h = ATT_H // TP_WORLD
+    case = _attention_inputs(g, TP_BERT_MICRO, h, BERT_SEQ_LEN,
+                             BERT_SEQ_LEN, ATT_D, masked=False)
+    errs = {"no_bias": _check_case(fa, "tp_heads", *case),
+            "bias": _check_case(fa, "tp_heads_bias", *_attention_inputs(
+                g, TP_BERT_MICRO, h, BERT_SEQ_LEN, BERT_SEQ_LEN, ATT_D,
+                masked=True))}
+    q, k, v, do, _ = case
+    fwd, lse = fa.flash_fwd(q, k, v)
+    delta = (do.float() * fwd.float()).sum(-1)
+    bwd = [(q, k, v, None, do, lse, delta)]
+    b, s, d = TP_BERT_MICRO, BERT_SEQ_LEN, ATT_D
+    elems, rows = b * h * s * d, b * h * s
+    for kernel, fn, args, (products, tensors, f32_rows) in (
+            ("flash_fwd", fa.flash_fwd, [(q, k, v)], (2, 4, 1)),
+            ("flash_dq", fa.flash_dq, bwd, (3, 5, 2)),
+            ("flash_dkv", fa.flash_dkv, bwd, (4, 6, 2))):
+        by_ops = products * 2 * b * h * s * s * d / flop_peak
+        by_bytes = (tensors * elems * 2 + f32_rows * rows * 4) / hbm
+        ms = device_ms(fn, args, 20)
+        out["flash"][kernel] = {"ms": ms,
+                                "bound_ms": max(by_ops, by_bytes) * 1e3}
+    out["flash"]["shape"] = {"B": b, "H": h, "S": s, "D": d}
+    out["flash"]["max_abs_err"] = errs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryruns() -> dict:
+    """``parallel.dryrun.dryrun_multichip`` on 2 and 4 ranks of the card,
+    both at once."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import dryrun
+    start = timeit.default_timer()
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        runs = {n: pool.submit(dryrun.dryrun_multichip, n,
+                               timeout_s=TP_TIMEOUT_S) for n in (2, 4)}
+        out = {str(n): f.result() for n, f in runs.items()}
+    for n, ranks in out.items():
+        if len(ranks) != int(n) or not all(
+                np.isfinite([r["loss"], *r["loader_losses"]]).all()
+                for r in ranks):
+            raise AssertionError(f"dryrun_multichip({n}): {ranks}")
+    return {"ranks": out, "seconds": timeit.default_timer() - start}
+
+
+def tp_phase(fa, emb, hbm: float, flop_peak: float, tmp: str) -> dict:
+    kernels = _tp_kernel_checks(fa, emb, hbm, flop_peak)
+    refs = _tp_references(fa)
+    start = timeit.default_timer()
+    ranks = _tp_world(tmp)
+    world_s = timeit.default_timer() - start
+    from ray_shuffling_data_loader_tpu_torch.models import bert
+    layers = bert.bert_base().num_layers
+    out = {"mesh": [1, TP_WORLD], "world_s": world_s, "kernels": kernels,
+           "loss_rtol": {k: list(v) for k, v in TP_LOSS_RTOL.items()},
+           "models": {}}
+    for name, ref in refs.items():
+        got = [r[name] for r in ranks]
+        rel = [max(abs(r["losses"][i] - want) / abs(want) for r in got)
+               for i, want in enumerate(ref["losses"])]
+        for i, (diff, bar) in enumerate(zip(rel, TP_LOSS_RTOL[name])):
+            if not diff <= bar:
+                raise AssertionError(
+                    f"tp {name}: losses {i} of the ranks "
+                    f"{[r['losses'][i] for r in got]} vs one process's "
+                    f"{ref['losses'][i]}: {diff} relative, bar {bar}")
+        if any(r["replicated_digests"] != got[0]["replicated_digests"]
+               for r in got):
+            raise AssertionError(f"tp {name}: replicated parameters differ "
+                                 "across the model axis")
+        steps = got[0]["steps"]
+        launches = [r["launches"] for r in got]
+        if name == "dlrm":
+            want = {"gather_rows": steps}
+            if any(r["gather_shards"] != got[0]["gather_shards"]
+                   or {s[1] for s in r["gather_shards"]} != {E // TP_WORLD}
+                   for r in got):
+                raise AssertionError(
+                    f"gather shards {got[0]['gather_shards']}")
+        elif name == "bert":
+            want = {k: layers * steps for k in FLASH_KERNELS}
+            if any(r["attention_heads"] != [ATT_H // TP_WORLD] for r in got):
+                raise AssertionError("flash ran on "
+                                     f"{got[0]['attention_heads']} heads")
+        else:
+            want = {}
+        for r in launches:
+            for kernel, n in r.items():
+                if n != want.get(kernel, 0):
+                    raise AssertionError(f"tp {name}: {kernel} launched {n} "
+                                         f"times in {steps} steps, expected "
+                                         f"{want.get(kernel, 0)}")
+        out["models"][name] = {
+            "one_process": ref, "first_loss_max_rel_diff": rel[0],
+            "second_loss_max_rel_diff": rel[1],
+            "launches_per_step": {k: n / steps
+                                  for k, n in launches[0].items() if n},
+            "replicated_params_equal": len(got[0]["replicated_digests"]),
+            "ranks": [{k: v for k, v in r.items()
+                       if k != "replicated_digests"} for r in got]}
+    config = bert.bert_base()
+    out["models"]["bert"]["mlm_head_bytes"] = {
+        "table_all_gather": config.vocab_size * config.hidden_dim * 2,
+        "partial_logits_all_reduce": TP_BERT_MICRO * BERT_SEQ_LEN
+        * config.vocab_size * 4,
+        "partial_logits_all_reduce_at_32": 32 * BERT_SEQ_LEN
+        * config.vocab_size * 4}
+    out["dryrun"] = _dryruns()
+    return out
+
+
 def image_decoder_env() -> dict:
     """PIL's version, ``g++`` and the codec headers, and the decoder the
     ``resnet`` phase uses: the native one where it can be built, PIL
@@ -3268,6 +3694,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from ray_shuffling_data_loader_tpu_torch.kernels import build
     from ray_shuffling_data_loader_tpu_torch.ops import embedding as emb
     from ray_shuffling_data_loader_tpu_torch.ops import flash_attention as fa
@@ -3345,6 +3773,14 @@ def main() -> int:
         emit({"phase": "resume", "card": smi, **loader_context("resume"),
               **resume_run})
 
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tp-") as tmp:
+        start = timeit.default_timer()
+        tp_run = tp_phase(fa, emb, peak, bf16_peak(name), tmp)
+        tp_run["seconds"] = timeit.default_timer() - start
+    emit({"phase": "tp", "card": smi, **tp_run})
+    tp_ranks = {m: tp_run["models"][m]["ranks"][0]["launches"]
+                for m in ("dlrm", "bert")}
+
     main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
         "name": "gather_rows", "route": "cuda",
@@ -3361,7 +3797,8 @@ def main() -> int:
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "distributed": dist_run["gather_launches"],
             "elastic": elastic_run["gather_launches"],
-            "resnet": resnet_run["port_kernel_launches"]["gather_rows"]},
+            "resnet": resnet_run["port_kernel_launches"]["gather_rows"],
+            "tp_dlrm_rank0": tp_ranks["dlrm"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": "bytes",
@@ -3379,7 +3816,8 @@ def main() -> int:
                 "bert": bert_run["flash_launches"][kernel],
                 "ring": ring_run["spmd_bert"]["flash_launches"][kernel],
                 "resnet": resnet_run["port_kernel_launches"][kernel],
-                "resume": resume_run["bert_base"]["flash_launches"][kernel]},
+                "resume": resume_run["bert_base"]["flash_launches"][kernel],
+                "tp_bert_rank0": tp_ranks["bert"][kernel]},
             "max_abs_err": att["max_abs_err"][kernel],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

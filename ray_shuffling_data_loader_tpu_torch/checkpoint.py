@@ -15,7 +15,10 @@ batches already consumed (``set_epoch(epoch, skip_batches=)``).
 - :class:`TrainStateCheckpointer` saves the other half, the model's and
   the optimizer's ``state_dict`` and the state of the generators the next
   step reads (BERT's mask generator), with the loader checkpoint beside
-  them, one directory per step.
+  them, one directory per step. A trainer over a mesh saves the global
+  state (a tensor-parallel one gathers its shards, as Orbax saves global
+  arrays), written by rank 0 alone, and restores it cut by its own
+  ``param_specs``, so a step saved at one layout restores into another.
 - :func:`crc_line` / :func:`parse_crc_line`: the crc'd JSON line every
   append-only journal shares (the membership journal,
   ``membership.MembershipJournal``), byte for byte the JAX package's.
@@ -31,6 +34,7 @@ import tempfile
 from typing import Iterator, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -168,6 +172,28 @@ _STATE_FILE = "state.pt"
 _LOADER_FILE = "loader.json"
 
 
+def _in_world(trainer) -> bool:
+    return (getattr(trainer, "mesh", None) is not None
+            and dist.is_available() and dist.is_initialized())
+
+
+def _global_model_state(trainer) -> dict:
+    specs = getattr(trainer, "param_specs", None)
+    if specs is None:
+        return trainer.model.state_dict()
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    return tp.full_state_dict(trainer.model, specs, trainer.mesh)
+
+
+def _global_optimizer_state(trainer) -> dict:
+    specs = getattr(trainer, "param_specs", None)
+    if specs is None:
+        return trainer.optimizer.state_dict()
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    return tp.full_optimizer_state_dict(trainer.model, trainer.optimizer,
+                                        specs, trainer.mesh)
+
+
 class TrainStateCheckpointer:
     """Model, optimizer and generator state with the loader position, one
     directory per step under ``directory``.
@@ -177,6 +203,13 @@ class TrainStateCheckpointer:
     a temporary name and renamed into place; the oldest steps past
     ``max_to_keep`` are removed. :meth:`restore` reads the tensors back
     (``torch.load(weights_only=True)``) onto the model's device.
+
+    With a trainer over a mesh in an initialised process group, every rank
+    calls :meth:`save` and :meth:`restore`: a save gathers the sharded
+    parameters and their optimizer moments (``param_specs``) into global
+    tensors, rank 0 writes them and every rank waits for the write and
+    raises if it failed; a restore reads the global state and keeps this
+    rank's blocks.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3):
@@ -204,17 +237,40 @@ class TrainStateCheckpointer:
              generators: Sequence[torch.Generator] = ()) -> None:
         """Save ``trainer``'s model and optimizer, the state of each of
         ``generators`` and, if given, ``loader_checkpoint`` as step
-        ``step``; raises if that step exists."""
+        ``step``; raises if that step exists. In a process group, a write
+        that fails on rank 0 raises on every rank (``RuntimeError`` with
+        rank 0's error on the others)."""
         final = self._step_dir(step)
         if os.path.exists(final):
             raise ValueError(f"step {step} already exists in "
                              f"{self.directory}")
+        state = {"model": _global_model_state(trainer),
+                 "optimizer": _global_optimizer_state(trainer),
+                 "generators": [g.get_state() for g in generators]}
+        if not _in_world(trainer):
+            self._write(step, final, state, loader_checkpoint)
+            return
+        # Every rank saw the step missing before rank 0 writes it.
+        dist.barrier()
+        error, failure = None, [None]
+        if dist.get_rank() == 0:
+            try:
+                self._write(step, final, state, loader_checkpoint)
+            except Exception as e:  # raised below, after the others learn it
+                error, failure = e, [f"{type(e).__name__}: {e}"]
+        # Every rank waits for the write and learns how it ended.
+        dist.broadcast_object_list(failure, src=0)
+        if error is not None:
+            raise error
+        if failure[0] is not None:
+            raise RuntimeError(f"rank 0 could not save step {step}: "
+                               f"{failure[0]}")
+
+    def _write(self, step: int, final: str, state: dict,
+               loader_checkpoint: Optional[LoaderCheckpoint]) -> None:
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=f".{step}-",
                                suffix=".tmp")
         try:
-            state = {"model": trainer.model.state_dict(),
-                     "optimizer": trainer.optimizer.state_dict(),
-                     "generators": [g.get_state() for g in generators]}
             path = os.path.join(tmp, _STATE_FILE)
             with open(path, "wb") as f:
                 torch.save(state, f)
@@ -249,8 +305,17 @@ class TrainStateCheckpointer:
         if len(saved) != len(generators):
             raise ValueError(f"step {step} holds {len(saved)} generator "
                              f"states; {len(generators)} generators given")
-        trainer.model.load_state_dict(state["model"])
-        trainer.optimizer.load_state_dict(state["optimizer"])
+        specs = getattr(trainer, "param_specs", None)
+        if specs is None:
+            trainer.model.load_state_dict(state["model"])
+            trainer.optimizer.load_state_dict(state["optimizer"])
+        else:
+            from ray_shuffling_data_loader_tpu_torch.parallel import tp
+            trainer.model.load_state_dict(tp.shard_state_dict(
+                trainer.model, state["model"], specs, trainer.mesh))
+            trainer.optimizer.load_state_dict(tp.shard_optimizer_state_dict(
+                trainer.model, trainer.optimizer, state["optimizer"], specs,
+                trainer.mesh))
         for generator, generator_state in zip(generators, saved):
             generator.set_state(generator_state.cpu())
         loader = os.path.join(directory, _LOADER_FILE)

@@ -7,20 +7,34 @@ One embedding table per sparse feature, looked up through
 the dot interaction (strict upper triangle of the ``F x F`` Gram matrix)
 plus the mean embedding feed the top MLP. Parameters are float32,
 compute is ``compute_dtype``, logits are float32.
+
+Tensor parallelism (:func:`param_specs`, ``parallel.tp``): every table is
+split on its columns, so each rank gathers ``(B, E/tp)`` vectors from its
+blocks (one launch of the gather kernel on the card); the Gram matrix, a
+sum over E, is each rank's partial ``(B, F, F)`` product in f32, summed by
+``reduce_from_model`` and rounded to the compute dtype once, as the JAX
+package's single product is (bf16 products are exact in f32, so the two
+differ only in the f32 summation order: an entry may land one bf16 ulp,
+2^-8 relative, apart where its sum falls beside a rounding boundary);
+the mean embedding is gathered over the model axis;
+a dense branch's replicated ``(B, E)`` output is cut to this rank's
+columns; the MLPs are Megatron layers (``models.mlp``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ray_shuffling_data_loader_tpu_torch.models import mlp
 from ray_shuffling_data_loader_tpu_torch.models.mlp import MLP
 from ray_shuffling_data_loader_tpu_torch.ops import embedding
+from ray_shuffling_data_loader_tpu_torch.parallel import tp as tpar
 from ray_shuffling_data_loader_tpu_torch.utils.config import resolve_device
 
 # The reference DATA_SPEC's categorical cardinalities: 17 embedding
@@ -64,10 +78,29 @@ class DLRMConfig:
 MLPERF = DLRMConfig(embed_dim=128, top_hidden=(1024, 1024, 512, 256))
 
 
+def param_specs(config: DLRMConfig, model_axis: str = "model"
+                ) -> Dict[str, Tuple]:
+    """The JAX package's layout: each table split on its embedding dim over
+    ``model_axis``, the MLPs Megatron-parallel (``mlp.param_specs``)."""
+    specs: Dict[str, Tuple] = {f"embeddings.table_{i}": (None, model_axis)
+                               for i in range(config.num_sparse)}
+    branches = [("top", (config.top_in_dim, *config.top_hidden, 1))]
+    if config.dense_dim > 0:
+        branches.insert(0, ("bottom", (config.dense_dim,
+                                       *config.bottom_hidden,
+                                       config.embed_dim)))
+    for prefix, dims in branches:
+        for name, spec in mlp.param_specs(dims, model_axis).items():
+            specs[f"{prefix}.{name}"] = spec
+    return specs
+
+
 class DLRM(nn.Module):
     """Parameters: ``embeddings.table_{i}`` ``(V_i, E)`` ~ N(0, 1/E),
     ``top.w{i}``/``top.b{i}`` (and ``bottom.*`` with dense features).
     ``device=None`` means CUDA and raises without it."""
+
+    tp: Optional[tpar.ModelParallel] = None
 
     def __init__(self, config: DLRMConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -100,6 +133,10 @@ class DLRM(nn.Module):
         logits."""
         config = self.config
         dtype = config.compute_dtype
+        mp = self.tp
+        if mp is not None:
+            mp.require({f"embeddings.table_{i}": 1
+                        for i in range(config.num_sparse)})
         is_columns = isinstance(sparse, (list, tuple))
         if is_columns and len(sparse) != config.num_sparse:
             raise ValueError(
@@ -111,11 +148,17 @@ class DLRM(nn.Module):
              for i in range(config.num_sparse)],
             dtype, mode=config.lookup_mode)
         if config.dense_dim > 0:
-            vectors.append(self.bottom(dense).to(dtype))
-        stacked = torch.stack(vectors, dim=1)  # (B, F, E)
-        gram = torch.bmm(stacked, stacked.transpose(1, 2))  # (B, F, F)
+            vectors.append(tpar.scatter_to_model(
+                self.bottom(dense).to(dtype), mp, -1))
+        stacked = torch.stack(vectors, dim=1)  # (B, F, E) or (B, F, E/tp)
+        if mp is None:
+            gram = torch.bmm(stacked, stacked.transpose(1, 2))  # (B, F, F)
+        else:
+            part = stacked.float()
+            gram = tpar.reduce_from_model(
+                torch.bmm(part, part.transpose(1, 2)), mp).to(dtype)
         interactions = gram[:, self._iu, self._ju]
-        first_order = stacked.mean(dim=1)
+        first_order = tpar.gather_from_model(stacked.mean(dim=1), mp, -1)
         top_in = torch.cat([interactions, first_order], dim=1).to(dtype)
         return self.top(top_in)
 

@@ -17,19 +17,27 @@ runs NHWC convolutions with no layout copies. Convolutions pad as XLA's
 pixel at the bottom and right than at the top and left (the 7x7 stem on
 224 pads (2, 3)), zeros before a convolution and ``-inf`` before the max
 pool; PyTorch's symmetric padding would move the window grid by a pixel.
+
+Tensor parallelism (:func:`param_specs`, ``parallel.tp``): each conv takes
+its input through ``copy_to_model`` and this rank's block of output
+channels, and its output is gathered on the channel dim before the
+replicated GroupNorm; ``fc_w`` is row-parallel over the pooled features.
+A check of the layout, not of speed: every conv output crosses the model
+axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint
 
+from ray_shuffling_data_loader_tpu_torch.parallel import tp as tpar
 from ray_shuffling_data_loader_tpu_torch.utils.config import resolve_device
 
 
@@ -129,6 +137,8 @@ class ResNet(nn.Module):
     means CUDA and raises without it; on CUDA the conv kernels are kept
     ``channels_last``."""
 
+    tp: Optional[tpar.ModelParallel] = None
+
     def __init__(self, config: ResNetConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -172,6 +182,17 @@ class ResNet(nn.Module):
         return apply(self, images)
 
 
+def _conv(model: ResNet, x: torch.Tensor, name: str,
+          stride: int = 1) -> torch.Tensor:
+    """:func:`conv_same` with the kernel ``name``; under tensor parallelism
+    with this rank's output channels, gathered over the model axis."""
+    mp = model.tp
+    if mp is not None:
+        mp.require({name: 0})
+    return tpar.gather_from_model(conv_same(
+        tpar.copy_to_model(x, mp), getattr(model, name), stride), mp, 1)
+
+
 def _block(x: torch.Tensor, model: ResNet, name: str,
            stride: int) -> torch.Tensor:
     """One bottleneck block: 1x1 -> 3x3 (carrying the stride) -> 1x1, each
@@ -183,12 +204,13 @@ def _block(x: torch.Tensor, model: ResNet, name: str,
         return getattr(model, f"{name}_{key}")
 
     residual = x
-    y = F.relu(group_norm(conv_same(x, p("conv1")), p("gn1"), groups))
-    y = F.relu(group_norm(conv_same(y, p("conv2"), stride), p("gn2"),
+    y = F.relu(group_norm(_conv(model, x, f"{name}_conv1"), p("gn1"),
                           groups))
-    y = group_norm(conv_same(y, p("conv3")), p("gn3"), groups)
+    y = F.relu(group_norm(_conv(model, y, f"{name}_conv2", stride),
+                          p("gn2"), groups))
+    y = group_norm(_conv(model, y, f"{name}_conv3"), p("gn3"), groups)
     if hasattr(model, f"{name}_proj"):
-        residual = group_norm(conv_same(residual, p("proj"), stride),
+        residual = group_norm(_conv(model, residual, f"{name}_proj", stride),
                               p("proj_gn"), groups)
     return F.relu(y + residual)
 
@@ -200,7 +222,7 @@ def apply(model: ResNet, images: torch.Tensor) -> torch.Tensor:
     dtype = config.compute_dtype
     # NHWC -> an NCHW view in channels_last memory: no copy.
     x = images.permute(0, 3, 1, 2).to(dtype)
-    x = conv_same(x, model.stem_conv, stride=2)
+    x = _conv(model, x, "stem_conv", stride=2)
     x = F.relu(group_norm(x, model.stem_gn, config.num_groups))
     x = max_pool_same(x)
     for stage, num_blocks in enumerate(config.stage_sizes):
@@ -213,8 +235,30 @@ def apply(model: ResNet, images: torch.Tensor) -> torch.Tensor:
             else:
                 x = _block(x, model, name, stride)
     x = x.mean(dim=(2, 3))  # global average pool
-    logits = x @ model.fc_w.to(dtype) + model.fc_b.to(dtype)
+    mp = model.tp
+    if mp is not None:
+        mp.require({"fc_w": 0, "fc_b": None})
+    logits = (tpar.reduce_from_model(
+        tpar.scatter_to_model(x, mp, -1) @ model.fc_w.to(dtype), mp)
+        + model.fc_b.to(dtype))
     return logits.float()
+
+
+def param_specs(config: ResNetConfig, model_axis: str = "model"
+                ) -> Dict[str, Tuple]:
+    """The JAX package's layout in the port's names and OIHW kernels: each
+    conv's output channels over ``model_axis`` (the JAX spec's last, HWIO,
+    entry), GroupNorm replicated, ``fc_w`` split on its input dim, ``fc_b``
+    replicated."""
+    specs: Dict[str, Tuple] = {}
+    for name, param in ResNet(config, device="meta").named_parameters():
+        if name == "fc_w":
+            specs[name] = (model_axis, None)
+        elif param.ndim == 4:
+            specs[name] = (model_axis, None, None, None)
+        else:
+            specs[name] = (None,)
+    return specs
 
 
 def loss_fn(model: ResNet, images: torch.Tensor,

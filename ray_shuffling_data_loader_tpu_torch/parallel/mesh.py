@@ -10,8 +10,9 @@ collectives of that axis use.
 Axis convention, as in the JAX package:
 
 - ``"data"``: the batch dimension; one loader rank per data coordinate.
-- ``"model"``: tensor-parallel parameters (not ported yet: every parameter
-  is replicated).
+- ``"model"``: tensor-parallel parameters (``parallel.tp``: Megatron
+  column and row blocks of the parameters that ``param_specs`` shard);
+  the ranks of one model group hold the same data.
 - ``"seq"``: the sequence dimension (ring attention and Ulysses).
 
 There is no global array in PyTorch: each rank holds its block of the
@@ -89,6 +90,29 @@ def axis_index(mesh: DeviceMesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
+def model_group(mesh: DeviceMesh):
+    """The process group of this rank's model axis (its tensor-parallel
+    peers)."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def batch_group(mesh: DeviceMesh):
+    """The process group of the ranks that hold other data than this one:
+    every axis but ``"model"``, whose peers hold the same batch. None (the
+    default group, every rank) where the mesh has no model axis of more
+    than one rank. Raises ``NotImplementedError`` for a model axis beside
+    two or more other axes (``data`` with ``seq``)."""
+    names = tuple(mesh.mesh_dim_names)
+    if MODEL_AXIS not in names or axis_size(mesh, MODEL_AXIS) == 1:
+        return None
+    others = [n for n in names if n != MODEL_AXIS]
+    if len(others) != 1:
+        raise NotImplementedError(
+            f"a model axis beside the axes {others} is not supported (one "
+            f"data axis, no seq axis)")
+    return mesh.get_group(others[0])
+
+
 def batch_sharding(mesh: DeviceMesh, x: torch.Tensor,
                    data_axis: Optional[str] = DATA_AXIS,
                    seq_axis: Optional[str] = None) -> torch.Tensor:
@@ -135,5 +159,5 @@ def local_data_shard_info(mesh: DeviceMesh,
                           data_axis: str = DATA_AXIS) -> Tuple[int, int]:
     """``(rank, num_trainers)`` of this rank's loader: its coordinate on
     ``data_axis`` and that axis's size. Ranks that differ only on other
-    axes (``seq`` peers) read the same stream."""
+    axes (``seq`` and ``model`` peers) read the same stream."""
     return axis_index(mesh, data_axis), axis_size(mesh, data_axis)

@@ -40,6 +40,7 @@ from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
 from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptrainer
 from ray_shuffling_data_loader_tpu_torch.workloads import bert_mlm as tmlm
 
+from torch_port_fixtures import one_rank_world  # noqa: F401 (fixture)
 from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
 
 
@@ -129,12 +130,15 @@ def test_mesh_without_a_card_raises(monkeypatch):
         pmesh.named_mesh((1, 1), ("data", "seq"))
 
 
-def test_trainer_rejects_param_specs():
+def test_trainer_rejects_param_specs(one_rank_world):
+    """A spec that names an axis the mesh lacks raises before any
+    parameter is sent or cut."""
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4a"):
-        ptrainer.SpmdTrainer(None, lambda m: m.weight.sum(), model,
+    with pytest.raises(ValueError, match="names axis 'tensor'"):
+        ptrainer.SpmdTrainer(one_rank_world, lambda m: m.weight.sum(), model,
                              torch.optim.Adam(model.parameters()),
-                             param_specs={"weight": ("model",)})
+                             param_specs={"weight": (None, "tensor"),
+                                          "bias": (None,)})
 
 
 def _jax_trainer_losses(trainer, mesh, batches, spec):

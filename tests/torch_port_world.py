@@ -1,4 +1,5 @@
-"""Spawned gloo worlds for the port's sequence- and data-parallel tests.
+"""Spawned gloo worlds for the port's sequence-, data- and tensor-parallel
+tests.
 
 :func:`start_world` spawns ``n`` processes that join one gloo process group
 (``file://`` rendezvous in a test's own directory, so concurrent test
@@ -291,4 +292,214 @@ def seq_world(inputs):
     return out
 
 
-WORLDS = {"ring": ring_world, "dlrm": dlrm_world, "seq": seq_world}
+# -- tensor parallelism ------------------------------------------------------
+
+
+def tp_model(kind, config_kw, params_np):
+    """The port model of ``kind`` at the JAX package's parameters, f32."""
+    from ray_shuffling_data_loader_tpu_torch import weights
+    from ray_shuffling_data_loader_tpu_torch.models import (
+        bert, dlrm, mlp, resnet)
+    if kind == "mlp":
+        model = mlp.MLP(compute_dtype=torch.float32, device="cpu",
+                        **config_kw)
+        model.load_state_dict({k: _t(v) for k, v in params_np.items()})
+        return model
+    config_cls, model_cls, load = {
+        "dlrm": (dlrm.DLRMConfig, dlrm.DLRM, weights.from_jax_params),
+        "bert": (bert.BertConfig, bert.Bert, weights.bert_from_jax_params),
+        "resnet": (resnet.ResNetConfig, resnet.ResNet,
+                   weights.resnet_from_jax_params)}[kind]
+    config = config_cls(compute_dtype=torch.float32, **config_kw)
+    model = model_cls(config, device="cpu")
+    model.load_state_dict(load(config, params_np))
+    return model
+
+
+def tp_specs(kind, model):
+    from ray_shuffling_data_loader_tpu_torch.models import (
+        bert, dlrm, mlp, resnet)
+    if kind == "mlp":
+        return mlp.param_specs(model.dims)
+    return {"dlrm": dlrm, "bert": bert, "resnet": resnet}[kind].param_specs(
+        model.config)
+
+
+def tp_loss_fn(kind, mesh):
+    """This rank's term of the global loss for a batch block."""
+    from ray_shuffling_data_loader_tpu_torch.models import bert, dlrm, resnet
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+    _, data_size = pmesh.local_data_shard_info(mesh)
+    if kind == "mlp":
+        return lambda m, x, y: dlrm.bce_with_logits(m(x), y) / data_size
+    if kind == "dlrm":
+        return lambda m, sparse, y: dlrm.loss_fn(m, None, sparse,
+                                                 y) / data_size
+    if kind == "dlrm_dense":
+        return lambda m, dense, sparse, y: dlrm.loss_fn(
+            m, dense, sparse, y) / data_size
+    if kind == "bert":
+        return lambda m, tokens, targets: bert.loss_fn(m, tokens, targets,
+                                                       mesh=mesh)
+    return lambda m, images, labels: resnet.loss_fn(m, images,
+                                                    labels) / data_size
+
+
+def _tp_trainer(mesh, case, specs=True):
+    from ray_shuffling_data_loader_tpu_torch import train
+    from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptr
+    kind = case["kind"].split("_")[0]
+    model = tp_model(kind, case["config"], case["params"])
+    return ptr.SpmdTrainer(
+        mesh, tp_loss_fn(case["kind"], mesh), model,
+        train.make_optimizer(model, lr=case["lr"]),
+        param_specs=tp_specs(kind, model) if specs else None)
+
+
+def _tp_steps(mesh, trainer, batches):
+    from ray_shuffling_data_loader_tpu_torch.parallel import trainer as ptr
+    return torch.stack([
+        trainer.train_step(*ptr.batch_shardings(mesh, [_t(a) for a in b]))
+        for b in batches])
+
+
+def _tp_case(mesh, case):
+    """Losses of the case's steps, the gathered state after them and this
+    rank's own parameters."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    trainer = _tp_trainer(mesh, case)
+    losses = _tp_steps(mesh, trainer, case["batches"])
+    return {"losses": losses,
+            "full": tp.full_state_dict(trainer.model, trainer.param_specs,
+                                       mesh),
+            "local": {n: p.detach() for n, p in
+                      trainer.model.named_parameters()},
+            "stats": trainer.model.tp.stats.snapshot()}
+
+
+def _tp_checkpoint(mesh, case, directory):
+    """The JAX package's ``TestTrainStateCheckpointer`` on a sharded
+    trainer: save after the steps, restore into a trainer from other
+    parameters; restore into a data-parallel trainer (the global state);
+    then two more steps of each, their losses and the global parameters
+    after them (they read the restored Adam moments)."""
+    from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    trainer = _tp_trainer(mesh, case)
+    _tp_steps(mesh, trainer, case["batches"])
+    loader = ckpt.LoaderCheckpoint(seed=5, epoch=1, batches_consumed=3,
+                                   num_epochs=4, num_trainers=1, rank=0,
+                                   batch_size=8)
+    out = {}
+    other = _tp_trainer(mesh, dict(case, params=case["other_params"]))
+    dp = _tp_trainer(mesh, case, specs=False)
+    with ckpt.TrainStateCheckpointer(directory) as saver:
+        out["missing"] = _raises(lambda: saver.restore(other))
+        saver.save(3, trainer, loader_checkpoint=loader)
+        out["latest"] = saver.latest_step()
+        out["loader"] = saver.restore(other) == loader
+        saver.restore(dp)
+        saver.save(4, trainer)
+        out["no_loader"] = saver.restore(other, step=4) is None
+        saver.restore(other, step=3)
+    # Copies: the next steps update the parameters in place.
+    for key, t in (("saved", trainer), ("restored", other)):
+        out[key] = {k: v.clone() for k, v in tp.full_state_dict(
+            t.model, t.param_specs, mesh).items()}
+    out["dp_restored"] = {k: v.clone()
+                          for k, v in dp.model.state_dict().items()}
+    out["next"] = [_tp_steps(mesh, t, case["batches"][:2])
+                   for t in (trainer, other, dp)]
+    out["after"] = [tp.full_state_dict(t.model, t.param_specs, mesh)
+                    for t in (trainer, other)] + [dp.model.state_dict()]
+    # A write that fails on rank 0 raises on every rank.
+    with ckpt.TrainStateCheckpointer(f"{directory}-failing") as failing:
+        if dist.get_rank() == 0:
+            failing._write = _refuse_write
+        try:
+            failing.save(1, trainer)
+            out["failed_write"] = "no error"
+        except (OSError, RuntimeError) as e:
+            out["failed_write"] = f"{type(e).__name__}: {e}"
+        out["failed_steps"] = failing.steps()
+    return out
+
+
+def _refuse_write(*args):
+    raise OSError("disk full")
+
+
+def _tp_malformed(mesh, case):
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    model = tp_model("dlrm", case["config"], case["params"])
+    specs = tp_specs("dlrm", model)
+    missing = dict(specs)
+    missing.pop("top.w0")
+    return {
+        "unknown_axis": _raises(lambda: tp.mesh_layout(
+            model, {**specs, "top.w0": (None, "tensor")}, mesh)),
+        "missing": _raises(lambda: tp.mesh_layout(model, missing, mesh)),
+        "non_dividing": _raises(lambda: tp.mesh_layout(
+            model, {**specs, "embeddings.table_2": ("model", None)}, mesh)),
+        "two_dims": _raises(lambda: tp.mesh_layout(
+            model, {**specs, "top.w0": ("model", "model")}, mesh))}
+
+
+def _tp_qkv(mesh, case):
+    """``shard_module_`` then ``full_state_dict`` on BERT, and this rank's
+    QKV blocks."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import tp
+    model = tp_model("bert", case["config"], case["params"])
+    specs = tp_specs("bert", model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tp.shard_module_(model, specs, mesh)
+    return {"before": before,
+            "after": tp.full_state_dict(model, specs, mesh),
+            "qkv_w": model.layer_0.qkv_w.detach(),
+            "qkv_b": model.layer_0.qkv_b.detach()}
+
+
+def _tp_keys(mesh, loader):
+    from ray_shuffling_data_loader_tpu_torch.device_dataset import (
+        DeviceShufflingDataset)
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+    rank, num_trainers = pmesh.local_data_shard_info(mesh)
+    ds = DeviceShufflingDataset(
+        loader["files"], num_trainers=num_trainers, rank=rank, device="cpu",
+        feature_columns=["key"], feature_types=[np.int64],
+        label_column="labels", **loader["kw"])
+    keys = []
+    for epoch in range(loader["kw"]["num_epochs"]):
+        ds.set_epoch(epoch)
+        keys.append([f[0].reshape(-1) for f, _ in ds])
+    return keys
+
+
+def tp_world(inputs):
+    """A ``("data", "model")`` mesh of ``inputs["mesh"]``: every
+    tensor-parallel case, and on the mesh of two data ranks the
+    checkpoint, the malformed specs, the QKV layout, the loader streams,
+    ``param_specs=None`` and the dry run in this world."""
+    from ray_shuffling_data_loader_tpu_torch.parallel import mesh as pmesh
+    data, model_parallel = inputs["mesh"]
+    mesh = pmesh.make_mesh(model_parallel, device="cpu")
+    out = {"mesh": _mesh_info(mesh, ("data", "model")),
+           "cases": {name: _tp_case(mesh, case)
+                     for name, case in inputs["cases"].items()}}
+    if data == 1:
+        return out
+    case = inputs["cases"]["dlrm"]
+    out["dp_path"] = _tp_steps(mesh, _tp_trainer(mesh, case, specs=False),
+                               case["batches"])
+    out["checkpoint"] = _tp_checkpoint(mesh, inputs["checkpoint"],
+                                       inputs["checkpoint"]["dir"])
+    out["malformed"] = _tp_malformed(mesh, case)
+    out["qkv"] = _tp_qkv(mesh, inputs["cases"]["bert"])
+    out["keys"] = _tp_keys(mesh, inputs["loader"])
+    from ray_shuffling_data_loader_tpu_torch.parallel import dryrun
+    out["dryrun_in_process"] = dryrun.dryrun_multichip(4, device="cpu")
+    return out
+
+
+WORLDS = {"ring": ring_world, "dlrm": dlrm_world, "seq": seq_world,
+          "tp": tp_world}
