@@ -5,7 +5,9 @@ Drives the port's DLRM, BERT-MLM and ResNet-50 train paths, the sequence-
 and data-parallel entry points at world size 1, the distributed shuffle
 and its training entry point in a world of two processes, elastic
 membership (failure detection across processes, the generation fence,
-a shrink and a grow under the DLRM step), save, restore and resume
+a shrink and a grow under the DLRM step), the queue service (a
+supervised server process feeding the DLRM step, killed once mid-epoch),
+save, restore and resume
 mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
 run), end to end at full width, and checks its
@@ -203,7 +205,30 @@ printing one JSON line:
    seed 0), for the elastic and the fixed run under
    ``torch.use_deterministic_algorithms``: digests and losses equal bit
    for bit, one gather launch per micro-step.
-13. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+13. ``serving``: the queue service (``multiqueue_service``,
+   ``runtime.supervisor``). The ``train`` phase's pipeline (its files, 8
+   reducers, seed 0, 2 epochs, 1 trainer, the process pool, the DLRM
+   spec's map-time cast) runs in a supervised server process
+   (``launch_supervised_queue_server``, ``CUDA_VISIBLE_DEVICES=""``, its
+   own watermark journal), and ``DeviceShufflingDataset(batch_queue=
+   RemoteQueue(address), shuffle_result=None, device=None)`` feeds a fresh
+   DLRM ``mlperf`` (weights from seed 0) through the gather kernel. (a)
+   Fault-free, every micro-step trained as in ``train``. (b) The server
+   SIGKILLed after 5 loader batches of epoch 0, ``ack_lost:after2:x3`` on
+   the client, one micro-step per loader batch: the supervisor restarts
+   it, the journal and the lineage regenerate the undelivered remainder.
+   In both, every batch's digest equals the ``train`` phase's, the first
+   loss is within 1e-6 relative of its first, one gather launch per
+   micro-step, and (b) restarts the server at least once. (c) The loader
+   alone over an in-process ``serve_queue`` under
+   ``conn_reset_midframe:after2,frame_corrupt:after3``: digests equal
+   (a)'s, at least one reconnect and one corrupt frame. Prints rows/s
+   over the served queue beside the ``train`` phase's in-process rows/s,
+   the restart's seconds (from the kill to the first frame after it),
+   frames replayed, NACK'd and corrupt, client reconnects, payload and
+   wire bytes (the server process's from its metric shards),
+   ``birth_to_delivered`` p50/p99 and the card's name and power limit.
+14. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -214,7 +239,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-14. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+15. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -225,7 +250,7 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
-15. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+16. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
    ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
    processes of this script (``--tp-rank``) on the one card, gloo on CUDA
    tensors. First, here, the kernels at the shapes the ranks give them:
@@ -2896,6 +2921,292 @@ def elastic_phase(emb, dlrm_paths, tmp: str) -> dict:
     }
 
 
+# Serving phase: the train phase's pipeline in a supervised queue-server
+# process, its tables over the v3.3 wire into the DLRM step.
+SERVE_LOSS_RTOL = 1e-6
+# Loader batches of epoch 0 consumed before turn (b)'s SIGKILL.
+SERVE_KILL_AFTER = 5
+# (b)'s client: GETs 3 to 5 of each queue lose their ack, so the
+# journal lags what the trainer consumed.
+SERVE_ACK_CHAOS = "ack_lost:after2:x3"
+# (c)'s wire faults, against an in-process server: a reset mid-frame and
+# a corrupted payload in each epoch's queue.
+SERVE_WIRE_CHAOS = "conn_reset_midframe:after2,frame_corrupt:after3"
+SERVE_SERVER_COUNTERS = ("rsdl_queue_frames_replayed_total",
+                         "rsdl_queue_frames_nacked_total",
+                         "rsdl_queue_payload_bytes_total",
+                         "rsdl_queue_bytes_on_wire_total")
+
+
+def _serving_client_class():
+    """A ``RemoteQueue`` that logs each round trip (when it landed,
+    whether it resumed on a new connection, how many frames), for the
+    restart's seconds: from the kill to the first frame after it."""
+    from ray_shuffling_data_loader_tpu_torch import multiqueue_service
+
+    class LoggingRemoteQueue(multiqueue_service.RemoteQueue):
+        def __init__(self, *args, **kwargs):
+            self.fetches = []
+            super().__init__(*args, **kwargs)
+
+        def _fetch_batch(self, queue_index):
+            items, resumed = super()._fetch_batch(queue_index)
+            self.fetches.append((timeit.default_timer(), resumed,
+                                 len(items)))
+            return items, resumed
+
+    return LoggingRemoteQueue
+
+
+def _server_counters(tel_dir: str) -> dict:
+    """The queue server processes' counters, summed over the metric
+    shards they left (a SIGKILLed one's last periodic write)."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+    samples, _ = metrics.merge_series(metrics.read_shards(tel_dir).values())
+    return {name.replace("rsdl_queue_", "").replace("_total", ""):
+            int(sum(samples.get(name, {}).values()))
+            for name in SERVE_SERVER_COUNTERS}
+
+
+def _client_counters() -> dict:
+    from ray_shuffling_data_loader_tpu_torch import stats
+    recovery = stats.process_recovery_totals()
+    return {k: recovery[k] for k in ("queue_client_reconnects",
+                                     "queue_frames_corrupt",
+                                     "queue_frames_replayed",
+                                     "queue_frames_nacked")}
+
+
+def _serve_spec():
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+    spec = dlrm_criteo.dlrm_spec()
+    cast = {c: np.dtype(t).name for c, t in zip(spec["feature_columns"],
+                                                  spec["feature_types"])}
+    cast[spec["label_column"]] = np.dtype(spec["label_type"]).name
+    return spec, cast
+
+
+def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
+                      kill: bool) -> dict:
+    """One turn over a supervised server process (process pool, 8
+    reducers, seed 0, 2 epochs): a fresh DLRM ``mlperf`` fed by
+    ``DeviceShufflingDataset(batch_queue=RemoteQueue)``. (a) trains every
+    micro-step; (b) one micro-step per loader batch, SIGKILLs the server
+    after ``SERVE_KILL_AFTER`` batches of epoch 0 with ``ack_lost`` on the
+    client. Checks each batch's digest against the ``train`` phase's, the
+    first loss within ``SERVE_LOSS_RTOL`` and one gather launch per
+    micro-step."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.runtime import (faults, metrics,
+                                                             supervisor)
+
+    torch.cuda.empty_cache()
+    spec, cast = _serve_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    tel_dir = os.path.join(tmp, f"{name}-metrics")
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-serve-", dir=shm_root)
+    config = dict(filenames=list(files), num_epochs=NUM_EPOCHS,
+                  num_trainers=1, num_reducers=NUM_REDUCERS, seed=SEED,
+                  journal_path=os.path.join(tmp, f"{name}.wal"), cast=cast,
+                  child_env={"RSDL_TELEMETRY_DIR": tel_dir,
+                             "RSDL_METRICS_SHARD_INTERVAL_S": "0.5",
+                             "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    client_before = _client_counters()
+    before = metrics.parse_exposition(metrics.render())
+    t_launch = timeit.default_timer()
+    sup, address = supervisor.launch_supervised_queue_server(
+        config, name=f"smoke-{name}")
+    remote = ds = None
+    digests, losses, rows, t_kill = [], [], 0, None
+    try:
+        if not supervisor.wait_for_server(address, timeout_s=120):
+            raise AssertionError(f"serving {name}: the server never "
+                                 "listened")
+        listen_s = timeit.default_timer() - t_launch
+        if kill:
+            faults.install(SERVE_ACK_CHAOS, seed=0)
+        remote = _serving_client_class()(address, retries=20,
+                                         initial_backoff_s=0.2,
+                                         max_batch=1 if kill else 8)
+        ds = device_dataset.DeviceShufflingDataset(
+            files, NUM_EPOCHS, 1, LOADER_BATCH, 0, batch_queue=remote,
+            shuffle_result=None, seed=SEED, device=None, **spec)
+        emb.reset_launch_counts()
+        t_first = None
+        for epoch in range(NUM_EPOCHS):
+            ds.set_epoch(epoch)
+            for i, (features, label) in enumerate(ds):
+                if t_first is None:
+                    t_first = timeit.default_timer()
+                digests.append(device_dataset.batch_digest(features, label))
+                if kill:
+                    losses.append(train.train_chunk(
+                        micro_step, [f[:MICROBATCH] for f in features],
+                        label[:MICROBATCH], MICROBATCH))
+                else:
+                    losses.append(train.train_chunk(micro_step, features,
+                                                    label, MICROBATCH))
+                rows += label.shape[0]
+                if kill and epoch == 0 and i + 1 == SERVE_KILL_AFTER:
+                    t_kill = timeit.default_timer()
+                    os.kill(sup.pid, signal.SIGKILL)
+        torch.cuda.synchronize()
+        wall = timeit.default_timer() - t_first
+        launches = emb.launch_counts["gather_rows"]
+    finally:
+        faults.clear()
+        if ds is not None:
+            ds.close()
+        if remote is not None:
+            remote.close()
+        sup.stop()
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    after = metrics.parse_exposition(metrics.render())
+    client_after = _client_counters()
+    _same_digests(f"serving {name}", torch.stack(digests).cpu(),
+                  trained["digests"])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError(f"serving {name}: non-finite loss")
+    rel = (abs(float(all_losses[0]) - trained["first_loss"])
+           / abs(trained["first_loss"]))
+    if rel > SERVE_LOSS_RTOL:
+        raise AssertionError(f"serving {name}: first loss "
+                             f"{float(all_losses[0])} vs the train phase's "
+                             f"{trained['first_loss']}")
+    if launches != all_losses.numel():
+        raise AssertionError(f"serving {name}: {launches} gather launches "
+                             f"in {all_losses.numel()} micro-steps")
+    if kill and sup.restarts < 1:
+        raise AssertionError("serving (b): the server was never restarted")
+    if not kill and sup.restarts:
+        raise AssertionError(f"serving (a): {sup.restarts} restarts")
+    line = {
+        "turn": name, "binding": ds.binding,
+        "max_batch": 1 if kill else 8,
+        "micro_steps": int(all_losses.numel()),
+        "micro_steps_per_loader_batch": 1 if kill else (LOADER_BATCH
+                                                        // MICROBATCH),
+        "loader_batches": len(digests), "rows": rows,
+        "rows_per_s": rows / wall, "wall_s": wall,
+        "server_listen_s": listen_s,
+        "server_restarts": sup.restarts,
+        "first_loss": float(all_losses[0]), "first_loss_rel_diff": rel,
+        "digests_equal": True, "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+        "server": _server_counters(tel_dir),
+        "client": {k: client_after[k] - client_before[k]
+                   for k in client_after},
+        "birth_to_delivered": _latency_between(
+            before, after, "birth_to_delivered").get("0"),
+    }
+    if kill:
+        after_kill = [t for t, resumed, n in remote.fetches
+                      if t > t_kill and resumed and n]
+        if not after_kill:
+            raise AssertionError("serving (b): no frame came after the "
+                                 "kill")
+        line["restart_s"] = min(after_kill) - t_kill
+        line["ack_chaos"] = SERVE_ACK_CHAOS
+        line["kill_after_batches"] = SERVE_KILL_AFTER
+    del model, micro_step
+    return line
+
+
+def _served_loader_turn(files, want_digests, chaos: str) -> dict:
+    """(c) Loader only: the pipeline in this process behind an in-process
+    ``serve_queue`` under ``chaos``; every batch's digest must equal
+    (a)'s."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     executor,
+                                                     multiqueue_service,
+                                                     stats, transforms)
+    from ray_shuffling_data_loader_tpu_torch.runtime import faults, metrics
+
+    spec, cast = _serve_spec()
+    served_before = stats.queue_serve_totals()
+    client_before = _client_counters()
+    before = metrics.parse_exposition(metrics.render())
+    injector = faults.install(chaos, seed=0)
+    digests, rows = [], 0
+    try:
+        queue, result = dataset.create_batch_queue_and_shuffle(
+            files, NUM_EPOCHS, 1, num_reducers=NUM_REDUCERS, seed=SEED,
+            map_transform=transforms.CastTransform(cast))
+        with multiqueue_service.serve_queue(queue) as server:
+            with multiqueue_service.RemoteQueue(server.address) as remote:
+                ds = device_dataset.DeviceShufflingDataset(
+                    files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
+                    batch_queue=remote, shuffle_result=result, seed=SEED,
+                    device=None, **spec)
+                t0 = timeit.default_timer()
+                for epoch in range(NUM_EPOCHS):
+                    ds.set_epoch(epoch)
+                    for features, label in ds:
+                        digests.append(device_dataset.batch_digest(
+                            features, label))
+                        rows += label.shape[0]
+                torch.cuda.synchronize()
+                wall = timeit.default_timer() - t0
+                ds.close()
+        queue.shutdown()
+        fired = injector.fired()
+    finally:
+        faults.clear()
+    after = metrics.parse_exposition(metrics.render())
+    served = stats.queue_serve_totals()
+    client_after = _client_counters()
+    _same_digests("serving (c)", torch.stack(digests).cpu(), want_digests)
+    client = {k: client_after[k] - client_before[k] for k in client_after}
+    sites = sorted({f["site"] for f in fired})
+    if sites != ["conn_reset_midframe", "frame_corrupt"]:
+        raise AssertionError(f"serving (c): faults fired at {sites}")
+    if client["queue_frames_corrupt"] < 1 \
+            or client["queue_client_reconnects"] < 1:
+        raise AssertionError(f"serving (c): no recovery seen: {client}")
+    return {
+        "turn": "c", "chaos": chaos, "faults_fired": len(fired),
+        "rows": rows, "rows_per_s": rows / wall, "wall_s": wall,
+        "loader_batches": len(digests), "digests_equal_a": True,
+        "executor_backend": executor.last_worker_pool()["backend"],
+        "server": {"payload_bytes": served["queue_payload_bytes"]
+                   - served_before["queue_payload_bytes"],
+                   "bytes_on_wire": served["queue_bytes_on_wire"]
+                   - served_before["queue_bytes_on_wire"]},
+        "client": client,
+        "birth_to_delivered": _latency_between(
+            before, after, "birth_to_delivered").get("0"),
+    }
+
+
+def serving_phase(emb, files, trained: dict, tmp: str) -> dict:
+    """The queue service under the DLRM step: (a) fault-free and (b) one
+    SIGKILL of the server mid-epoch 0, each over a supervised server
+    process; (c) the loader alone under wire faults over an in-process
+    server. Digests equal the ``train`` phase's in (a) and (b) and (a)'s
+    in (c)."""
+    start = timeit.default_timer()
+    fresh_telemetry()
+    a = _served_dlrm_turn(emb, files, trained, tmp, "a", kill=False)
+    b = _served_dlrm_turn(emb, files, trained, tmp, "b", kill=True)
+    c = _served_loader_turn(files, trained["digests"], SERVE_WIRE_CHAOS)
+    return {
+        "turns": {"a": a, "b": b, "c": c},
+        "rows_per_s_served": a["rows_per_s"],
+        "rows_per_s_train_in_process": trained["rows_per_s"],
+        "restart_s": b["restart_s"],
+        "gather_launches": a["gather_launches"] + b["gather_launches"],
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
 # ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
 # reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
 # NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
@@ -3765,6 +4076,10 @@ def main() -> int:
             elastic_run = elastic_phase(emb, dlrm_paths, tmp)
         emit({"phase": "elastic", "card": smi, **elastic_run})
 
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-serve-") as tmp:
+            serving_run = serving_phase(emb, dlrm_paths, trained, tmp)
+        emit({"phase": "serving", "card": smi, **serving_run})
+
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
         emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
@@ -3797,6 +4112,7 @@ def main() -> int:
             "spmd_dlrm": ring_run["spmd_dlrm"]["gather_launches"],
             "distributed": dist_run["gather_launches"],
             "elastic": elastic_run["gather_launches"],
+            "serving": serving_run["gather_launches"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"],
             "tp_dlrm_rank0": tp_ranks["dlrm"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],

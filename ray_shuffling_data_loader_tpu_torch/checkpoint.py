@@ -21,20 +21,32 @@ batches already consumed (``set_epoch(epoch, skip_batches=)``).
   ``param_specs``, so a step saved at one layout restores into another.
 - :func:`crc_line` / :func:`parse_crc_line`: the crc'd JSON line every
   append-only journal shares (the membership journal,
-  ``membership.MembershipJournal``), byte for byte the JAX package's.
+  ``membership.MembershipJournal``, and the watermark journal), byte for
+  byte the JAX package's.
+- :class:`WatermarkJournal`: the queue server's journal of per-queue
+  delivered watermarks and frame births
+  (``multiqueue_service.QueueServer``), in the JAX package's line format,
+  so either package loads the other's; a restarted server process
+  resumes from it (``plan.ir.resume_from_watermarks``).
+
+torch is imported where a train state is saved or restored, not at import:
+the queue server's child process loads this module for its journal and
+no torch.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
 import shutil
 import tempfile
-from typing import Iterator, List, Optional, Sequence
+import threading
+from typing import TYPE_CHECKING, Dict, Iterator, List, Optional, Sequence
 
-import torch
-import torch.distributed as dist
+if TYPE_CHECKING:
+    import torch
 
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -81,6 +93,25 @@ def parse_crc_line(line: str) -> dict:
     return entry
 
 
+def _atomic_write(path: str, text: str) -> None:
+    """Replace ``path`` by ``text`` durably: temporary file, fsync,
+    rename, directory fsync."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp_path = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp_path, path)
+        _fsync_dir(directory)
+    except BaseException:
+        if os.path.exists(tmp_path):
+            os.remove(tmp_path)
+        raise
+
+
 @dataclasses.dataclass
 class LoaderCheckpoint:
     """Everything needed to resume the input pipeline deterministically."""
@@ -96,21 +127,7 @@ class LoaderCheckpoint:
 
     def save(self, path: str) -> None:
         """Atomic durable write: tmp file + fsync + rename + dir fsync."""
-        payload = json.dumps(dataclasses.asdict(self), indent=2)
-        directory = os.path.dirname(os.path.abspath(path))
-        os.makedirs(directory, exist_ok=True)
-        fd, tmp_path = tempfile.mkstemp(dir=directory, suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as f:
-                f.write(payload)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp_path, path)
-            _fsync_dir(directory)
-        except BaseException:
-            if os.path.exists(tmp_path):
-                os.remove(tmp_path)
-            raise
+        _atomic_write(path, json.dumps(dataclasses.asdict(self), indent=2))
 
     @classmethod
     def load(cls, path: str) -> "LoaderCheckpoint":
@@ -121,6 +138,152 @@ class LoaderCheckpoint:
             raise ValueError(
                 f"checkpoint format version {version} != {FORMAT_VERSION}")
         return cls(**data)
+
+
+@dataclasses.dataclass
+class WatermarkEntry:
+    """The latest journaled state of one queue index: the last acked
+    frame seq, the table rows delivered through it, whether the epoch-end
+    sentinel itself was acked, and the births of frames not yet acked
+    (``seq -> (pid, t_mono, t_unix)``, each journaled when its frame was
+    first built). A queue with births but no watermark reads
+    ``seq == -1``: nothing delivered."""
+
+    seq: int
+    rows: int
+    done: bool = False
+    births: Dict[int, tuple] = dataclasses.field(default_factory=dict)
+
+
+class WatermarkJournal:
+    """Crc'd append-only journal of per-queue delivered watermarks (the
+    JAX package's ``checkpoint.WatermarkJournal``, line for line).
+
+    The queue server appends a record each time a consumer's ack
+    watermark advances (flushed and fsync'd) and one per frame birth
+    when the frame is first built (flushed, not fsync'd: a lost birth
+    only under-reports that frame's latency). A restarted server loads
+    the journal and regenerates only the undelivered remainder. Each line
+    is a :func:`crc_line`, so a torn tail (the server died mid-write) is
+    skipped on :meth:`load`, never misread; :meth:`compact` rewrites the
+    latest state per queue atomically.
+    """
+
+    def __init__(self, path: str):
+        self._path = path
+        self._lock = threading.Lock()
+        self._file = None
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def record(self, queue_index: int, seq: int, rows: int,
+               done: bool = False) -> None:
+        """Append one watermark advance, flushed and fsync'd: a ``kill
+        -9`` loses at most acks the consumer will see again (it drops
+        replays by seq)."""
+        self._append({"q": int(queue_index), "seq": int(seq),
+                      "rows": int(rows), "done": bool(done)}, durable=True)
+
+    def record_birth(self, queue_index: int, seq: int, pid: int,
+                     t_mono: float, t_unix: float) -> None:
+        """Journal a frame's original payload birth as it is first built,
+        so a restarted server gives the frames it regenerates their true
+        births (a replay after a crash reports its real latency)."""
+        self._append({"q": int(queue_index), "bseq": int(seq),
+                      "pid": int(pid), "tm": float(t_mono),
+                      "tu": float(t_unix)}, durable=False)
+
+    def _append(self, entry: dict, durable: bool) -> None:
+        line = crc_line(entry) + "\n"
+        with self._lock:
+            if self._file is None:
+                directory = os.path.dirname(os.path.abspath(self._path))
+                os.makedirs(directory, exist_ok=True)
+                self._file = open(self._path, "a", encoding="utf-8")
+            self._file.write(line)
+            self._file.flush()
+            if durable:
+                os.fsync(self._file.fileno())
+
+    @classmethod
+    def load(cls, path: str) -> Dict[int, WatermarkEntry]:
+        """The latest watermark per queue index with the births past it;
+        a line with a bad or missing CRC (a torn tail) is skipped with a
+        warning."""
+        state: Dict[int, WatermarkEntry] = {}
+        births: Dict[int, Dict[int, tuple]] = collections.defaultdict(dict)
+        if not os.path.exists(path):
+            return state
+        with open(path, encoding="utf-8") as f:
+            for lineno, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    entry = parse_crc_line(line)
+                    queue_index = int(entry["q"])
+                    if "bseq" in entry:
+                        births[queue_index][int(entry["bseq"])] = (
+                            int(entry["pid"]), float(entry["tm"]),
+                            float(entry["tu"]))
+                        continue
+                except (ValueError, KeyError, TypeError) as e:
+                    logger.warning(
+                        "watermark journal %s line %d unreadable (%s); "
+                        "skipping (a torn tail from a crash is expected)",
+                        path, lineno, e)
+                    continue
+                previous = state.get(queue_index)
+                if previous is None or entry["seq"] >= previous.seq:
+                    state[queue_index] = WatermarkEntry(
+                        seq=int(entry["seq"]), rows=int(entry["rows"]),
+                        done=bool(entry["done"]))
+        for queue_index, stamps in births.items():
+            entry = state.get(queue_index)
+            if entry is None:
+                entry = state[queue_index] = WatermarkEntry(seq=-1, rows=0)
+            entry.births = {seq: stamp for seq, stamp in stamps.items()
+                            if seq > entry.seq}
+        return state
+
+    def resume_plan(self, num_epochs: int, num_trainers: int
+                    ) -> "tuple[int, Dict[int, int]]":
+        """``(start_epoch, skip_items)`` for a producer resuming against
+        this journal (``plan.ir.resume_from_watermarks``)."""
+        from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+        return plan_ir.resume_from_watermarks(self.load(self._path),
+                                              num_epochs, num_trainers)
+
+    def compact(self) -> None:
+        """Rewrite the journal as the latest record per queue and the
+        births past it, atomically; a restarted server runs it so the
+        file cannot grow across crash and recovery cycles."""
+        state = self.load(self._path)
+        lines = []
+        for queue_index in sorted(state):
+            entry = state[queue_index]
+            if entry.seq >= 0:
+                lines.append(crc_line(
+                    {"q": queue_index, "seq": entry.seq,
+                     "rows": entry.rows, "done": entry.done}) + "\n")
+            for seq in sorted(entry.births):
+                pid, t_mono, t_unix = entry.births[seq]
+                lines.append(crc_line(
+                    {"q": queue_index, "bseq": seq, "pid": pid,
+                     "tm": t_mono, "tu": t_unix}) + "\n")
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+            _atomic_write(self._path, "".join(lines))
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
 
 
 def resume_iterator(dataset, checkpoint: LoaderCheckpoint,
@@ -135,7 +298,9 @@ def resume_iterator(dataset, checkpoint: LoaderCheckpoint,
     and every later epoch are yielded.
 
     With ``checkpoint_path``, the checkpoint is saved after every
-    ``checkpoint_every`` batches (0: only at epoch ends), at least once: a
+    ``checkpoint_every`` batches (0: only at epoch ends), and after each
+    save the dataset's ``commit_consumed`` (where it has one) commits a
+    manual-ack remote queue up to the saved position; at least once: a
     batch counts as consumed only when the caller asks for the next one,
     so a crash while batch N is processed replays it. After the last epoch
     the checkpoint reads ``(epoch=num_epochs, batches_consumed=0)``, and
@@ -151,6 +316,13 @@ def resume_iterator(dataset, checkpoint: LoaderCheckpoint,
     def maybe_save():
         if checkpoint_path is not None:
             checkpoint.save(checkpoint_path)
+            # Once the position is durable, a dataset over a manual-ack
+            # remote queue commits its consumption (the server drops its
+            # replay buffer up to here); what came after the previous
+            # save stays replayable for a trainer that dies and resumes.
+            commit = getattr(dataset, "commit_consumed", None)
+            if commit is not None:
+                commit()
 
     for epoch in range(checkpoint.epoch, checkpoint.num_epochs):
         skip = checkpoint.batches_consumed if epoch == checkpoint.epoch else 0
@@ -173,6 +345,7 @@ _LOADER_FILE = "loader.json"
 
 
 def _in_world(trainer) -> bool:
+    import torch.distributed as dist
     return (getattr(trainer, "mesh", None) is not None
             and dist.is_available() and dist.is_initialized())
 
@@ -250,6 +423,7 @@ class TrainStateCheckpointer:
         if not _in_world(trainer):
             self._write(step, final, state, loader_checkpoint)
             return
+        import torch.distributed as dist
         # Every rank saw the step missing before rank 0 writes it.
         dist.barrier()
         error, failure = None, [None]
@@ -268,6 +442,7 @@ class TrainStateCheckpointer:
 
     def _write(self, step: int, final: str, state: dict,
                loader_checkpoint: Optional[LoaderCheckpoint]) -> None:
+        import torch
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=f".{step}-",
                                suffix=".tmp")
         try:
@@ -297,6 +472,7 @@ class TrainStateCheckpointer:
             step = self.latest_step()
         if step is None:
             raise ValueError("no checkpoint found to restore")
+        import torch
         directory = self._step_dir(step)
         device = next(trainer.model.parameters()).device
         with open(os.path.join(directory, _STATE_FILE), "rb") as f:

@@ -17,12 +17,24 @@ The shuffle engine's arguments pass through as in the JAX package's
 and ``executor_backend``; ``collect_stats=True`` makes the shuffle's
 result (``ShufflingDataset.shuffle_result``) a ``stats.TrialStats``.
 
+A trainer in another process than the shuffle reads a served queue:
+:func:`connect_remote_queue` dials a ``multiqueue_service`` server and
+returns a ``RemoteQueue``, which goes in as ``batch_queue`` with
+``shuffle_result=None``. It yields materialized tables (an in-process
+queue yields task refs) and each table's absolute row position in its
+queue's stream, so a resumed epoch's ``skip_batches`` stays exact when
+the server replays the stream from a watermark. :meth:`commit_consumed`
+commits a manual-ack remote queue (``checkpoint.resume_iterator`` calls
+it after each save).
+
 Telemetry, as in the JAX package's dataset: each blocking pop of a
 reducer output is a ``queue_wait`` span keyed ``(epoch, task=queue
 index)``; each table taken is observed on the ``birth_to_delivered`` hop
 of the delivery-latency sketch (``queue`` label: the rank) with the
-rank's freshness gauge; the end of an epoch's tables logs the epoch's
-bottleneck verdict (``telemetry.epoch_complete``).
+rank's freshness gauge, unless the queue observes that hop itself
+(``observes_delivery``: a remote queue reads the frame's stamps first);
+the end of an epoch's tables logs the epoch's bottleneck verdict
+(``telemetry.epoch_complete``).
 """
 
 from __future__ import annotations
@@ -122,6 +134,20 @@ def create_batch_queue_and_shuffle(
     return queue, result
 
 
+def connect_remote_queue(target, **remote_kwargs):
+    """A ``multiqueue_service.RemoteQueue`` on a served queue at ``target``
+    (a ``(host, port)`` pair), for ``ShufflingDataset(batch_queue=...,
+    shuffle_result=None)``; ``remote_kwargs`` go to the client. A shard
+    map (the JAX package's ``plan.ir.ShardMap``, its dict or its JSON)
+    raises ``NotImplementedError``: sharded serving is ROADMAP queue A
+    item 5b."""
+    from ray_shuffling_data_loader_tpu_torch import multiqueue_service as svc
+    if isinstance(target, tuple) and len(target) == 2 \
+            and isinstance(target[0], str):
+        return svc.RemoteQueue(target, **remote_kwargs)
+    raise svc.not_ported("a shard map target", "5b", "sharded serving")
+
+
 class ShufflingDataset:
     """Iterable of exact ``batch_size``-row ``pa.Table`` batches.
 
@@ -174,6 +200,10 @@ class ShufflingDataset:
         self._last_epoch: Optional[int] = None
         self._lat_queue = str(rank)
         self._lat_anchors = rt_latency.ClockAnchors()
+        # A remote queue observes birth_to_delivered from the frame's
+        # stamps; observing it here too would count the hop twice.
+        self._lat_observe = not getattr(batch_queue, "observes_delivery",
+                                        False)
 
     @property
     def batch_size(self) -> int:
@@ -222,10 +252,16 @@ class ShufflingDataset:
         if self._epoch is None or self._epoch == self._last_epoch:
             raise ValueError(
                 "call set_epoch() before iterating each epoch")
-        to_skip = self._skip_batches * self._batch_size
+        skip_rows = self._skip_batches * self._batch_size
+        to_skip = skip_rows
         self._skip_batches = 0
         queue_idx = mq.queue_index(self._epoch, self._rank,
                                    self._num_trainers)
+        # A remote queue hands out each table's absolute row position in
+        # its queue's stream: a server that replays from a watermark
+        # restarts the stream mid-epoch, so the resume skip is "rows
+        # before position skip_rows", not a count of rows seen here.
+        get_positioned = getattr(self._batch_queue, "get_positioned", None)
         while True:
             # The epoch-tagged wait: where the consumer blocks when the
             # shuffle cannot keep up (the queue's own queue_get events
@@ -234,7 +270,10 @@ class ShufflingDataset:
             wait_span = rt_telemetry.span_begin(
                 "queue_wait", epoch=self._epoch, task=queue_idx)
             try:
-                ref = self._batch_queue.get(queue_idx)
+                if get_positioned is not None:
+                    ref, row_offset = get_positioned(queue_idx)
+                else:
+                    ref, row_offset = self._batch_queue.get(queue_idx), None
             finally:
                 rt_telemetry.span_end(wait_span)
             if ref is None:
@@ -243,18 +282,26 @@ class ShufflingDataset:
                 raise RuntimeError(
                     "the shuffle driver died; no more batches are coming"
                 ) from ref.error
-            table: pa.Table = spill.unwrap(ref.result())
-            if to_skip and table.num_rows <= to_skip:
-                to_skip -= table.num_rows
+            # An in-process queue holds task refs, a remote queue
+            # materialized tables. A spilled output is mapped back only
+            # if some of it survives the skip.
+            raw = ref.result() if hasattr(ref, "result") else ref
+            if row_offset is not None:
+                to_skip = max(0, skip_rows - row_offset)
+            if to_skip and raw.num_rows <= to_skip:
+                if row_offset is None:
+                    to_skip -= raw.num_rows
                 continue
-            self._observe_delivered(table)
+            table: pa.Table = spill.unwrap(raw)
+            if self._lat_observe:
+                self._observe_delivered(table)
             if to_skip:
                 table = table.slice(to_skip)
                 to_skip = 0
             yield table
             # Not pinned by this frame while the next get blocks (the
             # budget wait wakes on its ledger release).
-            ref = table = None
+            ref = raw = table = None
         self._last_epoch = self._epoch
         rt_telemetry.epoch_complete(self._epoch, source="dataset")
         if (self._epoch == self._num_epochs - 1
@@ -278,6 +325,14 @@ class ShufflingDataset:
     def __iter__(self) -> Iterator[pa.Table]:
         return slice_batches(self.iter_tables(), self._batch_size,
                              self._drop_last)
+
+    def commit_consumed(self) -> None:
+        """Tell a manual-ack batch queue that consumption so far is
+        durable (``checkpoint.resume_iterator`` calls this after each
+        save); a no-op for in-process and auto-ack queues."""
+        commit = getattr(self._batch_queue, "commit", None)
+        if commit is not None:
+            commit()
 
     def shutdown(self) -> None:
         """Close the queues if this dataset created them. Idempotent."""

@@ -29,8 +29,10 @@ grows at the next epoch. Placement never changes content: a reducer output
 is a pure function of its lineage key, so a resized run's stream equals
 the fixed world's bit for bit.
 
-The serving plane's listener (the queue server's lease sweep) and the
-streaming window resize are not ported yet.
+The serving plane's listener is the queue server's
+(``multiqueue_service.QueueServer.attach_membership``: a ``down`` verdict
+expires the rank's consumer leases); the streaming window resize is not
+ported yet.
 """
 
 from __future__ import annotations

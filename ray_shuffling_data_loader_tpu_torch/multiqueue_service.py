@@ -1,0 +1,1595 @@
+"""Cross-process queue service: trainer processes attach by address (own
+copy of the JAX package's ``multiqueue_service.py``, one server and its
+client).
+
+A trainer in another process than the shuffle reads its per-``(epoch,
+rank)`` queue over TCP:
+
+- :func:`serve_queue` exports a ``multiqueue.MultiQueue``. Each GET pops
+  queued reducer refs, resolves each to its ``pa.Table`` and streams it as
+  one Arrow IPC stream per frame.
+- :class:`RemoteQueue` is the consumer: ``get(queue_idx)`` returns a
+  ``pa.Table``, ``None`` (the epoch's end) or a ``dataset.ShuffleFailure``,
+  the items an in-process queue yields, so
+  ``ShufflingDataset(batch_queue=RemoteQueue(addr), shuffle_result=None)``
+  (or ``DeviceShufflingDataset``) is a trainer in another process.
+- :func:`serve_pipeline` builds queue, shuffle and server from a config
+  dict in a process of its own (``python -m
+  ray_shuffling_data_loader_tpu_torch.multiqueue_service config.json``),
+  the unit ``runtime.supervisor`` restarts after a crash.
+
+The wire is the JAX package's v3.3, byte for byte, little-endian, so a
+port client reads a JAX server and a JAX client a port server. A request
+is ``(u8 op, u8 flags, u32 a, u32 b, u32 c)``:
+
+- ``OP_GET_BATCH`` (1): ``a`` the queue, ``b`` the most frames to send,
+  ``c`` the consumer's ack watermark (the last seq it consumed;
+  ``ACK_NONE`` for none). ``FLAG_RESUME`` marks the first GET of a queue
+  on a new connection: the server rewinds to the watermark and replays
+  the unacked frames.
+- ``OP_HELLO`` (2): ``a | b << 32`` is the consumer's id, its lease
+  identity across reconnects. ``OP_HEARTBEAT`` (3) beats the lease
+  between GETs. ``OP_NACK`` (4): frame ``b`` of queue ``a`` failed its
+  CRC; the server rewinds to ``b - 1`` and sends again from its replay
+  buffer.
+
+A response is ``(u32 count)`` and ``count`` frames: the 14-field header
+``(u8 kind | codec << 4, u32 epoch, u32 seq, u32 crc, u64 row_offset, u64
+length, u32 task, f64 birth_mono, f64 birth_unix, u32 birth_pid, f64
+queued_mono, f64 queued_unix, u32 queued_pid, u32 generation)`` and
+``length`` payload bytes. ``kind``: 0 a table, 1 the epoch's sentinel, 2
+a shuffle failure (the payload is its text). ``seq`` numbers a queue's
+frames and survives server restarts (the watermark journal restores it);
+``crc`` is the payload's CRC-32; ``row_offset`` counts the table rows of
+the queue's earlier frames, so a resumed consumer skips rows absolutely;
+``task`` is the producing reducer (``rsdl.trace`` metadata,
+``TASK_NONE`` if unknown). The stamps are the payload's birth (its
+``rsdl.birth`` metadata) and the frame's build; zero means unknown.
+
+Recovery, as in the JAX package:
+
+- The server keeps each queue's unacked frames in a replay buffer of at
+  most ``queue_replay_bytes`` (over it, a GET pops one new frame at most:
+  backpressure, never a drop). Acks ride on every GET and are journaled
+  (``checkpoint.WatermarkJournal``), so a connection reset at any byte is
+  recovered by reconnect and resume, exactly once.
+- A killed server process is restarted by the supervisor;
+  :func:`serve_pipeline` reloads the journal and re-runs the shuffle's
+  deterministic lineage from the first epoch not fully consumed,
+  dropping what was delivered (``plan.ir.resume_from_watermarks``).
+  Births are journaled when a frame is first built, so the frames a
+  restarted server regenerates carry their original births.
+- Consumer leases (every request beats them, and a client thread between
+  requests) expire after ``queue_lease_timeout_s``; ``on_dead_consumer``
+  is ``fail_fast`` (close the server), ``drain`` (free the dead rank's
+  queues) or ``redistribute`` (reroute its tables to a survivor). A
+  ``MembershipManager``'s ``down`` verdict expires a rank's leases at
+  once (:meth:`QueueServer.attach_membership`).
+- Delivery latency: the server observes ``birth_to_queued``; the client
+  ``queued_to_delivered`` and ``birth_to_delivered`` (``observes_delivery``
+  tells a dataset on top not to count the last again).
+
+Left out, each raising ``NotImplementedError`` that names its ROADMAP
+queue A item when asked for: tenancy (``OP_TENANT``, ``tenants=``,
+``tenant=``: item 8), live rebalancing (``OP_REBALANCE``, ``placement=``,
+``KIND_MOVED``, the generation fence: item 6), shared-memory handle
+frames and compression (``KIND_TABLE_HANDLE``, the codec nibble,
+``queue_delivery="handle"``, ``queue_compression``: item 5b), shards
+(``ShardedQueueServer``, ``ShardedRemoteQueue``, ``num_shards > 1``: item
+5b) and streaming schedules (``config["epochs"]``: item 7). The server
+stamps generation 0 and codec 0 and streams every table, ignoring a
+client's offer of handles (``FLAG_HANDLES_OK``), as the JAX server does
+under ``queue_delivery="stream"``; the client never offers them. A frame
+the client cannot read (a codec, a handle, a redirect, a generation other
+than 0) raises :class:`UnreadableFrame`; it is never skipped.
+
+Host code: imports no torch, so the server's process never touches a
+card.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures as cf
+import json
+import os
+import signal
+import socket
+import struct
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import pyarrow as pa
+
+from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
+from ray_shuffling_data_loader_tpu_torch.dataset import ShuffleFailure
+from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
+from ray_shuffling_data_loader_tpu_torch.runtime import latency as rt_lat
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
+from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
+from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+_REQUEST = struct.Struct("<BBIII")
+_BATCH_HEADER = struct.Struct("<I")
+#: The v3.3 frame header: (kind | codec << 4, epoch, seq, crc,
+#: row_offset, length, task), the birth stamp (t_mono, t_unix, pid), the
+#: queued stamp (t_mono, t_unix, pid) and the placement generation.
+_FRAME = struct.Struct("<BIIIQQIddIddII")
+
+#: Frame ``task`` of a payload with no lineage (sentinels, failures).
+TASK_NONE = 0xFFFFFFFF
+
+OP_GET_BATCH = 1
+OP_HELLO = 2
+OP_HEARTBEAT = 3
+OP_NACK = 4
+#: Tenancy's bind request (ROADMAP queue A item 8): refused.
+OP_TENANT = 5
+#: Rebalancing's admin request (ROADMAP queue A item 6): refused.
+OP_REBALANCE = 6
+
+FLAG_RESUME = 1
+#: HELLO flag: the consumer could map the server's shared-memory
+#: segments. This server streams regardless.
+FLAG_HANDLES_OK = 2
+
+KIND_TABLE = 0
+KIND_SENTINEL = 1
+KIND_FAILURE = 2
+#: A table as a shared-memory segment handle (item 5b): never sent here,
+#: unreadable by this client.
+KIND_TABLE_HANDLE = 3
+#: A rebalancing redirect (item 6): never sent here, unreadable by this
+#: client.
+KIND_MOVED = 4
+
+#: The frame kind byte's low nibble; the high one is the payload codec.
+_KIND_MASK = 0x0F
+CODEC_NONE = 0
+
+#: OP_NACK ``c``: 0 a CRC failure; 1 an unusable handle (item 5b).
+NACK_CRC = 0
+NACK_NO_HANDLE = 1
+
+#: "No watermark" on the wire (seqs are u32; -1 here).
+ACK_NONE = 0xFFFFFFFF
+
+DEFAULT_MAX_BATCH = 8
+
+_ITEMS = {"5b": "sharded serving (shared-memory handles, compression, "
+                "shards)",
+          "6": "live rebalancing",
+          "7": "streaming",
+          "8": "tenancy"}
+
+
+def not_ported(what: str, item: str, name: Optional[str] = None
+               ) -> NotImplementedError:
+    """The error for a JAX serving-plane feature the port leaves out:
+    ``what`` is what was asked for, ``item`` its ROADMAP queue A item."""
+    return NotImplementedError(
+        f"{what} needs the port's {name or _ITEMS[item]}, which is ROADMAP "
+        f"queue A item {item}")
+
+
+class UnreadableFrame(RuntimeError):
+    """A frame this client cannot read (a compressed payload, a handle, a
+    redirect or a placement generation other than 0): a JAX server with
+    features of ROADMAP queue A items 5b or 6 on. Raised, never skipped."""
+
+
+def _crc(payload) -> int:
+    """``zlib.crc32`` of a bytes-like payload, by the native kernel."""
+    from ray_shuffling_data_loader_tpu_torch import native
+    return native.crc32(memoryview(payload)) & 0xFFFFFFFF
+
+
+def _pack_stamp(stamp) -> tuple:
+    """A latency Stamp (or None) as its 3 header fields."""
+    if stamp is None:
+        return (0.0, 0.0, 0)
+    return (stamp.t_mono, stamp.t_unix, stamp.pid)
+
+
+def _unpack_stamp(t_mono: float, t_unix: float, pid: int):
+    if not t_mono and not t_unix:
+        return None
+    return rt_lat.Stamp(pid, t_mono, t_unix)
+
+
+try:
+    _IOV_MAX = os.sysconf("SC_IOV_MAX")
+    if _IOV_MAX <= 0:
+        _IOV_MAX = 1024
+except (AttributeError, ValueError, OSError):
+    _IOV_MAX = 1024
+
+
+def _sendmsg_all(sock: socket.socket, buffers) -> None:
+    """Write every buffer with scatter-gather ``sendmsg`` (a whole GET
+    response in about one syscall), resuming partial sends, in groups of
+    at most IOV_MAX; the bytes equal the sequential ``sendall``s'."""
+    views = [m for m in (memoryview(b).cast("B") for b in buffers)
+             if m.nbytes]
+    idx = 0
+    while idx < len(views):
+        sent = sock.sendmsg(views[idx:idx + _IOV_MAX])
+        while sent > 0:
+            view = views[idx]
+            if sent >= view.nbytes:
+                sent -= view.nbytes
+                idx += 1
+            else:
+                views[idx] = view[sent:]
+                sent = 0
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    remaining = n
+    while remaining:
+        chunk = sock.recv(min(remaining, 1 << 20))
+        if not chunk:
+            raise ConnectionError("peer closed connection mid-message")
+        chunks.append(chunk)
+        remaining -= len(chunk)
+    return b"".join(chunks) if len(chunks) != 1 else chunks[0]
+
+
+def _recv_payload(sock: socket.socket, n: int) -> memoryview:
+    """Exactly ``n`` payload bytes into one buffer (``recv_into``): the
+    CRC and the Arrow decode read it in place."""
+    view = memoryview(bytearray(n))
+    received = 0
+    while received < n:
+        got = sock.recv_into(view[received:], n - received)
+        if not got:
+            raise ConnectionError("peer closed connection mid-message")
+        received += got
+    return view
+
+
+def _serialize(table: pa.Table) -> pa.Buffer:
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, table.schema) as writer:
+        writer.write_table(table)
+    return sink.getvalue()
+
+
+def _producer_task(table: pa.Table) -> int:
+    """The producing reducer, from the ``rsdl.trace`` metadata
+    (``"seed:epoch:task"``); TASK_NONE when absent."""
+    meta = table.schema.metadata
+    raw = meta.get(b"rsdl.trace") if meta else None
+    if not raw:
+        return TASK_NONE
+    try:
+        return int(raw.rsplit(b":", 1)[-1])
+    except ValueError:
+        return TASK_NONE
+
+
+def _materialize(item) -> Tuple[int, object, int, int]:
+    """One queued item as ``(kind, data, num_rows, task)``: ``data`` is the
+    ``pa.Table`` of a table frame (a spilled output mapped back) and the
+    payload bytes of a sentinel or failure frame. A ref whose task failed
+    becomes a failure frame with the cause, not a dead socket."""
+    if item is None:
+        return KIND_SENTINEL, b"", 0, TASK_NONE
+    if isinstance(item, ShuffleFailure):
+        return KIND_FAILURE, repr(item.error).encode(), 0, TASK_NONE
+    try:
+        from ray_shuffling_data_loader_tpu_torch import spill
+        table = spill.unwrap(item.result() if hasattr(item, "result")
+                             else item)
+        return KIND_TABLE, table, table.num_rows, _producer_task(table)
+    except Exception as e:  # noqa: BLE001 - forwarded to the consumer
+        return KIND_FAILURE, repr(e).encode(), 0, TASK_NONE
+
+
+class _Frame:
+    """One frame in a queue's replay buffer: ``wire`` is its payload as
+    sent (the serialized table's ``pa.Buffer``, held once: the socket and
+    the replay buffer share it), ``crc`` its CRC, and the stamps it was
+    built with, which a replay sends again."""
+
+    __slots__ = ("seq", "kind", "epoch", "wire", "crc", "row_offset",
+                 "nrows", "task", "birth", "queued")
+
+    def __init__(self, seq, kind, epoch, wire, crc, row_offset, nrows,
+                 task=TASK_NONE, birth=None, queued=None):
+        self.seq = seq
+        self.kind = kind
+        self.epoch = epoch
+        self.wire = wire
+        self.crc = crc
+        self.row_offset = row_offset
+        self.nrows = nrows
+        self.task = task
+        self.birth = birth
+        self.queued = queued
+
+    @property
+    def size(self) -> int:
+        wire = self.wire
+        return wire.size if isinstance(wire, pa.Buffer) else len(wire)
+
+
+class _QueueState:
+    """One queue's sequencing and replay state (one consumer per queue:
+    ``queue = epoch * num_trainers + rank``)."""
+
+    __slots__ = ("next_seq", "sent_seq", "acked_seq", "acked_rows",
+                 "rows_total", "replay", "replay_bytes", "done", "lock",
+                 "births")
+
+    def __init__(self, next_seq: int = 0, rows: int = 0,
+                 done: bool = False, births=None):
+        self.next_seq = next_seq       # seq of the next popped item
+        self.sent_seq = next_seq - 1   # last seq sent on the connection
+        self.acked_seq = next_seq - 1  # last seq the consumer acked
+        self.acked_rows = rows         # rows delivered through acked_seq
+        self.rows_total = rows         # rows assigned through next_seq-1
+        self.replay: collections.deque = collections.deque()  # unacked
+        self.replay_bytes = 0
+        self.done = done               # the sentinel was acked
+        self.lock = threading.Lock()
+        #: seq -> original birth Stamp from the journal, given back to
+        #: the frames a restarted server regenerates.
+        self.births: Dict[int, rt_lat.Stamp] = births or {}
+
+
+class _Lease:
+    __slots__ = ("consumer_id", "last_beat", "queues", "expired")
+
+    def __init__(self, consumer_id: int):
+        self.consumer_id = consumer_id
+        self.last_beat = time.monotonic()
+        self.queues: set = set()
+        self.expired = False
+
+
+_POP_CLOSED = object()
+_POP_EMPTY = object()
+
+
+def _put_quiet(queue: mq.MultiQueue, queue_idx: int, item) -> bool:
+    """A redistribution put: a full or shut-down target drops the item
+    (the drain policy) instead of wedging the lease drainer."""
+    try:
+        queue.put(queue_idx, item)
+        return True
+    except (mq.Full, RuntimeError):
+        return False
+
+
+def _resolve_delivery(override: Optional[str] = None) -> str:
+    delivery = rt_policy.resolve("queue", "queue_delivery",
+                                 override=override)
+    if delivery == "handle":
+        raise not_ported('queue_delivery="handle" (shared-memory segment '
+                         "handles)", "5b")
+    if delivery not in ("auto", "stream"):
+        raise ValueError(f"RSDL_QUEUE_DELIVERY must be auto, stream or "
+                         f"handle, got {delivery!r}")
+    return delivery
+
+
+def _check_compression() -> None:
+    name = str(rt_policy.resolve("queue", "queue_compression"))
+    name = name.strip().lower()
+    if name in ("", "off", "0", "none", "false"):
+        return
+    if name in ("zlib", "zstd", "lz4"):
+        raise not_ported(f"queue_compression={name!r}", "5b")
+    raise ValueError(f"RSDL_QUEUE_COMPRESSION must be off, zlib, zstd or "
+                     f"lz4; got {name!r}")
+
+
+class QueueServer:
+    """Exports a ``MultiQueue`` over TCP (the v3.3 wire, one server).
+
+    One thread per consumer connection. A GET's first pop blocks until
+    the queue yields (so the consumer's backpressure holds); the rest of
+    the batch is a non-blocking drain that stops after a sentinel or a
+    failure. ``journal`` (a ``checkpoint.WatermarkJournal``) keeps the
+    ack watermarks and frame births; ``initial_state`` (its loaded map)
+    restores seqs, row offsets and births, so a frame keeps its identity
+    across a restart. ``exit_on_crash_site=True`` (the server's own
+    process) turns an injected ``queue_server_crash`` into ``os._exit``,
+    a real death for the supervisor to recover.
+
+    ``shard_index``/``num_shards``/``handle_dir`` (sharded serving, item
+    5b), ``tenants`` (item 8) and ``placement`` (item 6) are the JAX
+    package's signature; anything but their single-server defaults
+    raises ``NotImplementedError``.
+    """
+
+    def __init__(self, queue: mq.MultiQueue, address: Tuple[str, int],
+                 num_trainers: int = 1, journal=None,
+                 initial_state: Optional[Dict[int, object]] = None,
+                 exit_on_crash_site: bool = False,
+                 shard_index: int = 0, num_shards: int = 1,
+                 handle_dir: Optional[str] = None,
+                 tenants: Optional[dict] = None,
+                 placement: Optional[dict] = None):
+        if num_shards > 1 or shard_index:
+            raise not_ported(f"a queue server shard ({shard_index} of "
+                             f"{num_shards})", "5b")
+        if handle_dir is not None:
+            raise not_ported("handle_dir (shared-memory handle frames)",
+                             "5b")
+        if tenants:
+            raise not_ported("tenants=", "8")
+        if placement:
+            raise not_ported("placement=", "6")
+        self._queue = queue
+        self._num_trainers = max(1, num_trainers)
+        self._journal = journal
+        self._exit_on_crash_site = exit_on_crash_site
+        self._timeout_s = rt_policy.resolve("queue", "queue_timeout_s")
+        self._nodelay = rt_policy.resolve("queue", "queue_nodelay")
+        self._replay_budget = rt_policy.resolve("queue",
+                                                "queue_replay_bytes")
+        self._lease_timeout_s = rt_policy.resolve("queue",
+                                                  "queue_lease_timeout_s")
+        self._on_dead_consumer = rt_policy.resolve("queue",
+                                                   "on_dead_consumer")
+        if self._on_dead_consumer not in ("fail_fast", "drain",
+                                          "redistribute"):
+            raise ValueError(
+                f"RSDL_QUEUE_ON_DEAD_CONSUMER must be fail_fast, drain, or "
+                f"redistribute, got {self._on_dead_consumer!r}")
+        _resolve_delivery()
+        _check_compression()
+        self._sendmsg = bool(rt_policy.resolve("queue", "queue_sendmsg"))
+        self._payload_bytes = rt_metrics.counter(
+            "rsdl_queue_payload_bytes_total",
+            "logical (uncompressed) table-payload bytes served", shard="0")
+        self._wire_bytes = rt_metrics.counter(
+            "rsdl_queue_bytes_on_wire_total",
+            "payload bytes actually written to consumer sockets",
+            shard="0")
+        self._shard_depth = rt_metrics.gauge(
+            "rsdl_queue_shard_depth",
+            "items resident across this shard's served queues", shard="0")
+        self._replayed = rt_metrics.counter(
+            "rsdl_queue_frames_replayed_total",
+            "frames re-sent from the server replay buffer")
+        self._nacked = rt_metrics.counter(
+            "rsdl_queue_frames_nacked_total",
+            "frames NACK'd by consumers (CRC mismatch)")
+        self._lease_expiries = rt_metrics.counter(
+            "rsdl_queue_lease_expiries_total",
+            "consumer leases that expired without a heartbeat")
+        self._consumers_alive = rt_metrics.gauge(
+            "rsdl_queue_consumers_alive",
+            "consumers with a live (unexpired) lease")
+        self._anchors = rt_lat.ClockAnchors()
+        self._states: Dict[int, _QueueState] = {}
+        self._states_lock = threading.Lock()
+        for q, entry in (initial_state or {}).items():
+            births = {seq: rt_lat.Stamp(int(pid), float(tm), float(tu))
+                      for seq, (pid, tm, tu)
+                      in getattr(entry, "births", {}).items()}
+            self._states[q] = _QueueState(next_seq=entry.seq + 1,
+                                          rows=entry.rows, done=entry.done,
+                                          births=births)
+        self._leases: Dict[int, _Lease] = {}
+        self._lease_lock = threading.Lock()
+        self._lease_thread: Optional[threading.Thread] = None
+        self._drained_ranks: set = set()
+        self._conn_threads: set = set()
+        self._conn_lock = threading.Lock()
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        listener.bind(address)
+        listener.listen(16)
+        # A finite accept timeout: the loop ticks, so close() stops it.
+        listener.settimeout(1.0)
+        self._listener = listener
+        self._closed = threading.Event()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="rsdl-qserve-accept")
+        self._accept_thread.start()
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._listener.getsockname()
+
+    # -- connection plumbing ------------------------------------------------
+
+    def _accept_loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if self._nodelay:
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            # A finite receive timeout (0: none), so a wedged peer cannot
+            # pin its handler.
+            conn.settimeout(self._timeout_s or None)
+            thread = threading.Thread(target=self._serve_conn, args=(conn,),
+                                      daemon=True, name="rsdl-qserve-conn")
+            with self._conn_lock:
+                self._conn_threads.add(thread)
+            thread.start()
+
+    def _state(self, queue_idx: int) -> _QueueState:
+        with self._states_lock:
+            state = self._states.get(queue_idx)
+            if state is None:
+                state = self._states[queue_idx] = _QueueState()
+            return state
+
+    def _pop(self, queue_idx: int, blocking: bool, consumer_id):
+        """One pop. A blocking pop ticks every 0.25 s so that close() and
+        the consumer's lease stay live while the queue is idle; the
+        queue's own ``ShutdownError`` propagates (a failure frame)."""
+        while not self._closed.is_set():
+            try:
+                return self._queue.get(queue_idx, block=blocking,
+                                       timeout=0.25 if blocking else None)
+            except mq.Empty:
+                if not blocking:
+                    return _POP_EMPTY
+                # A consumer blocked in a GET here is alive.
+                self._lease_beat(consumer_id, None)
+        return _POP_CLOSED
+
+    # -- frame building and serving -----------------------------------------
+
+    def _epoch_of(self, queue_idx: int) -> int:
+        return plan_ir.queue_epoch(queue_idx, self._num_trainers)
+
+    def _make_frame(self, queue_idx: int, seq: int, kind: int, data,
+                    nrows: int, task: int, row_offset: int,
+                    restored_birth=None) -> _Frame:
+        """Build one frame, serializing a table once. Its birth is the
+        journal's for this seq where this server regenerates it after a
+        restart (the regenerated table's own stamp is fresh, and would
+        hide the crash from the latency record), else the table's
+        ``rsdl.birth``, journaled here. Observes ``birth_to_queued``."""
+        epoch = self._epoch_of(queue_idx)
+        queued = rt_lat.now_stamp()
+        if kind != KIND_TABLE:
+            return _Frame(seq, kind, epoch, data, _crc(data), row_offset,
+                          nrows, task, queued=queued)
+        birth = restored_birth
+        if birth is None:
+            meta = data.schema.metadata
+            birth = rt_lat.parse_stamp(
+                meta.get(rt_lat.BIRTH_META_KEY) if meta else None)
+            if birth is not None and self._journal is not None:
+                self._journal.record_birth(queue_idx, seq, *birth)
+        if birth is not None:
+            rt_lat.observe_hop(
+                rt_lat.HOP_BIRTH_TO_QUEUED,
+                str(plan_ir.queue_rank(queue_idx, self._num_trainers)),
+                self._anchors.latency_s(birth, now_mono=queued.t_mono,
+                                        now_unix=queued.t_unix))
+        buf = _serialize(data)
+        return _Frame(seq, KIND_TABLE, epoch, buf, _crc(buf), row_offset,
+                      nrows, task, birth=birth, queued=queued)
+
+    def _note_depth(self) -> None:
+        if rt_telemetry.stamp():
+            with self._states_lock:
+                queues = list(self._states)
+            self._shard_depth.set(sum(self._queue.sizes(queues)))
+
+    def _apply_ack(self, queue_idx: int, state: _QueueState,
+                   ack: int) -> None:
+        state.acked_seq = ack
+        done = state.done
+        while state.replay and state.replay[0].seq <= ack:
+            frame = state.replay.popleft()
+            state.replay_bytes -= frame.size
+            state.acked_rows = frame.row_offset + frame.nrows
+            if frame.kind == KIND_SENTINEL:
+                done = True
+        state.done = done
+        if self._journal is not None:
+            self._journal.record(queue_idx, ack, state.acked_rows,
+                                 done=done)
+
+    def _collect_frames(self, queue_idx: int, max_items: int,
+                        ack: Optional[int], resume: bool,
+                        consumer_id) -> Optional[List[_Frame]]:
+        """One response: the unacked frames past the send cursor first,
+        then new pops. None when the server closed under the blocking
+        pop."""
+        # The whole server process dying mid-epoch (the supervisor's
+        # unit of recovery): in its own process a real exit, here a
+        # closed server.
+        try:
+            rt_faults.inject("queue_server_crash",
+                             epoch=self._epoch_of(queue_idx),
+                             task=queue_idx)
+        except rt_faults.InjectedFault:
+            if self._exit_on_crash_site:
+                os._exit(137)
+            self.close()
+            raise
+        state = self._state(queue_idx)
+        with state.lock:
+            if ack is not None and ack > state.acked_seq:
+                self._apply_ack(queue_idx, state, ack)
+            if resume:
+                # A reconnect: rewind to the watermark so the frames a
+                # reset ate are sent again.
+                state.sent_seq = state.acked_seq
+            frames: List[_Frame] = [f for f in state.replay
+                                    if f.seq > state.sent_seq][:max_items]
+            if frames:
+                self._replayed.inc(len(frames))
+                rt_telemetry.record("frame_replay", epoch=frames[0].epoch,
+                                    task=queue_idx, count=len(frames))
+            while (len(frames) < max_items
+                   and (not frames or frames[-1].kind == KIND_TABLE)):
+                if frames and state.replay_bytes > self._replay_budget:
+                    # Backpressure: the unacked bytes are at the budget.
+                    # At least one frame per GET, so acks can progress.
+                    break
+                item = self._pop(queue_idx, blocking=not frames,
+                                 consumer_id=consumer_id)
+                if item is _POP_CLOSED:
+                    return frames or None
+                if item is _POP_EMPTY:
+                    break
+                kind, data, nrows, task = _materialize(item)
+                seq = state.next_seq
+                state.next_seq += 1
+                row_offset = state.rows_total
+                state.rows_total += nrows
+                if seq <= state.acked_seq:
+                    # Regenerated after a restart and already consumed
+                    # (the ack outran the journal): dropped, its rows
+                    # counted.
+                    state.acked_rows = row_offset + nrows
+                    state.births.pop(seq, None)
+                    continue
+                frame = self._make_frame(
+                    queue_idx, seq, kind, data, nrows, task, row_offset,
+                    restored_birth=state.births.pop(seq, None))
+                state.replay.append(frame)
+                state.replay_bytes += frame.size
+                frames.append(frame)
+            if frames:
+                state.sent_seq = frames[-1].seq
+        self._note_depth()
+        return frames
+
+    def _send_frames(self, conn: socket.socket, queue_idx: int,
+                     frames: List[_Frame]) -> None:
+        """Write one GET response: with ``queue_sendmsg`` one
+        scatter-gather ``sendmsg`` of the batch header and every frame's
+        header and payload, else a ``sendall`` per piece; the same bytes
+        either way, chaos sites included (a torn header flushes what the
+        sequential writes would have sent before the reset)."""
+        gather = self._sendmsg and hasattr(conn, "sendmsg")
+        vecs: List = [_BATCH_HEADER.pack(len(frames))]
+        if not gather:
+            conn.sendall(vecs[0])
+            vecs.clear()
+        for frame in frames:
+            size = frame.size
+            header = _FRAME.pack(frame.kind, frame.epoch, frame.seq,
+                                 frame.crc, frame.row_offset, size,
+                                 frame.task, *_pack_stamp(frame.birth),
+                                 *_pack_stamp(frame.queued), 0)
+            try:
+                rt_faults.inject("conn_reset_midframe", epoch=frame.epoch,
+                                 task=queue_idx)
+            except rt_faults.InjectedFault as e:
+                # Half a header, then a hard close: the consumer sees the
+                # bytes stop mid-frame.
+                if gather:
+                    vecs.append(header[:_FRAME.size // 2])
+                    _sendmsg_all(conn, vecs)
+                else:
+                    # rsdl-lint: disable=sendall-in-loop
+                    conn.sendall(header[:_FRAME.size // 2])
+                raise ConnectionError(
+                    f"injected connection reset mid-frame: {e}") from e
+            payload = None
+            if size:
+                payload = frame.wire
+                # Only a frame with a payload can be corrupted (a
+                # sentinel's injection would damage nothing).
+                try:
+                    rt_faults.inject("frame_corrupt", epoch=frame.epoch,
+                                     task=queue_idx)
+                except rt_faults.InjectedFault:
+                    # One byte flipped on the wire only: the replay
+                    # buffer keeps the good copy the NACK asks for.
+                    payload = bytearray(memoryview(frame.wire))
+                    payload[-1] ^= 0xFF
+            if gather:
+                vecs.append(header)
+                if payload is not None:
+                    vecs.append(payload)
+            else:
+                # The sequential arm, the reference the gather path's
+                # bytes are held against: per frame by design.
+                # rsdl-lint: disable=sendall-in-loop
+                conn.sendall(header)
+                if payload is not None:
+                    # rsdl-lint: disable=sendall-in-loop
+                    conn.sendall(payload)
+            if frame.kind == KIND_TABLE:
+                self._wire_bytes.inc(size)
+                self._payload_bytes.inc(size)
+        if gather:
+            _sendmsg_all(conn, vecs)
+
+    @staticmethod
+    def _fail_frame(text: bytes) -> bytes:
+        """A one-frame failure response."""
+        return (_BATCH_HEADER.pack(1)
+                + _FRAME.pack(KIND_FAILURE, 0, ACK_NONE, _crc(text), 0,
+                              len(text), TASK_NONE, 0.0, 0.0, 0,
+                              0.0, 0.0, 0, 0) + text)
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        consumer_id: Optional[int] = None
+        # Set by a request for a feature this port leaves out: every
+        # later GET on the connection is answered with this failure.
+        refused: Optional[bytes] = None
+        try:
+            while not self._closed.is_set():
+                try:
+                    raw = conn.recv(_REQUEST.size)
+                except socket.timeout:
+                    continue  # an idle tick; leases expire on their own
+                if not raw:
+                    return  # the consumer is done
+                if len(raw) < _REQUEST.size:
+                    raw += _recv_exact(conn, _REQUEST.size - len(raw))
+                op, flags, a, b, c = _REQUEST.unpack(raw)
+                if op == OP_HELLO:
+                    # FLAG_HANDLES_OK is ignored: this server streams.
+                    consumer_id = a | (b << 32)
+                    self._lease_beat(consumer_id, None)
+                    continue
+                if op == OP_HEARTBEAT:
+                    self._lease_beat(consumer_id, None)
+                    continue
+                if op == OP_NACK:
+                    # A NACK_NO_HANDLE rewinds too: this server sends no
+                    # handles, so streaming again is all it could ask.
+                    self._handle_nack(a, b)
+                    self._lease_beat(consumer_id, a)
+                    continue
+                if op == OP_TENANT:
+                    if c:
+                        _recv_exact(conn, c)
+                    refused = repr(not_ported("OP_TENANT (a consumer "
+                                              "bound to a tenant)",
+                                              "8")).encode()
+                    logger.error("queue server: %s", refused.decode())
+                    continue
+                if op == OP_REBALANCE:
+                    if c:
+                        _recv_exact(conn, c)
+                    from ray_shuffling_data_loader_tpu_torch import (
+                        checkpoint as ckpt)
+                    reply = ckpt.crc_line({"error": repr(not_ported(
+                        "OP_REBALANCE", "6"))}).encode()
+                    conn.sendall(_BATCH_HEADER.pack(len(reply)) + reply)
+                    continue
+                if op != OP_GET_BATCH:
+                    raise ConnectionError(f"unknown request op {op}")
+                if refused is not None:
+                    conn.sendall(self._fail_frame(refused))
+                    continue
+                queue_idx, max_items = a, b
+                ack = None if c == ACK_NONE else c
+                self._lease_beat(consumer_id, queue_idx)
+                try:
+                    frames = self._collect_frames(
+                        queue_idx, max(1, max_items), ack,
+                        bool(flags & FLAG_RESUME), consumer_id)
+                except mq.ShutdownError as e:
+                    # The queue shut down under a blocked GET: fail loudly.
+                    conn.sendall(self._fail_frame(repr(e).encode()))
+                    return
+                if frames is None:
+                    return  # the server is closing
+                self._send_frames(conn, queue_idx, frames)
+        except rt_faults.InjectedFault as e:
+            logger.error("queue server down at an injected crash: %s", e)
+        except (ConnectionError, OSError) as e:
+            if not self._closed.is_set():
+                logger.warning("queue server connection dropped: %s", e)
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+            with self._conn_lock:
+                self._conn_threads.discard(threading.current_thread())
+
+    def _handle_nack(self, queue_idx: int, bad_seq: int) -> None:
+        state = self._state(queue_idx)
+        with state.lock:
+            state.sent_seq = min(state.sent_seq, bad_seq - 1)
+        self._nacked.inc()
+        rt_telemetry.record("frame_nack", epoch=self._epoch_of(queue_idx),
+                            task=queue_idx, seq=bad_seq)
+        logger.warning("queue %d: consumer NACK'd frame %d (CRC mismatch); "
+                       "re-sending from replay", queue_idx, bad_seq)
+
+    # -- consumer leases ----------------------------------------------------
+
+    def _lease_beat(self, consumer_id: Optional[int],
+                    queue_idx: Optional[int]) -> None:
+        if consumer_id is None:
+            return
+        with self._lease_lock:
+            lease = self._leases.get(consumer_id)
+            if lease is None:
+                lease = self._leases[consumer_id] = _Lease(consumer_id)
+                logger.info("consumer %x: lease granted", consumer_id)
+            lease.last_beat = time.monotonic()
+            lease.expired = False
+            if queue_idx is not None:
+                lease.queues.add(queue_idx)
+            self._consumers_alive.set(
+                sum(1 for le in self._leases.values() if not le.expired))
+            if (self._lease_thread is None
+                    or not self._lease_thread.is_alive()):
+                self._lease_thread = threading.Thread(
+                    target=self._lease_sweeper, daemon=True,
+                    name="rsdl-qserve-lease")
+                self._lease_thread.start()
+
+    def _lease_sweeper(self) -> None:
+        interval = max(0.05, self._lease_timeout_s / 4.0)
+        while not self._closed.wait(interval):
+            now = time.monotonic()
+            newly_dead: List[_Lease] = []
+            with self._lease_lock:
+                for lease in self._leases.values():
+                    if (not lease.expired
+                            and now - lease.last_beat
+                            > self._lease_timeout_s):
+                        lease.expired = True
+                        newly_dead.append(lease)
+                self._consumers_alive.set(
+                    sum(1 for le in self._leases.values()
+                        if not le.expired))
+            for lease in newly_dead:
+                self._on_lease_expired(lease)
+
+    def _on_lease_expired(self, lease: _Lease) -> None:
+        self._lease_expiries.inc()
+        rt_telemetry.record("lease_expired", consumer=lease.consumer_id,
+                            queues=sorted(lease.queues),
+                            policy=self._on_dead_consumer)
+        logger.error(
+            "consumer %x: lease expired after %.1fs without a heartbeat "
+            "(queues %s); policy=%s", lease.consumer_id,
+            self._lease_timeout_s, sorted(lease.queues),
+            self._on_dead_consumer)
+        if self._on_dead_consumer == "fail_fast":
+            # A dead trainer downs the pipeline loudly.
+            self.close()
+            return
+        ranks = {plan_ir.queue_rank(q, self._num_trainers)
+                 for q in lease.queues}
+        with self._lease_lock:
+            ranks -= self._drained_ranks
+            self._drained_ranks |= ranks
+        if not ranks:
+            return
+        threading.Thread(
+            target=self._drain_dead_ranks,
+            args=(ranks, self._on_dead_consumer == "redistribute"),
+            daemon=True, name="rsdl-qserve-lease-drain").start()
+
+    def notify_member_down(self, rank: int) -> None:
+        """A membership ``down`` verdict for ``rank``: every live lease
+        holding one of its queues expires now, without waiting out the
+        lease clock, and the ``on_dead_consumer`` policy runs."""
+        rank = int(rank)
+        victims: List[_Lease] = []
+        with self._lease_lock:
+            for lease in self._leases.values():
+                if lease.expired:
+                    continue
+                if any(plan_ir.queue_rank(q, self._num_trainers) == rank
+                       for q in lease.queues):
+                    lease.expired = True
+                    victims.append(lease)
+            self._consumers_alive.set(
+                sum(1 for le in self._leases.values() if not le.expired))
+        rt_telemetry.record("member_lease_sweep", task=rank,
+                            leases=[le.consumer_id for le in victims])
+        for lease in victims:
+            logger.warning("consumer %x: lease force-expired (membership "
+                           "declared rank %d down)", lease.consumer_id,
+                           rank)
+            self._on_lease_expired(lease)
+
+    def attach_membership(self, manager) -> None:
+        """Subscribe to a ``membership.MembershipManager``: each ``down``
+        transition calls :meth:`notify_member_down` for its rank."""
+
+        def _listener(event, view) -> None:
+            if event.kind == "down":
+                self.notify_member_down(event.rank)
+
+        manager.add_listener(_listener)
+
+    def _survivor_rank(self) -> Optional[int]:
+        with self._lease_lock:
+            ranks = sorted(
+                plan_ir.queue_rank(q, self._num_trainers)
+                for lease in self._leases.values() if not lease.expired
+                for q in lease.queues)
+        for rank in ranks:
+            if rank not in self._drained_ranks:
+                return rank
+        return None
+
+    def _drain_dead_ranks(self, ranks: set, redistribute: bool) -> None:
+        """Free (or reroute) a dead consumer's queues, so producers are
+        not held and its tables are not kept until the process ends."""
+        dead_queues = [
+            q for q in range(self._queue.num_queues)
+            if plan_ir.queue_rank(q, self._num_trainers) in ranks]
+        for q in dead_queues:
+            state = self._state(q)
+            with state.lock:
+                state.replay.clear()
+                state.replay_bytes = 0
+        while not self._closed.wait(0.2):
+            moved = 0
+            for q in dead_queues:
+                while True:
+                    try:
+                        item = self._queue.get_nowait(q)
+                    except (mq.Empty, RuntimeError):
+                        break
+                    moved += 1
+                    if not redistribute or item is None or isinstance(
+                            item, ShuffleFailure):
+                        continue  # drained and dropped
+                    survivor = self._survivor_rank()
+                    if survivor is None:
+                        continue  # nobody left: the drain policy
+                    target = plan_ir.queue_index(
+                        self._epoch_of(q), survivor, self._num_trainers)
+                    if _put_quiet(self._queue, target, item):
+                        rt_telemetry.record(
+                            "frame_redistributed", epoch=self._epoch_of(q),
+                            task=target, source_queue=q)
+            if moved:
+                logger.info("dead-consumer policy %s: moved %d items off "
+                            "ranks %s",
+                            "redistribute" if redistribute else "drain",
+                            moved, sorted(ranks))
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Stop accepting and join every handler: each finishes the frame
+        it is writing, sees the flag at its next tick (blocking pops tick
+        every 0.25 s) and ends without logging."""
+        if self._closed.is_set():
+            return
+        self._closed.set()
+        try:
+            # Wakes the accept blocked in its tick at once.
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        with self._conn_lock:
+            threads = list(self._conn_threads)
+        for thread in threads:
+            if thread is threading.current_thread():
+                continue  # a handler closing its own server
+            thread.join(timeout=5.0)
+            if thread.is_alive():
+                logger.warning("queue server handler %s did not drain "
+                               "within 5s", thread.name)
+        self._accept_thread.join(timeout=2.0)
+
+    def __enter__(self) -> "QueueServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def serve_queue(queue: mq.MultiQueue,
+                address: Tuple[str, int] = ("127.0.0.1", 0),
+                num_trainers: int = 1, journal=None,
+                initial_state: Optional[Dict[int, object]] = None,
+                exit_on_crash_site: bool = False, **left_out) -> QueueServer:
+    """Start serving ``queue`` on ``address`` (port 0: an ephemeral one).
+    ``left_out`` takes the JAX signature's sharding, tenancy and placement
+    arguments, which :class:`QueueServer` refuses."""
+    return QueueServer(queue, address, num_trainers=num_trainers,
+                       journal=journal, initial_state=initial_state,
+                       exit_on_crash_site=exit_on_crash_site, **left_out)
+
+
+class ShardedQueueServer:
+    """The JAX package's N in-process server shards: ROADMAP queue A item
+    5b."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("ShardedQueueServer", "5b")
+
+
+class ShardedRemoteQueue:
+    """The JAX package's client of server shards: ROADMAP queue A item
+    5b."""
+
+    def __init__(self, *args, **kwargs):
+        raise not_ported("ShardedRemoteQueue", "5b")
+
+
+def serve_queue_sharded(*args, **kwargs):
+    """The JAX package's shard-serving helper: ROADMAP queue A item 5b."""
+    raise not_ported("serve_queue_sharded", "5b")
+
+
+class RemoteQueue:
+    """The consumer's handle on a served queue.
+
+    ``get`` returns a ``pa.Table``, ``None`` (the epoch's end) or a
+    ``ShuffleFailure``. It connects with ``retries`` further attempts
+    (jittered doubling backoff from ``initial_backoff_s``,
+    ``runtime.retry.RetryPolicy``) and raises ``ConnectionError`` ("could
+    not reach ...") when they are spent. ``max_batch`` frames ride each
+    round trip; with ``prefetch`` a thread keeps the next request in
+    flight while the consumer drains the last batch.
+
+    Recovery: each frame's CRC is checked and a bad frame NACK'd (the
+    server sends it again from its replay buffer); a connection that dies
+    at any point is redialled through the same retry policy and every
+    queue's next GET resumes from the watermark, the frames already
+    delivered dropped by seq: exactly once. ``ack_mode="delivered"`` acks
+    each frame as ``get`` returns it; ``"manual"`` acks only what
+    :meth:`commit` committed (``checkpoint.resume_iterator`` commits at
+    each save through ``ShufflingDataset.commit_consumed``), so a trainer
+    that dies and resumes finds its uncommitted frames replayed. A
+    heartbeat thread keeps the server's lease alive between GETs.
+
+    ``delivery`` (``queue_delivery``: ``"auto"``/``"stream"``; the JAX
+    package's ``"handle"`` is item 5b), ``num_trainers`` (the latency
+    label is the rank) and ``tenant`` (item 8) are the JAX signature.
+    """
+
+    #: This client observes ``birth_to_delivered`` from the frame stamps;
+    #: a dataset on top must not observe it again.
+    observes_delivery = True
+
+    def __init__(self, address: Tuple[str, int],
+                 retries: int = mq.CONNECT_RETRIES,
+                 initial_backoff_s: float = mq.CONNECT_INITIAL_BACKOFF_S,
+                 max_batch: int = DEFAULT_MAX_BATCH,
+                 prefetch: bool = True,
+                 ack_mode: str = "delivered",
+                 consumer_id: Optional[int] = None,
+                 delivery: Optional[str] = None,
+                 num_trainers: int = 1,
+                 tenant=None):
+        if ack_mode not in ("delivered", "manual"):
+            raise ValueError(
+                f"ack_mode must be 'delivered' or 'manual', got {ack_mode!r}")
+        if tenant is not None:
+            raise not_ported("tenant=", "8")
+        _resolve_delivery(delivery)
+        self._address = (str(address[0]), int(address[1]))
+        self._ack_mode = ack_mode
+        self._num_trainers = max(1, int(num_trainers))
+        self._lat_anchors = rt_lat.ClockAnchors()
+        self._consumer_id = (consumer_id if consumer_id is not None
+                             else int.from_bytes(os.urandom(8), "little"))
+        self._timeout_s = rt_policy.resolve("queue", "queue_timeout_s")
+        self._nodelay = rt_policy.resolve("queue", "queue_nodelay")
+        self._lease_timeout_s = rt_policy.resolve("queue",
+                                                  "queue_lease_timeout_s")
+        # One policy for the connect and every refetch's redial.
+        self._retry = rt_retry.RetryPolicy.for_component(
+            "queue", retry_max_attempts=retries + 1,
+            retry_initial_backoff_s=initial_backoff_s,
+            retryable=rt_retry.transient_retryable)
+        self._io_lock = threading.Lock()      # keeps round trips whole
+        self._state_lock = threading.Lock()   # buffers, done, pending
+        self._closed = threading.Event()
+        #: queue -> deque of (seq, row_offset or None, item)
+        self._buffers: Dict[int, collections.deque] = \
+            collections.defaultdict(collections.deque)
+        self._done: set = set()
+        self._pending: Dict[int, cf.Future] = {}
+        #: The last seq handed out per queue (-1: none).
+        self._delivered: Dict[int, int] = collections.defaultdict(lambda: -1)
+        #: The manual-mode ack watermark (advanced by commit()).
+        self._committed: Dict[int, int] = collections.defaultdict(lambda: -1)
+        #: Queues fetched on the current connection; a queue's first GET
+        #: on a connection carries FLAG_RESUME.
+        self._fetched_since_connect: set = set()
+        self._sock: Optional[socket.socket] = None
+        self._reconnects = rt_metrics.counter(
+            "rsdl_queue_client_reconnects_total",
+            "RemoteQueue reconnect-and-resume cycles")
+        self._corrupt = rt_metrics.counter(
+            "rsdl_queue_frames_corrupt_total",
+            "frames rejected client-side on CRC mismatch")
+        try:
+            self._retry.call(self._reconnect, describe=f"connect {address}")
+        except OSError as e:
+            raise ConnectionError(
+                f"could not reach queue server at {address} after "
+                f"{retries + 1} attempts: {e}") from e
+        self._max_batch = max(1, max_batch)
+        self._prefetch = prefetch
+        self._io = cf.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="rsdl-rqueue-prefetch")
+        self._heartbeat_thread = threading.Thread(
+            target=self._heartbeat_loop, daemon=True,
+            name="rsdl-rqueue-heartbeat")
+        self._heartbeat_thread.start()
+
+    def _reconnect(self) -> None:
+        """(Re)dial the server, closing the old socket first, send the
+        lease HELLO (offering no handles) and arm every queue's resume."""
+        with self._io_lock:
+            old = self._sock
+            if old is not None:
+                try:
+                    old.close()
+                except OSError:
+                    pass
+                self._reconnects.inc()
+            sock = socket.create_connection(self._address, timeout=30)
+            # A finite receive timeout (0: none): a timed-out response is
+            # reconnected and replayed, never lost.
+            sock.settimeout(self._timeout_s or None)
+            if self._nodelay:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            sock.sendall(_REQUEST.pack(
+                OP_HELLO, 0, self._consumer_id & 0xFFFFFFFF,
+                (self._consumer_id >> 32) & 0xFFFFFFFF, 0))
+            self._sock = sock
+            self._fetched_since_connect = set()
+
+    def _heartbeat_loop(self) -> None:
+        """Beat the lease while the trainer is busy between GETs; a beat
+        is skipped while a round trip is in flight (that is one)."""
+        interval = max(0.2, self._lease_timeout_s / 3.0)
+        while not self._closed.wait(interval):
+            if not self._io_lock.acquire(timeout=interval / 2):
+                continue
+            try:
+                self._sock.sendall(_REQUEST.pack(OP_HEARTBEAT, 0, 0, 0, 0))
+            except OSError:
+                pass  # the next fetch reconnects
+            finally:
+                self._io_lock.release()
+
+    def _ack_for(self, queue_index: int) -> int:
+        watermark = (self._committed[queue_index]
+                     if self._ack_mode == "manual"
+                     else self._delivered[queue_index])
+        return ACK_NONE if watermark < 0 else watermark
+
+    def commit(self, queue_index: Optional[int] = None) -> None:
+        """Advance the manual-ack watermark to everything delivered so far
+        (one queue, or all), after its consumption was made durable."""
+        with self._state_lock:
+            indices = ([queue_index] if queue_index is not None
+                       else list(self._delivered))
+            for q in indices:
+                self._committed[q] = max(self._committed[q],
+                                         self._delivered[q])
+
+    def _read_frames(self, queue_index: int, count: int, parsed: list):
+        """Read ``count`` frames of a response into ``parsed``; returns
+        the seq of the first frame that failed its CRC (None if none).
+        Framing stays aligned past a bad frame: its payload and the rest
+        are read and dropped (delivery is in order)."""
+        corrupt_seq = None
+        for _ in range(count):
+            (kind_byte, epoch, seq, crc, row_offset, length, src_task,
+             b_mono, b_unix, b_pid, q_mono, q_unix, q_pid,
+             generation) = _FRAME.unpack(_recv_exact(self._sock,
+                                                      _FRAME.size))
+            kind, codec = kind_byte & _KIND_MASK, kind_byte >> 4
+            payload = _recv_payload(self._sock, length) if length else b""
+            if corrupt_seq is not None:
+                continue
+            if kind == KIND_MOVED:
+                raise UnreadableFrame(
+                    f"queue {queue_index}: frame {seq} is a MOVED "
+                    f"redirect; {not_ported('following it', '6')}")
+            if kind == KIND_TABLE_HANDLE:
+                raise UnreadableFrame(
+                    f"queue {queue_index}: frame {seq} is a shared-memory "
+                    f"handle; {not_ported('reading it', '5b')}")
+            if kind not in (KIND_TABLE, KIND_SENTINEL, KIND_FAILURE):
+                raise UnreadableFrame(
+                    f"queue {queue_index}: frame {seq} has unknown kind "
+                    f"{kind}")
+            if codec != CODEC_NONE:
+                raise UnreadableFrame(
+                    f"queue {queue_index}: frame {seq} is compressed "
+                    f"(codec {codec}); {not_ported('reading it', '5b')}")
+            if generation and kind != KIND_FAILURE:
+                raise UnreadableFrame(
+                    f"queue {queue_index}: frame {seq} carries placement "
+                    f"generation {generation}; "
+                    f"{not_ported('its fence', '6')}")
+            if _crc(payload) != crc:
+                # Rejected with everything after it; NACK'd by the caller
+                # so the server sends the good copy again.
+                corrupt_seq = seq
+                self._corrupt.inc()
+                rt_telemetry.record("frame_corrupt", epoch=epoch,
+                                    task=queue_index, seq=seq)
+                logger.warning("queue %d: frame %d failed CRC; NACKing",
+                               queue_index, seq)
+                continue
+            if kind == KIND_TABLE and src_task != TASK_NONE:
+                # The cross-process causal link: this payload came from
+                # reducer src_task in the server's process.
+                rt_telemetry.record("frame_recv", epoch=epoch,
+                                    task=src_task, seq=seq)
+            parsed.append((kind, seq, row_offset, payload,
+                           _unpack_stamp(b_mono, b_unix, b_pid),
+                           _unpack_stamp(q_mono, q_unix, q_pid), epoch))
+        return corrupt_seq
+
+    def _fetch_batch(self, queue_index: int) -> Tuple[List, bool]:
+        """One round trip: request up to ``max_batch`` frames, read and
+        check them. Runs on the caller's thread or the prefetcher. Any
+        death of the round trip, before or after response bytes,
+        redials and resumes through the retry policy; the server replays
+        from the ack watermark and frames already delivered are dropped
+        by seq, so a reset neither loses nor repeats an item."""
+
+        def _round_trip() -> Tuple[List[Tuple], bool]:
+            response_started = False
+            parsed: List[Tuple] = []
+            try:
+                with self._io_lock:
+                    rt_faults.inject("queue_fetch", task=queue_index)
+                    resume = queue_index not in self._fetched_since_connect
+                    ack = self._ack_for(queue_index)
+                    try:
+                        rt_faults.inject("ack_lost", task=queue_index)
+                    except rt_faults.InjectedFault:
+                        # Harmless by design: acks are cumulative and the
+                        # next GET's watermark covers this one.
+                        rt_telemetry.record("ack_lost", task=queue_index,
+                                            suppressed_ack=ack)
+                        ack = ACK_NONE
+                    self._sock.sendall(_REQUEST.pack(
+                        OP_GET_BATCH, FLAG_RESUME if resume else 0,
+                        queue_index, self._max_batch, ack))
+                    (count,) = _BATCH_HEADER.unpack(
+                        _recv_exact(self._sock, _BATCH_HEADER.size))
+                    response_started = True
+                    corrupt_seq = self._read_frames(queue_index, count,
+                                                    parsed)
+                    if corrupt_seq is not None:
+                        self._sock.sendall(_REQUEST.pack(
+                            OP_NACK, 0, queue_index, corrupt_seq, NACK_CRC))
+                    self._fetched_since_connect.add(queue_index)
+                return parsed, resume
+            except (ConnectionError, OSError) as e:
+                if response_started:
+                    # Joins an injected conn_reset_midframe fault by
+                    # (kind, epoch, task).
+                    rt_telemetry.record(
+                        "conn_reset_midframe",
+                        epoch=parsed[-1][6] if parsed else None,
+                        task=queue_index, error=str(e))
+                    logger.warning(
+                        "queue %d: connection died mid-response (%s); "
+                        "reconnecting and replaying the unacked suffix",
+                        queue_index, e)
+                raise
+
+        def _redial(error: BaseException) -> None:
+            if not isinstance(error, (ConnectionError, OSError)):
+                return
+            try:
+                self._reconnect()
+            except OSError as e:
+                # A restarting server may not listen yet: the next
+                # attempt fails fast on the closed socket and this runs
+                # again after its backoff, within the retry budget.
+                logger.info("queue redial to %s not up yet (%s); will "
+                            "retry", self._address, e)
+
+        with rt_telemetry.span("queue_fetch", task=queue_index):
+            frames, resumed = self._retry.call(
+                _round_trip, describe=f"fetch queue {queue_index}",
+                on_retry=_redial)
+        items: List[Tuple] = []
+        for kind, seq, row_offset, payload, birth, queued, _ in frames:
+            if kind == KIND_SENTINEL:
+                items.append((seq, None, None, None, None))
+                break  # the epoch is over; nothing valid follows
+            if kind == KIND_FAILURE:
+                items.append((seq, None, ShuffleFailure(
+                    RuntimeError(bytes(payload).decode())), None, None))
+                break
+            # The table's Arrow buffers alias the receive buffer.
+            with pa.ipc.open_stream(
+                    pa.BufferReader(pa.py_buffer(payload))) as reader:
+                items.append((seq, row_offset, reader.read_all(), birth,
+                              queued))
+        return items, resumed
+
+    def _ingest(self, queue_index: int, items: List[Tuple],
+                resumed: bool) -> None:
+        """Buffer a fetched batch (``_state_lock`` held by the caller)."""
+        buf = self._buffers[queue_index]
+        if resumed:
+            # The server replayed from the watermark: frames buffered and
+            # not yet handed out come again (same seqs).
+            buf.clear()
+        delivered = self._delivered[queue_index]
+        rank = str(plan_ir.queue_rank(queue_index, self._num_trainers))
+        fresh = []
+        for seq, row_offset, item, birth, queued in items:
+            if seq <= delivered or (buf and seq <= buf[-1][0]):
+                continue  # a replayed frame already held: exactly once
+            # Observed once per frame entering the stream, with the
+            # stamps it was built with (a replay's are the originals).
+            rt_lat.observe_hop(rt_lat.HOP_QUEUED_TO_DELIVERED, rank,
+                               self._lat_anchors.latency_s(queued))
+            if birth is not None:
+                age = self._lat_anchors.latency_s(birth)
+                rt_lat.observe_hop(rt_lat.HOP_BIRTH_TO_DELIVERED, rank, age)
+                rt_lat.set_freshness(rank, age)
+            fresh.append((seq, row_offset, item))
+        buf.extend(fresh)
+        if fresh and (fresh[-1][2] is None
+                      or isinstance(fresh[-1][2], ShuffleFailure)):
+            self._done.add(queue_index)
+        elif self._prefetch and queue_index not in self._pending:
+            # The next request goes out as this batch lands, so its
+            # round trip overlaps the consumption of the whole batch.
+            # The caller holds _state_lock:
+            # rsdl-lint: disable=lock-mutation
+            self._pending[queue_index] = self._io.submit(
+                self._fetch_batch, queue_index)
+
+    def get_positioned(self, queue_index: int):
+        """Blocking get of ``(item, row_offset)``: the item and the
+        absolute position of its first row in the queue's stream (None for
+        a sentinel or a failure), which keeps a resumed dataset's skip
+        exact against a replaying server."""
+        with self._state_lock:
+            buf = self._buffers[queue_index]
+            while not buf:
+                if queue_index in self._done:
+                    raise RuntimeError(
+                        f"remote queue {queue_index} already yielded its "
+                        f"epoch-end sentinel")
+                # One request in flight per queue: a second getter waits
+                # on the same future, so batches land in request order;
+                # whoever finds it still registered ingests it, once.
+                fut = self._pending.get(queue_index)
+                if fut is None:
+                    fut = self._pending[queue_index] = self._io.submit(
+                        self._fetch_batch, queue_index)
+                # The wire wait runs with _state_lock released (the
+                # release/acquire bracket), so a get on another queue can
+                # drain its buffer meanwhile:
+                self._state_lock.release()
+                try:
+                    # rsdl-lint: disable=lock-blocking-call
+                    items, resumed = fut.result()
+                finally:
+                    self._state_lock.acquire()
+                    mine = self._pending.get(queue_index) is fut
+                    if mine:
+                        del self._pending[queue_index]
+                if mine:
+                    self._ingest(queue_index, items, resumed)
+            seq, row_offset, item = buf.popleft()
+            if seq != ACK_NONE:  # an out-of-band failure carries no seq
+                self._delivered[queue_index] = max(
+                    self._delivered[queue_index], seq)
+        return item, row_offset
+
+    def get(self, queue_index: int, block: bool = True):
+        if not block:
+            raise ValueError("RemoteQueue only supports blocking gets")
+        item, _ = self.get_positioned(queue_index)
+        return item
+
+    def close(self) -> None:
+        self._closed.set()
+        self._io.shutdown(wait=False, cancel_futures=True)
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def __enter__(self) -> "RemoteQueue":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# ---------------------------------------------------------------------------
+# The server's own process: queue + deterministic shuffle + server from a
+# config dict, resumed from the watermark journal (the unit
+# runtime.supervisor restarts).
+# ---------------------------------------------------------------------------
+
+
+def _resume_plan(state: Dict[int, object], num_epochs: int,
+                 num_trainers: int, ranks: Optional[List[int]] = None
+                 ) -> Tuple[int, Dict[int, int]]:
+    """``(start_epoch, skip_items)`` from a loaded journal
+    (``plan.ir.resume_from_watermarks``)."""
+    return plan_ir.resume_from_watermarks(state, num_epochs, num_trainers,
+                                          ranks=ranks)
+
+
+def _resuming_batch_consumer(queue: mq.MultiQueue, num_trainers: int,
+                             skip_items: Dict[int, int]):
+    """A ``batch_consumer`` for the re-run lineage that queues only the
+    undelivered remainder: the first ``skip_items[q]`` items of each
+    queue's deterministic stream (tables, then the sentinel) are
+    journaled as delivered and dropped."""
+    remaining = dict(skip_items)
+    lock = threading.Lock()
+
+    def consumer(rank, epoch, refs):
+        queue_idx = plan_ir.queue_index(epoch, rank, num_trainers)
+        with lock:
+            to_skip = remaining.get(queue_idx, 0)
+            if refs is None:
+                if to_skip > 0:
+                    remaining[queue_idx] = to_skip - 1
+                    return
+            else:
+                refs = list(refs)
+                dropped = min(to_skip, len(refs))
+                remaining[queue_idx] = to_skip - dropped
+                refs = refs[dropped:]
+                if not refs:
+                    return
+        if refs is None:
+            queue.put(queue_idx, None)
+        else:
+            queue.put_batch(queue_idx, refs)
+
+    return consumer
+
+
+def serve_pipeline(config: dict):
+    """Queue, shuffle and server from ``config``, resumed from the journal
+    at ``config["journal_path"]``.
+
+    Keys (the JAX package's): ``filenames``, ``num_epochs``,
+    ``num_trainers``, ``num_reducers``, ``journal_path``, ``port`` and
+    optionally ``host``, ``seed``, ``max_concurrent_epochs``,
+    ``num_workers``, ``file_cache``; the port adds ``cast``
+    (``{column: dtype}``: the map-time cast of
+    ``transforms.CastTransform``, so the server ships the narrow dtypes a
+    ``DeviceShufflingDataset`` spec casts to). ``num_shards > 1``,
+    ``handle_dir`` (item 5b), ``placement`` (item 6), ``epochs`` (item 7)
+    and ``tenants`` (item 8) raise ``NotImplementedError``.
+
+    Seqs and row offsets restore to their journaled watermarks, the
+    shuffle re-runs from the first epoch not fully consumed (the ``(seed,
+    epoch, task)`` lineage makes the re-run bit-identical), and delivered
+    items are dropped before the queue: the restarted server serves the
+    undelivered remainder. Returns ``(server, shuffle_result, queue)``.
+    """
+    from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+    from ray_shuffling_data_loader_tpu_torch import dataset as ds
+    from ray_shuffling_data_loader_tpu_torch import shuffle as sh
+
+    if config.get("epochs") is not None:
+        raise not_ported('config["epochs"] (a streaming window schedule)',
+                         "7")
+    if int(config.get("num_shards", 1)) > 1:
+        raise not_ported(f"num_shards={config['num_shards']}", "5b")
+    for key, item in (("handle_dir", "5b"), ("placement", "6"),
+                      ("tenants", "8")):
+        if config.get(key):
+            raise not_ported(f"config[{key!r}]", item)
+    num_epochs = int(config["num_epochs"])
+    num_trainers = int(config["num_trainers"])
+    journal_path = config["journal_path"]
+    state = ckpt.WatermarkJournal.load(journal_path)
+    start_epoch, skip_items = _resume_plan(state, num_epochs, num_trainers)
+    if state:
+        logger.warning(
+            "queue server resuming from journal %s: start_epoch=%d, "
+            "skipping %s already-delivered items", journal_path,
+            start_epoch, {q: n for q, n in skip_items.items() if n})
+    journal = ckpt.WatermarkJournal(journal_path)
+    journal.compact()
+    queue = mq.MultiQueue(num_epochs * num_trainers)
+    consumer = _resuming_batch_consumer(queue, num_trainers, skip_items)
+    map_transform = None
+    if config.get("cast"):
+        from ray_shuffling_data_loader_tpu_torch import transforms
+        map_transform = transforms.CastTransform(config["cast"])
+    shuffle_result = sh.run_shuffle_in_background(
+        list(config["filenames"]), consumer, num_epochs,
+        int(config["num_reducers"]), num_trainers,
+        int(config.get("max_concurrent_epochs", 2)),
+        seed=int(config.get("seed", 0)),
+        on_failure=ds.make_failure_broadcaster(queue),
+        num_workers=config.get("num_workers"), collect_stats=False,
+        start_epoch=start_epoch, file_cache=config.get("file_cache", "auto"),
+        map_transform=map_transform)
+    server = QueueServer(
+        queue, (config.get("host", "127.0.0.1"), int(config["port"])),
+        num_trainers=num_trainers, journal=journal, initial_state=state,
+        exit_on_crash_site=True)
+    rt_metrics.gauge("rsdl_queue_serve_shards",
+                     "shard count of the live queue serving plane").set(1)
+    return server, shuffle_result, queue
+
+
+def _serve_main(argv: List[str]) -> int:
+    """``python -m ray_shuffling_data_loader_tpu_torch.multiqueue_service
+    <config.json>``: the supervised server process. Prints ``READY
+    <port>`` once it listens, and serves until SIGTERM."""
+    if len(argv) != 2:
+        print("usage: python -m ray_shuffling_data_loader_tpu_torch."
+              "multiqueue_service <config.json>", file=sys.stderr)
+        return 2
+    with open(argv[1]) as f:
+        config = json.load(f)
+
+    # The supervisor stops the process with SIGTERM: unwind normally, so
+    # the finally below and the telemetry's exit dump run.
+    def _on_sigterm(_signum, _frame):
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    # The federated exposition and SIGUSR1 dumps (RSDL_TELEMETRY_DIR and
+    # RSDL_TRACE_DIR come through the environment).
+    rt_telemetry.install_signal_dump()
+    rt_metrics.maybe_start_shard_writer()
+
+    server, shuffle_result, queue = serve_pipeline(config)
+    print(f"READY {server.address[1]}", flush=True)
+    try:
+        shuffle_result.result()
+        # Consumers may still be draining and refetching replays: serve
+        # until the supervisor stops the process.
+        threading.Event().wait()
+    finally:
+        server.close()
+        queue.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_serve_main(sys.argv))

@@ -1,6 +1,7 @@
 """The epoch-plan IR: one declarative object per shuffle epoch (own copy
-of the JAX package's ``plan/ir.py``, without the serving plane's
-``ShardMap`` and the queue-resume query, which come with rebalancing).
+of the JAX package's ``plan/ir.py``, without the sharded serving plane's
+``queue_shard``/``shard_ranks``/``ShardMap``, which come with sharded
+serving, ROADMAP queue A item 5b).
 
 Every task of the shuffle is a pure function of ``(seed, epoch, task)``.
 This module makes that explicit, serializable data:
@@ -19,6 +20,8 @@ This module makes that explicit, serializable data:
   :func:`rebalance_spans` / :func:`reduce_placement` (``membership/``).
 - :class:`EpochSpec` / :func:`static_epoch_specs` / :func:`epoch_range`:
   what the shuffle driver iterates.
+- :func:`resume_from_watermarks`: where a restarted queue server's
+  producer resumes, from its watermark journal.
 
 Execution of a plan lives in :mod:`plan.scheduler`. Stdlib only.
 """
@@ -493,3 +496,45 @@ def epoch_range(start_epoch: int, num_epochs: Optional[int]):
     if num_epochs is None:
         return itertools.count(start_epoch)
     return range(start_epoch, num_epochs)
+
+
+# ---------------------------------------------------------------------------
+# Resume query: the journal math of a restarted queue server
+# ---------------------------------------------------------------------------
+
+
+def _entry_fields(entry: Any) -> Tuple[int, bool]:
+    """``(seq, done)`` from a WatermarkEntry-shaped object or a dict."""
+    if isinstance(entry, Mapping):
+        return int(entry["seq"]), bool(entry.get("done", False))
+    return int(entry.seq), bool(getattr(entry, "done", False))
+
+
+def resume_from_watermarks(state: Mapping[int, Any], num_epochs: int,
+                           num_trainers: int,
+                           ranks: Optional[Iterable[int]] = None
+                           ) -> Tuple[int, Dict[int, int]]:
+    """``(start_epoch, skip_items)`` for a restarted producer: the first
+    epoch some rank has not fully consumed, and, per queue of that epoch
+    or later, how many items (tables, then the sentinel) of the
+    deterministic re-run are journaled as delivered and must not be
+    queued again.
+
+    ``state`` maps queue index -> a ``checkpoint.WatermarkEntry`` (or a
+    dict with ``seq``/``done``). ``ranks`` restricts the scan to the
+    trainer ranks the caller serves (all of them by default).
+    """
+    owned = list(ranks) if ranks is not None else list(range(num_trainers))
+    start_epoch = num_epochs
+    for rank in owned:
+        for epoch in range(num_epochs):
+            entry = state.get(queue_index(epoch, rank, num_trainers))
+            if entry is None or not _entry_fields(entry)[1]:
+                start_epoch = min(start_epoch, epoch)
+                break
+    owned_set = set(owned)
+    skip_items = {q: _entry_fields(entry)[0] + 1
+                  for q, entry in state.items()
+                  if queue_epoch(q, num_trainers) >= start_epoch
+                  and queue_rank(q, num_trainers) in owned_set}
+    return start_epoch, skip_items

@@ -30,7 +30,13 @@ keys as the JAX package does: ``telemetry`` (``RSDL_TELEMETRY``,
 (``RSDL_METRICS_FILE``, ``RSDL_TELEMETRY_DIR``, ...), with the JAX
 defaults: recording is on. The failure detector reads its keys as the
 component ``member`` (``RSDL_MEMBER_HEARTBEAT_S``,
-``RSDL_MEMBER_SUSPECT_S``, ``RSDL_MEMBER_PHI``).
+``RSDL_MEMBER_SUSPECT_S``, ``RSDL_MEMBER_PHI``). The queue service
+(``multiqueue_service``) reads its keys as the component ``queue``
+(``RSDL_QUEUE_TIMEOUT_S``, ``RSDL_QUEUE_REPLAY_BYTES``,
+``RSDL_QUEUE_ON_DEAD_CONSUMER``, ...) and its connect and refetch retries
+as ``queue``; the supervisor's restart budget is the retry policy of the
+component ``supervisor`` (``RSDL_SUPERVISOR_RETRY_MAX_ATTEMPTS``), whose
+defaults ``runtime.supervisor`` registers.
 
 Stdlib only.
 """
@@ -173,6 +179,34 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "member_heartbeat_s": (0.5, float),
     "member_suspect_s": (3.0, float),
     "member_phi": (8.0, float),
+    # Queue service (multiqueue_service.py): the receive timeout of both
+    # ends' sockets (0: none; a timed-out response is reconnected and
+    # replayed, never lost) and TCP_NODELAY on both ends.
+    "queue_timeout_s": (300.0, float),
+    "queue_nodelay": (True, _parse_bool),
+    # Per-queue replay buffer byte budget: unacked frames kept for a
+    # reconnect's replay. At the budget the server stops popping new
+    # items (backpressure, at least one frame per request), never drops.
+    "queue_replay_bytes": (256 << 20, int),
+    # Seconds without a heartbeat or a request before a consumer's lease
+    # expires (clients beat at a third of it), and what the server does
+    # then: "fail_fast" (close the server), "drain" (free the dead rank's
+    # queues) or "redistribute" (reroute its undelivered tables to a
+    # surviving consumer).
+    "queue_lease_timeout_s": (30.0, float),
+    "on_dead_consumer": ("fail_fast", str),
+    # Table delivery: "auto" and "stream" stream the table bytes; the
+    # JAX package's "handle" (shared-memory segment handles) comes with
+    # sharded serving (ROADMAP queue A item 5b).
+    "queue_delivery": ("auto", str),
+    # Frame compression of streamed tables: "off" here; zlib/zstd/lz4
+    # come with sharded serving (item 5b). Tables below the minimum size
+    # would skip it.
+    "queue_compression": ("off", str),
+    "queue_compression_min_bytes": (4096, int),
+    # One scatter-gather sendmsg per response instead of a sendall per
+    # header and payload (the same bytes on the wire).
+    "queue_sendmsg": (True, _parse_bool),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}
