@@ -6,8 +6,9 @@ and data-parallel entry points at world size 1, the distributed shuffle
 and its training entry point in a world of two processes, elastic
 membership (failure detection across processes, the generation fence,
 a shrink and a grow under the DLRM step), the queue service (a
-supervised server process feeding the DLRM step, killed once mid-epoch),
-save, restore and resume
+supervised server process feeding the DLRM step, killed once mid-epoch;
+two supervised shard processes, one killed, feeding it through shared
+memory), save, restore and resume
 mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
 run), end to end at full width, and checks its
@@ -94,7 +95,7 @@ printing one JSON line:
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
 8. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
-   turns within this call (per-batch, bulk, bulk, per-batch), each a fresh
+   turns within this call (per-batch, then bulk), each a fresh
    DLRM ``mlperf`` trained on the ``train`` phase's data for 2 epochs (bulk
    through ``device_rebatch="auto"``, the default on the card). Every
    batch is digested on the device (exact int64 sums of each column,
@@ -207,27 +208,47 @@ printing one JSON line:
    for bit, one gather launch per micro-step.
 13. ``serving``: the queue service (``multiqueue_service``,
    ``runtime.supervisor``). The ``train`` phase's pipeline (its files, 8
-   reducers, seed 0, 2 epochs, 1 trainer, the process pool, the DLRM
-   spec's map-time cast) runs in a supervised server process
-   (``launch_supervised_queue_server``, ``CUDA_VISIBLE_DEVICES=""``, its
-   own watermark journal), and ``DeviceShufflingDataset(batch_queue=
-   RemoteQueue(address), shuffle_result=None, device=None)`` feeds a fresh
-   DLRM ``mlperf`` (weights from seed 0) through the gather kernel. (a)
-   Fault-free, every micro-step trained as in ``train``. (b) The server
-   SIGKILLed after 5 loader batches of epoch 0, ``ack_lost:after2:x3`` on
-   the client, one micro-step per loader batch: the supervisor restarts
-   it, the journal and the lineage regenerate the undelivered remainder.
-   In both, every batch's digest equals the ``train`` phase's, the first
-   loss is within 1e-6 relative of its first, one gather launch per
-   micro-step, and (b) restarts the server at least once. (c) The loader
-   alone over an in-process ``serve_queue`` under
-   ``conn_reset_midframe:after2,frame_corrupt:after3``: digests equal
-   (a)'s, at least one reconnect and one corrupt frame. Prints rows/s
-   over the served queue beside the ``train`` phase's in-process rows/s,
-   the restart's seconds (from the kill to the first frame after it),
-   frames replayed, NACK'd and corrupt, client reconnects, payload and
-   wire bytes (the server process's from its metric shards),
-   ``birth_to_delivered`` p50/p99 and the card's name and power limit.
+   reducers, seed 0, 2 epochs, the process pool, the DLRM spec's map-time
+   cast) runs in supervised server processes (``CUDA_VISIBLE_DEVICES=""``,
+   a watermark journal each) or in this process, and
+   ``DeviceShufflingDataset(batch_queue=..., shuffle_result=None,
+   device=None)`` reads it. (a) One server process
+   (``launch_supervised_queue_server``, 1 trainer, delivery ``"auto"``:
+   shared-memory handles on loopback), fault-free; (b) the same, the
+   server SIGKILLed after 5 loader batches of epoch 0 with
+   ``ack_lost:after2:x3`` on the client: the supervisor restarts it, the
+   journal and the lineage regenerate the undelivered remainder. (a) and
+   (b) train a fresh DLRM ``mlperf`` (weights from seed 0) one micro-step
+   per loader batch through the gather kernel: every batch's digest equals
+   the ``train`` phase's, the first loss is within 1e-6 relative of its
+   first, one gather launch per micro-step, (b) restarts the server at
+   least once. (c) The loader alone over an in-process ``serve_queue``
+   under ``conn_reset_midframe:after2,frame_corrupt:after3`` with
+   ``delivery="stream"``: digests equal (a)'s, at least one reconnect and
+   one corrupt frame. (d) Two supervised shard processes
+   (``launch_supervised_queue_shards(num_shards=2)``, 2 trainers, the key
+   column loaded, delivery ``"auto"``): this process trains a fresh DLRM
+   ``mlperf`` (Adam, every 2,048-row micro-step of each loader batch)
+   through the gather kernel on rank 0's stream from
+   ``connect_remote_queue(shard_map)`` while a thread drains rank 1's from
+   shard 1, which is SIGKILLed after rank 1's third loader batch of epoch
+   0. Each rank's digests equal the one-process ``num_trainers=2``
+   stream's (the ``distributed`` phase's reference), shard 1 restarts,
+   rank 0's longest wait for a batch after the kill stays under 15 s, one
+   gather launch per micro-step, handle hits with wire bytes at least 10x
+   below payload bytes, no segment file under the handle root after the
+   stop and each shard's buffer ledger back to 0 bytes at its exit. (e)
+   The same pipeline in this process behind ``serve_queue_sharded
+   (num_shards=2)``, ``delivery="stream"``, ``RSDL_QUEUE_COMPRESSION=zlib``
+   and 2 codec threads, both ranks drained on threads, loader only:
+   digests as in (d), bytes saved and ``wire + saved == payload``; it
+   prints the codec ``zstd`` resolves to here. Each turn prints its
+   delivery, rows/s (per rank in (d) and (e)), the restart's seconds (from
+   the kill to the first frame after it), frames replayed and NACK'd,
+   client reconnects, payload and wire bytes, handle hits and misses, the
+   compression ratio (the server processes' counters from their metric
+   shards), ``birth_to_delivered`` p50/p99 and the card's name and power
+   limit.
 14. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
@@ -1250,7 +1271,9 @@ def bert_phase(fa, files, gen_s: float) -> dict:
 
 # Rebatch phase: the two device bindings in turns on the train phase's
 # data, in one call (the DLRM step varies 11.9-14.9 ms between calls).
-REBATCH_TURNS = ("per_batch", "bulk", "bulk", "per_batch")
+# Two turns: the sharded serving turns of the serving phase pay for the
+# repeat (bulk, per-batch) the phase ran until PR 16.
+REBATCH_TURNS = ("per_batch", "bulk")
 REBATCH_EPOCHS = 2
 REBATCH_BUDGET_S = 150.0
 # Mean loss per loader batch (64 micro-steps) of a turn against the first
@@ -1363,8 +1386,8 @@ def _spread(turns, binding: str, key: str) -> list:
 
 
 def rebatch_phase(emb, dlrm_paths, token_paths) -> dict:
-    """The per-batch and bulk bindings in turns (per-batch, bulk, bulk,
-    per-batch) on the ``train`` phase's data, then on the card: (b) the
+    """The per-batch and bulk bindings in turns (per-batch, then bulk) on
+    the ``train`` phase's data, then on the card: (b) the
     watchdog degrading a bulk epoch, (c) copies retried under injected
     faults, (d) a loader-only pass over the ``bert`` phase's tokens."""
     import logging
@@ -2443,6 +2466,7 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
          "--batch-size", str(LOADER_BATCH), "--mock-train-step-time", "0"],
         os.path.join(tmp, "loader"))
     want, _ = _one_process_stream(files, LOADER_BATCH, NUM_EPOCHS, False)
+    loader_reference = want
     loader = []
     for rank, (summary, arrays) in enumerate(ranks):
         if summary["binding"] != "bulk":
@@ -2555,6 +2579,7 @@ def distributed_phase(dlrm_paths, tmp: str) -> dict:
     if not max(rel) <= DIST_LOSS_RTOL:
         raise AssertionError(f"losses {losses} vs one process {reference}")
     return {
+        "loader_reference": loader_reference,
         "world": DIST_WORLD, "backend": "gloo", "launcher": "--local",
         "loader": {"rows": NUM_ROWS, "files": NUM_FILES,
                    "batch": LOADER_BATCH, "epochs": NUM_EPOCHS,
@@ -2935,37 +2960,70 @@ SERVE_WIRE_CHAOS = "conn_reset_midframe:after2,frame_corrupt:after3"
 SERVE_SERVER_COUNTERS = ("rsdl_queue_frames_replayed_total",
                          "rsdl_queue_frames_nacked_total",
                          "rsdl_queue_payload_bytes_total",
-                         "rsdl_queue_bytes_on_wire_total")
-
-
-def _serving_client_class():
-    """A ``RemoteQueue`` that logs each round trip (when it landed,
-    whether it resumed on a new connection, how many frames), for the
-    restart's seconds: from the kill to the first frame after it."""
-    from ray_shuffling_data_loader_tpu_torch import multiqueue_service
-
-    class LoggingRemoteQueue(multiqueue_service.RemoteQueue):
-        def __init__(self, *args, **kwargs):
-            self.fetches = []
-            super().__init__(*args, **kwargs)
-
-        def _fetch_batch(self, queue_index):
-            items, resumed = super()._fetch_batch(queue_index)
-            self.fetches.append((timeit.default_timer(), resumed,
-                                 len(items)))
-            return items, resumed
-
-    return LoggingRemoteQueue
+                         "rsdl_queue_bytes_on_wire_total",
+                         "rsdl_queue_handle_hits_total",
+                         "rsdl_queue_handle_misses_total",
+                         "rsdl_queue_compression_saved_bytes_total")
+# (d): two shard processes, two trainers; shard 1 is SIGKILLed after rank
+# 1's third loader batch of epoch 0.
+SERVE_SHARDS = 2
+SERVE_SHARD_KILL_AFTER = 3
+# The surviving rank's longest wait for a batch after the kill (the JAX
+# package's shard-recovery budget): a restart and redial are the dead
+# shard's rank's to pay, never its sibling's.
+SERVE_SURVIVOR_BUDGET_S = 15.0
+# (d): handle frames must cut the wire at least this much (JAX's
+# test_handle_delivery_cuts_wire_bytes_10x).
+SERVE_HANDLE_WIRE_CUT = 10
+# Pool workers of each shard process in (d), so two shards and their
+# pools share the host's cores.
+SERVE_SHARD_WORKERS = 4
 
 
 def _server_counters(tel_dir: str) -> dict:
     """The queue server processes' counters, summed over the metric
-    shards they left (a SIGKILLed one's last periodic write)."""
+    shards they left (a SIGKILLed one's last periodic write), with the
+    compression ratio (payload over wire bytes of streamed frames)."""
     from ray_shuffling_data_loader_tpu_torch.runtime import metrics
     samples, _ = metrics.merge_series(metrics.read_shards(tel_dir).values())
-    return {name.replace("rsdl_queue_", "").replace("_total", ""):
-            int(sum(samples.get(name, {}).values()))
-            for name in SERVE_SERVER_COUNTERS}
+    out = {name.replace("rsdl_queue_", "").replace("_total", ""):
+           int(sum(samples.get(name, {}).values()))
+           for name in SERVE_SERVER_COUNTERS}
+    return _with_ratio(out)
+
+
+def _with_ratio(counters: dict) -> dict:
+    saved = counters["compression_saved_bytes"]
+    counters["compression_ratio"] = (
+        (counters["bytes_on_wire"] + saved) / counters["bytes_on_wire"]
+        if saved else 1.0)
+    return counters
+
+
+def _exit_ledger_bytes(tel_dir: str, pids) -> dict:
+    """Each process's buffer-ledger bytes as its exit flush recorded them
+    (a server process sets the gauge once its server released every
+    pin), by pid."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+    shards = metrics.read_shards(tel_dir)
+    return {pid: shards[pid][0].get("rsdl_ledger_bytes_in_use", {}).get(())
+            if pid in shards else None for pid in pids}
+
+
+def _log_fetches(client) -> list:
+    """Log each round trip of a ``RemoteQueue`` (when it landed, whether
+    it resumed on a new connection, how many frames): the restart's
+    seconds are from the kill to the first frame after it."""
+    fetches = []
+    fetch = client._fetch_batch
+
+    def logged(queue_index):
+        items, resumed = fetch(queue_index)
+        fetches.append((timeit.default_timer(), resumed, len(items)))
+        return items, resumed
+
+    client._fetch_batch = logged
+    return fetches
 
 
 def _client_counters() -> dict:
@@ -2989,16 +3047,17 @@ def _serve_spec():
 def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
                       kill: bool) -> dict:
     """One turn over a supervised server process (process pool, 8
-    reducers, seed 0, 2 epochs): a fresh DLRM ``mlperf`` fed by
-    ``DeviceShufflingDataset(batch_queue=RemoteQueue)``. (a) trains every
-    micro-step; (b) one micro-step per loader batch, SIGKILLs the server
-    after ``SERVE_KILL_AFTER`` batches of epoch 0 with ``ack_lost`` on the
+    reducers, seed 0, 2 epochs, delivery ``"auto"``): a fresh DLRM
+    ``mlperf`` fed by ``DeviceShufflingDataset(batch_queue=RemoteQueue)``,
+    one micro-step per loader batch. (b) SIGKILLs the server after
+    ``SERVE_KILL_AFTER`` batches of epoch 0 with ``ack_lost`` on the
     client. Checks each batch's digest against the ``train`` phase's, the
     first loss within ``SERVE_LOSS_RTOL`` and one gather launch per
     micro-step."""
     import signal
 
-    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch import (device_dataset,
+                                                     multiqueue_service, train)
     from ray_shuffling_data_loader_tpu_torch.models import dlrm
     from ray_shuffling_data_loader_tpu_torch.runtime import (faults, metrics,
                                                              supervisor)
@@ -3015,6 +3074,7 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
     config = dict(filenames=list(files), num_epochs=NUM_EPOCHS,
                   num_trainers=1, num_reducers=NUM_REDUCERS, seed=SEED,
                   journal_path=os.path.join(tmp, f"{name}.wal"), cast=cast,
+                  handle_dir=os.path.join(shm_dir, "handles"),
                   child_env={"RSDL_TELEMETRY_DIR": tel_dir,
                              "RSDL_METRICS_SHARD_INTERVAL_S": "0.5",
                              "RSDL_EXECUTOR_SHM_DIR": shm_dir})
@@ -3032,9 +3092,10 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
         listen_s = timeit.default_timer() - t_launch
         if kill:
             faults.install(SERVE_ACK_CHAOS, seed=0)
-        remote = _serving_client_class()(address, retries=20,
-                                         initial_backoff_s=0.2,
-                                         max_batch=1 if kill else 8)
+        remote = multiqueue_service.RemoteQueue(
+            address, retries=20, initial_backoff_s=0.2,
+            max_batch=1 if kill else 8)
+        fetches = _log_fetches(remote)
         ds = device_dataset.DeviceShufflingDataset(
             files, NUM_EPOCHS, 1, LOADER_BATCH, 0, batch_queue=remote,
             shuffle_result=None, seed=SEED, device=None, **spec)
@@ -3046,13 +3107,9 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
                 if t_first is None:
                     t_first = timeit.default_timer()
                 digests.append(device_dataset.batch_digest(features, label))
-                if kill:
-                    losses.append(train.train_chunk(
-                        micro_step, [f[:MICROBATCH] for f in features],
-                        label[:MICROBATCH], MICROBATCH))
-                else:
-                    losses.append(train.train_chunk(micro_step, features,
-                                                    label, MICROBATCH))
+                losses.append(train.train_chunk(
+                    micro_step, [f[:MICROBATCH] for f in features],
+                    label[:MICROBATCH], MICROBATCH))
                 rows += label.shape[0]
                 if kill and epoch == 0 and i + 1 == SERVE_KILL_AFTER:
                     t_kill = timeit.default_timer()
@@ -3067,6 +3124,8 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
         if remote is not None:
             remote.close()
         sup.stop()
+        handle_files = [f for _, _, names in os.walk(config["handle_dir"])
+                        for f in names]
         shutil.rmtree(shm_dir, ignore_errors=True)
     after = metrics.parse_exposition(metrics.render())
     client_after = _client_counters()
@@ -3088,12 +3147,14 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
         raise AssertionError("serving (b): the server was never restarted")
     if not kill and sup.restarts:
         raise AssertionError(f"serving (a): {sup.restarts} restarts")
+    if handle_files:
+        raise AssertionError(f"serving {name}: segments left after the "
+                             f"stop: {handle_files[:4]}")
     line = {
-        "turn": name, "binding": ds.binding,
+        "turn": name, "binding": ds.binding, "delivery": "auto",
         "max_batch": 1 if kill else 8,
         "micro_steps": int(all_losses.numel()),
-        "micro_steps_per_loader_batch": 1 if kill else (LOADER_BATCH
-                                                        // MICROBATCH),
+        "micro_steps_per_loader_batch": 1,
         "loader_batches": len(digests), "rows": rows,
         "rows_per_s": rows / wall, "wall_s": wall,
         "server_listen_s": listen_s,
@@ -3108,7 +3169,7 @@ def _served_dlrm_turn(emb, files, trained: dict, tmp: str, name: str,
             before, after, "birth_to_delivered").get("0"),
     }
     if kill:
-        after_kill = [t for t, resumed, n in remote.fetches
+        after_kill = [t for t, resumed, n in fetches
                       if t > t_kill and resumed and n]
         if not after_kill:
             raise AssertionError("serving (b): no frame came after the "
@@ -3141,7 +3202,9 @@ def _served_loader_turn(files, want_digests, chaos: str) -> dict:
             files, NUM_EPOCHS, 1, num_reducers=NUM_REDUCERS, seed=SEED,
             map_transform=transforms.CastTransform(cast))
         with multiqueue_service.serve_queue(queue) as server:
-            with multiqueue_service.RemoteQueue(server.address) as remote:
+            # Streamed frames: the wire faults act on their payloads.
+            with multiqueue_service.RemoteQueue(server.address,
+                                                delivery="stream") as remote:
                 ds = device_dataset.DeviceShufflingDataset(
                     files, NUM_EPOCHS, 1, LOADER_BATCH, 0,
                     batch_queue=remote, shuffle_result=result, seed=SEED,
@@ -3172,37 +3235,364 @@ def _served_loader_turn(files, want_digests, chaos: str) -> dict:
             or client["queue_client_reconnects"] < 1:
         raise AssertionError(f"serving (c): no recovery seen: {client}")
     return {
-        "turn": "c", "chaos": chaos, "faults_fired": len(fired),
+        "turn": "c", "delivery": "stream", "chaos": chaos,
+        "faults_fired": len(fired),
         "rows": rows, "rows_per_s": rows / wall, "wall_s": wall,
         "loader_batches": len(digests), "digests_equal_a": True,
         "executor_backend": executor.last_worker_pool()["backend"],
-        "server": {"payload_bytes": served["queue_payload_bytes"]
-                   - served_before["queue_payload_bytes"],
-                   "bytes_on_wire": served["queue_bytes_on_wire"]
-                   - served_before["queue_bytes_on_wire"]},
+        "server": _with_ratio({
+            k.replace("queue_", ""): served[k] - served_before[k]
+            for k in ("queue_payload_bytes", "queue_bytes_on_wire",
+                      "queue_handle_hits", "queue_handle_misses",
+                      "queue_compression_saved_bytes")}),
         "client": client,
         "birth_to_delivered": _latency_between(
             before, after, "birth_to_delivered").get("0"),
     }
 
 
-def serving_phase(emb, files, trained: dict, tmp: str) -> dict:
+def _sharded_spec():
+    """The DLRM spec with the key column loaded last (the digests of the
+    one-process ``num_trainers=2`` stream cover it), and its map-time
+    cast."""
+    from ray_shuffling_data_loader_tpu_torch import data_generation
+    spec, cast = _serve_spec()
+    spec["feature_columns"].append(data_generation.KEY_COLUMN)
+    spec["feature_types"].append(np.dtype(np.int64))
+    cast[data_generation.KEY_COLUMN] = "int64"
+    return spec, cast
+
+
+def _drain_rank(ds, epochs: int, on_batch=None) -> dict:
+    """Iterate one rank's device dataset: its digests, rows, the wait for
+    its first batch (``fill_s``), the seconds from that batch to the end
+    (``wall_s``, the span the other turns' rows/s are over) and its
+    longest wait for a batch after ``on_batch`` (called with the epoch,
+    the batch's index and the batch after each) first returns True."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset
+    digests, rows, waits, armed = [], 0, [], False
+    t0 = timeit.default_timer()
+    t_first = None
+    for epoch in range(epochs):
+        ds.set_epoch(epoch)
+        it = iter(ds)
+        i = 0
+        while True:
+            start = timeit.default_timer()
+            got = next(it, None)
+            if armed:
+                waits.append(timeit.default_timer() - start)
+            if got is None:
+                break
+            if t_first is None:
+                t_first = timeit.default_timer()
+            features, label = got
+            digests.append(device_dataset.batch_digest(features, label))
+            rows += label.shape[0]
+            if on_batch is not None and on_batch(epoch, i, features, label):
+                armed = True
+            i += 1
+    torch.cuda.synchronize()
+    return {"digests": digests, "rows": rows, "fill_s": t_first - t0,
+            "wall_s": timeit.default_timer() - t_first,
+            "max_wait_after_s": max(waits) if waits else None}
+
+
+def _served_shards_turn(emb, files, want, tmp: str) -> dict:
+    """(d) Two supervised shard processes (``launch_supervised_queue_shards``,
+    2 trainers, delivery ``"auto"``): a fresh DLRM ``mlperf`` here trains
+    every micro-step of rank 0's stream through
+    ``connect_remote_queue(shard_map)`` while a thread drains rank 1's and
+    SIGKILLs shard 1 after its third loader batch of epoch 0. ``want``:
+    the one-process ``num_trainers=2`` digests per rank and epoch."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics, supervisor
+
+    torch.cuda.empty_cache()
+    spec, cast = _sharded_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    tel_dir = os.path.join(tmp, "d-metrics")
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-shards-", dir=shm_root)
+    handle_root = os.path.join(shm_dir, "handles")
+    config = dict(filenames=list(files), num_epochs=NUM_EPOCHS,
+                  num_trainers=DIST_WORLD, num_reducers=NUM_REDUCERS,
+                  seed=SEED, journal_path=os.path.join(tmp, "d.wal"),
+                  cast=cast, handle_dir=handle_root,
+                  num_workers=SERVE_SHARD_WORKERS,
+                  child_env={"RSDL_TELEMETRY_DIR": tel_dir,
+                             "RSDL_METRICS_SHARD_INTERVAL_S": "0.5",
+                             "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    client_before = _client_counters()
+    before = metrics.parse_exposition(metrics.render())
+    t_launch = timeit.default_timer()
+    sups, shard_map = supervisor.launch_supervised_queue_shards(
+        config, SERVE_SHARDS, name="smoke-shard")
+    remotes, datasets, fetches = [], [], {}
+    runs, errors, losses = {}, [], []
+    killed = {}
+    try:
+        for address in shard_map.addresses:
+            if not supervisor.wait_for_server(tuple(address), timeout_s=120):
+                raise AssertionError(f"serving (d): shard {address} never "
+                                     "listened")
+        listen_s = timeit.default_timer() - t_launch
+        for rank in range(DIST_WORLD):
+            remote = dataset.connect_remote_queue(
+                shard_map, retries=20, initial_backoff_s=0.2,
+                max_batch=1 if rank == 1 else 8)
+            remotes.append(remote)
+            fetches[rank] = _log_fetches(remote.client_for_queue(
+                plan_ir.queue_index(0, rank, DIST_WORLD)))
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                files, NUM_EPOCHS, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remote, shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+
+        def kill_shard_1(epoch, i, features, label):
+            if epoch == 0 and i + 1 == SERVE_SHARD_KILL_AFTER:
+                killed["t"] = timeit.default_timer()
+                killed["pid"] = sups[1].pid
+                os.kill(killed["pid"], signal.SIGKILL)
+            return False
+
+        def drain_rank_1():
+            try:
+                runs[1] = _drain_rank(datasets[1], NUM_EPOCHS, kill_shard_1)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        def train_rank_0(epoch, i, features, label):
+            n = label.shape[0] // MICROBATCH * MICROBATCH
+            losses.append(train.train_chunk(
+                micro_step, [f[:n] for f in features[:-1]], label[:n],
+                MICROBATCH))
+            return "t" in killed
+
+        emb.reset_launch_counts()
+        drainer = threading.Thread(target=drain_rank_1, daemon=True,
+                                   name="smoke-serve-rank1")
+        drainer.start()
+        runs[0] = _drain_rank(datasets[0], NUM_EPOCHS, train_rank_0)
+        launches = emb.launch_counts["gather_rows"]
+        drainer.join(timeout=600)
+        if drainer.is_alive():
+            raise AssertionError("serving (d): rank 1's drain hung")
+        if errors:
+            raise errors[0]
+        final_pids = [sup.pid for sup in sups]
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        for sup in sups:
+            sup.stop()
+        handle_files = [f for _, _, names in os.walk(handle_root)
+                        for f in names]
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    after = metrics.parse_exposition(metrics.render())
+    client_after = _client_counters()
+    for rank in range(DIST_WORLD):
+        _same_stream("serving (d)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("serving (d): non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"serving (d): {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    if sups[1].restarts < 1 or sups[1].failed:
+        raise AssertionError("serving (d): shard 1 was not restarted")
+    if sups[0].restarts:
+        raise AssertionError(f"serving (d): shard 0 restarted "
+                             f"{sups[0].restarts} times")
+    survivor_wait = runs[0]["max_wait_after_s"]
+    if survivor_wait is None or survivor_wait >= SERVE_SURVIVOR_BUDGET_S:
+        raise AssertionError(f"serving (d): rank 0 waited {survivor_wait} "
+                             "s for a batch after the kill")
+    server = _server_counters(tel_dir)
+    if server["handle_hits"] < 1 or (server["bytes_on_wire"]
+                                     * SERVE_HANDLE_WIRE_CUT
+                                     > server["payload_bytes"]):
+        raise AssertionError(f"serving (d): handle delivery did not cut "
+                             f"the wire {SERVE_HANDLE_WIRE_CUT}x: {server}")
+    if handle_files:
+        raise AssertionError(f"serving (d): segments left after the stop: "
+                             f"{handle_files[:4]}")
+    ledger = _exit_ledger_bytes(tel_dir, final_pids)
+    if any(v != 0 for v in ledger.values()):
+        raise AssertionError(f"serving (d): buffer-ledger bytes at the "
+                             f"shards' exit: {ledger}")
+    after_kill = [t for t, resumed, n in fetches[1]
+                  if t > killed["t"] and resumed and n]
+    if not after_kill:
+        raise AssertionError("serving (d): no frame came after the kill")
+    latency = _latency_between(before, after, "birth_to_delivered")
+    del model, micro_step
+    return {
+        "turn": "d", "delivery": "auto", "shards": SERVE_SHARDS,
+        "trainers": DIST_WORLD, "shard_map": shard_map.to_dict(),
+        "shard_workers": SERVE_SHARD_WORKERS,
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "wall_s": runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True,
+                   "birth_to_delivered": latency.get(str(rank))}
+                  for rank in range(DIST_WORLD)],
+        "rank0_micro_steps": int(all_losses.numel()),
+        "rank0_loss_first": float(all_losses[0]),
+        "rank0_loss_last": float(all_losses[-1]),
+        "rank0_max_wait_after_kill_s": survivor_wait,
+        "survivor_budget_s": SERVE_SURVIVOR_BUDGET_S,
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+        "shards_listen_s": listen_s,
+        "shard_restarts": [sup.restarts for sup in sups],
+        "kill_after_rank1_batches": SERVE_SHARD_KILL_AFTER,
+        "restart_s": min(after_kill) - killed["t"],
+        "server": server,
+        "wire_cut": server["payload_bytes"] / max(1, server["bytes_on_wire"]),
+        "segments_left": 0, "exit_ledger_bytes": list(ledger.values()),
+        "client": {k: client_after[k] - client_before[k]
+                   for k in client_after},
+    }
+
+
+def _sharded_loader_turn(files, want) -> dict:
+    """(e) The pipeline in this process behind ``serve_queue_sharded
+    (num_shards=2)``: streamed, zlib-compressed frames on 2 codec threads,
+    both ranks drained on threads; digests as in (d), bytes saved and
+    ``wire + saved == payload``."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     executor,
+                                                     multiqueue_service,
+                                                     stats, transforms)
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+
+    spec, cast = _sharded_spec()
+    with _env(RSDL_QUEUE_COMPRESSION="zstd"):
+        zstd_codec = multiqueue_service._resolve_compression()[0]
+    codec_names = {multiqueue_service.CODEC_ZLIB: "zlib",
+                   multiqueue_service.CODEC_ZSTD: "zstd",
+                   multiqueue_service.CODEC_LZ4: "lz4"}
+    served_before = stats.queue_serve_totals()
+    client_before = _client_counters()
+    before = metrics.parse_exposition(metrics.render())
+    runs, errors = {}, []
+    with _env(RSDL_QUEUE_COMPRESSION="zlib", RSDL_QUEUE_CODEC_THREADS="2"):
+        queue, result = dataset.create_batch_queue_and_shuffle(
+            files, NUM_EPOCHS, DIST_WORLD, num_reducers=NUM_REDUCERS,
+            seed=SEED, map_transform=transforms.CastTransform(cast))
+        sharded = multiqueue_service.serve_queue_sharded(
+            queue, num_shards=SERVE_SHARDS, num_trainers=DIST_WORLD)
+    try:
+        codec_pools = [s._codec_pool is not None for s in sharded.servers]
+
+        def drain(rank):
+            try:
+                with dataset.connect_remote_queue(
+                        sharded.shard_map, delivery="stream") as remote:
+                    ds = device_dataset.DeviceShufflingDataset(
+                        files, NUM_EPOCHS, DIST_WORLD, LOADER_BATCH, rank,
+                        batch_queue=remote, shuffle_result=None, seed=SEED,
+                        drop_last=False, device=None, **spec)
+                    try:
+                        runs[rank] = _drain_rank(ds, NUM_EPOCHS)
+                    finally:
+                        ds.close()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=drain, args=(rank,), daemon=True,
+                                    name=f"smoke-serve-e{rank}")
+                   for rank in range(DIST_WORLD)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError("serving (e): a rank's drain hung")
+        result.result()
+    finally:
+        sharded.close()
+        queue.shutdown()
+    if errors:
+        raise errors[0]
+    after = metrics.parse_exposition(metrics.render())
+    served = stats.queue_serve_totals()
+    client_after = _client_counters()
+    for rank in range(DIST_WORLD):
+        _same_stream("serving (e)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank])
+    server = _with_ratio({
+        k.replace("queue_", ""): served[k] - served_before[k]
+        for k in ("queue_payload_bytes", "queue_bytes_on_wire",
+                  "queue_handle_hits", "queue_handle_misses",
+                  "queue_compression_saved_bytes")})
+    if codec_pools != [True] * SERVE_SHARDS:
+        raise AssertionError(f"serving (e): codec pools {codec_pools}")
+    if server["compression_saved_bytes"] <= 0 or (
+            server["bytes_on_wire"] + server["compression_saved_bytes"]
+            != server["payload_bytes"]):
+        raise AssertionError(f"serving (e): compression accounting "
+                             f"{server}")
+    if server["handle_hits"]:
+        raise AssertionError(f"serving (e): handle frames under "
+                             f"delivery=stream: {server}")
+    latency = _latency_between(before, after, "birth_to_delivered")
+    return {
+        "turn": "e", "delivery": "stream", "compression": "zlib",
+        "codec_threads": 2, "shards": SERVE_SHARDS,
+        "zstd_resolves_to": codec_names[zstd_codec],
+        "executor_backend": executor.last_worker_pool()["backend"],
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "wall_s": runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True,
+                   "birth_to_delivered": latency.get(str(rank))}
+                  for rank in range(DIST_WORLD)],
+        "server": server,
+        "client": {k: client_after[k] - client_before[k]
+                   for k in client_after},
+    }
+
+
+def serving_phase(emb, files, trained: dict, want, tmp: str) -> dict:
     """The queue service under the DLRM step: (a) fault-free and (b) one
     SIGKILL of the server mid-epoch 0, each over a supervised server
     process; (c) the loader alone under wire faults over an in-process
-    server. Digests equal the ``train`` phase's in (a) and (b) and (a)'s
-    in (c)."""
+    server; (d) two supervised shard processes, one SIGKILLed, feeding
+    rank 0's DLRM step through shared memory; (e) in-process shards,
+    streamed and compressed. Digests equal the ``train`` phase's in (a)
+    and (b), (a)'s in (c), and the one-process ``num_trainers=2`` stream's
+    (``want``) in (d) and (e)."""
     start = timeit.default_timer()
     fresh_telemetry()
     a = _served_dlrm_turn(emb, files, trained, tmp, "a", kill=False)
     b = _served_dlrm_turn(emb, files, trained, tmp, "b", kill=True)
     c = _served_loader_turn(files, trained["digests"], SERVE_WIRE_CHAOS)
+    d = _served_shards_turn(emb, sorted(files), want, tmp)
+    e = _sharded_loader_turn(sorted(files), want)
     return {
-        "turns": {"a": a, "b": b, "c": c},
-        "rows_per_s_served": a["rows_per_s"],
+        "turns": {"a": a, "b": b, "c": c, "d": d, "e": e},
+        "rows_per_s_served_rank0": d["ranks"][0]["rows_per_s"],
         "rows_per_s_train_in_process": trained["rows_per_s"],
-        "restart_s": b["restart_s"],
-        "gather_launches": a["gather_launches"] + b["gather_launches"],
+        "restart_s": {"b": b["restart_s"], "d": d["restart_s"]},
+        "gather_launches": (a["gather_launches"] + b["gather_launches"]
+                            + d["gather_launches"]),
         "phase_s": timeit.default_timer() - start,
     }
 
@@ -4069,6 +4459,9 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-dist-") as tmp:
             dist_run = distributed_phase(dlrm_paths, tmp)
+        # The one-process num_trainers=2 digests, which serving (d) and
+        # (e) are held against too.
+        dist_reference = dist_run.pop("loader_reference")
         emit({"phase": "distributed", "card": smi,
               "prior_shuffle": PRIOR_SHUFFLE["distributed"], **dist_run})
 
@@ -4077,7 +4470,8 @@ def main() -> int:
         emit({"phase": "elastic", "card": smi, **elastic_run})
 
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-serve-") as tmp:
-            serving_run = serving_phase(emb, dlrm_paths, trained, tmp)
+            serving_run = serving_phase(emb, dlrm_paths, trained,
+                                        dist_reference, tmp)
         emit({"phase": "serving", "card": smi, **serving_run})
 
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:

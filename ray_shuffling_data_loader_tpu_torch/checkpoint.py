@@ -27,7 +27,8 @@ batches already consumed (``set_epoch(epoch, skip_batches=)``).
   delivered watermarks and frame births
   (``multiqueue_service.QueueServer``), in the JAX package's line format,
   so either package loads the other's; a restarted server process
-  resumes from it (``plan.ir.resume_from_watermarks``).
+  resumes from it (``plan.ir.resume_from_watermarks``);
+  :func:`shard_journal_path` names each serving shard's own journal.
 
 torch is imported where a train state is saved or restored, not at import:
 the queue server's child process loads this module for its journal and
@@ -153,6 +154,16 @@ class WatermarkEntry:
     rows: int
     done: bool = False
     births: Dict[int, tuple] = dataclasses.field(default_factory=dict)
+
+
+def shard_journal_path(path: str, shard_index: int, num_shards: int) -> str:
+    """The watermark journal of one serving-plane shard. A shard journals
+    only the queues of its own ranks (``plan.ir.queue_shard``), so a
+    restarted shard resumes from its own journal alone. One shard keeps
+    the single server's name."""
+    if num_shards <= 1:
+        return path
+    return f"{path}.shard{shard_index}"
 
 
 class WatermarkJournal:

@@ -135,17 +135,18 @@ def create_batch_queue_and_shuffle(
 
 
 def connect_remote_queue(target, **remote_kwargs):
-    """A ``multiqueue_service.RemoteQueue`` on a served queue at ``target``
-    (a ``(host, port)`` pair), for ``ShufflingDataset(batch_queue=...,
-    shuffle_result=None)``; ``remote_kwargs`` go to the client. A shard
-    map (the JAX package's ``plan.ir.ShardMap``, its dict or its JSON)
-    raises ``NotImplementedError``: sharded serving is ROADMAP queue A
-    item 5b."""
+    """The client of a served queue, for ``ShufflingDataset(batch_queue=
+    ..., shuffle_result=None)``: a ``(host, port)`` gives a
+    ``multiqueue_service.RemoteQueue``; a shard map (a
+    ``plan.ir.ShardMap``, its dict or its JSON, as
+    ``runtime.supervisor.launch_supervised_queue_shards`` returns) gives a
+    ``multiqueue_service.ShardedRemoteQueue`` that routes each rank's
+    stream to its shard. ``remote_kwargs`` go to the client(s)."""
     from ray_shuffling_data_loader_tpu_torch import multiqueue_service as svc
     if isinstance(target, tuple) and len(target) == 2 \
             and isinstance(target[0], str):
         return svc.RemoteQueue(target, **remote_kwargs)
-    raise svc.not_ported("a shard map target", "5b", "sharded serving")
+    return svc.ShardedRemoteQueue(target, **remote_kwargs)
 
 
 class ShufflingDataset:

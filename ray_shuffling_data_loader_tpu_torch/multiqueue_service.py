@@ -1,20 +1,25 @@
 """Cross-process queue service: trainer processes attach by address (own
-copy of the JAX package's ``multiqueue_service.py``, one server and its
-client).
+copy of the JAX package's ``multiqueue_service.py``).
 
 A trainer in another process than the shuffle reads its per-``(epoch,
 rank)`` queue over TCP:
 
 - :func:`serve_queue` exports a ``multiqueue.MultiQueue``. Each GET pops
-  queued reducer refs, resolves each to its ``pa.Table`` and streams it as
-  one Arrow IPC stream per frame.
+  queued reducer refs, resolves each to its ``pa.Table`` and sends it as
+  one Arrow IPC stream per frame, or as a shared-memory handle.
 - :class:`RemoteQueue` is the consumer: ``get(queue_idx)`` returns a
   ``pa.Table``, ``None`` (the epoch's end) or a ``dataset.ShuffleFailure``,
   the items an in-process queue yields, so
   ``ShufflingDataset(batch_queue=RemoteQueue(addr), shuffle_result=None)``
   (or ``DeviceShufflingDataset``) is a trainer in another process.
-- :func:`serve_pipeline` builds queue, shuffle and server from a config
-  dict in a process of its own (``python -m
+- :class:`ShardedQueueServer` / :func:`serve_queue_sharded` serve one
+  queue from N shards, each owning the queues of its ranks
+  (``plan.ir.queue_shard``) on a port of its own; a
+  :class:`plan.ir.ShardMap` takes the place of the one address, and
+  :class:`ShardedRemoteQueue` routes each queue to its shard.
+- :func:`serve_pipeline` builds queue, shuffle and server (one shard of
+  several with ``config["num_shards"]``) from a config dict in a process
+  of its own (``python -m
   ray_shuffling_data_loader_tpu_torch.multiqueue_service config.json``),
   the unit ``runtime.supervisor`` restarts after a crash.
 
@@ -28,37 +33,50 @@ is ``(u8 op, u8 flags, u32 a, u32 b, u32 c)``:
   on a new connection: the server rewinds to the watermark and replays
   the unacked frames.
 - ``OP_HELLO`` (2): ``a | b << 32`` is the consumer's id, its lease
-  identity across reconnects. ``OP_HEARTBEAT`` (3) beats the lease
-  between GETs. ``OP_NACK`` (4): frame ``b`` of queue ``a`` failed its
-  CRC; the server rewinds to ``b - 1`` and sends again from its replay
-  buffer.
+  identity across reconnects; ``FLAG_HANDLES_OK`` says the consumer can
+  map the server's shared-memory segments. ``OP_HEARTBEAT`` (3) beats
+  the lease between GETs. ``OP_NACK`` (4): frame ``b`` of queue ``a``
+  failed its CRC (``c`` = ``NACK_CRC``; the server rewinds to ``b - 1``
+  and sends again from its replay buffer) or its handle could not be
+  used (``c`` = ``NACK_NO_HANDLE``; the queue is streamed from then on,
+  the same frames again).
 
 A response is ``(u32 count)`` and ``count`` frames: the 14-field header
 ``(u8 kind | codec << 4, u32 epoch, u32 seq, u32 crc, u64 row_offset, u64
 length, u32 task, f64 birth_mono, f64 birth_unix, u32 birth_pid, f64
 queued_mono, f64 queued_unix, u32 queued_pid, u32 generation)`` and
 ``length`` payload bytes. ``kind``: 0 a table, 1 the epoch's sentinel, 2
-a shuffle failure (the payload is its text). ``seq`` numbers a queue's
-frames and survives server restarts (the watermark journal restores it);
-``crc`` is the payload's CRC-32; ``row_offset`` counts the table rows of
-the queue's earlier frames, so a resumed consumer skips rows absolutely;
-``task`` is the producing reducer (``rsdl.trace`` metadata,
-``TASK_NONE`` if unknown). The stamps are the payload's birth (its
-``rsdl.birth`` metadata) and the frame's build; zero means unknown.
+a shuffle failure (the payload is its text), 3 a table as a
+shared-memory handle (the payload is the JSON ``{"path", "offset",
+"size", "crc"}`` of a segment the server wrote; the consumer maps it and
+checks the segment's CRC). ``codec`` (0 none, 1 zlib, 2 zstd, 3 lz4)
+compresses a streamed table's payload. ``seq`` numbers a queue's frames
+and survives server restarts (the watermark journal restores it);
+``crc`` is the CRC-32 of the uncompressed payload (of the blob for a
+handle); ``row_offset`` counts the table rows of the queue's earlier
+frames, so a resumed consumer skips rows absolutely; ``task`` is the
+producing reducer (``rsdl.trace`` metadata, ``TASK_NONE`` if unknown).
+The stamps are the payload's birth (its ``rsdl.birth`` metadata) and the
+frame's build; zero means unknown.
 
 Recovery, as in the JAX package:
 
 - The server keeps each queue's unacked frames in a replay buffer of at
   most ``queue_replay_bytes`` (over it, a GET pops one new frame at most:
-  backpressure, never a drop). Acks ride on every GET and are journaled
-  (``checkpoint.WatermarkJournal``), so a connection reset at any byte is
-  recovered by reconnect and resume, exactly once.
+  backpressure, never a drop); a handle frame counts its segment's bytes
+  and pins them in the buffer ledger (``procpool.pin_segment``) until
+  its ack, a stream replay or ``close`` releases them. Acks ride on every
+  GET and are journaled (``checkpoint.WatermarkJournal``), so a
+  connection reset at any byte is recovered by reconnect and resume,
+  exactly once.
 - A killed server process is restarted by the supervisor;
   :func:`serve_pipeline` reloads the journal and re-runs the shuffle's
   deterministic lineage from the first epoch not fully consumed,
-  dropping what was delivered (``plan.ir.resume_from_watermarks``).
-  Births are journaled when a frame is first built, so the frames a
-  restarted server regenerates carry their original births.
+  dropping what was delivered (``plan.ir.resume_from_watermarks``). A
+  shard journals, resumes and queues only its own ranks, and sweeps the
+  segments its killed incarnation left. Births are journaled when a
+  frame is first built, so the frames a restarted server regenerates
+  carry their original births.
 - Consumer leases (every request beats them, and a client thread between
   requests) expire after ``queue_lease_timeout_s``; ``on_dead_consumer``
   is ``fail_fast`` (close the server), ``drain`` (free the dead rank's
@@ -70,18 +88,12 @@ Recovery, as in the JAX package:
   tells a dataset on top not to count the last again).
 
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue A item when asked for: tenancy (``OP_TENANT``, ``tenants=``,
-``tenant=``: item 8), live rebalancing (``OP_REBALANCE``, ``placement=``,
-``KIND_MOVED``, the generation fence: item 6), shared-memory handle
-frames and compression (``KIND_TABLE_HANDLE``, the codec nibble,
-``queue_delivery="handle"``, ``queue_compression``: item 5b), shards
-(``ShardedQueueServer``, ``ShardedRemoteQueue``, ``num_shards > 1``: item
-5b) and streaming schedules (``config["epochs"]``: item 7). The server
-stamps generation 0 and codec 0 and streams every table, ignoring a
-client's offer of handles (``FLAG_HANDLES_OK``), as the JAX server does
-under ``queue_delivery="stream"``; the client never offers them. A frame
-the client cannot read (a codec, a handle, a redirect, a generation other
-than 0) raises :class:`UnreadableFrame`; it is never skipped.
+queue A item when asked for: live rebalancing (``OP_REBALANCE``,
+``placement=``, ``KIND_MOVED``, the generation fence: item 6), streaming
+schedules (``config["epochs"]``: item 7) and tenancy (``OP_TENANT``,
+``tenants=``, ``tenant=``: item 8). The server stamps generation 0; a
+frame the client cannot read (a redirect, a generation other than 0)
+raises :class:`UnreadableFrame`; it is never skipped.
 
 Host code: imports no torch, so the server's process never touches a
 card.
@@ -92,18 +104,23 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import json
+import itertools
 import os
+import shutil
 import signal
 import socket
 import struct
 import sys
+import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import pyarrow as pa
 
 from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
+from ray_shuffling_data_loader_tpu_torch import procpool as pp
 from ray_shuffling_data_loader_tpu_torch.dataset import ShuffleFailure
 from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
@@ -138,15 +155,15 @@ OP_TENANT = 5
 OP_REBALANCE = 6
 
 FLAG_RESUME = 1
-#: HELLO flag: the consumer could map the server's shared-memory
-#: segments. This server streams regardless.
+#: HELLO flag: the consumer can map paths on the server's host (loopback,
+#: or a shared shm mount), so table frames may come as segment handles.
 FLAG_HANDLES_OK = 2
 
 KIND_TABLE = 0
 KIND_SENTINEL = 1
 KIND_FAILURE = 2
-#: A table as a shared-memory segment handle (item 5b): never sent here,
-#: unreadable by this client.
+#: A table as a shared-memory segment handle: the payload is the JSON
+#: blob ``{"path", "offset", "size", "crc"}``, the header CRC covers it.
 KIND_TABLE_HANDLE = 3
 #: A rebalancing redirect (item 6): never sent here, unreadable by this
 #: client.
@@ -154,9 +171,11 @@ KIND_MOVED = 4
 
 #: The frame kind byte's low nibble; the high one is the payload codec.
 _KIND_MASK = 0x0F
-CODEC_NONE = 0
+CODEC_NONE, CODEC_ZLIB, CODEC_ZSTD, CODEC_LZ4 = 0, 1, 2, 3
+_CODEC_IDS = {"zlib": CODEC_ZLIB, "zstd": CODEC_ZSTD, "lz4": CODEC_LZ4}
 
-#: OP_NACK ``c``: 0 a CRC failure; 1 an unusable handle (item 5b).
+#: OP_NACK ``c``: 0 a CRC failure (rewind and send again); 1 an unusable
+#: handle (stream the queue from then on).
 NACK_CRC = 0
 NACK_NO_HANDLE = 1
 
@@ -165,32 +184,79 @@ ACK_NONE = 0xFFFFFFFF
 
 DEFAULT_MAX_BATCH = 8
 
-_ITEMS = {"5b": "sharded serving (shared-memory handles, compression, "
-                "shards)",
-          "6": "live rebalancing",
+_LOOPBACK_HOSTS = frozenset({"127.0.0.1", "localhost", "::1"})
+
+_ITEMS = {"6": "live rebalancing",
           "7": "streaming",
           "8": "tenancy"}
 
 
-def not_ported(what: str, item: str, name: Optional[str] = None
-               ) -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for a JAX serving-plane feature the port leaves out:
     ``what`` is what was asked for, ``item`` its ROADMAP queue A item."""
     return NotImplementedError(
-        f"{what} needs the port's {name or _ITEMS[item]}, which is ROADMAP "
-        f"queue A item {item}")
+        f"{what} needs the port's {_ITEMS[item]}, which is ROADMAP queue A "
+        f"item {item}")
 
 
 class UnreadableFrame(RuntimeError):
-    """A frame this client cannot read (a compressed payload, a handle, a
-    redirect or a placement generation other than 0): a JAX server with
-    features of ROADMAP queue A items 5b or 6 on. Raised, never skipped."""
+    """A frame this client cannot read (a redirect or a placement
+    generation other than 0, or an unknown kind): a JAX server with live
+    rebalancing, ROADMAP queue A item 6, on. Raised, never skipped."""
 
 
 def _crc(payload) -> int:
     """``zlib.crc32`` of a bytes-like payload, by the native kernel."""
     from ray_shuffling_data_loader_tpu_torch import native
     return native.crc32(memoryview(payload)) & 0xFFFFFFFF
+
+
+_codec_warned: set = set()
+
+
+def _resolve_compression() -> Optional[Tuple[int, Callable]]:
+    """``(codec_id, compress)`` for the ``queue_compression`` policy, or
+    None when it is off. zstd and lz4 fall back to zlib, with a warning
+    once per name, where their module is not installed."""
+    name = str(rt_policy.resolve("queue", "queue_compression")).strip()
+    name = name.lower()
+    if name in ("", "off", "0", "none", "false"):
+        return None
+    if name not in _CODEC_IDS:
+        raise ValueError(
+            f"RSDL_QUEUE_COMPRESSION must be off, zlib, zstd or lz4; "
+            f"got {name!r}")
+    if name == "zstd":
+        try:
+            import zstandard
+            return CODEC_ZSTD, zstandard.ZstdCompressor().compress
+        except ImportError:
+            pass
+    elif name == "lz4":
+        try:
+            import lz4.frame
+            return CODEC_LZ4, lz4.frame.compress
+        except ImportError:
+            pass
+    if name != "zlib" and name not in _codec_warned:
+        _codec_warned.add(name)
+        logger.warning("queue compression codec %r is not installed; "
+                       "falling back to zlib", name)
+    # Level 1: the wire's gain is latency, not ratio. zlib reads any
+    # buffer, so a pa.Buffer compresses without a bytes copy.
+    return CODEC_ZLIB, lambda data: zlib.compress(data, 1)
+
+
+def _decompress(codec: int, payload) -> bytes:
+    if codec == CODEC_ZLIB:
+        return zlib.decompress(payload)
+    if codec == CODEC_ZSTD:
+        import zstandard
+        return zstandard.ZstdDecompressor().decompress(bytes(payload))
+    if codec == CODEC_LZ4:
+        import lz4.frame
+        return lz4.frame.decompress(bytes(payload))
+    raise ValueError(f"unknown frame codec {codec}")
 
 
 def _pack_stamp(stamp) -> tuple:
@@ -297,16 +363,28 @@ def _materialize(item) -> Tuple[int, object, int, int]:
 
 
 class _Frame:
-    """One frame in a queue's replay buffer: ``wire`` is its payload as
-    sent (the serialized table's ``pa.Buffer``, held once: the socket and
-    the replay buffer share it), ``crc`` its CRC, and the stamps it was
-    built with, which a replay sends again."""
+    """One frame in a queue's replay buffer.
+
+    ``wire`` is its payload as sent (the serialized table's ``pa.Buffer``
+    held once, which the socket and the replay buffer share; compressed
+    bytes; or a handle's blob); ``crc`` the CRC of the uncompressed
+    payload (of the blob for a handle frame, whose segment CRC is inside
+    it); ``data_crc`` that of the serialized table, so a handle frame
+    streams again without a second CRC pass; ``payload_bytes`` the
+    table's serialized size, which a handle frame pins in the buffer
+    ledger (``ledger_id``) until it is acked. The stamps are the ones it
+    was built with, which a replay sends again. ``pending_codec`` is
+    ``(future, codec)`` while the codec pool compresses it."""
 
     __slots__ = ("seq", "kind", "epoch", "wire", "crc", "row_offset",
-                 "nrows", "task", "birth", "queued")
+                 "nrows", "task", "codec", "payload_bytes", "data_crc",
+                 "handle_path", "ledger_id", "birth", "queued",
+                 "pending_codec")
 
     def __init__(self, seq, kind, epoch, wire, crc, row_offset, nrows,
-                 task=TASK_NONE, birth=None, queued=None):
+                 task=TASK_NONE, codec=CODEC_NONE, payload_bytes=None,
+                 data_crc=None, handle_path=None, ledger_id=None,
+                 birth=None, queued=None):
         self.seq = seq
         self.kind = kind
         self.epoch = epoch
@@ -315,13 +393,41 @@ class _Frame:
         self.row_offset = row_offset
         self.nrows = nrows
         self.task = task
+        self.codec = codec
+        self.payload_bytes = (payload_bytes if payload_bytes is not None
+                              else self.wire_len)
+        self.data_crc = data_crc if data_crc is not None else crc
+        self.handle_path = handle_path
+        self.ledger_id = ledger_id
         self.birth = birth
         self.queued = queued
+        self.pending_codec = None
+
+    def resolve_codec(self) -> int:
+        """Land a codec-pool compression: the compressed bytes become the
+        wire payload if they are smaller (the inline rule). Returns the
+        change in resident bytes (<= 0) for the replay accounting."""
+        fut, codec_id = self.pending_codec
+        self.pending_codec = None
+        old = self.wire_len
+        compressed = fut.result()
+        if len(compressed) < self.payload_bytes:
+            self.wire = compressed
+            self.codec = codec_id
+        return self.wire_len - old
+
+    @property
+    def wire_len(self) -> int:
+        wire = self.wire
+        return wire.size if isinstance(wire, pa.Buffer) else len(wire)
 
     @property
     def size(self) -> int:
-        wire = self.wire
-        return wire.size if isinstance(wire, pa.Buffer) else len(wire)
+        """The bytes this unacked frame holds: its segment for a handle
+        frame, its (possibly compressed) payload otherwise."""
+        if self.kind == KIND_TABLE_HANDLE:
+            return self.payload_bytes
+        return self.wire_len
 
 
 class _QueueState:
@@ -330,7 +436,7 @@ class _QueueState:
 
     __slots__ = ("next_seq", "sent_seq", "acked_seq", "acked_rows",
                  "rows_total", "replay", "replay_bytes", "done", "lock",
-                 "births")
+                 "no_handles", "births")
 
     def __init__(self, next_seq: int = 0, rows: int = 0,
                  done: bool = False, births=None):
@@ -343,6 +449,7 @@ class _QueueState:
         self.replay_bytes = 0
         self.done = done               # the sentinel was acked
         self.lock = threading.Lock()
+        self.no_handles = False        # NACK_NO_HANDLE: streamed from now
         #: seq -> original birth Stamp from the journal, given back to
         #: the frames a restarted server regenerates.
         self.births: Dict[int, rt_lat.Stamp] = births or {}
@@ -375,28 +482,14 @@ def _put_quiet(queue: mq.MultiQueue, queue_idx: int, item) -> bool:
 def _resolve_delivery(override: Optional[str] = None) -> str:
     delivery = rt_policy.resolve("queue", "queue_delivery",
                                  override=override)
-    if delivery == "handle":
-        raise not_ported('queue_delivery="handle" (shared-memory segment '
-                         "handles)", "5b")
-    if delivery not in ("auto", "stream"):
+    if delivery not in ("auto", "stream", "handle"):
         raise ValueError(f"RSDL_QUEUE_DELIVERY must be auto, stream or "
                          f"handle, got {delivery!r}")
     return delivery
 
 
-def _check_compression() -> None:
-    name = str(rt_policy.resolve("queue", "queue_compression"))
-    name = name.strip().lower()
-    if name in ("", "off", "0", "none", "false"):
-        return
-    if name in ("zlib", "zstd", "lz4"):
-        raise not_ported(f"queue_compression={name!r}", "5b")
-    raise ValueError(f"RSDL_QUEUE_COMPRESSION must be off, zlib, zstd or "
-                     f"lz4; got {name!r}")
-
-
 class QueueServer:
-    """Exports a ``MultiQueue`` over TCP (the v3.3 wire, one server).
+    """Exports a ``MultiQueue`` over TCP (the v3.3 wire).
 
     One thread per consumer connection. A GET's first pop blocks until
     the queue yields (so the consumer's backpressure holds); the rest of
@@ -408,10 +501,12 @@ class QueueServer:
     process) turns an injected ``queue_server_crash`` into ``os._exit``,
     a real death for the supervisor to recover.
 
-    ``shard_index``/``num_shards``/``handle_dir`` (sharded serving, item
-    5b), ``tenants`` (item 8) and ``placement`` (item 6) are the JAX
-    package's signature; anything but their single-server defaults
-    raises ``NotImplementedError``.
+    ``shard_index`` of ``num_shards``: this server owns the queues of its
+    ranks (``plan.ir.queue_shard``) and answers a GET for another with a
+    failure frame. ``handle_dir`` is where handle frames' segments go (a
+    directory of its own under the shm root by default, removed at
+    ``close``). ``tenants`` (item 8) and ``placement`` (item 6) are the
+    JAX package's signature and raise ``NotImplementedError``.
     """
 
     def __init__(self, queue: mq.MultiQueue, address: Tuple[str, int],
@@ -422,12 +517,6 @@ class QueueServer:
                  handle_dir: Optional[str] = None,
                  tenants: Optional[dict] = None,
                  placement: Optional[dict] = None):
-        if num_shards > 1 or shard_index:
-            raise not_ported(f"a queue server shard ({shard_index} of "
-                             f"{num_shards})", "5b")
-        if handle_dir is not None:
-            raise not_ported("handle_dir (shared-memory handle frames)",
-                             "5b")
         if tenants:
             raise not_ported("tenants=", "8")
         if placement:
@@ -436,6 +525,8 @@ class QueueServer:
         self._num_trainers = max(1, num_trainers)
         self._journal = journal
         self._exit_on_crash_site = exit_on_crash_site
+        self._shard_index = shard_index
+        self._num_shards = max(1, num_shards)
         self._timeout_s = rt_policy.resolve("queue", "queue_timeout_s")
         self._nodelay = rt_policy.resolve("queue", "queue_nodelay")
         self._replay_budget = rt_policy.resolve("queue",
@@ -449,19 +540,45 @@ class QueueServer:
             raise ValueError(
                 f"RSDL_QUEUE_ON_DEAD_CONSUMER must be fail_fast, drain, or "
                 f"redistribute, got {self._on_dead_consumer!r}")
-        _resolve_delivery()
-        _check_compression()
+        self._delivery = _resolve_delivery()
+        self._compression = _resolve_compression()
+        self._compression_min = rt_policy.resolve(
+            "queue", "queue_compression_min_bytes")
         self._sendmsg = bool(rt_policy.resolve("queue", "queue_sendmsg"))
+        codec_threads = int(rt_policy.resolve("queue",
+                                              "queue_codec_threads"))
+        # The bounded codec pool: frames compress on these threads while
+        # the serving thread pops and serializes the next one, at most
+        # codec_threads cores over every connection (0: inline).
+        self._codec_pool = (
+            cf.ThreadPoolExecutor(
+                max_workers=codec_threads,
+                thread_name_prefix=f"rsdl-codec-s{shard_index}")
+            if self._compression and codec_threads > 0 else None)
+        self._handle_dir = handle_dir
+        self._own_handle_dir = False
+        self._handle_names = itertools.count()
+        shard = str(shard_index)
         self._payload_bytes = rt_metrics.counter(
             "rsdl_queue_payload_bytes_total",
-            "logical (uncompressed) table-payload bytes served", shard="0")
+            "logical (uncompressed) table-payload bytes served", shard=shard)
         self._wire_bytes = rt_metrics.counter(
             "rsdl_queue_bytes_on_wire_total",
             "payload bytes actually written to consumer sockets",
-            shard="0")
+            shard=shard)
+        self._handle_hits = rt_metrics.counter(
+            "rsdl_queue_handle_hits_total",
+            "table frames delivered as shm segment handles", shard=shard)
+        self._handle_misses = rt_metrics.counter(
+            "rsdl_queue_handle_misses_total",
+            "table frames streamed as bytes (no handle possible)",
+            shard=shard)
+        self._compression_saved = rt_metrics.counter(
+            "rsdl_queue_compression_saved_bytes_total",
+            "payload bytes saved by frame compression", shard=shard)
         self._shard_depth = rt_metrics.gauge(
             "rsdl_queue_shard_depth",
-            "items resident across this shard's served queues", shard="0")
+            "items resident across this shard's served queues", shard=shard)
         self._replayed = rt_metrics.counter(
             "rsdl_queue_frames_replayed_total",
             "frames re-sent from the server replay buffer")
@@ -554,14 +671,47 @@ class QueueServer:
     def _epoch_of(self, queue_idx: int) -> int:
         return plan_ir.queue_epoch(queue_idx, self._num_trainers)
 
+    def _owns_queue(self, queue_idx: int) -> bool:
+        return (self._num_shards <= 1
+                or plan_ir.queue_shard(queue_idx, self._num_trainers,
+                                       self._num_shards)
+                == self._shard_index)
+
+    def _ensure_handle_dir(self) -> str:
+        """The directory of handle frames' segments: made at first use
+        under the shm root, or the one the caller pinned (a supervised
+        shard's, so its restarts reuse it)."""
+        if self._handle_dir is None:
+            self._handle_dir = tempfile.mkdtemp(
+                prefix=f"rsdl-qhandles-s{self._shard_index}-",
+                dir=pp.shm_base_dir())
+            self._own_handle_dir = True
+        else:
+            os.makedirs(self._handle_dir, exist_ok=True)
+        return self._handle_dir
+
+    def _release_frame(self, frame: _Frame) -> None:
+        """Unpin and unlink a handle frame's segment (a consumer that
+        mapped it keeps its mapping); nothing for other frames."""
+        pp.release_segment(frame.ledger_id, frame.handle_path, unlink=True)
+        frame.ledger_id = None
+
     def _make_frame(self, queue_idx: int, seq: int, kind: int, data,
                     nrows: int, task: int, row_offset: int,
+                    want_handle: bool = False,
                     restored_birth=None) -> _Frame:
-        """Build one frame, serializing a table once. Its birth is the
-        journal's for this seq where this server regenerates it after a
-        restart (the regenerated table's own stamp is fresh, and would
-        hide the crash from the latency record), else the table's
-        ``rsdl.birth``, journaled here. Observes ``birth_to_queued``."""
+        """Build one frame, serializing a table once. With
+        ``want_handle`` (and delivery not ``"stream"``) the serialized
+        buffer becomes a shm segment, pinned in the buffer ledger, and the
+        wire carries only its handle; otherwise the buffer is the wire
+        payload (compressed under ``queue_compression``, inline or by the
+        codec pool; the CRC is taken first, over the uncompressed bytes).
+
+        Its birth is the journal's for this seq where this server
+        regenerates it after a restart (the regenerated table's own stamp
+        is fresh, and would hide the crash from the latency record), else
+        the table's ``rsdl.birth``, journaled here. Observes
+        ``birth_to_queued``."""
         epoch = self._epoch_of(queue_idx)
         queued = rt_lat.now_stamp()
         if kind != KIND_TABLE:
@@ -581,10 +731,57 @@ class QueueServer:
                 self._anchors.latency_s(birth, now_mono=queued.t_mono,
                                         now_unix=queued.t_unix))
         buf = _serialize(data)
-        return _Frame(seq, KIND_TABLE, epoch, buf, _crc(buf), row_offset,
-                      nrows, task, birth=birth, queued=queued)
+        logical = buf.size
+        data_crc = _crc(buf)
+        if want_handle and self._delivery != "stream":
+            path = os.path.join(
+                self._ensure_handle_dir(),
+                f"h{os.getpid()}_{next(self._handle_names)}.arrow")
+            pp.write_buffer_segment(buf, path)
+            ledger_id = pp.pin_segment(logical)
+            blob = json.dumps({"path": path, "offset": 0, "size": logical,
+                               "crc": data_crc}).encode()
+            self._handle_hits.inc()
+            return _Frame(seq, KIND_TABLE_HANDLE, epoch, blob, _crc(blob),
+                          row_offset, nrows, task, payload_bytes=logical,
+                          data_crc=data_crc, handle_path=path,
+                          ledger_id=ledger_id, birth=birth, queued=queued)
+        self._handle_misses.inc()
+        wire: object = buf
+        codec = CODEC_NONE
+        pending = None
+        if self._compression and logical >= self._compression_min:
+            codec_id, compress = self._compression
+            if self._codec_pool is not None:
+                # _collect_frames lands it before the batch leaves the
+                # queue's lock.
+                pending = (self._codec_pool.submit(compress, buf), codec_id)
+            else:
+                compressed = compress(buf)
+                if len(compressed) < logical:
+                    wire, codec = compressed, codec_id
+                    self._compression_saved.inc(logical - len(compressed))
+        frame = _Frame(seq, KIND_TABLE, epoch, wire, data_crc, row_offset,
+                       nrows, task, codec=codec, payload_bytes=logical,
+                       data_crc=data_crc, birth=birth, queued=queued)
+        frame.pending_codec = pending
+        return frame
 
-    def _note_depth(self) -> None:
+    def _downgrade_frame(self, frame: _Frame) -> _Frame:
+        """A handle frame as a streamed one (after NACK_NO_HANDLE): the
+        segment this server wrote, mapped, is the wire payload. Seq, rows
+        and the segment's pin carry over (no second pin), so its ack
+        releases it once; the CRC is the stored segment CRC."""
+        buf = pp.read_segment_buffer(frame.handle_path)
+        return _Frame(frame.seq, KIND_TABLE, frame.epoch, buf,
+                      frame.data_crc, frame.row_offset, frame.nrows,
+                      frame.task, payload_bytes=frame.payload_bytes,
+                      data_crc=frame.data_crc,
+                      handle_path=frame.handle_path,
+                      ledger_id=frame.ledger_id, birth=frame.birth,
+                      queued=frame.queued)
+
+    def _note_shard_depth(self) -> None:
         if rt_telemetry.stamp():
             with self._states_lock:
                 queues = list(self._states)
@@ -597,6 +794,7 @@ class QueueServer:
         while state.replay and state.replay[0].seq <= ack:
             frame = state.replay.popleft()
             state.replay_bytes -= frame.size
+            self._release_frame(frame)
             state.acked_rows = frame.row_offset + frame.nrows
             if frame.kind == KIND_SENTINEL:
                 done = True
@@ -607,10 +805,12 @@ class QueueServer:
 
     def _collect_frames(self, queue_idx: int, max_items: int,
                         ack: Optional[int], resume: bool,
-                        consumer_id) -> Optional[List[_Frame]]:
+                        consumer_id, handles_ok: bool = False
+                        ) -> Optional[List[_Frame]]:
         """One response: the unacked frames past the send cursor first,
         then new pops. None when the server closed under the blocking
-        pop."""
+        pop. ``handles_ok`` is the connection's HELLO offer; a queue
+        NACK'd with NACK_NO_HANDLE streams whatever it offers."""
         # The whole server process dying mid-epoch (the supervisor's
         # unit of recovery): in its own process a real exit, here a
         # closed server.
@@ -625,51 +825,78 @@ class QueueServer:
             raise
         state = self._state(queue_idx)
         with state.lock:
+            want_handle = handles_ok and not state.no_handles
             if ack is not None and ack > state.acked_seq:
                 self._apply_ack(queue_idx, state, ack)
             if resume:
                 # A reconnect: rewind to the watermark so the frames a
                 # reset ate are sent again.
                 state.sent_seq = state.acked_seq
+            if not want_handle and any(
+                    f.kind == KIND_TABLE_HANDLE and f.seq > state.sent_seq
+                    for f in state.replay):
+                # Handles withdrawn (a NACK_NO_HANDLE, or a connection
+                # that offers none): the unsent handle frames stream in
+                # place, same seqs, bytes and CRCs.
+                state.replay = collections.deque(
+                    self._downgrade_frame(f)
+                    if f.kind == KIND_TABLE_HANDLE
+                    and f.seq > state.sent_seq else f
+                    for f in state.replay)
             frames: List[_Frame] = [f for f in state.replay
                                     if f.seq > state.sent_seq][:max_items]
             if frames:
                 self._replayed.inc(len(frames))
                 rt_telemetry.record("frame_replay", epoch=frames[0].epoch,
                                     task=queue_idx, count=len(frames))
-            while (len(frames) < max_items
-                   and (not frames or frames[-1].kind == KIND_TABLE)):
-                if frames and state.replay_bytes > self._replay_budget:
-                    # Backpressure: the unacked bytes are at the budget.
-                    # At least one frame per GET, so acks can progress.
-                    break
-                item = self._pop(queue_idx, blocking=not frames,
-                                 consumer_id=consumer_id)
-                if item is _POP_CLOSED:
-                    return frames or None
-                if item is _POP_EMPTY:
-                    break
-                kind, data, nrows, task = _materialize(item)
-                seq = state.next_seq
-                state.next_seq += 1
-                row_offset = state.rows_total
-                state.rows_total += nrows
-                if seq <= state.acked_seq:
-                    # Regenerated after a restart and already consumed
-                    # (the ack outran the journal): dropped, its rows
-                    # counted.
-                    state.acked_rows = row_offset + nrows
-                    state.births.pop(seq, None)
-                    continue
-                frame = self._make_frame(
-                    queue_idx, seq, kind, data, nrows, task, row_offset,
-                    restored_birth=state.births.pop(seq, None))
-                state.replay.append(frame)
-                state.replay_bytes += frame.size
-                frames.append(frame)
+            try:
+                while (len(frames) < max_items
+                       and (not frames
+                            or frames[-1].kind in (KIND_TABLE,
+                                                   KIND_TABLE_HANDLE))):
+                    if frames and state.replay_bytes > self._replay_budget:
+                        # Backpressure: the unacked bytes are at the
+                        # budget. At least one frame per GET, so acks can
+                        # progress.
+                        break
+                    item = self._pop(queue_idx, blocking=not frames,
+                                     consumer_id=consumer_id)
+                    if item is _POP_CLOSED:
+                        return frames or None
+                    if item is _POP_EMPTY:
+                        break
+                    kind, data, nrows, task = _materialize(item)
+                    seq = state.next_seq
+                    state.next_seq += 1
+                    row_offset = state.rows_total
+                    state.rows_total += nrows
+                    if seq <= state.acked_seq:
+                        # Regenerated after a restart and already consumed
+                        # (the ack outran the journal): dropped, its rows
+                        # counted.
+                        state.acked_rows = row_offset + nrows
+                        state.births.pop(seq, None)
+                        continue
+                    frame = self._make_frame(
+                        queue_idx, seq, kind, data, nrows, task, row_offset,
+                        want_handle,
+                        restored_birth=state.births.pop(seq, None))
+                    state.replay.append(frame)
+                    state.replay_bytes += frame.size
+                    frames.append(frame)
+            finally:
+                # Every pending compression lands before the batch leaves
+                # the lock, on every exit: the replay buffer and the wire
+                # serve the same bytes.
+                for f in frames:
+                    if f.pending_codec is not None:
+                        delta = f.resolve_codec()
+                        state.replay_bytes += delta
+                        if delta < 0:
+                            self._compression_saved.inc(-delta)
             if frames:
                 state.sent_seq = frames[-1].seq
-        self._note_depth()
+        self._note_shard_depth()
         return frames
 
     def _send_frames(self, conn: socket.socket, queue_idx: int,
@@ -685,10 +912,11 @@ class QueueServer:
             conn.sendall(vecs[0])
             vecs.clear()
         for frame in frames:
-            size = frame.size
-            header = _FRAME.pack(frame.kind, frame.epoch, frame.seq,
-                                 frame.crc, frame.row_offset, size,
-                                 frame.task, *_pack_stamp(frame.birth),
+            size = frame.wire_len
+            header = _FRAME.pack(frame.kind | (frame.codec << 4),
+                                 frame.epoch, frame.seq, frame.crc,
+                                 frame.row_offset, size, frame.task,
+                                 *_pack_stamp(frame.birth),
                                  *_pack_stamp(frame.queued), 0)
             try:
                 rt_faults.inject("conn_reset_midframe", epoch=frame.epoch,
@@ -729,9 +957,9 @@ class QueueServer:
                 if payload is not None:
                     # rsdl-lint: disable=sendall-in-loop
                     conn.sendall(payload)
-            if frame.kind == KIND_TABLE:
+            if frame.kind in (KIND_TABLE, KIND_TABLE_HANDLE):
                 self._wire_bytes.inc(size)
-                self._payload_bytes.inc(size)
+                self._payload_bytes.inc(frame.payload_bytes)
         if gather:
             _sendmsg_all(conn, vecs)
 
@@ -745,6 +973,7 @@ class QueueServer:
 
     def _serve_conn(self, conn: socket.socket) -> None:
         consumer_id: Optional[int] = None
+        handles_ok = False
         # Set by a request for a feature this port leaves out: every
         # later GET on the connection is answered with this failure.
         refused: Optional[bytes] = None
@@ -760,17 +989,15 @@ class QueueServer:
                     raw += _recv_exact(conn, _REQUEST.size - len(raw))
                 op, flags, a, b, c = _REQUEST.unpack(raw)
                 if op == OP_HELLO:
-                    # FLAG_HANDLES_OK is ignored: this server streams.
                     consumer_id = a | (b << 32)
+                    handles_ok = bool(flags & FLAG_HANDLES_OK)
                     self._lease_beat(consumer_id, None)
                     continue
                 if op == OP_HEARTBEAT:
                     self._lease_beat(consumer_id, None)
                     continue
                 if op == OP_NACK:
-                    # A NACK_NO_HANDLE rewinds too: this server sends no
-                    # handles, so streaming again is all it could ask.
-                    self._handle_nack(a, b)
+                    self._handle_nack(a, b, c)
                     self._lease_beat(consumer_id, a)
                     continue
                 if op == OP_TENANT:
@@ -796,12 +1023,21 @@ class QueueServer:
                     conn.sendall(self._fail_frame(refused))
                     continue
                 queue_idx, max_items = a, b
+                if not self._owns_queue(queue_idx):
+                    # A consumer dialling the wrong shard fails loudly; a
+                    # foreign rank's stream is never served.
+                    conn.sendall(self._fail_frame(
+                        f"queue {queue_idx} is not served by shard "
+                        f"{self._shard_index}/{self._num_shards} "
+                        f"(plan query queue_shard)".encode()))
+                    continue
                 ack = None if c == ACK_NONE else c
                 self._lease_beat(consumer_id, queue_idx)
                 try:
                     frames = self._collect_frames(
                         queue_idx, max(1, max_items), ack,
-                        bool(flags & FLAG_RESUME), consumer_id)
+                        bool(flags & FLAG_RESUME), consumer_id,
+                        handles_ok=handles_ok)
                 except mq.ShutdownError as e:
                     # The queue shut down under a blocked GET: fail loudly.
                     conn.sendall(self._fail_frame(repr(e).encode()))
@@ -822,11 +1058,25 @@ class QueueServer:
             with self._conn_lock:
                 self._conn_threads.discard(threading.current_thread())
 
-    def _handle_nack(self, queue_idx: int, bad_seq: int) -> None:
+    def _handle_nack(self, queue_idx: int, bad_seq: int,
+                     mode: int = NACK_CRC) -> None:
         state = self._state(queue_idx)
         with state.lock:
             state.sent_seq = min(state.sent_seq, bad_seq - 1)
+            if mode == NACK_NO_HANDLE:
+                # The consumer cannot map this queue's segments: streamed
+                # from now on, the rewound frames downgraded at the next
+                # GET.
+                state.no_handles = True
         self._nacked.inc()
+        if mode == NACK_NO_HANDLE:
+            rt_telemetry.record("handle_downgrade",
+                                epoch=self._epoch_of(queue_idx),
+                                task=queue_idx, seq=bad_seq)
+            logger.warning(
+                "queue %d: consumer cannot use the shm handle of frame %d; "
+                "streaming the queue from now on", queue_idx, bad_seq)
+            return
         rt_telemetry.record("frame_nack", epoch=self._epoch_of(queue_idx),
                             task=queue_idx, seq=bad_seq)
         logger.warning("queue %d: consumer NACK'd frame %d (CRC mismatch); "
@@ -954,6 +1204,8 @@ class QueueServer:
         for q in dead_queues:
             state = self._state(q)
             with state.lock:
+                for frame in state.replay:
+                    self._release_frame(frame)
                 state.replay.clear()
                 state.replay_bytes = 0
         while not self._closed.wait(0.2):
@@ -1011,6 +1263,24 @@ class QueueServer:
                 logger.warning("queue server handler %s did not drain "
                                "within 5s", thread.name)
         self._accept_thread.join(timeout=2.0)
+        # The pins the replay buffers still hold (a consumer that mapped
+        # a segment keeps its mapping), and the segment directory if this
+        # server made it.
+        with self._states_lock:
+            states = list(self._states.values())
+        for state in states:
+            with state.lock:
+                for frame in state.replay:
+                    self._release_frame(frame)
+        if self._own_handle_dir and self._handle_dir:
+            shutil.rmtree(self._handle_dir, ignore_errors=True)
+        elif self._handle_dir:
+            try:
+                os.rmdir(self._handle_dir)  # a pinned one, if now empty
+            except OSError:
+                pass
+        if self._codec_pool is not None:
+            self._codec_pool.shutdown(wait=True)
 
     def __enter__(self) -> "QueueServer":
         return self
@@ -1023,34 +1293,86 @@ def serve_queue(queue: mq.MultiQueue,
                 address: Tuple[str, int] = ("127.0.0.1", 0),
                 num_trainers: int = 1, journal=None,
                 initial_state: Optional[Dict[int, object]] = None,
-                exit_on_crash_site: bool = False, **left_out) -> QueueServer:
-    """Start serving ``queue`` on ``address`` (port 0: an ephemeral one).
-    ``left_out`` takes the JAX signature's sharding, tenancy and placement
-    arguments, which :class:`QueueServer` refuses."""
+                exit_on_crash_site: bool = False,
+                shard_index: int = 0, num_shards: int = 1,
+                handle_dir: Optional[str] = None,
+                tenants: Optional[dict] = None,
+                placement: Optional[dict] = None) -> QueueServer:
+    """Start serving ``queue`` on ``address`` (port 0: an ephemeral one)."""
     return QueueServer(queue, address, num_trainers=num_trainers,
                        journal=journal, initial_state=initial_state,
-                       exit_on_crash_site=exit_on_crash_site, **left_out)
+                       exit_on_crash_site=exit_on_crash_site,
+                       shard_index=shard_index, num_shards=num_shards,
+                       handle_dir=handle_dir, tenants=tenants,
+                       placement=placement)
 
 
 class ShardedQueueServer:
-    """The JAX package's N in-process server shards: ROADMAP queue A item
-    5b."""
+    """N in-process :class:`QueueServer` shards over one ``MultiQueue``.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ShardedQueueServer", "5b")
+    Each shard owns the queues of its ranks (``plan.ir.queue_shard``),
+    listens on a port of its own and keeps its own replay, lease and
+    journal state and its own metrics. ``shard_map`` is the
+    :class:`plan.ir.ShardMap` consumers route by (give it to
+    :class:`ShardedRemoteQueue`). One process per shard is
+    ``runtime.supervisor.launch_supervised_queue_shards``.
+    """
+
+    def __init__(self, queue: mq.MultiQueue, num_shards: int,
+                 num_trainers: int = 1, host: str = "127.0.0.1",
+                 journals: Optional[List] = None,
+                 initial_states: Optional[List] = None,
+                 handle_dir: Optional[str] = None,
+                 tenants: Optional[dict] = None):
+        num_shards = max(1, num_shards)
+        self.servers: List[QueueServer] = []
+        try:
+            for shard in range(num_shards):
+                self.servers.append(QueueServer(
+                    queue, (host, 0), num_trainers=num_trainers,
+                    journal=journals[shard] if journals else None,
+                    initial_state=(initial_states[shard]
+                                   if initial_states else None),
+                    shard_index=shard, num_shards=num_shards,
+                    handle_dir=(os.path.join(handle_dir, f"s{shard}")
+                                if handle_dir else None),
+                    tenants=tenants))
+        except BaseException:
+            self.close()
+            raise
+        self.shard_map = plan_ir.ShardMap(
+            num_trainers=max(1, num_trainers),
+            addresses=[s.address for s in self.servers])
+        rt_metrics.gauge(
+            "rsdl_queue_serve_shards",
+            "shard count of the live queue serving plane").set(num_shards)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.servers)
+
+    def close(self) -> None:
+        for server in self.servers:
+            server.close()
+
+    def __enter__(self) -> "ShardedQueueServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
-class ShardedRemoteQueue:
-    """The JAX package's client of server shards: ROADMAP queue A item
-    5b."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ShardedRemoteQueue", "5b")
-
-
-def serve_queue_sharded(*args, **kwargs):
-    """The JAX package's shard-serving helper: ROADMAP queue A item 5b."""
-    raise not_ported("serve_queue_sharded", "5b")
+def serve_queue_sharded(queue: mq.MultiQueue,
+                        num_shards: Optional[int] = None,
+                        num_trainers: int = 1,
+                        host: str = "127.0.0.1",
+                        **kwargs) -> ShardedQueueServer:
+    """Serve ``queue`` from ``num_shards`` shards (the ``queue_shards``
+    policy by default; 1 is the one-server topology)."""
+    if num_shards is None:
+        num_shards = rt_policy.resolve("queue", "queue_shards")
+    return ShardedQueueServer(queue, num_shards, num_trainers=num_trainers,
+                              host=host, **kwargs)
 
 
 class RemoteQueue:
@@ -1075,9 +1397,14 @@ class RemoteQueue:
     that dies and resumes finds its uncommitted frames replayed. A
     heartbeat thread keeps the server's lease alive between GETs.
 
-    ``delivery`` (``queue_delivery``: ``"auto"``/``"stream"``; the JAX
-    package's ``"handle"`` is item 5b), ``num_trainers`` (the latency
-    label is the rank) and ``tenant`` (item 8) are the JAX signature.
+    ``delivery`` (``queue_delivery``): ``"auto"`` offers shared-memory
+    handles when the server's address is loopback, ``"handle"`` offers
+    them regardless, ``"stream"`` never. A handle frame's segment is
+    mapped and its CRC checked; a handle that cannot be used is NACK'd
+    with ``NACK_NO_HANDLE`` and the queue streams from then on (slower,
+    still exactly once). A compressed frame is decompressed before its
+    CRC is checked. ``num_trainers`` makes the latency label the rank;
+    ``tenant`` (item 8) raises ``NotImplementedError``.
     """
 
     #: This client observes ``birth_to_delivered`` from the frame stamps;
@@ -1099,8 +1426,13 @@ class RemoteQueue:
                 f"ack_mode must be 'delivered' or 'manual', got {ack_mode!r}")
         if tenant is not None:
             raise not_ported("tenant=", "8")
-        _resolve_delivery(delivery)
+        self._delivery = _resolve_delivery(delivery)
         self._address = (str(address[0]), int(address[1]))
+        host = self._address[0]
+        self._offer_handles = (
+            self._delivery == "handle"
+            or (self._delivery == "auto"
+                and (host in _LOOPBACK_HOSTS or host.startswith("127."))))
         self._ack_mode = ack_mode
         self._num_trainers = max(1, int(num_trainers))
         self._lat_anchors = rt_lat.ClockAnchors()
@@ -1154,7 +1486,8 @@ class RemoteQueue:
 
     def _reconnect(self) -> None:
         """(Re)dial the server, closing the old socket first, send the
-        lease HELLO (offering no handles) and arm every queue's resume."""
+        lease HELLO (with the handle offer) and arm every queue's
+        resume."""
         with self._io_lock:
             old = self._sock
             if old is not None:
@@ -1170,7 +1503,8 @@ class RemoteQueue:
             if self._nodelay:
                 sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             sock.sendall(_REQUEST.pack(
-                OP_HELLO, 0, self._consumer_id & 0xFFFFFFFF,
+                OP_HELLO, FLAG_HANDLES_OK if self._offer_handles else 0,
+                self._consumer_id & 0xFFFFFFFF,
                 (self._consumer_id >> 32) & 0xFFFFFFFF, 0))
             self._sock = sock
             self._fetched_since_connect = set()
@@ -1205,12 +1539,14 @@ class RemoteQueue:
                 self._committed[q] = max(self._committed[q],
                                          self._delivered[q])
 
-    def _read_frames(self, queue_index: int, count: int, parsed: list):
+    def _read_frames(self, queue_index: int, count: int, parsed: list
+                     ) -> Optional[Tuple[int, int]]:
         """Read ``count`` frames of a response into ``parsed``; returns
-        the seq of the first frame that failed its CRC (None if none).
-        Framing stays aligned past a bad frame: its payload and the rest
-        are read and dropped (delivery is in order)."""
-        corrupt_seq = None
+        ``(seq, NACK mode)`` of the first frame that failed its CRC or
+        whose handle could not be used (None if none). Framing stays
+        aligned past a bad frame: its payload and the rest are read and
+        dropped (delivery is in order)."""
+        bad = None
         for _ in range(count):
             (kind_byte, epoch, seq, crc, row_offset, length, src_task,
              b_mono, b_unix, b_pid, q_mono, q_unix, q_pid,
@@ -1218,48 +1554,67 @@ class RemoteQueue:
                                                       _FRAME.size))
             kind, codec = kind_byte & _KIND_MASK, kind_byte >> 4
             payload = _recv_payload(self._sock, length) if length else b""
-            if corrupt_seq is not None:
+            if bad is not None:
                 continue
             if kind == KIND_MOVED:
                 raise UnreadableFrame(
                     f"queue {queue_index}: frame {seq} is a MOVED "
                     f"redirect; {not_ported('following it', '6')}")
-            if kind == KIND_TABLE_HANDLE:
-                raise UnreadableFrame(
-                    f"queue {queue_index}: frame {seq} is a shared-memory "
-                    f"handle; {not_ported('reading it', '5b')}")
-            if kind not in (KIND_TABLE, KIND_SENTINEL, KIND_FAILURE):
+            if kind not in (KIND_TABLE, KIND_SENTINEL, KIND_FAILURE,
+                            KIND_TABLE_HANDLE):
                 raise UnreadableFrame(
                     f"queue {queue_index}: frame {seq} has unknown kind "
                     f"{kind}")
-            if codec != CODEC_NONE:
-                raise UnreadableFrame(
-                    f"queue {queue_index}: frame {seq} is compressed "
-                    f"(codec {codec}); {not_ported('reading it', '5b')}")
             if generation and kind != KIND_FAILURE:
                 raise UnreadableFrame(
                     f"queue {queue_index}: frame {seq} carries placement "
                     f"generation {generation}; "
                     f"{not_ported('its fence', '6')}")
-            if _crc(payload) != crc:
+            try:
+                # The CRC is over the uncompressed bytes: a torn
+                # compressed payload fails here and is NACK'd like any.
+                raw = (_decompress(codec, payload) if codec != CODEC_NONE
+                       else payload)
+            except Exception:  # noqa: BLE001 - NACK'd below
+                raw = None
+            if raw is None or _crc(raw) != crc:
                 # Rejected with everything after it; NACK'd by the caller
                 # so the server sends the good copy again.
-                corrupt_seq = seq
+                bad = (seq, NACK_CRC)
                 self._corrupt.inc()
                 rt_telemetry.record("frame_corrupt", epoch=epoch,
                                     task=queue_index, seq=seq)
                 logger.warning("queue %d: frame %d failed CRC; NACKing",
                                queue_index, seq)
                 continue
+            if kind == KIND_TABLE_HANDLE:
+                # Map the segment the server serialized and check its CRC
+                # off the mapped pages; any failure asks for the queue to
+                # be streamed.
+                try:
+                    handle = json.loads(bytes(raw).decode())
+                    buf = pp.read_segment_buffer(handle["path"])
+                    if _crc(buf) != handle["crc"]:
+                        raise ValueError("segment CRC mismatch")
+                except (OSError, ValueError, KeyError, TypeError) as e:
+                    bad = (seq, NACK_NO_HANDLE)
+                    rt_telemetry.record("handle_downgrade", epoch=epoch,
+                                        task=queue_index, seq=seq)
+                    logger.warning(
+                        "queue %d: the shm handle of frame %d is unusable "
+                        "(%s); asking for streamed delivery", queue_index,
+                        seq, e)
+                    continue
+                kind, raw = KIND_TABLE, buf
             if kind == KIND_TABLE and src_task != TASK_NONE:
                 # The cross-process causal link: this payload came from
                 # reducer src_task in the server's process.
                 rt_telemetry.record("frame_recv", epoch=epoch,
                                     task=src_task, seq=seq)
-            parsed.append((kind, seq, row_offset, payload,
+            parsed.append((kind, seq, row_offset, raw,
                            _unpack_stamp(b_mono, b_unix, b_pid),
                            _unpack_stamp(q_mono, q_unix, q_pid), epoch))
-        return corrupt_seq
+        return bad
 
     def _fetch_batch(self, queue_index: int) -> Tuple[List, bool]:
         """One round trip: request up to ``max_batch`` frames, read and
@@ -1291,11 +1646,10 @@ class RemoteQueue:
                     (count,) = _BATCH_HEADER.unpack(
                         _recv_exact(self._sock, _BATCH_HEADER.size))
                     response_started = True
-                    corrupt_seq = self._read_frames(queue_index, count,
-                                                    parsed)
-                    if corrupt_seq is not None:
+                    bad = self._read_frames(queue_index, count, parsed)
+                    if bad is not None:
                         self._sock.sendall(_REQUEST.pack(
-                            OP_NACK, 0, queue_index, corrupt_seq, NACK_CRC))
+                            OP_NACK, 0, queue_index, *bad))
                     self._fetched_since_connect.add(queue_index)
                 return parsed, resume
             except (ConnectionError, OSError) as e:
@@ -1337,9 +1691,11 @@ class RemoteQueue:
                 items.append((seq, None, ShuffleFailure(
                     RuntimeError(bytes(payload).decode())), None, None))
                 break
-            # The table's Arrow buffers alias the receive buffer.
-            with pa.ipc.open_stream(
-                    pa.BufferReader(pa.py_buffer(payload))) as reader:
+            # The table's Arrow buffers alias the mapped segment, the
+            # receive buffer or the decompressed bytes.
+            source = (payload if isinstance(payload, pa.Buffer)
+                      else pa.py_buffer(payload))
+            with pa.ipc.open_stream(pa.BufferReader(source)) as reader:
                 items.append((seq, row_offset, reader.read_all(), birth,
                               queued))
         return items, resumed
@@ -1439,6 +1795,90 @@ class RemoteQueue:
         self.close()
 
 
+class ShardedRemoteQueue:
+    """The consumer's handle on the sharded serving plane.
+
+    Routes each queue to its shard by the placement the servers use
+    (:meth:`plan.ir.ShardMap.shard_for_queue`) and keeps one
+    :class:`RemoteQueue` per shard it touches (a trainer rank touches
+    one). It has the ``RemoteQueue`` surface (``get``,
+    ``get_positioned``, ``commit``, ``close``), so
+    ``ShufflingDataset(batch_queue=ShardedRemoteQueue(shard_map))`` is the
+    same remote trainer; each shard's client keeps its own lease,
+    watermarks and prefetch, so one dead shard never stalls a stream its
+    siblings serve. A ``KIND_MOVED`` redirect (live rebalancing, item 6)
+    raises :class:`UnreadableFrame`.
+    """
+
+    #: See RemoteQueue.observes_delivery (every shard's client observes).
+    observes_delivery = True
+
+    def __init__(self, shard_map: Union[plan_ir.ShardMap, dict, str],
+                 **remote_kwargs):
+        if isinstance(shard_map, str):
+            shard_map = plan_ir.ShardMap.from_json(shard_map)
+        elif isinstance(shard_map, dict):
+            shard_map = plan_ir.ShardMap.from_dict(shard_map)
+        shard_map.validate()
+        self._shard_map = shard_map
+        # The map knows the trainer width: each shard's client labels its
+        # latency by the real rank.
+        remote_kwargs.setdefault("num_trainers", shard_map.num_trainers)
+        self._remote_kwargs = remote_kwargs
+        self._clients: Dict[int, RemoteQueue] = {}
+        # _client() builds a RemoteQueue (whose connect takes its own
+        # _io_lock) under this lock; no other thread reaches that client
+        # before it is published, so the order cannot invert.
+        # rsdl-lint: disable=inconsistent-lock-order
+        self._clients_lock = threading.Lock()
+
+    @property
+    def shard_map(self) -> plan_ir.ShardMap:
+        return self._shard_map
+
+    def _client(self, shard: int) -> RemoteQueue:
+        with self._clients_lock:
+            client = self._clients.get(shard)
+            if client is None:
+                client = self._clients[shard] = RemoteQueue(
+                    tuple(self._shard_map.addresses[shard]),
+                    **self._remote_kwargs)
+            return client
+
+    def client_for_queue(self, queue_index: int) -> RemoteQueue:
+        return self._client(self._shard_map.shard_for_queue(queue_index))
+
+    def get_positioned(self, queue_index: int):
+        return self.client_for_queue(queue_index).get_positioned(
+            queue_index)
+
+    def get(self, queue_index: int, block: bool = True):
+        return self.client_for_queue(queue_index).get(queue_index,
+                                                      block=block)
+
+    def commit(self, queue_index: Optional[int] = None) -> None:
+        if queue_index is not None:
+            self.client_for_queue(queue_index).commit(queue_index)
+            return
+        with self._clients_lock:
+            clients = list(self._clients.values())
+        for client in clients:
+            client.commit()
+
+    def close(self) -> None:
+        with self._clients_lock:
+            clients = list(self._clients.values())
+            self._clients.clear()
+        for client in clients:
+            client.close()
+
+    def __enter__(self) -> "ShardedRemoteQueue":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 # ---------------------------------------------------------------------------
 # The server's own process: queue + deterministic shuffle + server from a
 # config dict, resumed from the watermark journal (the unit
@@ -1456,15 +1896,21 @@ def _resume_plan(state: Dict[int, object], num_epochs: int,
 
 
 def _resuming_batch_consumer(queue: mq.MultiQueue, num_trainers: int,
-                             skip_items: Dict[int, int]):
+                             skip_items: Dict[int, int],
+                             owned_ranks: Optional[List[int]] = None):
     """A ``batch_consumer`` for the re-run lineage that queues only the
     undelivered remainder: the first ``skip_items[q]`` items of each
     queue's deterministic stream (tables, then the sentinel) are
-    journaled as delivered and dropped."""
+    journaled as delivered and dropped. A shard passes ``owned_ranks``:
+    the other ranks' outputs, which the lineage recomputes all the same,
+    are dropped before the queue."""
     remaining = dict(skip_items)
+    owned = set(owned_ranks) if owned_ranks is not None else None
     lock = threading.Lock()
 
     def consumer(rank, epoch, refs):
+        if owned is not None and rank not in owned:
+            return
         queue_idx = plan_ir.queue_index(epoch, rank, num_trainers)
         with lock:
             to_skip = remaining.get(queue_idx, 0)
@@ -1494,12 +1940,20 @@ def serve_pipeline(config: dict):
     Keys (the JAX package's): ``filenames``, ``num_epochs``,
     ``num_trainers``, ``num_reducers``, ``journal_path``, ``port`` and
     optionally ``host``, ``seed``, ``max_concurrent_epochs``,
-    ``num_workers``, ``file_cache``; the port adds ``cast``
-    (``{column: dtype}``: the map-time cast of
-    ``transforms.CastTransform``, so the server ships the narrow dtypes a
-    ``DeviceShufflingDataset`` spec casts to). ``num_shards > 1``,
-    ``handle_dir`` (item 5b), ``placement`` (item 6), ``epochs`` (item 7)
-    and ``tenants`` (item 8) raise ``NotImplementedError``.
+    ``num_workers``, ``file_cache``, ``num_shards`` with ``shard_index``
+    and ``handle_dir``; the port adds ``cast`` (``{column: dtype}``: the
+    map-time cast of ``transforms.CastTransform``, so the server ships
+    the narrow dtypes a ``DeviceShufflingDataset`` spec casts to).
+    ``placement`` (item 6), ``epochs`` (item 7) and ``tenants`` (item 8)
+    raise ``NotImplementedError``.
+
+    A shard (``num_shards`` > 1) serves and journals only the ranks
+    ``plan.ir.shard_ranks`` gives it: its resume scan covers them alone
+    and the other ranks' regenerated outputs are dropped before the
+    queue. Handle segments go to ``handle_dir``, else to a directory
+    under the shm root named by the journal's path, so that a restarted
+    incarnation finds the segments a killed one left and sweeps them (a
+    consumer that mapped one keeps its mapping).
 
     Seqs and row offsets restore to their journaled watermarks, the
     shuffle re-runs from the first epoch not fully consumed (the ``(seed,
@@ -1514,26 +1968,43 @@ def serve_pipeline(config: dict):
     if config.get("epochs") is not None:
         raise not_ported('config["epochs"] (a streaming window schedule)',
                          "7")
-    if int(config.get("num_shards", 1)) > 1:
-        raise not_ported(f"num_shards={config['num_shards']}", "5b")
-    for key, item in (("handle_dir", "5b"), ("placement", "6"),
-                      ("tenants", "8")):
+    for key, item in (("placement", "6"), ("tenants", "8")):
         if config.get(key):
             raise not_ported(f"config[{key!r}]", item)
     num_epochs = int(config["num_epochs"])
     num_trainers = int(config["num_trainers"])
+    num_shards = int(config.get("num_shards", 1))
+    shard_index = int(config.get("shard_index", 0))
+    owned_ranks = (plan_ir.shard_ranks(shard_index, num_trainers,
+                                       num_shards)
+                   if num_shards > 1 else None)
     journal_path = config["journal_path"]
+    handle_dir = config.get("handle_dir")
+    if not handle_dir:
+        digest = zlib.crc32(os.path.abspath(journal_path).encode())
+        handle_dir = os.path.join(pp.shm_base_dir(),
+                                  f"rsdl-qhandles-{digest:08x}")
+    if os.path.isdir(handle_dir):
+        # The segments of a killed incarnation, which could not clean up.
+        for name in os.listdir(handle_dir):
+            try:
+                os.unlink(os.path.join(handle_dir, name))
+            except OSError:
+                pass
     state = ckpt.WatermarkJournal.load(journal_path)
-    start_epoch, skip_items = _resume_plan(state, num_epochs, num_trainers)
+    start_epoch, skip_items = _resume_plan(state, num_epochs, num_trainers,
+                                           ranks=owned_ranks)
     if state:
         logger.warning(
-            "queue server resuming from journal %s: start_epoch=%d, "
-            "skipping %s already-delivered items", journal_path,
-            start_epoch, {q: n for q, n in skip_items.items() if n})
+            "queue server (shard %d/%d) resuming from journal %s: "
+            "start_epoch=%d, skipping %s already-delivered items",
+            shard_index, num_shards, journal_path, start_epoch,
+            {q: n for q, n in skip_items.items() if n})
     journal = ckpt.WatermarkJournal(journal_path)
     journal.compact()
     queue = mq.MultiQueue(num_epochs * num_trainers)
-    consumer = _resuming_batch_consumer(queue, num_trainers, skip_items)
+    consumer = _resuming_batch_consumer(queue, num_trainers, skip_items,
+                                        owned_ranks=owned_ranks)
     map_transform = None
     if config.get("cast"):
         from ray_shuffling_data_loader_tpu_torch import transforms
@@ -1550,9 +2021,11 @@ def serve_pipeline(config: dict):
     server = QueueServer(
         queue, (config.get("host", "127.0.0.1"), int(config["port"])),
         num_trainers=num_trainers, journal=journal, initial_state=state,
-        exit_on_crash_site=True)
+        exit_on_crash_site=True, shard_index=shard_index,
+        num_shards=num_shards, handle_dir=handle_dir)
     rt_metrics.gauge("rsdl_queue_serve_shards",
-                     "shard count of the live queue serving plane").set(1)
+                     "shard count of the live queue serving plane").set(
+                         num_shards)
     return server, shuffle_result, queue
 
 
@@ -1588,6 +2061,13 @@ def _serve_main(argv: List[str]) -> int:
     finally:
         server.close()
         queue.shutdown()
+        # What the buffer ledger still holds once the server released its
+        # handle frames' pins: the exit flush of the metrics shard
+        # carries it (0 for a process whose every pin was released).
+        from ray_shuffling_data_loader_tpu_torch import native
+        rt_metrics.gauge("rsdl_ledger_bytes_in_use",
+                         "bytes the buffer ledger holds").set(
+                             native.buffer_ledger().bytes_in_use())
     return 0
 
 

@@ -1,7 +1,5 @@
 """The epoch-plan IR: one declarative object per shuffle epoch (own copy
-of the JAX package's ``plan/ir.py``, without the sharded serving plane's
-``queue_shard``/``shard_ranks``/``ShardMap``, which come with sharded
-serving, ROADMAP queue A item 5b).
+of the JAX package's ``plan/ir.py``).
 
 Every task of the shuffle is a pure function of ``(seed, epoch, task)``.
 This module makes that explicit, serializable data:
@@ -18,6 +16,9 @@ This module makes that explicit, serializable data:
   (the contiguous reducer->trainer split, remainder first like
   ``np.array_split``) and its elastic form over a live rank set,
   :func:`rebalance_spans` / :func:`reduce_placement` (``membership/``).
+- The serving plane's placement: :func:`queue_shard` / :func:`shard_ranks`
+  (by rank) and :class:`ShardMap`, the config a sharded consumer routes
+  by (its JSON byte for byte the JAX package's).
 - :class:`EpochSpec` / :func:`static_epoch_specs` / :func:`epoch_range`:
   what the shuffle driver iterates.
 - :func:`resume_from_watermarks`: where a restarted queue server's
@@ -41,6 +42,9 @@ PLAN_VERSION = 1
 #: The tenant id shape of the JAX package's tenancy plane (a plan may
 #: carry one; the port serializes it as the JAX package does).
 _TENANT_ID_RE = re.compile(r"^[a-z0-9][a-z0-9_.-]{0,63}$")
+
+#: Shard-map serialization version (the serving plane's config).
+SHARD_MAP_VERSION = 1
 
 #: Stage names, in dependency order.
 STAGES = ("map", "reduce", "route")
@@ -69,6 +73,21 @@ def queue_epoch(queue_idx: int, num_trainers: int) -> int:
 def queue_rank(queue_idx: int, num_trainers: int) -> int:
     """Inverse of :func:`queue_index`: the trainer rank a queue feeds."""
     return queue_idx % num_trainers
+
+
+def queue_shard(queue_idx: int, num_trainers: int, num_shards: int) -> int:
+    """The serving-plane shard that serves ``queue_idx``. Placement is by
+    rank (``queue_rank % num_shards``): every epoch of one trainer's
+    stream lands on one shard, so a consumer keeps one connection per
+    shard and a shard's journal holds whole per-rank histories."""
+    return queue_rank(queue_idx, num_trainers) % max(1, num_shards)
+
+
+def shard_ranks(shard: int, num_trainers: int, num_shards: int) -> List[int]:
+    """The trainer ranks (hence their queues of every epoch) that shard
+    ``shard`` serves under the :func:`queue_shard` placement."""
+    num_shards = max(1, num_shards)
+    return [r for r in range(num_trainers) if r % num_shards == shard]
 
 
 def split_sizes(total: int, num_parts: int) -> List[int]:
@@ -496,6 +515,111 @@ def epoch_range(start_epoch: int, num_epochs: Optional[int]):
     if num_epochs is None:
         return itertools.count(start_epoch)
     return range(start_epoch, num_epochs)
+
+
+# ---------------------------------------------------------------------------
+# Serving-plane shard map
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardMap:
+    """Which shard serves which (trainer, epoch) queue, and where each
+    shard listens: ``addresses[i]`` is shard ``i``'s ``(host, port)`` and
+    placement is the :func:`queue_shard` query. JSON round-trippable with
+    a stable key order, so a child-process config carries it verbatim.
+
+    ``overrides`` (rank -> shard) and ``generation`` are the JAX
+    package's live-move fields (ROADMAP queue A item 6): kept as data and
+    honoured by the routing queries, so a JAX map round-trips byte for
+    byte; nothing in the port writes them yet. Both serialize only when
+    not at their defaults.
+    """
+
+    num_trainers: int
+    addresses: List[Tuple[str, int]]
+    version: int = SHARD_MAP_VERSION
+    overrides: Dict[int, int] = dataclasses.field(default_factory=dict)
+    generation: int = 0
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.addresses)
+
+    def validate(self) -> None:
+        if self.version != SHARD_MAP_VERSION:
+            raise PlanError(
+                f"shard map version {self.version} != {SHARD_MAP_VERSION}")
+        if self.num_trainers < 1:
+            raise PlanError("shard map needs num_trainers >= 1")
+        if not self.addresses:
+            raise PlanError("shard map needs at least one shard address")
+        for addr in self.addresses:
+            if len(tuple(addr)) != 2 or not isinstance(addr[0], str):
+                raise PlanError(f"malformed shard address {addr!r}")
+        if self.generation < 0:
+            raise PlanError("shard map generation must be >= 0")
+        for rank, shard in self.overrides.items():
+            if not 0 <= int(rank) < self.num_trainers:
+                raise PlanError(f"override for unknown rank {rank}")
+            if not 0 <= int(shard) < self.num_shards:
+                raise PlanError(
+                    f"override routes rank {rank} to unknown shard {shard}")
+
+    def shard_for_queue(self, queue_idx: int) -> int:
+        return self.shard_for_rank(queue_rank(queue_idx, self.num_trainers))
+
+    def shard_for_rank(self, rank: int) -> int:
+        return self.overrides.get(rank, rank % self.num_shards)
+
+    def ranks_for_shard(self, shard: int) -> List[int]:
+        return [rank for rank in range(self.num_trainers)
+                if self.shard_for_rank(rank) == shard]
+
+    def address_for_queue(self, queue_idx: int) -> Tuple[str, int]:
+        return tuple(self.addresses[self.shard_for_queue(queue_idx)])
+
+    def to_dict(self) -> Dict[str, Any]:
+        data: Dict[str, Any] = {
+            "version": self.version,
+            "num_trainers": self.num_trainers,
+            "addresses": [[host, int(port)]
+                          for host, port in self.addresses],
+        }
+        if self.overrides:
+            data["overrides"] = {str(rank): int(shard) for rank, shard
+                                 in sorted(self.overrides.items())}
+        if self.generation:
+            data["generation"] = self.generation
+        return data
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=False)
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "ShardMap":
+        try:
+            shard_map = cls(
+                num_trainers=int(data["num_trainers"]),
+                addresses=[(str(h), int(p)) for h, p in data["addresses"]],
+                version=int(data.get("version", SHARD_MAP_VERSION)),
+                overrides={int(rank): int(shard) for rank, shard
+                           in dict(data.get("overrides", {})).items()},
+                generation=int(data.get("generation", 0)))
+        except (KeyError, TypeError, ValueError) as e:
+            raise PlanError(f"malformed shard map: {e}") from e
+        shard_map.validate()
+        return shard_map
+
+    @classmethod
+    def from_json(cls, text: str) -> "ShardMap":
+        try:
+            data = json.loads(text)
+        except json.JSONDecodeError as e:
+            raise PlanError(f"shard map is not valid JSON: {e}") from e
+        if not isinstance(data, dict):
+            raise PlanError("shard map JSON must be an object")
+        return cls.from_dict(data)
 
 
 # ---------------------------------------------------------------------------

@@ -195,15 +195,24 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     # surviving consumer).
     "queue_lease_timeout_s": (30.0, float),
     "on_dead_consumer": ("fail_fast", str),
-    # Table delivery: "auto" and "stream" stream the table bytes; the
-    # JAX package's "handle" (shared-memory segment handles) comes with
-    # sharded serving (ROADMAP queue A item 5b).
+    # Table delivery: "auto" (a consumer dialling a loopback address
+    # offers shared-memory handles, and the server then sends segment
+    # handles instead of table bytes), "handle" (offer them whatever the
+    # address: hosts sharing an shm mount) or "stream" (always stream).
     "queue_delivery": ("auto", str),
-    # Frame compression of streamed tables: "off" here; zlib/zstd/lz4
-    # come with sharded serving (item 5b). Tables below the minimum size
-    # would skip it.
+    # Compression of streamed tables (handle frames are never
+    # compressed): "off", "zlib", "zstd" or "lz4"; zstd and lz4 fall back
+    # to zlib with a warning where their module is missing. The CRC is
+    # over the uncompressed payload. Tables below the minimum size skip
+    # it.
     "queue_compression": ("off", str),
     "queue_compression_min_bytes": (4096, int),
+    # The shard count of the serve helpers when the caller gives none (1:
+    # one server).
+    "queue_shards": (1, int),
+    # Threads that compress frames off the serving thread, shared by a
+    # server's connections (0: compress inline).
+    "queue_codec_threads": (1, int),
     # One scatter-gather sendmsg per response instead of a sendall per
     # header and payload (the same bytes on the wire).
     "queue_sendmsg": (True, _parse_bool),

@@ -1,5 +1,5 @@
 """Process supervision: restart a dead queue-server process (own copy of
-the JAX package's ``runtime/supervisor.py``, one server).
+the JAX package's ``runtime/supervisor.py``).
 
 A :class:`ProcessSupervisor` watches a child process and, when it dies
 (``kill -9``, OOM, an injected ``queue_server_crash``), starts it again
@@ -13,9 +13,9 @@ their acks left off.
 :func:`launch_supervised_queue_server` runs ``python -m
 ray_shuffling_data_loader_tpu_torch.multiqueue_service config.json`` with
 ``CUDA_VISIBLE_DEVICES=""`` in its environment: the server shuffles on
-the host and can never open a context on the trainer's card. The sharded
-form (the JAX package's ``launch_supervised_queue_shards``) is ROADMAP
-queue A item 5b.
+the host and can never open a context on the trainer's card.
+:func:`launch_supervised_queue_shards` starts one such child per serving
+shard, each with its own journal, handle directory and restart budget.
 
 Stdlib only: this module never imports the service itself.
 """
@@ -229,11 +229,50 @@ def launch_supervised_queue_server(config: dict,
 
 def launch_supervised_queue_shards(config: dict, num_shards: int,
                                    name: str = "queue-shard"):
-    """The JAX package's per-shard supervised servers: ROADMAP queue A
-    item 5b."""
-    raise NotImplementedError(
-        "launch_supervised_queue_shards needs the port's sharded serving, "
-        "which is ROADMAP queue A item 5b")
+    """The sharded serving plane as supervised processes: one
+    :func:`launch_supervised_queue_server` child per shard, serving the
+    ranks ``plan.ir.shard_ranks`` gives it, with its own watermark
+    journal (``checkpoint.shard_journal_path``), its own handle
+    directory (``handle_dir``/``s<shard>`` where the config names a
+    root) and its own restart budget: a SIGKILLed shard recovers as one
+    server does while its siblings serve on.
+
+    Returns ``(supervisors, shard_map)``: consumers give the
+    :class:`plan.ir.ShardMap` to ``dataset.connect_remote_queue``.
+    """
+    # plan.ir and checkpoint load no torch; imported here so that this
+    # module stays stdlib-only at import.
+    from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+
+    num_shards = max(1, int(num_shards))
+    config = dict(config)
+    host = config.setdefault("host", "127.0.0.1")
+    journal_path = config["journal_path"]
+    handle_root = config.pop("handle_dir", None)
+    ports = [free_port(host) for _ in range(num_shards)]
+    supervisors = []
+    try:
+        for shard in range(num_shards):
+            shard_config = dict(
+                config, port=ports[shard], shard_index=shard,
+                num_shards=num_shards,
+                journal_path=ckpt.shard_journal_path(journal_path, shard,
+                                                     num_shards))
+            if handle_root:
+                shard_config["handle_dir"] = os.path.join(handle_root,
+                                                          f"s{shard}")
+            supervisor, _ = launch_supervised_queue_server(
+                shard_config, name=f"{name}-{shard}")
+            supervisors.append(supervisor)
+    except BaseException:
+        for supervisor in supervisors:
+            supervisor.stop()
+        raise
+    shard_map = plan_ir.ShardMap(
+        num_trainers=max(1, int(config["num_trainers"])),
+        addresses=[(host, port) for port in ports])
+    return supervisors, shard_map
 
 
 def wait_for_server(address: "tuple[str, int]",

@@ -14,8 +14,9 @@ queue's side of ``dataset.py``) against the JAX package's, on the CPU.
   commits a manual-ack queue at each checkpoint save, and does not count
   ``birth_to_delivered`` again over a queue that observes it.
 - The in-process queue's surface and the queue policy keys against the
-  JAX package's; every left-out feature raises ``NotImplementedError``
-  naming its ROADMAP item; the service and the supervisor load no torch.
+  JAX package's; every left-out feature (live rebalancing, streaming,
+  tenancy) raises ``NotImplementedError`` naming its ROADMAP item; the
+  service, the supervisor and the sharded client load no torch.
 """
 
 import importlib
@@ -378,7 +379,7 @@ def test_multiqueue_surface(pkg):
 QUEUE_KEYS = ("queue_timeout_s", "queue_nodelay", "queue_replay_bytes",
               "queue_lease_timeout_s", "on_dead_consumer", "queue_delivery",
               "queue_compression", "queue_compression_min_bytes",
-              "queue_sendmsg")
+              "queue_sendmsg", "queue_shards", "queue_codec_threads")
 
 
 @pytest.mark.parametrize("key", QUEUE_KEYS)
@@ -387,8 +388,8 @@ def test_queue_policy_keys_equal_jax(key, monkeypatch):
         monkeypatch.delenv(name, raising=False)
     assert tpolicy.resolve("queue", key) == jpolicy.resolve("queue", key)
     raw = {"queue_nodelay": "off", "queue_sendmsg": "0",
-           "on_dead_consumer": "drain", "queue_delivery": "stream",
-           "queue_compression": "off"}.get(key, "7")
+           "on_dead_consumer": "drain", "queue_delivery": "handle",
+           "queue_compression": "zlib"}.get(key, "7")
     monkeypatch.setenv(f"RSDL_QUEUE_{key.upper()}", raw)
     assert tpolicy.resolve("queue", key) == jpolicy.resolve("queue", key)
 
@@ -415,24 +416,10 @@ def _server_kwargs(**kw):
 LEFT_OUT = {
     "tenants": (_server_kwargs(tenants={"a": {"weight": 1}}), "8"),
     "placement": (_server_kwargs(placement={"generation": 1}), "6"),
-    "num_shards": (_server_kwargs(num_shards=2), "5b"),
-    "handle_dir": (_server_kwargs(handle_dir="/nonexistent"), "5b"),
     "client_tenant": (lambda: tsvc.RemoteQueue(("127.0.0.1", 1),
                                                tenant="a"), "8"),
-    "client_handle": (lambda: tsvc.RemoteQueue(("127.0.0.1", 1),
-                                               delivery="handle"), "5b"),
-    "sharded_server": (lambda: tsvc.ShardedQueueServer(None, 2), "5b"),
-    "sharded_client": (lambda: tsvc.ShardedRemoteQueue({}), "5b"),
-    "serve_sharded": (lambda: tsvc.serve_queue_sharded(None), "5b"),
-    "supervised_shards": (
-        lambda: tsup.launch_supervised_queue_shards({}, 2), "5b"),
-    "shard_map_target": (
-        lambda: tds.connect_remote_queue({"num_trainers": 1,
-                                          "addresses": [["h", 1]]}), "5b"),
     "stream_epochs": (lambda: tsvc.serve_pipeline(
         {"epochs": [{"epoch": 0, "filenames": []}]}), "7"),
-    "pipeline_shards": (lambda: tsvc.serve_pipeline({"num_shards": 2}),
-                        "5b"),
 }
 
 
@@ -441,12 +428,6 @@ def test_left_out_feature_raises(name):
     make, item = LEFT_OUT[name]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         make()
-
-
-def test_left_out_compression_policy_raises(monkeypatch):
-    monkeypatch.setenv("RSDL_QUEUE_COMPRESSION", "zlib")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tsvc.serve_queue(tmq.MultiQueue(1))
 
 
 def test_jax_tenant_client_gets_a_loud_failure():
@@ -460,29 +441,26 @@ def test_jax_tenant_client_gets_a_loud_failure():
     assert "item 8" in str(item.error)
 
 
-def test_compressed_jax_frame_is_unreadable(monkeypatch):
-    """A frame the port cannot read raises; it is never skipped."""
-    queue = jmq.MultiQueue(1)
-    queue.put(0, pa.table({"x": np.zeros(4096, dtype=np.int64)}))
-    monkeypatch.setenv("RSDL_QUEUE_COMPRESSION", "zlib")
-    monkeypatch.setenv("RSDL_QUEUE_COMPRESSION_MIN_BYTES", "1")
-    server = jsvc.serve_queue(queue)
-    monkeypatch.delenv("RSDL_QUEUE_COMPRESSION")
-    try:
-        with tsvc.RemoteQueue(server.address, retries=0) as remote:
-            with pytest.raises(tsvc.UnreadableFrame, match="item 5b"):
-                remote.get(0)
-    finally:
-        server.close()
-        queue.shutdown()
-
-
 def test_service_and_supervisor_load_no_torch():
+    """The service, the supervisor and its shard launcher's imports, and a
+    sharded client reading handle frames, load neither torch nor JAX."""
     code = ("import sys\n"
+            "import pyarrow as pa\n"
             "from ray_shuffling_data_loader_tpu_torch import "
-            "multiqueue_service, checkpoint, dataset\n"
+            "multiqueue, multiqueue_service, checkpoint, dataset\n"
             "from ray_shuffling_data_loader_tpu_torch.runtime import "
             "supervisor\n"
+            "from ray_shuffling_data_loader_tpu_torch.plan import ir\n"
+            "assert checkpoint.shard_journal_path('j', 1, 2) == 'j.shard1'\n"
+            "q = multiqueue.MultiQueue(2)\n"
+            "q.put(1, pa.table({'x': [1, 2]}))\n"
+            "with multiqueue_service.serve_queue_sharded(\n"
+            "        q, num_shards=2, num_trainers=2) as s:\n"
+            "    m = ir.ShardMap.from_json(s.shard_map.to_json())\n"
+            "    with dataset.connect_remote_queue(\n"
+            "            m, delivery='handle') as r:\n"
+            "        assert r.get(1).num_rows == 2\n"
+            "assert supervisor.launch_supervised_queue_shards\n"
             "bad = sorted(m for m in sys.modules if m == 'torch' "
             "or m.startswith(('torch.', 'jax', "
             "'ray_shuffling_data_loader_tpu.')))\n"
