@@ -242,7 +242,30 @@ printing one JSON line:
    (num_shards=2)``, ``delivery="stream"``, ``RSDL_QUEUE_COMPRESSION=zlib``
    and 2 codec threads, both ranks drained on threads, loader only:
    digests as in (d), bytes saved and ``wire + saved == payload``; it
-   prints the codec ``zstd`` resolves to here. Each turn prints its
+   prints the codec ``zstd`` resolves to here. (f) A live move under the
+   step: the same pipeline in this process behind ``serve_queue_sharded
+   (num_shards=2)`` (delivery ``"auto"``), a fresh DLRM ``mlperf`` trains
+   every micro-step of rank 0's stream from a ``ShardedRemoteQueue`` (2
+   tables per round trip) while a thread drains rank 1's; after rank 0's
+   third loader batch of epoch 0, ``rebalance.migrate(controller, 0,
+   target=1)`` moves rank 0 to shard 1 (PREPARE, ADOPT, commit, RELEASE),
+   and the consumer follows the ``KIND_MOVED`` redirect. Each rank's
+   digests equal the one-process ``num_trainers=2`` stream's, the
+   consumer's map reads ``overrides == {0: 1}`` and generation 1,
+   ``rebalance.replay`` of the decision journal gives ``((0, 1),)``, one
+   gather launch per micro-step and one committed move
+   (``rsdl_rebalance_moves_total``); it prints each phase's ms, the
+   manifest's bytes and frames, rank 0's longest wait for a batch after
+   the move and its rows/s beside (e)'s. (g) The abort leg across
+   processes: two supervised shard processes, one epoch, whose children
+   carry ``RSDL_CHAOS_SPEC=rebalance_prepare:rank0:epoch1``; rank 0 trains
+   every micro-step (one table per round trip), rank 1 is drained, and
+   after rank 0's first loader batch ``migrate`` dies on the wire as shard
+   0 dies at the PREPARE. The abort is journaled (``replay``: no pending
+   move, generation 0, no override), shard 0 restarts and shard 1 does
+   not, and both ranks' digests equal the one-process stream's epoch 0;
+   it prints the seconds from the failed move to rank 0's first frame
+   after the restart. Each turn prints its
    delivery, rows/s (per rank in (d) and (e)), the restart's seconds (from
    the kill to the first frame after it), frames replayed and NACK'd,
    client reconnects, payload and wire bytes, handle hits and misses, the
@@ -2978,6 +3001,16 @@ SERVE_HANDLE_WIRE_CUT = 10
 # Pool workers of each shard process in (d), so two shards and their
 # pools share the host's cores.
 SERVE_SHARD_WORKERS = 4
+# (f): rank 0 moves live from shard 0 to shard 1 after its third loader
+# batch of epoch 0, frames of at most 2 tables per round trip (the unacked
+# frames the manifest carries).
+SERVE_MOVE_AFTER = 3
+SERVE_MOVE_MAX_BATCH = 2
+# (g): the supervised shards' children die at the PREPARE of rank 0's move
+# to generation 1, which begins after rank 0's first loader batch; one
+# epoch.
+SERVE_ABORT_CHAOS = "rebalance_prepare:rank0:epoch1"
+SERVE_ABORT_AFTER = 1
 
 
 def _server_counters(tel_dir: str) -> dict:
@@ -3370,18 +3403,14 @@ def _served_shards_turn(emb, files, want, tmp: str) -> dict:
             except BaseException as e:  # noqa: BLE001 - raised below
                 errors.append(e)
 
-        def train_rank_0(epoch, i, features, label):
-            n = label.shape[0] // MICROBATCH * MICROBATCH
-            losses.append(train.train_chunk(
-                micro_step, [f[:n] for f in features[:-1]], label[:n],
-                MICROBATCH))
-            return "t" in killed
-
         emb.reset_launch_counts()
         drainer = threading.Thread(target=drain_rank_1, daemon=True,
                                    name="smoke-serve-rank1")
         drainer.start()
-        runs[0] = _drain_rank(datasets[0], NUM_EPOCHS, train_rank_0)
+        runs[0] = _drain_rank(datasets[0], NUM_EPOCHS,
+                              _train_every_micro_step(
+                                  micro_step, losses,
+                                  lambda epoch, i: "t" in killed))
         launches = emb.launch_counts["gather_rows"]
         drainer.join(timeout=600)
         if drainer.is_alive():
@@ -3570,15 +3599,332 @@ def _sharded_loader_turn(files, want) -> dict:
     }
 
 
+def _rebalance_counters() -> dict:
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+    samples = metrics.parse_exposition(metrics.render())
+    return {name.replace("rsdl_rebalance_", ""):
+            sum(samples.get(name, {}).values())
+            for name in ("rsdl_rebalance_moves_total",
+                         "rsdl_rebalance_fenced_frames_total")}
+
+
+def _train_every_micro_step(micro_step, losses, after=None):
+    """An ``on_batch`` for ``_drain_rank``: one DLRM micro-step per 2,048
+    rows of the batch (the key column left out), then ``after``."""
+    from ray_shuffling_data_loader_tpu_torch import train
+
+    def on_batch(epoch, i, features, label):
+        n = label.shape[0] // MICROBATCH * MICROBATCH
+        losses.append(train.train_chunk(
+            micro_step, [f[:n] for f in features[:-1]], label[:n],
+            MICROBATCH))
+        return after(epoch, i) if after is not None else False
+
+    return on_batch
+
+
+def _live_move_turn(emb, files, want, tmp: str, e_rows_per_s) -> dict:
+    """(f) The ``train`` pipeline in this process behind
+    ``serve_queue_sharded(num_shards=2)`` (2 trainers, delivery
+    ``"auto"``): a fresh DLRM ``mlperf`` trains every micro-step of rank
+    0's stream through a ``ShardedRemoteQueue`` while a thread drains rank
+    1's; after rank 0's third loader batch of epoch 0,
+    ``rebalance.migrate`` moves rank 0 to shard 1 under the step. Digests
+    per rank and epoch as in (d); the consumer's map learns the move; the
+    decision journal replays it; one gather launch per micro-step; one
+    committed move."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     multiqueue_service,
+                                                     native, rebalance,
+                                                     transforms, train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+
+    torch.cuda.empty_cache()
+    spec, cast = _sharded_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    journal = os.path.join(tmp, "f-rebalance.journal")
+    counters_before = _rebalance_counters()
+    ledger_before = native.buffer_ledger().bytes_in_use()
+    runs, errors, losses, phases, moved = {}, [], [], {}, {}
+    queue, result = dataset.create_batch_queue_and_shuffle(
+        files, NUM_EPOCHS, DIST_WORLD, num_reducers=NUM_REDUCERS, seed=SEED,
+        map_transform=transforms.CastTransform(cast))
+    sharded = multiqueue_service.serve_queue_sharded(
+        queue, num_shards=SERVE_SHARDS, num_trainers=DIST_WORLD)
+    controller = rebalance.RebalanceController(sharded.shard_map,
+                                               journal_path=journal)
+    remotes, datasets = [], []
+    try:
+        for rank in range(DIST_WORLD):
+            # Each rank's own copy of the map: rank 0's follows the move.
+            remotes.append(dataset.connect_remote_queue(
+                plan_ir.ShardMap.from_json(sharded.shard_map.to_json()),
+                retries=20, initial_backoff_s=0.2,
+                max_batch=SERVE_MOVE_MAX_BATCH if rank == 0 else 8))
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                files, NUM_EPOCHS, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remotes[rank], shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+
+        def move_rank_0(epoch, i):
+            if epoch == 0 and i + 1 == SERVE_MOVE_AFTER:
+                t0 = timeit.default_timer()
+                moved["state"] = rebalance.migrate(
+                    controller, 0, target=1, reason="smoke (f)",
+                    phases=phases)
+                moved["s"] = timeit.default_timer() - t0
+                return True
+            return False
+
+        def drain_rank_1():
+            try:
+                runs[1] = _drain_rank(datasets[1], NUM_EPOCHS)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        emb.reset_launch_counts()
+        drainer = threading.Thread(target=drain_rank_1, daemon=True,
+                                   name="smoke-serve-f-rank1")
+        drainer.start()
+        runs[0] = _drain_rank(datasets[0], NUM_EPOCHS,
+                              _train_every_micro_step(micro_step, losses,
+                                                      move_rank_0))
+        launches = emb.launch_counts["gather_rows"]
+        drainer.join(timeout=600)
+        if drainer.is_alive():
+            raise AssertionError("serving (f): rank 1's drain hung")
+        if errors:
+            raise errors[0]
+        result.result()
+        client_map = remotes[0].shard_map
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        controller.close()
+        sharded.close()
+        queue.shutdown()
+    counters = {k: v - counters_before[k]
+                for k, v in _rebalance_counters().items()}
+    for rank in range(DIST_WORLD):
+        _same_stream("serving (f)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("serving (f): non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"serving (f): {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    state = moved.get("state")
+    if state is None or state.overrides != ((0, 1),):
+        raise AssertionError(f"serving (f): the move did not commit: "
+                             f"{state}")
+    if (client_map.overrides, client_map.generation) != ({0: 1}, 1):
+        raise AssertionError(f"serving (f): the consumer's map reads "
+                             f"{client_map.to_dict()}")
+    replayed = rebalance.replay(journal)
+    if (replayed.overrides, replayed.pending) != (((0, 1),), None):
+        raise AssertionError(f"serving (f): the journal replays to "
+                             f"{replayed}")
+    if counters["moves_total"] != 1:
+        raise AssertionError(f"serving (f): {counters['moves_total']} "
+                             "moves counted")
+    ledger = native.buffer_ledger().bytes_in_use() - ledger_before
+    if ledger:
+        raise AssertionError(f"serving (f): {ledger} buffer-ledger bytes "
+                             "still pinned after the shards closed")
+    del model, micro_step
+    return {
+        "turn": "f", "delivery": "auto", "shards": SERVE_SHARDS,
+        "trainers": DIST_WORLD, "move_after_rank0_batches": SERVE_MOVE_AFTER,
+        "rank0_max_batch": SERVE_MOVE_MAX_BATCH,
+        "shard_map_after": client_map.to_dict(),
+        "journal_replay": replayed.to_dict(),
+        "phase_ms": {k.replace("_s", "_ms"): v * 1e3
+                     for k, v in phases.items() if k.endswith("_s")},
+        "migrate_ms": moved["s"] * 1e3,
+        "manifest_bytes": phases["manifest_bytes"],
+        "manifest_frames": phases["manifest_frames"],
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "wall_s": runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "rank0_rows_per_s_e": e_rows_per_s,
+        "rank0_max_wait_after_move_s": runs[0]["max_wait_after_s"],
+        "rank0_micro_steps": int(all_losses.numel()),
+        "rank0_loss_first": float(all_losses[0]),
+        "rank0_loss_last": float(all_losses[-1]),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+        "rebalance": counters, "ledger_bytes_left": ledger,
+    }
+
+
+def _abort_turn(emb, files, want, tmp: str) -> dict:
+    """(g) Two supervised shard processes (one epoch, 2 trainers, delivery
+    ``"auto"``) whose children carry ``RSDL_CHAOS_SPEC=rebalance_prepare:
+    rank0:epoch1``: a fresh DLRM ``mlperf`` trains every micro-step of rank
+    0's stream; after its first loader batch ``rebalance.migrate`` moves
+    rank 0 to shard 1 and dies on the wire, shard 0 having died at the
+    PREPARE. The abort is journaled, shard 0 restarts (shard 1 does not),
+    and both ranks' digests equal the one-process stream's epoch 0."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     rebalance, train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import supervisor
+
+    torch.cuda.empty_cache()
+    spec, cast = _sharded_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-abort-", dir=shm_root)
+    journal = os.path.join(tmp, "g-rebalance.journal")
+    config = dict(filenames=list(files), num_epochs=1,
+                  num_trainers=DIST_WORLD, num_reducers=NUM_REDUCERS,
+                  seed=SEED, journal_path=os.path.join(tmp, "g.wal"),
+                  cast=cast, handle_dir=os.path.join(shm_dir, "handles"),
+                  num_workers=SERVE_SHARD_WORKERS,
+                  child_env={"RSDL_CHAOS_SPEC": SERVE_ABORT_CHAOS,
+                             "RSDL_CHAOS_SEED": "0",
+                             "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    sups, shard_map = supervisor.launch_supervised_queue_shards(
+        config, SERVE_SHARDS, name="smoke-abort")
+    controller = rebalance.RebalanceController(shard_map,
+                                               journal_path=journal)
+    remotes, datasets, runs, errors, losses = [], [], {}, [], []
+    failed, fetches = {}, None
+    try:
+        for address in shard_map.addresses:
+            if not supervisor.wait_for_server(tuple(address), timeout_s=120):
+                raise AssertionError(f"serving (g): shard {address} never "
+                                     "listened")
+        for rank in range(DIST_WORLD):
+            # Rank 0 fetches a table per round trip, so the kill cuts its
+            # epoch (a batch of 8 could hold the whole epoch already).
+            remotes.append(dataset.connect_remote_queue(
+                plan_ir.ShardMap.from_json(shard_map.to_json()),
+                retries=20, initial_backoff_s=0.2,
+                max_batch=1 if rank == 0 else 8))
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                files, 1, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remotes[rank], shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+        fetches = _log_fetches(remotes[0].client_for_queue(
+            plan_ir.queue_index(0, 0, DIST_WORLD)))
+
+        def move_rank_0(epoch, i):
+            if i + 1 != SERVE_ABORT_AFTER:
+                return False
+            failed["t"] = timeit.default_timer()
+            try:
+                rebalance.migrate(controller, 0, target=1,
+                                  reason="smoke (g)", timeout_s=60.0)
+            except (OSError, RuntimeError) as e:
+                failed["error"] = repr(e)
+            return True
+
+        def drain_rank_1():
+            try:
+                runs[1] = _drain_rank(datasets[1], 1)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        emb.reset_launch_counts()
+        drainer = threading.Thread(target=drain_rank_1, daemon=True,
+                                   name="smoke-serve-g-rank1")
+        drainer.start()
+        runs[0] = _drain_rank(datasets[0], 1,
+                              _train_every_micro_step(micro_step, losses,
+                                                      move_rank_0))
+        launches = emb.launch_counts["gather_rows"]
+        drainer.join(timeout=600)
+        if drainer.is_alive():
+            raise AssertionError("serving (g): rank 1's drain hung")
+        if errors:
+            raise errors[0]
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        controller.close()
+        for sup in sups:
+            sup.stop()
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    for rank in range(DIST_WORLD):
+        _same_stream("serving (g)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank][:1])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("serving (g): non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"serving (g): {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    if "error" not in failed:
+        raise AssertionError("serving (g): the chaos site never fired")
+    state = rebalance.replay(journal)
+    if (state.pending, state.generation, state.overrides) != (None, 0, ()):
+        raise AssertionError(f"serving (g): the journal replays to {state}")
+    kinds = [r["decision"].kind
+             for r in rebalance.RebalanceJournal.load(journal)]
+    if kinds != ["bootstrap", "intent", "abort"]:
+        raise AssertionError(f"serving (g): journal kinds {kinds}")
+    if sups[0].restarts < 1 or sups[0].failed:
+        raise AssertionError("serving (g): shard 0 was not restarted")
+    if sups[1].restarts:
+        raise AssertionError(f"serving (g): shard 1 restarted "
+                             f"{sups[1].restarts} times")
+    after = [t for t, resumed, n in fetches
+             if t > failed["t"] and resumed and n]
+    if not after:
+        raise AssertionError("serving (g): no frame came after the abort")
+    del model, micro_step
+    return {
+        "turn": "g", "delivery": "auto", "shards": SERVE_SHARDS,
+        "trainers": DIST_WORLD, "epochs": 1, "chaos": SERVE_ABORT_CHAOS,
+        "move_after_rank0_batches": SERVE_ABORT_AFTER, "rank0_max_batch": 1,
+        "migrate_error": failed["error"], "journal_kinds": kinds,
+        "journal_replay": state.to_dict(),
+        "shard_restarts": [sup.restarts for sup in sups],
+        "restart_s": min(after) - failed["t"],
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "wall_s": runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "rank0_micro_steps": int(all_losses.numel()),
+        "rank0_loss_first": float(all_losses[0]),
+        "rank0_loss_last": float(all_losses[-1]),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+    }
+
+
 def serving_phase(emb, files, trained: dict, want, tmp: str) -> dict:
     """The queue service under the DLRM step: (a) fault-free and (b) one
     SIGKILL of the server mid-epoch 0, each over a supervised server
     process; (c) the loader alone under wire faults over an in-process
     server; (d) two supervised shard processes, one SIGKILLed, feeding
     rank 0's DLRM step through shared memory; (e) in-process shards,
-    streamed and compressed. Digests equal the ``train`` phase's in (a)
-    and (b), (a)'s in (c), and the one-process ``num_trainers=2`` stream's
-    (``want``) in (d) and (e)."""
+    streamed and compressed; (f) a live move of rank 0 between in-process
+    shards under its DLRM step; (g) a move whose source dies at the
+    PREPARE, aborted, over supervised shard processes. Digests equal the
+    ``train`` phase's in (a) and (b), (a)'s in (c), and the one-process
+    ``num_trainers=2`` stream's (``want``) in (d)-(g)."""
     start = timeit.default_timer()
     fresh_telemetry()
     a = _served_dlrm_turn(emb, files, trained, tmp, "a", kill=False)
@@ -3586,13 +3932,26 @@ def serving_phase(emb, files, trained: dict, want, tmp: str) -> dict:
     c = _served_loader_turn(files, trained["digests"], SERVE_WIRE_CHAOS)
     d = _served_shards_turn(emb, sorted(files), want, tmp)
     e = _sharded_loader_turn(sorted(files), want)
+    t_f = timeit.default_timer()
+    f = _live_move_turn(emb, sorted(files), want, tmp,
+                        e["ranks"][0]["rows_per_s"])
+    t_g = timeit.default_timer()
+    f["turn_s"] = t_g - t_f
+    g = _abort_turn(emb, sorted(files), want, tmp)
+    g["turn_s"] = timeit.default_timer() - t_g
     return {
-        "turns": {"a": a, "b": b, "c": c, "d": d, "e": e},
+        "turns": {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f, "g": g},
         "rows_per_s_served_rank0": d["ranks"][0]["rows_per_s"],
         "rows_per_s_train_in_process": trained["rows_per_s"],
-        "restart_s": {"b": b["restart_s"], "d": d["restart_s"]},
+        "restart_s": {"b": b["restart_s"], "d": d["restart_s"],
+                      "g": g["restart_s"]},
         "gather_launches": (a["gather_launches"] + b["gather_launches"]
-                            + d["gather_launches"]),
+                            + d["gather_launches"] + f["gather_launches"]
+                            + g["gather_launches"]),
+        "gather_launches_by_turn": {
+            turn: line["gather_launches"]
+            for turn, line in (("a", a), ("b", b), ("d", d), ("f", f),
+                               ("g", g))},
         "phase_s": timeit.default_timer() - start,
     }
 
@@ -4507,6 +4866,8 @@ def main() -> int:
             "distributed": dist_run["gather_launches"],
             "elastic": elastic_run["gather_launches"],
             "serving": serving_run["gather_launches"],
+            "serving_move": serving_run["gather_launches_by_turn"]["f"],
+            "serving_abort": serving_run["gather_launches_by_turn"]["g"],
             "resnet": resnet_run["port_kernel_launches"]["gather_rows"],
             "tp_dlrm_rank0": tp_ranks["dlrm"]["gather_rows"]},
         "max_abs_err": kern["max_abs_err"],

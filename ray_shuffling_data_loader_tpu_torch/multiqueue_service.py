@@ -22,6 +22,12 @@ rank)`` queue over TCP:
   of its own (``python -m
   ray_shuffling_data_loader_tpu_torch.multiqueue_service config.json``),
   the unit ``runtime.supervisor`` restarts after a crash.
+- Live rebalancing moves a rank's queues from one shard to another while
+  its consumer reads them: ``OP_REBALANCE`` (PREPARE, ADOPT, RELEASE,
+  UNSEAL; :func:`rebalance_prepare` and its siblings, driven by
+  ``rebalance.migrate``), the source's ``KIND_MOVED`` redirect, and the
+  placement generation each data frame carries, below which the client
+  drops a frame (the fence).
 
 The wire is the JAX package's v3.3, byte for byte, little-endian, so a
 port client reads a JAX server and a JAX client a port server. A request
@@ -32,6 +38,11 @@ is ``(u8 op, u8 flags, u32 a, u32 b, u32 c)``:
   ``ACK_NONE`` for none). ``FLAG_RESUME`` marks the first GET of a queue
   on a new connection: the server rewinds to the watermark and replays
   the unacked frames.
+- ``OP_REBALANCE`` (6): ``flags`` is the phase (``REB_*``), ``a`` the
+  rank, ``b`` the placement generation, ``c`` the length of the JSON
+  payload that follows; the answer is ``(u32 length)`` and a
+  ``checkpoint.crc_line`` (the handoff manifest for PREPARE, an ack or
+  ``{"error": ...}`` otherwise).
 - ``OP_HELLO`` (2): ``a | b << 32`` is the consumer's id, its lease
   identity across reconnects; ``FLAG_HANDLES_OK`` says the consumer can
   map the server's shared-memory segments. ``OP_HEARTBEAT`` (3) beats
@@ -49,7 +60,9 @@ queued_mono, f64 queued_unix, u32 queued_pid, u32 generation)`` and
 a shuffle failure (the payload is its text), 3 a table as a
 shared-memory handle (the payload is the JSON ``{"path", "offset",
 "size", "crc"}`` of a segment the server wrote; the consumer maps it and
-checks the segment's CRC). ``codec`` (0 none, 1 zlib, 2 zstd, 3 lz4)
+checks the segment's CRC), 4 a ``KIND_MOVED`` redirect (the JSON
+``{"host", "port", "generation", "rank"}`` of the shard that adopted the
+queue's rank). ``codec`` (0 none, 1 zlib, 2 zstd, 3 lz4)
 compresses a streamed table's payload. ``seq`` numbers a queue's frames
 and survives server restarts (the watermark journal restores it);
 ``crc`` is the CRC-32 of the uncompressed payload (of the blob for a
@@ -57,7 +70,9 @@ handle); ``row_offset`` counts the table rows of the queue's earlier
 frames, so a resumed consumer skips rows absolutely; ``task`` is the
 producing reducer (``rsdl.trace`` metadata, ``TASK_NONE`` if unknown).
 The stamps are the payload's birth (its ``rsdl.birth`` metadata) and the
-frame's build; zero means unknown.
+frame's build; zero means unknown. ``generation`` is the rank's placement
+generation on this shard (0 until a move commits; failure frames always
+0, so an error lands even from a fenced source).
 
 Recovery, as in the JAX package:
 
@@ -88,12 +103,10 @@ Recovery, as in the JAX package:
   tells a dataset on top not to count the last again).
 
 Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue A item when asked for: live rebalancing (``OP_REBALANCE``,
-``placement=``, ``KIND_MOVED``, the generation fence: item 6), streaming
-schedules (``config["epochs"]``: item 7) and tenancy (``OP_TENANT``,
-``tenants=``, ``tenant=``: item 8). The server stamps generation 0; a
-frame the client cannot read (a redirect, a generation other than 0)
-raises :class:`UnreadableFrame`; it is never skipped.
+queue A item when asked for: streaming schedules (``config["epochs"]``:
+item 7) and tenancy (``OP_TENANT``, ``tenants=``, ``tenant=``: item 8). A
+frame of a kind the client does not know raises :class:`UnreadableFrame`;
+it is never skipped.
 
 Host code: imports no torch, so the server's process never touches a
 card.
@@ -101,6 +114,7 @@ card.
 
 from __future__ import annotations
 
+import base64
 import collections
 import concurrent.futures as cf
 import json
@@ -151,8 +165,17 @@ OP_HEARTBEAT = 3
 OP_NACK = 4
 #: Tenancy's bind request (ROADMAP queue A item 8): refused.
 OP_TENANT = 5
-#: Rebalancing's admin request (ROADMAP queue A item 6): refused.
+#: The live-migration admin request (``flags`` the phase).
 OP_REBALANCE = 6
+
+#: OP_REBALANCE phases: PREPARE seals the rank and exports the CRC'd
+#: handoff manifest; ADOPT installs it on the target at the new
+#: generation; RELEASE drops the rank on the source and arms MOVED
+#: redirects; UNSEAL is the abort (the source serves on).
+REB_PREPARE = 1
+REB_ADOPT = 2
+REB_RELEASE = 3
+REB_UNSEAL = 4
 
 FLAG_RESUME = 1
 #: HELLO flag: the consumer can map paths on the server's host (loopback,
@@ -165,8 +188,10 @@ KIND_FAILURE = 2
 #: A table as a shared-memory segment handle: the payload is the JSON
 #: blob ``{"path", "offset", "size", "crc"}``, the header CRC covers it.
 KIND_TABLE_HANDLE = 3
-#: A rebalancing redirect (item 6): never sent here, unreadable by this
-#: client.
+#: A redirect: the queue's rank moved to another shard. The payload is
+#: the JSON ``{"host", "port", "generation", "rank"}``, the header CRC
+#: covers it and the header generation repeats it, so the consumer raises
+#: its fence before it dials the new shard.
 KIND_MOVED = 4
 
 #: The frame kind byte's low nibble; the high one is the payload codec.
@@ -186,8 +211,7 @@ DEFAULT_MAX_BATCH = 8
 
 _LOOPBACK_HOSTS = frozenset({"127.0.0.1", "localhost", "::1"})
 
-_ITEMS = {"6": "live rebalancing",
-          "7": "streaming",
+_ITEMS = {"7": "streaming",
           "8": "tenancy"}
 
 
@@ -200,9 +224,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class UnreadableFrame(RuntimeError):
-    """A frame this client cannot read (a redirect or a placement
-    generation other than 0, or an unknown kind): a JAX server with live
-    rebalancing, ROADMAP queue A item 6, on. Raised, never skipped."""
+    """A frame of a kind this client does not know. Raised, never
+    skipped."""
 
 
 def _crc(payload) -> int:
@@ -465,6 +488,25 @@ class _Lease:
         self.expired = False
 
 
+class QueueMoved(Exception):
+    """A GET found its queue's rank moved to another shard (a
+    ``KIND_MOVED`` redirect): the new shard's ``address`` and the
+    committed placement ``generation`` (the client's fence is raised
+    before this is raised). :class:`ShardedRemoteQueue` follows it; a bare
+    :class:`RemoteQueue` raises it."""
+
+    def __init__(self, queue_index: int, rank: int,
+                 address: Tuple[str, int], generation: int):
+        super().__init__(
+            f"queue {queue_index} (rank {rank}) moved to "
+            f"{address[0]}:{address[1]} at placement generation "
+            f"{generation}")
+        self.queue_index = queue_index
+        self.rank = rank
+        self.address = (str(address[0]), int(address[1]))
+        self.generation = generation
+
+
 _POP_CLOSED = object()
 _POP_EMPTY = object()
 
@@ -505,8 +547,17 @@ class QueueServer:
     ranks (``plan.ir.queue_shard``) and answers a GET for another with a
     failure frame. ``handle_dir`` is where handle frames' segments go (a
     directory of its own under the shm root by default, removed at
-    ``close``). ``tenants`` (item 8) and ``placement`` (item 6) are the
-    JAX package's signature and raise ``NotImplementedError``.
+    ``close``). ``tenants`` (item 8) is the JAX package's signature and
+    raises ``NotImplementedError``.
+
+    ``placement`` is the state a live move leaves (``{"generation": G,
+    "overrides": {rank: shard}, "rank_generations": {rank: gen},
+    "addresses": [[host, port], ...]}``): a rank overridden onto this
+    shard is adopted (``_extra_ranks``), one overridden away from its
+    static home here answers its GETs with a ``KIND_MOVED`` redirect
+    (``_moved``), and each data frame carries its rank's generation
+    (``_rank_gen``). ``OP_REBALANCE`` changes all three while the server
+    runs.
     """
 
     def __init__(self, queue: mq.MultiQueue, address: Tuple[str, int],
@@ -519,14 +570,38 @@ class QueueServer:
                  placement: Optional[dict] = None):
         if tenants:
             raise not_ported("tenants=", "8")
-        if placement:
-            raise not_ported("placement=", "6")
         self._queue = queue
         self._num_trainers = max(1, num_trainers)
         self._journal = journal
         self._exit_on_crash_site = exit_on_crash_site
         self._shard_index = shard_index
         self._num_shards = max(1, num_shards)
+        placement = placement or {}
+        self._placement_gen = int(placement.get("generation", 0))
+        self._rank_gen: Dict[int, int] = {
+            int(r): int(g)
+            for r, g in dict(placement.get("rank_generations", {})).items()}
+        self._sealed_ranks: set = set()
+        self._extra_ranks: set = set()
+        self._moved: Dict[int, Tuple[int, Tuple[str, int]]] = {}
+        addresses = [tuple(a) for a in placement.get("addresses", ())]
+        for r, s in dict(placement.get("overrides", {})).items():
+            rank, shard_for_rank = int(r), int(s)
+            static = rank % self._num_shards
+            if shard_for_rank == static:
+                continue
+            if shard_for_rank == self._shard_index:
+                self._extra_ranks.add(rank)
+            elif static == self._shard_index:
+                if shard_for_rank >= len(addresses):
+                    raise ValueError(
+                        f"placement override routes rank {rank} to shard "
+                        f"{shard_for_rank} but only {len(addresses)} "
+                        f"addresses were supplied")
+                self._moved[rank] = (
+                    self._rank_gen.get(rank, self._placement_gen),
+                    (str(addresses[shard_for_rank][0]),
+                     int(addresses[shard_for_rank][1])))
         self._timeout_s = rt_policy.resolve("queue", "queue_timeout_s")
         self._nodelay = rt_policy.resolve("queue", "queue_nodelay")
         self._replay_budget = rt_policy.resolve("queue",
@@ -655,12 +730,19 @@ class QueueServer:
         """One pop. A blocking pop ticks every 0.25 s so that close() and
         the consumer's lease stay live while the queue is idle; the
         queue's own ``ShutdownError`` propagates (a failure frame)."""
+        rank = plan_ir.queue_rank(queue_idx, self._num_trainers)
         while not self._closed.is_set():
             try:
                 return self._queue.get(queue_idx, block=blocking,
                                        timeout=0.25 if blocking else None)
             except mq.Empty:
                 if not blocking:
+                    return _POP_EMPTY
+                if rank in self._sealed_ranks:
+                    # PREPARE sealed the rank under this parked GET, and
+                    # its export needs the queue's state lock the caller
+                    # holds: answer with an empty batch (the consumer
+                    # asks again and meets the seal or the redirect).
                     return _POP_EMPTY
                 # A consumer blocked in a GET here is alive.
                 self._lease_beat(consumer_id, None)
@@ -672,6 +754,11 @@ class QueueServer:
         return plan_ir.queue_epoch(queue_idx, self._num_trainers)
 
     def _owns_queue(self, queue_idx: int) -> bool:
+        rank = plan_ir.queue_rank(queue_idx, self._num_trainers)
+        if rank in self._moved:
+            return False
+        if rank in self._extra_ranks:
+            return True
         return (self._num_shards <= 1
                 or plan_ir.queue_shard(queue_idx, self._num_trainers,
                                        self._num_shards)
@@ -824,6 +911,8 @@ class QueueServer:
             self.close()
             raise
         state = self._state(queue_idx)
+        sealed = (plan_ir.queue_rank(queue_idx, self._num_trainers)
+                  in self._sealed_ranks)
         with state.lock:
             want_handle = handles_ok and not state.no_handles
             if ack is not None and ack > state.acked_seq:
@@ -850,7 +939,10 @@ class QueueServer:
                 rt_telemetry.record("frame_replay", epoch=frames[0].epoch,
                                     task=queue_idx, count=len(frames))
             try:
-                while (len(frames) < max_items
+                # A sealed rank serves only its replay suffix: the manifest
+                # holds everything past the watermark, and a new pop here
+                # would fork the stream the target adopts.
+                while (not sealed and len(frames) < max_items
                        and (not frames
                             or frames[-1].kind in (KIND_TABLE,
                                                    KIND_TABLE_HANDLE))):
@@ -896,6 +988,11 @@ class QueueServer:
                             self._compression_saved.inc(-delta)
             if frames:
                 state.sent_seq = frames[-1].seq
+        if sealed and not frames:
+            # An empty batch is an answer (the client asks again); paced,
+            # so a consumer polling a sealed, drained queue does not spin
+            # until the redirect or the unseal.
+            time.sleep(0.05)
         self._note_shard_depth()
         return frames
 
@@ -907,6 +1004,8 @@ class QueueServer:
         either way, chaos sites included (a torn header flushes what the
         sequential writes would have sent before the reset)."""
         gather = self._sendmsg and hasattr(conn, "sendmsg")
+        gen = self._rank_gen.get(
+            plan_ir.queue_rank(queue_idx, self._num_trainers), 0)
         vecs: List = [_BATCH_HEADER.pack(len(frames))]
         if not gather:
             conn.sendall(vecs[0])
@@ -917,7 +1016,7 @@ class QueueServer:
                                  frame.epoch, frame.seq, frame.crc,
                                  frame.row_offset, size, frame.task,
                                  *_pack_stamp(frame.birth),
-                                 *_pack_stamp(frame.queued), 0)
+                                 *_pack_stamp(frame.queued), gen)
             try:
                 rt_faults.inject("conn_reset_midframe", epoch=frame.epoch,
                                  task=queue_idx)
@@ -965,11 +1064,24 @@ class QueueServer:
 
     @staticmethod
     def _fail_frame(text: bytes) -> bytes:
-        """A one-frame failure response."""
+        """A one-frame failure response (generation 0: past any fence)."""
         return (_BATCH_HEADER.pack(1)
                 + _FRAME.pack(KIND_FAILURE, 0, ACK_NONE, _crc(text), 0,
                               len(text), TASK_NONE, 0.0, 0.0, 0,
                               0.0, 0.0, 0, 0) + text)
+
+    def _moved_frame(self, queue_idx: int, rank: int) -> bytes:
+        """A one-frame ``KIND_MOVED`` redirect to the shard that adopted
+        ``rank``; the header's generation repeats the payload's, so the
+        consumer raises its fence before it dials the new address."""
+        generation, (host, port) = self._moved[rank]
+        blob = json.dumps({"host": host, "port": port,
+                           "generation": generation, "rank": rank},
+                          sort_keys=True).encode()
+        return (_BATCH_HEADER.pack(1)
+                + _FRAME.pack(KIND_MOVED, 0, ACK_NONE, _crc(blob), 0,
+                              len(blob), TASK_NONE, 0.0, 0.0, 0,
+                              0.0, 0.0, 0, generation) + blob)
 
     def _serve_conn(self, conn: socket.socket) -> None:
         consumer_id: Optional[int] = None
@@ -1009,12 +1121,8 @@ class QueueServer:
                     logger.error("queue server: %s", refused.decode())
                     continue
                 if op == OP_REBALANCE:
-                    if c:
-                        _recv_exact(conn, c)
-                    from ray_shuffling_data_loader_tpu_torch import (
-                        checkpoint as ckpt)
-                    reply = ckpt.crc_line({"error": repr(not_ported(
-                        "OP_REBALANCE", "6"))}).encode()
+                    blob = _recv_exact(conn, c) if c else b""
+                    reply = self._rebalance_admin(flags, a, b, blob)
                     conn.sendall(_BATCH_HEADER.pack(len(reply)) + reply)
                     continue
                 if op != OP_GET_BATCH:
@@ -1023,6 +1131,13 @@ class QueueServer:
                     conn.sendall(self._fail_frame(refused))
                     continue
                 queue_idx, max_items = a, b
+                moved_rank = plan_ir.queue_rank(queue_idx,
+                                                self._num_trainers)
+                if moved_rank in self._moved:
+                    # The rank moved away under a committed decision: a
+                    # redirect, never a stream this shard no longer owns.
+                    conn.sendall(self._moved_frame(queue_idx, moved_rank))
+                    continue
                 if not self._owns_queue(queue_idx):
                     # A consumer dialling the wrong shard fails loudly; a
                     # foreign rank's stream is never served.
@@ -1081,6 +1196,216 @@ class QueueServer:
                             task=queue_idx, seq=bad_seq)
         logger.warning("queue %d: consumer NACK'd frame %d (CRC mismatch); "
                        "re-sending from replay", queue_idx, bad_seq)
+
+    # -- live queue migration (rebalance/) ----------------------------------
+
+    def _rank_queues(self, rank: int) -> List[int]:
+        """The queues of ``rank`` this server holds state for."""
+        with self._states_lock:
+            return sorted(q for q in self._states
+                          if plan_ir.queue_rank(q, self._num_trainers)
+                          == rank)
+
+    def _crash_site(self, site: str, generation: int, rank: int) -> None:
+        """A migration phase's chaos site: the whole server dying there
+        (the unit of ``queue_server_crash``)."""
+        try:
+            rt_faults.inject(site, epoch=generation, task=rank)
+        except rt_faults.InjectedFault:
+            if self._exit_on_crash_site:
+                os._exit(137)
+            self.close()
+            raise
+
+    def _rebalance_admin(self, phase: int, rank: int, generation: int,
+                         payload: bytes) -> bytes:
+        """One OP_REBALANCE phase. Every answer is a
+        ``checkpoint.crc_line``; an error comes back as ``{"error": ...}``
+        so the driver aborts cleanly instead of meeting a reset."""
+        from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+        try:
+            if phase == REB_PREPARE:
+                self._crash_site("rebalance_prepare", generation, rank)
+                line = self._export_rank(rank, generation)
+                rt_telemetry.record("rebalance_prepare", epoch=generation,
+                                    task=rank, shard=self._shard_index)
+                return line
+            if phase == REB_ADOPT:
+                self._crash_site("rebalance_commit", generation, rank)
+                # The manifest's CRC is checked here, on the target: the
+                # driver forwards the source's line as it came.
+                manifest = ckpt.parse_crc_line(
+                    payload.decode("utf-8"))["manifest"]
+                self._import_rank(manifest)
+                rt_telemetry.record("rebalance_commit", epoch=generation,
+                                    task=rank, shard=self._shard_index)
+                return ckpt.crc_line({"adopted": rank,
+                                      "generation": generation}).encode()
+            if phase == REB_RELEASE:
+                target = json.loads(payload.decode("utf-8"))
+                self._release_rank(rank, generation,
+                                   (str(target["host"]),
+                                    int(target["port"])))
+                rt_telemetry.record("rebalance_release", epoch=generation,
+                                    task=rank, shard=self._shard_index)
+                return ckpt.crc_line({"released": rank,
+                                      "generation": generation}).encode()
+            if phase == REB_UNSEAL:
+                self._sealed_ranks.discard(rank)
+                rt_telemetry.record("rebalance_unseal", epoch=generation,
+                                    task=rank, shard=self._shard_index)
+                return ckpt.crc_line({"unsealed": rank}).encode()
+            return ckpt.crc_line(
+                {"error": f"unknown rebalance phase {phase}"}).encode()
+        except rt_faults.InjectedFault:
+            raise
+        except Exception as e:  # noqa: BLE001 - reported to the driver
+            logger.warning("rebalance phase %d for rank %d failed: %s",
+                           phase, rank, e)
+            return ckpt.crc_line({"error": repr(e)}).encode()
+
+    def _export_rank(self, rank: int, generation: int) -> bytes:
+        """PREPARE: seal ``rank`` and export what a target needs to go on
+        with its streams exactly once: per queue the seq cursor, the row
+        accounting, the journaled births and every unacked frame as base64
+        bytes (a pending compression landed first; a handle frame
+        downgraded to its segment's bytes, since another shard cannot map
+        this one's segments; its pin stays with the frame here until the
+        RELEASE). One ``checkpoint.crc_line`` carries it all."""
+        from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+        self._sealed_ranks.add(rank)
+        queues: Dict[str, dict] = {}
+        for q in self._rank_queues(rank):
+            state = self._state(q)
+            with state.lock:
+                frames = []
+                for frame in state.replay:
+                    if frame.pending_codec is not None:
+                        state.replay_bytes += frame.resolve_codec()
+                    if frame.kind == KIND_TABLE_HANDLE:
+                        frame = self._downgrade_frame(frame)
+                    frames.append({
+                        "seq": frame.seq, "kind": frame.kind,
+                        "epoch": frame.epoch, "crc": frame.crc,
+                        "data_crc": frame.data_crc,
+                        "row_offset": frame.row_offset,
+                        "nrows": frame.nrows, "task": frame.task,
+                        "codec": frame.codec,
+                        "payload_bytes": frame.payload_bytes,
+                        "wire": base64.b64encode(
+                            memoryview(frame.wire)).decode("ascii"),
+                        "birth": list(frame.birth) if frame.birth else None,
+                        "queued": (list(frame.queued)
+                                   if frame.queued else None),
+                    })
+                queues[str(q)] = {
+                    "next_seq": state.next_seq,
+                    "acked_seq": state.acked_seq,
+                    "acked_rows": state.acked_rows,
+                    "rows_total": state.rows_total,
+                    "done": state.done,
+                    "births": {str(seq): list(stamp)
+                               for seq, stamp in state.births.items()},
+                    "frames": frames,
+                }
+        manifest = {"rank": rank, "generation": generation,
+                    "num_trainers": self._num_trainers,
+                    "source_shard": self._shard_index,
+                    "queues": queues}
+        return ckpt.crc_line({"manifest": manifest}).encode()
+
+    def _import_rank(self, manifest: dict) -> None:
+        """ADOPT: install an exported rank's queue states (adopting the
+        same generation again is a no-op) and merge its births and
+        watermarks into this shard's journal, so a restart of the target
+        after the adoption regenerates the undelivered remainder."""
+        rank = int(manifest["rank"])
+        generation = int(manifest["generation"])
+        if int(manifest["num_trainers"]) != self._num_trainers:
+            raise ValueError(
+                f"manifest num_trainers {manifest['num_trainers']} != "
+                f"server num_trainers {self._num_trainers}")
+        if self._rank_gen.get(rank, 0) >= generation > 0:
+            logger.warning("rank %d already adopted at generation >= %d; "
+                           "treating re-adopt as a no-op", rank, generation)
+            return
+        for q_str, entry in manifest["queues"].items():
+            q = int(q_str)
+            births = {
+                int(seq): rt_lat.Stamp(int(pid), float(tm), float(tu))
+                for seq, (pid, tm, tu) in entry["births"].items()}
+            state = _QueueState(next_seq=int(entry["next_seq"]),
+                                done=bool(entry["done"]), births=births)
+            state.acked_seq = int(entry["acked_seq"])
+            state.sent_seq = state.acked_seq
+            state.acked_rows = int(entry["acked_rows"])
+            state.rows_total = int(entry["rows_total"])
+            for f in entry["frames"]:
+                birth = (rt_lat.Stamp(int(f["birth"][0]),
+                                      float(f["birth"][1]),
+                                      float(f["birth"][2]))
+                         if f["birth"] else None)
+                queued = (rt_lat.Stamp(int(f["queued"][0]),
+                                       float(f["queued"][1]),
+                                       float(f["queued"][2]))
+                          if f["queued"] else None)
+                frame = _Frame(int(f["seq"]), int(f["kind"]),
+                               int(f["epoch"]),
+                               base64.b64decode(f["wire"]),
+                               int(f["crc"]), int(f["row_offset"]),
+                               int(f["nrows"]), int(f["task"]),
+                               codec=int(f["codec"]),
+                               payload_bytes=int(f["payload_bytes"]),
+                               data_crc=int(f["data_crc"]),
+                               birth=birth, queued=queued)
+                state.replay.append(frame)
+                state.replay_bytes += frame.size
+            with self._states_lock:
+                self._states[q] = state
+            if self._journal is not None:
+                for seq, stamp in births.items():
+                    self._journal.record_birth(q, seq, stamp.pid,
+                                               stamp.t_mono, stamp.t_unix)
+                for frame in state.replay:
+                    if frame.birth is not None:
+                        self._journal.record_birth(
+                            q, frame.seq, frame.birth.pid,
+                            frame.birth.t_mono, frame.birth.t_unix)
+                if state.acked_seq >= 0:
+                    self._journal.record(q, state.acked_seq,
+                                         state.acked_rows,
+                                         done=state.done)
+        self._rank_gen[rank] = generation
+        self._extra_ranks.add(rank)
+        self._moved.pop(rank, None)
+        self._sealed_ranks.discard(rank)
+        logger.warning("shard %d adopted rank %d at placement generation "
+                       "%d (%d queue(s))", self._shard_index, rank,
+                       generation, len(manifest["queues"]))
+
+    def _release_rank(self, rank: int, generation: int,
+                      target: Tuple[str, int]) -> None:
+        """After the commit: drop the source's copy of a moved rank (its
+        frames' pins released, its segments unlinked) and answer the
+        rank's GETs with ``KIND_MOVED`` redirects. The ``MultiQueue`` is
+        not drained: a committed move happens where both shards pop one
+        shared queue (in-process shards), so the undelivered items flow
+        to the target as they are."""
+        for q in self._rank_queues(rank):
+            state = self._state(q)
+            with state.lock:
+                while state.replay:
+                    frame = state.replay.popleft()
+                    state.replay_bytes -= frame.size
+                    self._release_frame(frame)
+            with self._states_lock:
+                self._states.pop(q, None)
+        self._sealed_ranks.discard(rank)
+        self._extra_ranks.discard(rank)
+        self._moved[rank] = (generation, (str(target[0]), int(target[1])))
+        logger.warning("shard %d released rank %d to %s:%d at placement "
+                       "generation %d", self._shard_index, rank,
+                       target[0], target[1], generation)
 
     # -- consumer leases ----------------------------------------------------
 
@@ -1307,6 +1632,68 @@ def serve_queue(queue: mq.MultiQueue,
                        placement=placement)
 
 
+def _rebalance_call(address: Tuple[str, int], phase: int, rank: int,
+                    generation: int, payload: bytes = b"",
+                    timeout_s: float = 30.0) -> str:
+    """One OP_REBALANCE round trip on a connection of its own. Returns the
+    answer's ``checkpoint.crc_line`` (its CRC checked); an ``{"error":
+    ...}`` answer raises ``RuntimeError``."""
+    from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+    with socket.create_connection(tuple(address),
+                                  timeout=timeout_s) as sock:
+        sock.sendall(_REQUEST.pack(OP_REBALANCE, phase, rank, generation,
+                                   len(payload)) + payload)
+        (length,) = _BATCH_HEADER.unpack(
+            _recv_exact(sock, _BATCH_HEADER.size))
+        line = _recv_exact(sock, length).decode("utf-8")
+    entry = ckpt.parse_crc_line(line)
+    if "error" in entry:
+        raise RuntimeError(
+            f"rebalance phase {phase} for rank {rank} failed on "
+            f"{address[0]}:{address[1]}: {entry['error']}")
+    return line
+
+
+def rebalance_prepare(address: Tuple[str, int], rank: int,
+                      generation: int, timeout_s: float = 30.0) -> str:
+    """PREPARE on the source shard: seal ``rank`` and return its CRC'd
+    handoff manifest line, to give :func:`rebalance_adopt` as it is (the
+    target checks the CRC the source computed)."""
+    return _rebalance_call(address, REB_PREPARE, rank, generation,
+                           timeout_s=timeout_s)
+
+
+def rebalance_adopt(address: Tuple[str, int], manifest_line: str,
+                    timeout_s: float = 30.0) -> str:
+    """ADOPT on the target shard: install the manifest's queue states and
+    merge its watermarks into the target's journal."""
+    from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
+    manifest = ckpt.parse_crc_line(manifest_line)["manifest"]
+    return _rebalance_call(address, REB_ADOPT, int(manifest["rank"]),
+                           int(manifest["generation"]),
+                           payload=manifest_line.encode("utf-8"),
+                           timeout_s=timeout_s)
+
+
+def rebalance_release(address: Tuple[str, int], rank: int,
+                      generation: int, target: Tuple[str, int],
+                      timeout_s: float = 30.0) -> str:
+    """RELEASE on the source shard, after the commit: drop the moved
+    rank's state and redirect its consumers to ``target``."""
+    payload = json.dumps({"host": str(target[0]),
+                          "port": int(target[1])}).encode("utf-8")
+    return _rebalance_call(address, REB_RELEASE, rank, generation,
+                           payload=payload, timeout_s=timeout_s)
+
+
+def rebalance_unseal(address: Tuple[str, int], rank: int,
+                     timeout_s: float = 30.0) -> str:
+    """UNSEAL on the source shard, after an abort: lift the PREPARE seal
+    so the still-authoritative source serves new frames again."""
+    return _rebalance_call(address, REB_UNSEAL, rank, 0,
+                           timeout_s=timeout_s)
+
+
 class ShardedQueueServer:
     """N in-process :class:`QueueServer` shards over one ``MultiQueue``.
 
@@ -1315,7 +1702,9 @@ class ShardedQueueServer:
     journal state and its own metrics. ``shard_map`` is the
     :class:`plan.ir.ShardMap` consumers route by (give it to
     :class:`ShardedRemoteQueue`). One process per shard is
-    ``runtime.supervisor.launch_supervised_queue_shards``.
+    ``runtime.supervisor.launch_supervised_queue_shards``. ``placement``
+    goes to every shard (``QueueServer``'s); a move between the shards
+    while they serve is ``rebalance.migrate`` over ``shard_map``.
     """
 
     def __init__(self, queue: mq.MultiQueue, num_shards: int,
@@ -1323,7 +1712,8 @@ class ShardedQueueServer:
                  journals: Optional[List] = None,
                  initial_states: Optional[List] = None,
                  handle_dir: Optional[str] = None,
-                 tenants: Optional[dict] = None):
+                 tenants: Optional[dict] = None,
+                 placement: Optional[dict] = None):
         num_shards = max(1, num_shards)
         self.servers: List[QueueServer] = []
         try:
@@ -1336,7 +1726,7 @@ class ShardedQueueServer:
                     shard_index=shard, num_shards=num_shards,
                     handle_dir=(os.path.join(handle_dir, f"s{shard}")
                                 if handle_dir else None),
-                    tenants=tenants))
+                    tenants=tenants, placement=placement))
         except BaseException:
             self.close()
             raise
@@ -1405,6 +1795,13 @@ class RemoteQueue:
     still exactly once). A compressed frame is decompressed before its
     CRC is checked. ``num_trainers`` makes the latency label the rank;
     ``tenant`` (item 8) raises ``NotImplementedError``.
+
+    Live moves: a ``KIND_MOVED`` answer raises the rank's fence to its
+    generation, then :class:`QueueMoved`; a data frame whose generation is
+    below its rank's fence (a source that serves on after the move) is
+    dropped and counted (``rsdl_rebalance_fenced_frames_total``).
+    :meth:`export_positions` and :meth:`adopt_positions` carry a rank's
+    positions to the new shard's client.
     """
 
     #: This client observes ``birth_to_delivered`` from the frame stamps;
@@ -1469,6 +1866,12 @@ class RemoteQueue:
         self._corrupt = rt_metrics.counter(
             "rsdl_queue_frames_corrupt_total",
             "frames rejected client-side on CRC mismatch")
+        #: rank -> placement-generation fence (0: none), raised by a
+        #: KIND_MOVED redirect, a newer data frame or adopt_positions.
+        self._gen_floor: Dict[int, int] = {}
+        self._fenced = rt_metrics.counter(
+            "rsdl_rebalance_fenced_frames_total",
+            "frames dropped below the placement-generation fence")
         try:
             self._retry.call(self._reconnect, describe=f"connect {address}")
         except OSError as e:
@@ -1539,6 +1942,34 @@ class RemoteQueue:
                 self._committed[q] = max(self._committed[q],
                                          self._delivered[q])
 
+    def export_positions(self, rank: int) -> Dict[int, Tuple[int, int]]:
+        """``{queue: (delivered, committed)}`` of every queue of ``rank``
+        this client touched; its buffers and pending request are dropped
+        (the adopting shard replays them). For :meth:`adopt_positions` on
+        the new shard's client."""
+        positions: Dict[int, Tuple[int, int]] = {}
+        with self._state_lock:
+            for q in set(self._delivered) | set(self._committed):
+                if plan_ir.queue_rank(q, self._num_trainers) != rank:
+                    continue
+                positions[q] = (self._delivered[q], self._committed[q])
+                self._buffers.pop(q, None)
+                self._pending.pop(q, None)
+        return positions
+
+    def adopt_positions(self, positions: Dict[int, Tuple[int, int]],
+                        generation: int = 0,
+                        rank: Optional[int] = None) -> None:
+        """Merge another client's positions (the larger wins) and raise
+        ``rank``'s fence to ``generation``: this client's first GET resumes
+        at the frame the old shard's stream stopped at."""
+        with self._state_lock:
+            for q, (delivered, committed) in positions.items():
+                self._delivered[q] = max(self._delivered[q], delivered)
+                self._committed[q] = max(self._committed[q], committed)
+            if rank is not None and generation > self._gen_floor.get(rank, 0):
+                self._gen_floor[rank] = generation
+
     def _read_frames(self, queue_index: int, count: int, parsed: list
                      ) -> Optional[Tuple[int, int]]:
         """Read ``count`` frames of a response into ``parsed``; returns
@@ -1547,6 +1978,7 @@ class RemoteQueue:
         aligned past a bad frame: its payload and the rest are read and
         dropped (delivery is in order)."""
         bad = None
+        rank = plan_ir.queue_rank(queue_index, self._num_trainers)
         for _ in range(count):
             (kind_byte, epoch, seq, crc, row_offset, length, src_task,
              b_mono, b_unix, b_pid, q_mono, q_unix, q_pid,
@@ -1557,19 +1989,41 @@ class RemoteQueue:
             if bad is not None:
                 continue
             if kind == KIND_MOVED:
-                raise UnreadableFrame(
-                    f"queue {queue_index}: frame {seq} is a MOVED "
-                    f"redirect; {not_ported('following it', '6')}")
+                # The rank moved: the fence rises first (a source serving
+                # on can never slip a frame in after the redirect), then
+                # the router learns the new address.
+                blob = bytes(payload)
+                if _crc(blob) != crc:
+                    raise ConnectionError(
+                        "MOVED redirect failed CRC; refetching")
+                info = json.loads(blob.decode())
+                moved_gen = int(info["generation"])
+                if moved_gen > self._gen_floor.get(rank, 0):
+                    self._gen_floor[rank] = moved_gen
+                raise QueueMoved(queue_index, int(info["rank"]),
+                                 (info["host"], info["port"]), moved_gen)
             if kind not in (KIND_TABLE, KIND_SENTINEL, KIND_FAILURE,
                             KIND_TABLE_HANDLE):
                 raise UnreadableFrame(
                     f"queue {queue_index}: frame {seq} has unknown kind "
                     f"{kind}")
-            if generation and kind != KIND_FAILURE:
-                raise UnreadableFrame(
-                    f"queue {queue_index}: frame {seq} carries placement "
-                    f"generation {generation}; "
-                    f"{not_ported('its fence', '6')}")
+            if kind != KIND_FAILURE:
+                # The fence: a data frame below the rank's floor comes
+                # from a source still serving a moved rank. Failure frames
+                # carry 0 and always land.
+                floor = self._gen_floor.get(rank, 0)
+                if generation < floor:
+                    self._fenced.inc()
+                    rt_telemetry.record(
+                        "rebalance_fence", epoch=epoch, task=queue_index,
+                        seq=seq, generation=generation, floor=floor)
+                    logger.warning(
+                        "queue %d: fenced frame %d from a moved source "
+                        "(generation %d < floor %d)", queue_index, seq,
+                        generation, floor)
+                    continue
+                if generation > floor:
+                    self._gen_floor[rank] = generation
             try:
                 # The CRC is over the uncompressed bytes: a torn
                 # compressed payload fails here and is NACK'd like any.
@@ -1806,8 +2260,10 @@ class ShardedRemoteQueue:
     ``ShufflingDataset(batch_queue=ShardedRemoteQueue(shard_map))`` is the
     same remote trainer; each shard's client keeps its own lease,
     watermarks and prefetch, so one dead shard never stalls a stream its
-    siblings serve. A ``KIND_MOVED`` redirect (live rebalancing, item 6)
-    raises :class:`UnreadableFrame`.
+    siblings serve. A ``KIND_MOVED`` redirect is followed: the map's
+    override and generation are rewritten, the old client's positions go
+    to the new shard's client and its fence rises (at most 4 redirects
+    per call).
     """
 
     #: See RemoteQueue.observes_delivery (every shard's client observes).
@@ -1848,13 +2304,60 @@ class ShardedRemoteQueue:
     def client_for_queue(self, queue_index: int) -> RemoteQueue:
         return self._client(self._shard_map.shard_for_queue(queue_index))
 
+    def _apply_move(self, moved: QueueMoved) -> None:
+        """Follow a redirect: the map's override for the moved rank, the
+        old client's delivered and committed positions to the new shard's
+        client (the larger wins: exactly once across the handoff) and its
+        fence raised, so the old source's late frames are dropped."""
+        target_shard = None
+        for shard, addr in enumerate(self._shard_map.addresses):
+            if (str(addr[0]), int(addr[1])) == moved.address:
+                target_shard = shard
+                break
+        if target_shard is None:
+            raise RuntimeError(
+                f"MOVED redirect names {moved.address[0]}:"
+                f"{moved.address[1]}, which is not in this consumer's "
+                f"shard map — the placement decision and the map "
+                f"disagree") from moved
+        with self._clients_lock:
+            old_shard = self._shard_map.shard_for_rank(moved.rank)
+            self._shard_map.overrides[moved.rank] = target_shard
+            self._shard_map.generation = max(self._shard_map.generation,
+                                             moved.generation)
+            old_client = self._clients.get(old_shard)
+        positions = (old_client.export_positions(moved.rank)
+                     if old_client is not None else {})
+        self._client(target_shard).adopt_positions(
+            positions, generation=moved.generation, rank=moved.rank)
+        logger.warning(
+            "following MOVED redirect: rank %d shard %d -> %d at "
+            "placement generation %d (%d queue position(s) carried)",
+            moved.rank, old_shard, target_shard, moved.generation,
+            len(positions))
+
+    def _route(self, queue_index: int, op: Callable):
+        """Run ``op`` on the owning shard's client, following up to 4
+        redirects (a settled placement needs one; the bound stops a loop
+        of a misconfigured plane)."""
+        for _ in range(4):
+            try:
+                return op(self.client_for_queue(queue_index))
+            except QueueMoved as moved:
+                self._apply_move(moved)
+        raise RuntimeError(
+            f"queue {queue_index} still redirecting after 4 MOVED "
+            f"hops; placement plane is unstable or misconfigured")
+
     def get_positioned(self, queue_index: int):
-        return self.client_for_queue(queue_index).get_positioned(
-            queue_index)
+        return self._route(
+            queue_index,
+            lambda client: client.get_positioned(queue_index))
 
     def get(self, queue_index: int, block: bool = True):
-        return self.client_for_queue(queue_index).get(queue_index,
-                                                      block=block)
+        return self._route(
+            queue_index,
+            lambda client: client.get(queue_index, block=block))
 
     def commit(self, queue_index: Optional[int] = None) -> None:
         if queue_index is not None:
@@ -1944,8 +2447,9 @@ def serve_pipeline(config: dict):
     and ``handle_dir``; the port adds ``cast`` (``{column: dtype}``: the
     map-time cast of ``transforms.CastTransform``, so the server ships
     the narrow dtypes a ``DeviceShufflingDataset`` spec casts to).
-    ``placement`` (item 6), ``epochs`` (item 7) and ``tenants`` (item 8)
-    raise ``NotImplementedError``.
+    ``placement`` is ``QueueServer``'s (the state a live move left), and
+    a shard owns the ranks its overrides give it. ``epochs`` (item 7) and
+    ``tenants`` (item 8) raise ``NotImplementedError``.
 
     A shard (``num_shards`` > 1) serves and journals only the ranks
     ``plan.ir.shard_ranks`` gives it: its resume scan covers them alone
@@ -1968,15 +2472,19 @@ def serve_pipeline(config: dict):
     if config.get("epochs") is not None:
         raise not_ported('config["epochs"] (a streaming window schedule)',
                          "7")
-    for key, item in (("placement", "6"), ("tenants", "8")):
-        if config.get(key):
-            raise not_ported(f"config[{key!r}]", item)
+    if config.get("tenants"):
+        raise not_ported("config['tenants']", "8")
     num_epochs = int(config["num_epochs"])
     num_trainers = int(config["num_trainers"])
     num_shards = int(config.get("num_shards", 1))
     shard_index = int(config.get("shard_index", 0))
-    owned_ranks = (plan_ir.shard_ranks(shard_index, num_trainers,
-                                       num_shards)
+    # A shard restarted after a committed move owns the ranks the move
+    # left it (the adoption merged their watermarks into its journal).
+    placement = config.get("placement") or {}
+    overrides = {int(r): int(s)
+                 for r, s in dict(placement.get("overrides", {})).items()}
+    owned_ranks = ([r for r in range(num_trainers)
+                    if overrides.get(r, r % num_shards) == shard_index]
                    if num_shards > 1 else None)
     journal_path = config["journal_path"]
     handle_dir = config.get("handle_dir")
@@ -2022,7 +2530,8 @@ def serve_pipeline(config: dict):
         queue, (config.get("host", "127.0.0.1"), int(config["port"])),
         num_trainers=num_trainers, journal=journal, initial_state=state,
         exit_on_crash_site=True, shard_index=shard_index,
-        num_shards=num_shards, handle_dir=handle_dir)
+        num_shards=num_shards, handle_dir=handle_dir,
+        placement=config.get("placement"))
     rt_metrics.gauge("rsdl_queue_serve_shards",
                      "shard count of the live queue serving plane").set(
                          num_shards)

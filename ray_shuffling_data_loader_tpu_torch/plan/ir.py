@@ -529,11 +529,13 @@ class ShardMap:
     placement is the :func:`queue_shard` query. JSON round-trippable with
     a stable key order, so a child-process config carries it verbatim.
 
-    ``overrides`` (rank -> shard) and ``generation`` are the JAX
-    package's live-move fields (ROADMAP queue A item 6): kept as data and
-    honoured by the routing queries, so a JAX map round-trips byte for
-    byte; nothing in the port writes them yet. Both serialize only when
-    not at their defaults.
+    ``overrides`` (rank -> shard) and ``generation`` are the live-move
+    fields: ``plan.scheduler.rebalance_queues`` and
+    ``rebalance.RebalanceController.current_map`` write them,
+    ``ShardedRemoteQueue`` rewrites its own map's when it follows a
+    ``KIND_MOVED`` redirect, and the routing queries honour them. Both
+    serialize only when not at their defaults (a JAX map round-trips
+    byte for byte).
     """
 
     num_trainers: int

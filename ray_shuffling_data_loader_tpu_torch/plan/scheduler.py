@@ -1,7 +1,6 @@
 """Plan-driven execution engine: dependency-ordered dispatch, speculative
 re-execution of stragglers, work-stealing placement, stage barriers and
-idle-lane prefetch (own copy of the JAX package's ``plan/scheduler.py``,
-without the serving plane's ``rebalance_queues``).
+idle-lane prefetch (own copy of the JAX package's ``plan/scheduler.py``).
 
 It executes an :class:`plan.ir.EpochPlan` on any pool with the
 ``executor.Executor`` contract:
@@ -39,7 +38,9 @@ One named driver thread per plan runs the loop, woken by completion
 events (it polls only while speculation is on).
 
 :func:`rewrite_for_view` re-places a plan's reduce and route nodes over a
-membership view's live ranks (``membership/``).
+membership view's live ranks (``membership/``); :func:`rebalance_queues`
+re-homes trainer ranks' queues onto other shards of the serving plane
+(``rebalance/``).
 """
 
 from __future__ import annotations
@@ -482,3 +483,45 @@ def rewrite_for_view(plan: ir.EpochPlan,
         logger.warning("plan epoch %d: rewrote %d node placement(s) onto "
                        "live ranks %s", plan.epoch, moved, live)
     return moved
+
+
+def rebalance_queues(shard_map: ir.ShardMap,
+                     moves: Dict[int, int]) -> ir.ShardMap:
+    """Re-home trainer ranks' queues onto other shards of the serving
+    plane: the serving plane's :func:`rewrite_for_view`.
+
+    ``moves`` maps a trainer rank to its target shard. The result is a new
+    :class:`plan.ir.ShardMap` whose ``overrides`` carry the merged
+    placement and whose ``generation`` is one higher: the fence the wire
+    stamps into every frame, so the old home's later frames can be
+    dropped. The input map is never changed. A move to the rank's current
+    shard is dropped; when every move is, the input map itself is
+    returned, so a caller detects "nothing to do" by identity. An
+    override that puts a rank back on its static home is dropped, so maps
+    stay canonical. Out-of-range ranks or shards raise
+    :class:`plan.ir.PlanError` (``ShardMap.validate``)."""
+    overrides = dict(shard_map.overrides)
+    applied: Dict[int, int] = {}
+    for rank, shard in sorted(moves.items()):
+        rank, shard = int(rank), int(shard)
+        if shard_map.shard_for_rank(rank) == shard:
+            continue
+        overrides[rank] = shard
+        applied[rank] = shard
+    if not applied:
+        return shard_map
+    overrides = {rank: shard for rank, shard in overrides.items()
+                 if shard != rank % shard_map.num_shards}
+    rebalanced = ir.ShardMap(
+        num_trainers=shard_map.num_trainers,
+        addresses=[tuple(addr) for addr in shard_map.addresses],
+        version=shard_map.version,
+        overrides=overrides,
+        generation=shard_map.generation + 1)
+    rebalanced.validate()
+    rt_telemetry.record("plan_rebalance",
+                        generation=rebalanced.generation,
+                        moves={str(r): s for r, s in applied.items()})
+    logger.warning("shard map generation %d: rebalanced %d rank(s) %s",
+                   rebalanced.generation, len(applied), applied)
+    return rebalanced

@@ -36,7 +36,9 @@ component ``member`` (``RSDL_MEMBER_HEARTBEAT_S``,
 ``RSDL_QUEUE_ON_DEAD_CONSUMER``, ...) and its connect and refetch retries
 as ``queue``; the supervisor's restart budget is the retry policy of the
 component ``supervisor`` (``RSDL_SUPERVISOR_RETRY_MAX_ATTEMPTS``), whose
-defaults ``runtime.supervisor`` registers.
+defaults ``runtime.supervisor`` registers. The rebalance controller reads
+its keys as the component ``rebalance`` (``RSDL_REBALANCE_SLO_P99_S``,
+``RSDL_REBALANCE_COOLDOWN_S``, ``RSDL_REBALANCE_MAX_MOVES``).
 
 Stdlib only.
 """
@@ -216,6 +218,13 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     # One scatter-gather sendmsg per response instead of a sendall per
     # header and payload (the same bytes on the wire).
     "queue_sendmsg": (True, _parse_bool),
+    # Live queue rebalancing (rebalance/, RSDL_REBALANCE_*): the
+    # per-tenant delivery-p99 SLO above which a breach calls for a move,
+    # the window a committed move counts against, and the most committed
+    # moves inside it (one hot rank cannot ping-pong between shards).
+    "rebalance_slo_p99_s": (30.0, float),
+    "rebalance_cooldown_s": (60.0, float),
+    "rebalance_max_moves": (1, int),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}

@@ -14,8 +14,7 @@ queue's side of ``dataset.py``) against the JAX package's, on the CPU.
   commits a manual-ack queue at each checkpoint save, and does not count
   ``birth_to_delivered`` again over a queue that observes it.
 - The in-process queue's surface and the queue policy keys against the
-  JAX package's; every left-out feature (live rebalancing, streaming,
-  tenancy) raises ``NotImplementedError`` naming its ROADMAP item; the
+  JAX package's; every left-out feature (streaming, tenancy) raises ``NotImplementedError`` naming its ROADMAP item; the
   service, the supervisor and the sharded client load no torch.
 """
 
@@ -415,7 +414,6 @@ def _server_kwargs(**kw):
 
 LEFT_OUT = {
     "tenants": (_server_kwargs(tenants={"a": {"weight": 1}}), "8"),
-    "placement": (_server_kwargs(placement={"generation": 1}), "6"),
     "client_tenant": (lambda: tsvc.RemoteQueue(("127.0.0.1", 1),
                                                tenant="a"), "8"),
     "stream_epochs": (lambda: tsvc.serve_pipeline(

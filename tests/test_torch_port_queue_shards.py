@@ -14,7 +14,7 @@ package's, on the CPU.
   equal; both servers put the same frame headers on the wire (kind and
   codec, seq, CRC, row offset, length, task), a handle's segment CRC and
   size included. A GET for a queue another shard owns gets a failure
-  frame; a ``KIND_MOVED`` redirect raises naming ROADMAP item 6.
+  frame.
 - Handles: wire bytes at least 10x below payload bytes; a consumer that
   cannot map a segment downgrades the queue to streamed frames, exactly
   once; pins and segment files are gone after the acks and after
@@ -280,25 +280,6 @@ def test_foreign_queue_gets_a_failure_frame(client_pkg):
             item = remote.get(foreign)
     assert type(item).__name__ == "ShuffleFailure"
     assert "not served by shard 0/2" in str(item.error)
-
-
-def test_moved_redirect_raises_naming_item_6():
-    """A JAX shard whose rank moved away answers with ``KIND_MOVED``;
-    the port's client raises and never skips it."""
-    queue = _fill(jmq, per_queue=1)
-    server = jsvc.QueueServer(
-        queue, ("127.0.0.1", 0), num_trainers=NUM_TRAINERS, shard_index=0,
-        num_shards=2, placement={"generation": 1, "overrides": {"0": 1},
-                                 "addresses": [["127.0.0.1", 1],
-                                               ["127.0.0.1", 2]]})
-    try:
-        shard_map = {"num_trainers": NUM_TRAINERS,
-                     "addresses": [list(server.address), ["127.0.0.1", 2]]}
-        with tsvc.ShardedRemoteQueue(shard_map, retries=0) as remote:
-            with pytest.raises(tsvc.UnreadableFrame, match="item 6"):
-                remote.get(0)
-    finally:
-        server.close()
 
 
 # ---------------------------------------------------------------------------
