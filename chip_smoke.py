@@ -8,7 +8,8 @@ membership (failure detection across processes, the generation fence,
 a shrink and a grow under the DLRM step), the queue service (a
 supervised server process feeding the DLRM step, killed once mid-epoch;
 two supervised shard processes, one killed, feeding it through shared
-memory), save, restore and resume
+memory), a stream's windows (in process, and served by supervised
+shards, one killed at a window boundary), save, restore and resume
 mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
 run), end to end at full width, and checks its
@@ -272,7 +273,42 @@ printing one JSON line:
    compression ratio (the server processes' counters from their metric
    shards), ``birth_to_delivered`` p50/p99 and the card's name and power
    limit.
-14. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+14. ``stream``: the streaming plane (``streaming/``) on a drifting click
+   stream: 16 files of 131,072 rows in the ``mlperf`` schema (seed 0;
+   ``workloads.dlrm_criteo.generate_drifting_stream``), 2-file windows
+   (8 windows of 262,144 rows), 8 reducers, loader batch 131,072, the key
+   column loaded. The reference: the stream's frozen schedule shuffled by
+   ``shuffle_epochs`` on threads, read per rank with ``num_trainers`` 1
+   and 2. (a) A ``SyntheticEventSource`` feeds a
+   ``StreamingShuffleRunner`` (two windows in flight, the default
+   backend, which must be the process pool) into a ``MultiQueue``; a
+   ``DeviceShufflingDataset(num_epochs=None)`` in the bulk binding reads
+   it and a fresh DLRM ``mlperf`` (Adam, weights from seed 0) trains all
+   1,024 micro-steps. Checks every key once, each window's digests equal
+   the reference's, finite losses, one gather launch per micro-step, the
+   serve watermark at the ingest watermark and one batch wait per batch
+   and window end (none for the producer's prefetch past the last
+   window). Prints rows/s, ``stall_pct`` and ``step_ms_median`` beside
+   the ``train`` phase's, the windows' close time
+   (``rsdl_stream_window_close_seconds``), the watermark lag per served
+   window in stream seconds, ``birth_to_device`` p50/p99 and the process
+   pool's table segments (files and bytes) after the last window. (b)
+   ``streaming.runner.server_config`` freezes the stream into a schedule
+   (an ingest journal, the spec's cast); two supervised shard processes
+   serve it to 2 trainers (handle frames); rank 0 trains every micro-step
+   through a ``DeviceShufflingDataset(num_epochs=None)`` over
+   ``connect_remote_queue(shard_map)`` while a thread drains rank 1, and
+   shard 0 is SIGKILLed as rank 0 takes its first batch of window 1.
+   Each rank's digests equal the two-trainer reference, shard 0 restarts
+   and shard 1 does not, one gather launch per micro-step, no segment and
+   no ledger byte left; it prints the restart's seconds (kill to the
+   first frame after it), rank 0's longest wait after the kill and
+   rows/s, and the frames replayed. (c) Loader only: a runner over an
+   ingest journal for 4 windows, then a new runner over the same journal
+   and a fresh source: 8 events skipped, epochs 4-7, every key once
+   across the two; the online model (``run_online_training``) over the
+   first 12 files twice, the same history.
+15. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -283,7 +319,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-15. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+16. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -294,7 +330,7 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
-16. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+17. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
    ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
    processes of this script (``--tp-rank``) on the one card, gloo on CUDA
    tensors. First, here, the kernels at the shapes the ranks give them:
@@ -332,6 +368,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import functools
 import gc
 import glob
 import json
@@ -3615,9 +3652,10 @@ def _train_every_micro_step(micro_step, losses, after=None):
 
     def on_batch(epoch, i, features, label):
         n = label.shape[0] // MICROBATCH * MICROBATCH
-        losses.append(train.train_chunk(
-            micro_step, [f[:n] for f in features[:-1]], label[:n],
-            MICROBATCH))
+        if n:  # a batch's tail of fewer rows is not trained
+            losses.append(train.train_chunk(
+                micro_step, [f[:n] for f in features[:-1]], label[:n],
+                MICROBATCH))
         return after(epoch, i) if after is not None else False
 
     return on_batch
@@ -3952,6 +3990,524 @@ def serving_phase(emb, files, trained: dict, want, tmp: str) -> dict:
             turn: line["gather_launches"]
             for turn, line in (("a", a), ("b", b), ("d", d), ("f", f),
                                ("g", g))},
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
+# Stream phase: a drifting click stream (the ``mlperf`` schema, labels
+# drawn at a click rate that drifts with the file's position) in 2-file
+# windows through the streaming runner into the DLRM step.
+STREAM_FILES, STREAM_FILE_ROWS, STREAM_WINDOW_FILES = 16, 131072, 2
+STREAM_WINDOWS = STREAM_FILES // STREAM_WINDOW_FILES
+# (b): two shard processes, two trainers; shard 0 (rank 0's) is
+# SIGKILLed as rank 0 takes its first batch of window 1.
+STREAM_KILL_WINDOW = 1
+# (c): the first runner's windows, and the files of the online model.
+STREAM_RESUME_WINDOWS = 4
+STREAM_ONLINE_FILES, STREAM_ONLINE_REDUCERS = 12, 2
+
+
+def stream_files(tmp: str):
+    """The drifting stream's files and the seconds their generation
+    took."""
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+    start = timeit.default_timer()
+    files = dlrm_criteo.generate_drifting_stream(
+        STREAM_FILES, STREAM_FILE_ROWS, os.path.join(tmp, "clicks"),
+        seed=SEED)
+    return files, timeit.default_timer() - start
+
+
+def _stream_policy():
+    from ray_shuffling_data_loader_tpu_torch import streaming
+    return streaming.WindowPolicy(max_files=STREAM_WINDOW_FILES)
+
+
+def _stream_source(files):
+    from ray_shuffling_data_loader_tpu_torch import streaming
+    return streaming.SyntheticEventSource(files, seed=SEED,
+                                          total_events=len(files))
+
+
+def _stream_reference(files, trainers: int):
+    """Per rank, per window: the digests of the batches the stream's
+    frozen schedule gives that rank when the port's ``shuffle_epochs``
+    shuffles it on the host on threads (the key column loaded)."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     multiqueue, shuffle,
+                                                     streaming)
+    spec, _ = _sharded_spec()
+    specs = streaming.freeze_schedule(_stream_source(files),
+                                      policy=_stream_policy())
+    queue = multiqueue.MultiQueue(len(specs) * trainers)
+    result = shuffle.run_shuffle_epochs_in_background(
+        specs, functools.partial(dataset.batch_consumer, queue, trainers),
+        NUM_REDUCERS, trainers, seed=SEED,
+        on_failure=dataset.make_failure_broadcaster(queue),
+        executor_backend="thread", file_cache=None, epochs_hint=len(specs))
+    digests = []
+    for rank in range(trainers):
+        ds = device_dataset.DeviceShufflingDataset(
+            [], len(specs), trainers, LOADER_BATCH, rank, batch_queue=queue,
+            shuffle_result=None, seed=SEED, drop_last=False, **spec)
+        digests.append([])
+        for window in range(len(specs)):
+            ds.set_epoch(window)
+            digests[rank].append([device_dataset.batch_digest(f, y)
+                                  for f, y in ds])
+        ds.close()
+    result.result()
+    queue.shutdown()
+    return digests
+
+
+def _segments(root: str) -> dict:
+    """The process pool's cross-epoch table segments under ``root``: how
+    many and their bytes."""
+    paths = [os.path.join(d, name) for d, _, names in os.walk(root)
+             for name in names
+             if name.startswith("table_") and name.endswith(".arrow")]
+    return {"files": len(paths),
+            "bytes": sum(os.path.getsize(p) for p in paths)}
+
+
+def _hist_delta(before: dict, after: dict, name: str) -> dict:
+    """Count and mean (ms) of a histogram's observations between two
+    parsed expositions."""
+    count = (sum(after.get(f"{name}_count", {}).values())
+             - sum(before.get(f"{name}_count", {}).values()))
+    total = (sum(after.get(f"{name}_sum", {}).values())
+             - sum(before.get(f"{name}_sum", {}).values()))
+    return {"count": int(count),
+            "mean_ms": total / count * 1e3 if count else None}
+
+
+def _stream_in_process(emb, files, want, trained: dict, tmp: str) -> dict:
+    """(a) A ``SyntheticEventSource`` over the stream feeds a
+    ``StreamingShuffleRunner`` (2-file windows, 8 reducers, two windows in
+    flight, the engine's default backend: the process pool here) into a
+    ``MultiQueue``; a ``DeviceShufflingDataset(num_epochs=None)`` in the
+    bulk binding reads it and a fresh DLRM ``mlperf`` trains every
+    micro-step. Checks every key once, each window's digests against
+    ``want`` (the host's thread shuffle of the frozen schedule), finite
+    losses, one gather launch per micro-step, the serve watermark at the
+    ingest watermark, and one batch wait per batch and window end."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     executor, multiqueue,
+                                                     procpool, streaming,
+                                                     train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+
+    torch.cuda.empty_cache()
+    spec, _ = _sharded_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-stream-", dir=shm_root)
+    queue = multiqueue.MultiQueue(STREAM_WINDOWS)
+    lags, retained, holder = [], {}, {}
+
+    def on_window_served(index: int) -> None:
+        # The lag as the JAX package's bench samples it, in stream
+        # seconds, and what the pool keeps once the last window drained.
+        runner = holder["runner"]
+        lags.append(max(0.0, runner.assembler.ingest_watermark
+                        - runner.serve_watermark))
+        if index == STREAM_WINDOWS - 1:
+            retained.update(_segments(shm_dir))
+
+    runner = streaming.StreamingShuffleRunner(
+        _stream_source(files),
+        functools.partial(dataset.batch_consumer, queue, 1),
+        num_reducers=NUM_REDUCERS, num_trainers=1, seed=SEED,
+        max_concurrent_epochs=2, policy=_stream_policy(),
+        on_window_served=on_window_served)
+    holder["runner"] = runner
+    broadcast = dataset.make_failure_broadcaster(queue)
+    pool_before = procpool.pool_totals()
+    before = metrics.parse_exposition(metrics.render())
+    digests = [[] for _ in range(STREAM_WINDOWS)]
+    keys, losses, chunk_ms = [], [], []
+    ds = None
+    try:
+        with _env(RSDL_EXECUTOR_SHM_DIR=shm_dir):
+            t_start = timeit.default_timer()
+            result = runner.run_in_background()
+
+            def wake_on_failure():
+                try:
+                    result.result()
+                except BaseException as e:  # noqa: BLE001 - to the queue
+                    broadcast(e)
+
+            threading.Thread(target=wake_on_failure, daemon=True,
+                             name="smoke-stream-watch").start()
+            ds = device_dataset.DeviceShufflingDataset(
+                [], None, 1, LOADER_BATCH, 0, batch_queue=queue,
+                shuffle_result=None, seed=SEED, drop_last=False,
+                device=None, **spec)
+            emb.reset_launch_counts()
+            t_first = None
+            for window in range(STREAM_WINDOWS):
+                ds.set_epoch(window)
+                for features, label in ds:
+                    if t_first is None:
+                        t_first = timeit.default_timer()
+                    digests[window].append(
+                        device_dataset.batch_digest(features, label))
+                    keys.append(features[-1].reshape(-1).clone())
+                    t0 = timeit.default_timer()
+                    losses.append(train.train_chunk(
+                        micro_step, features[:-1], label, MICROBATCH))
+                    torch.cuda.synchronize()
+                    chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+            t_end = timeit.default_timer()
+            launches = emb.launch_counts["gather_rows"]
+            t_close = timeit.default_timer()
+            ds.close()
+            close_s = timeit.default_timer() - t_close
+            summary = result.result()
+            backend = executor.last_worker_pool()["backend"]
+    finally:
+        if ds is not None:
+            ds.close()
+        runner.close()
+        queue.shutdown()
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    after = metrics.parse_exposition(metrics.render())
+    pool_after = procpool.pool_totals()
+
+    if backend != "process":
+        raise AssertionError(f"stream (a): the runner's shuffle ran on the "
+                             f"{backend} backend, not the process pool")
+    all_keys = torch.cat(keys).cpu()
+    if not torch.equal(torch.sort(all_keys).values,
+                       torch.arange(STREAM_FILES * STREAM_FILE_ROWS)):
+        raise AssertionError("stream (a): the keys are not each key once")
+    for window in range(STREAM_WINDOWS):
+        got = torch.stack(digests[window]).cpu()
+        if not torch.equal(got, torch.stack(want[0][window]).cpu()):
+            raise AssertionError(f"stream (a): window {window}'s digests "
+                                 "differ from the host's thread shuffle")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("stream (a): non-finite loss")
+    steps = int(all_losses.numel())
+    if steps != STREAM_FILES * STREAM_FILE_ROWS // MICROBATCH:
+        raise AssertionError(f"stream (a): {steps} micro-steps")
+    if launches != steps:
+        raise AssertionError(f"stream (a): {launches} gather launches in "
+                             f"{steps} micro-steps")
+    if (summary["windows_served"] != STREAM_WINDOWS
+            or summary["serve_watermark"] != summary["ingest_watermark"]):
+        raise AssertionError(f"stream (a): the serve watermark did not "
+                             f"reach the ingest watermark: {summary}")
+    waits = ds.batch_wait_stats.wait_times
+    batches = sum(len(d) for d in digests)
+    if len(waits) != batches + STREAM_WINDOWS:
+        raise AssertionError(f"stream (a): {len(waits)} batch waits for "
+                             f"{batches} batches and {STREAM_WINDOWS} "
+                             "window ends")
+    wall = t_end - t_first
+    latency = _latency_between(before, after, "birth_to_device")
+    del model, micro_step
+    return {
+        "turn": "a", "windows": STREAM_WINDOWS,
+        "window_files": STREAM_WINDOW_FILES, "binding": ds.binding,
+        "executor_backend": backend, "max_concurrent_epochs": 2,
+        "rows": int(all_keys.numel()), "loader_batches": batches,
+        "micro_steps": steps,
+        "rows_per_s": int(all_keys.numel()) / wall,
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "fill_s": t_first - t_start,
+        "step_ms_median": float(np.median(chunk_ms)) / (LOADER_BATCH
+                                                        // MICROBATCH),
+        "train": {k: trained[k] for k in ("rows_per_s", "stall_pct",
+                                          "step_ms_median")},
+        "loss_first": float(all_losses[0]),
+        "loss_last": float(all_losses[-1]),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / steps,
+        "digests_equal": True, "keys_once": True,
+        "summary": summary,
+        "window_close": _hist_delta(before, after,
+                                    "rsdl_stream_window_close_seconds"),
+        "watermark_lag_s": lags,
+        "birth_to_device": latency.get("0"),
+        "pool_segments_after_last_window": retained,
+        "pool": {k: pool_after[k] - pool_before[k]
+                 for k in ("pools", "segment_cache_hits",
+                           "segment_cache_bytes")},
+        "close_s": close_s,
+    }
+
+
+def _stream_served(emb, files, want, tmp: str) -> dict:
+    """(b) ``streaming.runner.server_config`` freezes the stream into a
+    schedule (an ingest journal, the DLRM spec's cast); two supervised
+    shard processes serve it to 2 trainers over handle frames. Rank 0
+    trains every micro-step through a ``DeviceShufflingDataset(
+    num_epochs=None)`` over ``connect_remote_queue(shard_map)`` while a
+    thread drains rank 1; shard 0 is SIGKILLed as rank 0 takes its first
+    batch of window 1. Checks each rank's digests against ``want`` (the
+    one-process ``num_trainers=2`` stream of the schedule), shard 0
+    restarted and shard 1 not, one gather launch per micro-step, no
+    segment and no ledger byte left."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import (checkpoint, dataset,
+                                                     device_dataset, train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import supervisor
+    from ray_shuffling_data_loader_tpu_torch.streaming import runner
+
+    torch.cuda.empty_cache()
+    spec, cast = _sharded_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    tel_dir = os.path.join(tmp, "b-metrics")
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-stream-b-", dir=shm_root)
+    handle_root = os.path.join(shm_dir, "handles")
+    ingest = os.path.join(tmp, "b-ingest.wal")
+    config = runner.server_config(
+        _stream_source(files), num_trainers=DIST_WORLD,
+        num_reducers=NUM_REDUCERS, journal_path=os.path.join(tmp, "b.wal"),
+        seed=SEED, policy=_stream_policy(), ingest_journal_path=ingest,
+        cast=cast, handle_dir=handle_root, num_workers=SERVE_SHARD_WORKERS,
+        child_env={"RSDL_TELEMETRY_DIR": tel_dir,
+                   "RSDL_METRICS_SHARD_INTERVAL_S": "0.5",
+                   "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    windows = len(config["epochs"])
+    sealed = [e for e in checkpoint.StreamJournal.load(ingest)
+              if e.get("kind") == "watermark"]
+    t_launch = timeit.default_timer()
+    sups, shard_map = supervisor.launch_supervised_queue_shards(
+        config, SERVE_SHARDS, name="smoke-stream-shard")
+    remotes, datasets, runs, errors, losses, killed = [], [], {}, [], [], {}
+    try:
+        for address in shard_map.addresses:
+            if not supervisor.wait_for_server(tuple(address), timeout_s=120):
+                raise AssertionError(f"stream (b): shard {address} never "
+                                     "listened")
+        listen_s = timeit.default_timer() - t_launch
+        for rank in range(DIST_WORLD):
+            remote = dataset.connect_remote_queue(
+                shard_map, retries=20, initial_backoff_s=0.2,
+                max_batch=1 if rank == 1 else 8)
+            remotes.append(remote)
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                [], None, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remote, shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+        fetches = _log_fetches(remotes[0].client_for_queue(
+            plan_ir.queue_index(0, 0, DIST_WORLD)))
+
+        def kill_shard_0(epoch, i):
+            if epoch == STREAM_KILL_WINDOW and i == 0 and not killed:
+                killed["t"] = timeit.default_timer()
+                os.kill(sups[0].pid, signal.SIGKILL)
+            return bool(killed)
+
+        def drain_rank_1():
+            try:
+                runs[1] = _drain_rank(datasets[1], windows)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        emb.reset_launch_counts()
+        drainer = threading.Thread(target=drain_rank_1, daemon=True,
+                                   name="smoke-stream-rank1")
+        drainer.start()
+        runs[0] = _drain_rank(datasets[0], windows,
+                              _train_every_micro_step(micro_step, losses,
+                                                      kill_shard_0))
+        launches = emb.launch_counts["gather_rows"]
+        drainer.join(timeout=600)
+        if drainer.is_alive():
+            raise AssertionError("stream (b): rank 1's drain hung")
+        if errors:
+            raise errors[0]
+        final_pids = [sup.pid for sup in sups]
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        for sup in sups:
+            sup.stop()
+        handle_files = [f for _, _, names in os.walk(handle_root)
+                        for f in names]
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    for rank in range(DIST_WORLD):
+        _same_stream("stream (b)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("stream (b): non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"stream (b): {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    if sups[0].restarts < 1 or sups[0].failed:
+        raise AssertionError("stream (b): shard 0 was not restarted")
+    if sups[1].restarts:
+        raise AssertionError(f"stream (b): shard 1 restarted "
+                             f"{sups[1].restarts} times")
+    if handle_files:
+        raise AssertionError(f"stream (b): segments left after the stop: "
+                             f"{handle_files[:4]}")
+    # Shard 1 served on: nothing may be left at its exit. The restarted
+    # shard 0 holds, at its exit, the tables it regenerated for windows
+    # rank 0 had already taken: a queue's last batch (the one with its
+    # end sentinel) is never acked, in either package, so its journal
+    # records no finished queue and the restart re-derives from window 0.
+    # Reported beside its journal, not held to 0.
+    ledger = _exit_ledger_bytes(tel_dir, final_pids)
+    if ledger.get(final_pids[1]) != 0:
+        raise AssertionError(f"stream (b): buffer-ledger bytes at shard "
+                             f"1's exit: {ledger}")
+    shard0_journal = checkpoint.WatermarkJournal.load(
+        checkpoint.shard_journal_path(config["journal_path"], 0,
+                                      SERVE_SHARDS))
+    if len(sealed) != windows:
+        raise AssertionError(f"stream (b): {len(sealed)} windows journaled "
+                             f"for a schedule of {windows}")
+    after_kill = [t for t, resumed, n in fetches
+                  if t > killed["t"] and resumed and n]
+    if not after_kill:
+        raise AssertionError("stream (b): no frame came after the kill")
+    server = _server_counters(tel_dir)
+    del model, micro_step
+    return {
+        "turn": "b", "delivery": "auto", "shards": SERVE_SHARDS,
+        "trainers": DIST_WORLD, "windows": windows,
+        "shard_workers": SERVE_SHARD_WORKERS,
+        "kill": f"shard 0 at rank 0's first batch of window "
+                f"{STREAM_KILL_WINDOW}",
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "wall_s": runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "rank0_micro_steps": int(all_losses.numel()),
+        "rank0_max_wait_after_kill_s": runs[0]["max_wait_after_s"],
+        "restart_s": min(after_kill) - killed["t"],
+        "shard_restarts": [sup.restarts for sup in sups],
+        "shards_listen_s": listen_s,
+        "frames_replayed": server["frames_replayed"],
+        "server": server,
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+        "segments_left": 0, "exit_ledger_bytes": list(ledger.values()),
+        "shard0_journal": {q: {"seq": e.seq, "rows": e.rows, "done": e.done}
+                           for q, e in sorted(shard0_journal.items())},
+    }
+
+
+def _stream_resume(files, tmp: str) -> dict:
+    """(c) Loader only: a runner over an ingest journal for 4 windows,
+    dropped; a new runner over the same journal and a fresh source skips
+    the 8 sealed events and goes on at epoch 4. Every key once across the
+    two. Then the online model over the first 12 files, twice: the same
+    history."""
+    from ray_shuffling_data_loader_tpu_torch import streaming
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    journal = os.path.join(tmp, "c-ingest.wal")
+    keys = {}
+
+    def collect(rank, epoch, refs):
+        if refs is None:
+            return
+        for ref in refs:
+            keys.setdefault(epoch, []).append(
+                ref.result().column("key").to_numpy())
+
+    start = timeit.default_timer()
+    first = streaming.StreamingShuffleRunner(
+        _stream_source(files), collect, num_reducers=NUM_REDUCERS,
+        num_trainers=1, seed=SEED, policy=_stream_policy(),
+        journal_path=journal, max_windows=STREAM_RESUME_WINDOWS)
+    first_summary = first.run()
+    first.close()
+    second = streaming.StreamingShuffleRunner(
+        _stream_source(files), collect, num_reducers=NUM_REDUCERS,
+        num_trainers=1, seed=SEED, policy=_stream_policy(),
+        journal_path=journal)
+    skip = second.resume_skip_events
+    second_summary = second.run()
+    second.close()
+    runners_s = timeit.default_timer() - start
+    if skip != STREAM_RESUME_WINDOWS * STREAM_WINDOW_FILES:
+        raise AssertionError(f"stream (c): resume skipped {skip} events")
+    if sorted(keys) != list(range(STREAM_WINDOWS)):
+        raise AssertionError(f"stream (c): epochs {sorted(keys)}")
+    flat = np.sort(np.concatenate([k for e in sorted(keys)
+                                   for k in keys[e]]))
+    if not np.array_equal(flat, np.arange(STREAM_FILES * STREAM_FILE_ROWS)):
+        raise AssertionError("stream (c): the keys across the two runners "
+                             "are not each key once")
+    t0 = timeit.default_timer()
+    history = dlrm_criteo.run_online_training(
+        files[:STREAM_ONLINE_FILES],
+        num_windows=STREAM_ONLINE_FILES // STREAM_WINDOW_FILES,
+        files_per_window=STREAM_WINDOW_FILES, seed=SEED,
+        num_reducers=STREAM_ONLINE_REDUCERS)
+    online_s = timeit.default_timer() - t0
+    again = dlrm_criteo.run_online_training(
+        files[:STREAM_ONLINE_FILES],
+        num_windows=STREAM_ONLINE_FILES // STREAM_WINDOW_FILES,
+        files_per_window=STREAM_WINDOW_FILES, seed=SEED,
+        num_reducers=STREAM_ONLINE_REDUCERS)
+    if again != history:
+        raise AssertionError("stream (c): the online model's history "
+                             "differs between two runs")
+    return {
+        "turn": "c", "resume_skip_events": skip,
+        "first_windows": first_summary["windows_served"],
+        "second_epochs": sorted(e for e in keys
+                                if e >= STREAM_RESUME_WINDOWS),
+        "second_summary": {k: v for k, v in second_summary.items()
+                           if k not in ("duration_s", "shuffle_s")},
+        "keys_once": True, "runners_s": runners_s,
+        "online_history": history, "online_s": online_s,
+        "online_same_twice": True,
+    }
+
+
+def stream_phase(emb, trained: dict, tmp: str) -> dict:
+    """The streaming plane: (a) in process under the DLRM step, (b)
+    served by two supervised shard processes with one killed at a window
+    boundary, (c) the runner's resume over its ingest journal and the
+    online model, on the drifting click stream."""
+    start = timeit.default_timer()
+    fresh_telemetry()
+    files, gen_s = stream_files(tmp)
+    t_ref = timeit.default_timer()
+    want_one = _stream_reference(files, 1)
+    want_two = _stream_reference(files, DIST_WORLD)
+    ref_s = timeit.default_timer() - t_ref
+    a = _stream_in_process(emb, files, want_one, trained, tmp)
+    b = _stream_served(emb, files, want_two, tmp)
+    c = _stream_resume(files, tmp)
+    return {
+        "files": STREAM_FILES, "rows_per_file": STREAM_FILE_ROWS,
+        "datagen_s": gen_s, "reference_s": ref_s,
+        "turns": {"a": a, "b": b, "c": c},
+        "rows_per_s": a["rows_per_s"], "stall_pct": a["stall_pct"],
+        "step_ms_median": a["step_ms_median"],
+        "restart_s": b["restart_s"],
+        "gather_launches": a["gather_launches"] + b["gather_launches"],
+        "gather_launches_by_turn": {"a": a["gather_launches"],
+                                    "b": b["gather_launches"]},
         "phase_s": timeit.default_timer() - start,
     }
 
@@ -4833,6 +5389,10 @@ def main() -> int:
                                         dist_reference, tmp)
         emit({"phase": "serving", "card": smi, **serving_run})
 
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-stream-") as tmp:
+            stream_run = stream_phase(emb, trained, tmp)
+        emit({"phase": "stream", "card": smi, **stream_run})
+
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
         emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
@@ -4854,9 +5414,12 @@ def main() -> int:
         "name": "gather_rows", "route": "cuda",
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
-        "launches": trained["gather_launches"],
+        "launches": trained["gather_launches"] + stream_run[
+            "gather_launches"],
         "launches_by_path": {
             "train": trained["gather_launches"],
+            "stream": stream_run["gather_launches_by_turn"]["a"],
+            "stream_served": stream_run["gather_launches_by_turn"]["b"],
             "telemetry": tel["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],

@@ -29,6 +29,9 @@ batches already consumed (``set_epoch(epoch, skip_batches=)``).
   so either package loads the other's; a restarted server process
   resumes from it (``plan.ir.resume_from_watermarks``);
   :func:`shard_journal_path` names each serving shard's own journal.
+- :class:`StreamJournal`: a stream's ingest journal (a directory tail's
+  manifest and the window assembler's ingest watermarks,
+  ``streaming/``), in the same line format.
 
 torch is imported where a train state is saved or restored, not at import:
 the queue server's child process loads this module for its journal and
@@ -166,7 +169,39 @@ def shard_journal_path(path: str, shard_index: int, num_shards: int) -> str:
     return f"{path}.shard{shard_index}"
 
 
-class WatermarkJournal:
+class _CrcJournal:
+    """An append-only file of :func:`crc_line` records, opened on the
+    first append."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._lock = threading.Lock()
+        self._file = None
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def _append(self, entry: dict, durable: bool) -> None:
+        line = crc_line(entry) + "\n"
+        with self._lock:
+            if self._file is None:
+                directory = os.path.dirname(os.path.abspath(self._path))
+                os.makedirs(directory, exist_ok=True)
+                self._file = open(self._path, "a", encoding="utf-8")
+            self._file.write(line)
+            self._file.flush()
+            if durable:
+                os.fsync(self._file.fileno())
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+
+
+class WatermarkJournal(_CrcJournal):
     """Crc'd append-only journal of per-queue delivered watermarks (the
     JAX package's ``checkpoint.WatermarkJournal``, line for line).
 
@@ -179,15 +214,6 @@ class WatermarkJournal:
     skipped on :meth:`load`, never misread; :meth:`compact` rewrites the
     latest state per queue atomically.
     """
-
-    def __init__(self, path: str):
-        self._path = path
-        self._lock = threading.Lock()
-        self._file = None
-
-    @property
-    def path(self) -> str:
-        return self._path
 
     def record(self, queue_index: int, seq: int, rows: int,
                done: bool = False) -> None:
@@ -205,18 +231,6 @@ class WatermarkJournal:
         self._append({"q": int(queue_index), "bseq": int(seq),
                       "pid": int(pid), "tm": float(t_mono),
                       "tu": float(t_unix)}, durable=False)
-
-    def _append(self, entry: dict, durable: bool) -> None:
-        line = crc_line(entry) + "\n"
-        with self._lock:
-            if self._file is None:
-                directory = os.path.dirname(os.path.abspath(self._path))
-                os.makedirs(directory, exist_ok=True)
-                self._file = open(self._path, "a", encoding="utf-8")
-            self._file.write(line)
-            self._file.flush()
-            if durable:
-                os.fsync(self._file.fileno())
 
     @classmethod
     def load(cls, path: str) -> Dict[int, WatermarkEntry]:
@@ -290,11 +304,50 @@ class WatermarkJournal:
                 self._file = None
             _atomic_write(self._path, "".join(lines))
 
-    def close(self) -> None:
-        with self._lock:
-            if self._file is not None:
-                self._file.close()
-                self._file = None
+
+class StreamJournal(_CrcJournal):
+    """Crc'd append-only journal of a stream's ingest side (the JAX
+    package's ``checkpoint.StreamJournal``, line for line; either package
+    loads the other's). Where the watermark journal records what
+    consumers have durably seen, this records what the stream has durably
+    admitted:
+
+    - ``streaming.DirectoryTailSource``'s manifest (``{"kind": "file",
+      "n", "path", "ts", "size"}``): the discovery order of arriving
+      files, so a recovered tail re-yields the same sequence whatever the
+      directory lists today;
+    - the window assembler's ingest watermarks (``{"kind": "watermark",
+      "window", "events", "watermark", "late", "files"}``): how many
+      events are sealed into closed windows.
+
+    Records are flushed and fsync'd by default: a ``kill -9`` between a
+    window's seal and its record re-seals the same window, which is
+    idempotent because assembly is deterministic in the event order.
+    """
+
+    def append(self, entry: dict, durable: bool = True) -> None:
+        self._append(dict(entry), durable=durable)
+
+    @classmethod
+    def load(cls, path: str) -> List[dict]:
+        """Every intact record in append order; a line with a bad or
+        missing CRC (a torn tail) is skipped with a warning."""
+        entries: List[dict] = []
+        if not os.path.exists(path):
+            return entries
+        with open(path, encoding="utf-8") as f:
+            for lineno, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    entries.append(parse_crc_line(line))
+                except (ValueError, KeyError, TypeError) as e:
+                    logger.warning(
+                        "stream journal %s line %d unreadable (%s); "
+                        "skipping (a torn tail from a crash is expected)",
+                        path, lineno, e)
+        return entries
 
 
 def resume_iterator(dataset, checkpoint: LoaderCheckpoint,

@@ -3,8 +3,12 @@
 The schema is the JAX package's ``data_generation.DATA_SPEC``: 17 int64
 embedding-index columns with Criteo-like cardinalities, 2 small categorical
 columns, a float64 label in ``[0, 1)``, and a globally unique ``key``
-column. The bytes differ from the JAX generator's (plain seeded numpy
-here); the parity tests feed both packages the same files.
+column. :func:`generate_table`'s bytes differ from the JAX generator's
+(plain seeded numpy); the parity tests feed both packages the same files.
+:func:`generate_row_group` is the JAX package's generator, column for
+column (the native xoshiro256** fills, seeded per column): the drifting
+click stream (``workloads.dlrm_criteo``) is built on it, so a seed gives
+the JAX package's files.
 """
 
 from __future__ import annotations
@@ -60,6 +64,28 @@ def generate_table(first_row: int, num_rows: int, seed: int) -> pa.Table:
                                         dtype=np.int64)
         else:
             columns[col] = low + (high - low) * rng.random(num_rows)
+    return pa.table(columns)
+
+
+def generate_row_group(global_row_index: int, num_rows: int,
+                       seed: int = 0) -> pa.Table:
+    """The JAX package's ``generate_row_group(_, global_row_index,
+    num_rows, seed)``: keys from ``global_row_index``, each column filled
+    by the native generator from ``(seed * 1_000_003 + global_row_index) *
+    53 + column index``."""
+    from ray_shuffling_data_loader_tpu_torch import native
+    columns = {KEY_COLUMN: np.arange(global_row_index,
+                                     global_row_index + num_rows,
+                                     dtype=np.int64)}
+    for col_index, (col, (low, high, dtype)) in enumerate(DATA_SPEC.items()):
+        col_seed = (seed * 1_000_003 + global_row_index) * 53 + col_index
+        if np.issubdtype(dtype, np.integer):
+            columns[col] = low + native.fill_random_int64(num_rows,
+                                                          high - low,
+                                                          col_seed)
+        else:
+            columns[col] = low + (high - low) * native.fill_random_double(
+                num_rows, col_seed)
     return pa.table(columns)
 
 

@@ -160,9 +160,13 @@ class ShufflingDataset:
     ``executor_backend``, ``collect_stats``). Call :meth:`set_epoch`
     before each epoch's iteration. A resumed run passes ``start_epoch``:
     the epochs before it are never shuffled.
+
+    ``num_epochs=None`` reads an unbounded stream (a streaming runner's
+    queue, or a served window schedule): epochs go on as windows are
+    sealed, so it needs a ``batch_queue`` to read from.
     """
 
-    def __init__(self, filenames: Sequence[str], num_epochs: int,
+    def __init__(self, filenames: Sequence[str], num_epochs: Optional[int],
                  num_trainers: int, batch_size: int, rank: int,
                  drop_last: bool = False,
                  num_reducers: Optional[int] = None,
@@ -171,9 +175,19 @@ class ShufflingDataset:
                  shuffle_result: Optional[ex.TaskRef] = None,
                  seed: int = 0, map_transform=None, reduce_transform=None,
                  start_epoch: int = 0, **shuffle_kwargs):
-        if not 0 <= start_epoch <= num_epochs:
+        if batch_queue is None and num_epochs is None:
+            # The queues of a stream are sized by whoever produces its
+            # windows; a static shuffle here would need an epoch count.
+            raise ValueError(
+                "num_epochs=None (unbounded streaming) requires a "
+                "batch_queue from the streaming serving plane; "
+                "rank 0 cannot launch a static shuffle without an "
+                "epoch count")
+        if num_epochs is not None and not 0 <= start_epoch <= num_epochs:
             raise ValueError(
                 f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
+        if num_epochs is None and start_epoch < 0:
+            raise ValueError(f"start_epoch {start_epoch} must be >= 0")
         self._owns_queue = False
         if batch_queue is None:
             batch_queue, shuffle_result = create_batch_queue_and_shuffle(
@@ -221,7 +235,8 @@ class ShufflingDataset:
         return self._seed
 
     @property
-    def num_epochs(self) -> int:
+    def num_epochs(self) -> Optional[int]:
+        """The trial's epoch count; None for an unbounded stream."""
         return self._num_epochs
 
     @property
@@ -235,7 +250,8 @@ class ShufflingDataset:
     def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
         """Declare the epoch about to be iterated; ``skip_batches`` drops
         its first N batches (checkpoint resume) as zero-copy slices."""
-        if not 0 <= epoch < self._num_epochs:
+        if epoch < 0 or (self._num_epochs is not None
+                         and epoch >= self._num_epochs):
             raise ValueError(
                 f"epoch {epoch} out of range [0, {self._num_epochs})")
         if epoch < self._start_epoch:
@@ -305,7 +321,8 @@ class ShufflingDataset:
             ref = raw = table = None
         self._last_epoch = self._epoch
         rt_telemetry.epoch_complete(self._epoch, source="dataset")
-        if (self._epoch == self._num_epochs - 1
+        if (self._num_epochs is not None
+                and self._epoch == self._num_epochs - 1
                 and self._shuffle_result is not None):
             self._shuffle_result.result()
             self.shutdown()

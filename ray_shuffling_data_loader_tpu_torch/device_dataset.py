@@ -40,10 +40,15 @@ process per card, each with its own rank's loader.
 
 With ``persistent_prefetch`` (the default) one producer thread serves all
 epochs and rolls into epoch N+1 while the consumer trains on epoch N;
-epochs are then iterated in order. The bulk copy and the first carve of
-each chunk run under the process watchdog (``runtime/watchdog.py``): on
-CUDA the watched copy ends when its event has completed, so a wedged DMA
-shows. A stall halves the chunk cap and, under the default
+epochs are then iterated in order. ``num_epochs=None`` reads a stream
+(``plan.ir.epoch_range``: the producer enters epochs as windows are
+sealed, over a ``batch_queue`` the stream fills). After a bounded
+stream's last window the producer prefetches into an epoch that has no
+queue; its error is never handed to the consumer, which does not iterate
+that epoch, and ``close`` ends the producer. The bulk copy and the first
+carve of each chunk run under the process watchdog
+(``runtime/watchdog.py``): on CUDA the watched copy ends when its event has
+completed, so a wedged DMA shows. A stall halves the chunk cap and, under the default
 ``stall_action="degrade"``, drops the loader to per-batch copies for
 good, with its reason in ``stats.watchdog_stats()``. Every copy is
 retried on transient errors (``runtime/retry.py``) and is the
@@ -88,6 +93,7 @@ import torch
 from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
 from ray_shuffling_data_loader_tpu_torch.dataset import (ShufflingDataset,
                                                          slice_batches)
+from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
 from ray_shuffling_data_loader_tpu_torch.runtime import latency as rt_latency
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
@@ -510,7 +516,9 @@ def _persistent_producer(dataset: ShufflingDataset,
         return False
 
     try:
-        for epoch in range(dataset.start_epoch, dataset.num_epochs):
+        # A stream (num_epochs None) goes on for as long as windows come.
+        for epoch in plan_ir.epoch_range(dataset.start_epoch,
+                                         dataset.num_epochs):
             with lock:
                 started_epochs.add(epoch)
                 skip = pending_skips.pop(epoch, 0)
@@ -732,7 +740,7 @@ class DeviceShufflingDataset:
       resolve through ``RSDL_DEVICE_DATASET_<KEY>`` and ``RSDL_<KEY>``.
     """
 
-    def __init__(self, filenames: Sequence[str], num_epochs: int,
+    def __init__(self, filenames: Sequence[str], num_epochs: Optional[int],
                  num_trainers: int, batch_size: int, rank: int,
                  feature_columns: List[Any] = None,
                  feature_shapes: Optional[List[Any]] = None,
@@ -852,7 +860,8 @@ class DeviceShufflingDataset:
         return self._dataset.seed
 
     @property
-    def num_epochs(self) -> int:
+    def num_epochs(self) -> Optional[int]:
+        """The trial's epoch count; None for a stream."""
         return self._dataset.num_epochs
 
     @property

@@ -31,8 +31,10 @@ the fixed world's bit for bit.
 
 The serving plane's listener is the queue server's
 (``multiqueue_service.QueueServer.attach_membership``: a ``down`` verdict
-expires the rank's consumer leases); the streaming window resize is not
-ported yet.
+expires the rank's consumer leases). A stream resizes at window
+boundaries: ``streaming.StreamingShuffleRunner(membership=)`` reads the
+view at each window's seal and gives the window the live world's reducer
+count (:func:`reducers_for_view`).
 """
 
 from __future__ import annotations

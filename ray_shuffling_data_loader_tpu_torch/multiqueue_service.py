@@ -102,11 +102,14 @@ Recovery, as in the JAX package:
   ``queued_to_delivered`` and ``birth_to_delivered`` (``observes_delivery``
   tells a dataset on top not to count the last again).
 
-Left out, each raising ``NotImplementedError`` that names its ROADMAP
-queue A item when asked for: streaming schedules (``config["epochs"]``:
-item 7) and tenancy (``OP_TENANT``, ``tenants=``, ``tenant=``: item 8). A
-frame of a kind the client does not know raises :class:`UnreadableFrame`;
-it is never skipped.
+A stream's frozen window schedule (``config["epochs"]`` of
+:func:`serve_pipeline`, ``streaming.runner.server_config``) is served as
+any epochs are, and a restarted server re-derives the same windows.
+
+Left out, raising ``NotImplementedError`` that names its ROADMAP queue A
+item when asked for: tenancy (``OP_TENANT``, ``tenants=``, ``tenant=``:
+item 8). A frame of a kind the client does not know raises
+:class:`UnreadableFrame`; it is never skipped.
 
 Host code: imports no torch, so the server's process never touches a
 card.
@@ -211,8 +214,7 @@ DEFAULT_MAX_BATCH = 8
 
 _LOOPBACK_HOSTS = frozenset({"127.0.0.1", "localhost", "::1"})
 
-_ITEMS = {"7": "streaming",
-          "8": "tenancy"}
+_ITEMS = {"8": "tenancy"}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -1145,6 +1147,16 @@ class QueueServer:
                         f"queue {queue_idx} is not served by shard "
                         f"{self._shard_index}/{self._num_shards} "
                         f"(plan query queue_shard)".encode()))
+                    continue
+                if not 0 <= queue_idx < self._queue.num_queues:
+                    # Past the served epochs (a stream's consumer
+                    # prefetching the epoch after a frozen schedule's
+                    # last window): a failure frame, not a dead
+                    # connection the client would redial.
+                    conn.sendall(self._fail_frame(
+                        f"queue {queue_idx} is past the "
+                        f"{self._queue.num_queues} queues this server "
+                        "serves".encode()))
                     continue
                 ack = None if c == ACK_NONE else c
                 self._lease_beat(consumer_id, queue_idx)
@@ -2448,8 +2460,18 @@ def serve_pipeline(config: dict):
     map-time cast of ``transforms.CastTransform``, so the server ships
     the narrow dtypes a ``DeviceShufflingDataset`` spec casts to).
     ``placement`` is ``QueueServer``'s (the state a live move left), and
-    a shard owns the ranks its overrides give it. ``epochs`` (item 7) and
-    ``tenants`` (item 8) raise ``NotImplementedError``.
+    a shard owns the ranks its overrides give it. ``tenants`` (item 8)
+    raises ``NotImplementedError``.
+
+    ``epochs`` replaces ``filenames`` and ``num_epochs`` with a stream's
+    frozen window schedule (``streaming.window.specs_to_dicts``: one
+    ``{"epoch", "filenames", "window"}`` record per sealed window, as
+    ``streaming.runner.server_config`` builds it): ``num_epochs`` is its
+    length, the windows from the resume's start epoch on go through
+    ``shuffle.shuffle_epochs``, and each drained window sets
+    ``rsdl_stream_serve_watermark`` to its ingest watermark. The
+    schedule is data in the config, so a restarted server re-derives the
+    same epochs. A record's ``tenant_id`` is kept as data.
 
     A shard (``num_shards`` > 1) serves and journals only the ranks
     ``plan.ir.shard_ranks`` gives it: its resume scan covers them alone
@@ -2469,12 +2491,11 @@ def serve_pipeline(config: dict):
     from ray_shuffling_data_loader_tpu_torch import dataset as ds
     from ray_shuffling_data_loader_tpu_torch import shuffle as sh
 
-    if config.get("epochs") is not None:
-        raise not_ported('config["epochs"] (a streaming window schedule)',
-                         "7")
     if config.get("tenants"):
         raise not_ported("config['tenants']", "8")
-    num_epochs = int(config["num_epochs"])
+    stream_epochs = config.get("epochs")
+    num_epochs = (len(stream_epochs) if stream_epochs is not None
+                  else int(config["num_epochs"]))
     num_trainers = int(config["num_trainers"])
     num_shards = int(config.get("num_shards", 1))
     shard_index = int(config.get("shard_index", 0))
@@ -2517,15 +2538,47 @@ def serve_pipeline(config: dict):
     if config.get("cast"):
         from ray_shuffling_data_loader_tpu_torch import transforms
         map_transform = transforms.CastTransform(config["cast"])
-    shuffle_result = sh.run_shuffle_in_background(
-        list(config["filenames"]), consumer, num_epochs,
-        int(config["num_reducers"]), num_trainers,
-        int(config.get("max_concurrent_epochs", 2)),
-        seed=int(config.get("seed", 0)),
-        on_failure=ds.make_failure_broadcaster(queue),
-        num_workers=config.get("num_workers"), collect_stats=False,
-        start_epoch=start_epoch, file_cache=config.get("file_cache", "auto"),
-        map_transform=map_transform)
+    if stream_epochs is not None:
+        specs = [plan_ir.EpochSpec(
+                     epoch=int(e["epoch"]),
+                     filenames=tuple(str(f) for f in e["filenames"]),
+                     window=(dict(e["window"])
+                             if e.get("window") is not None else None),
+                     tenant_id=e.get("tenant_id"))
+                 for e in stream_epochs]
+        specs = [s for s in specs if s.epoch >= start_epoch]
+        serve_gauge = rt_metrics.gauge(
+            "rsdl_stream_serve_watermark",
+            "stream time fully handed to the serving plane")
+        by_epoch = {s.epoch: s for s in specs}
+
+        def on_epoch_done(epoch: int) -> None:
+            spec = by_epoch.get(epoch)
+            watermark = ((spec.window or {}).get("ingest_watermark")
+                         if spec is not None else None)
+            if watermark is not None:
+                serve_gauge.set(float(watermark))
+
+        shuffle_result = sh.run_shuffle_epochs_in_background(
+            specs, consumer, int(config["num_reducers"]), num_trainers,
+            int(config.get("max_concurrent_epochs", 2)),
+            seed=int(config.get("seed", 0)),
+            on_failure=ds.make_failure_broadcaster(queue),
+            num_workers=config.get("num_workers"),
+            file_cache=config.get("file_cache", "auto"),
+            epochs_hint=len(specs), on_epoch_done=on_epoch_done,
+            map_transform=map_transform)
+    else:
+        shuffle_result = sh.run_shuffle_in_background(
+            list(config["filenames"]), consumer, num_epochs,
+            int(config["num_reducers"]), num_trainers,
+            int(config.get("max_concurrent_epochs", 2)),
+            seed=int(config.get("seed", 0)),
+            on_failure=ds.make_failure_broadcaster(queue),
+            num_workers=config.get("num_workers"), collect_stats=False,
+            start_epoch=start_epoch,
+            file_cache=config.get("file_cache", "auto"),
+            map_transform=map_transform)
     server = QueueServer(
         queue, (config.get("host", "127.0.0.1"), int(config["port"])),
         num_trainers=num_trainers, journal=journal, initial_state=state,

@@ -21,7 +21,10 @@ What lives here:
   for the lifetime of its Python handle, and the memory budget reads it.
   A last-reference release wakes budget waiters (``runtime/release.py``);
 - the transport's pump (:func:`frame_send`, :func:`read_exact_into`,
-  :func:`alloc_tracked_buffer`).
+  :func:`alloc_tracked_buffer`);
+- the seeded xoshiro256** fills of the generated data
+  (:func:`fill_random_int64`, :func:`fill_random_double`), the JAX
+  package's, so a seed gives the same columns in both packages.
 
 :func:`build_library` is also the builder of ``native/image.py``.
 """
@@ -139,6 +142,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rsdl_buffer_trim_freelist.restype = None
     lib.rsdl_buffer_freelist_bytes.argtypes = []
     lib.rsdl_buffer_freelist_bytes.restype = i64
+    lib.rsdl_fill_random_int64.argtypes = [i64p, i64, i64, u64, ctypes.c_int]
+    lib.rsdl_fill_random_int64.restype = None
+    lib.rsdl_fill_random_double.argtypes = [
+        ctypes.POINTER(ctypes.c_double), i64, u64, ctypes.c_int]
+    lib.rsdl_fill_random_double.restype = None
 
 
 def library() -> ctypes.CDLL:
@@ -155,6 +163,33 @@ def library() -> ctypes.CDLL:
             _bind(lib)
             _lib = lib
         return _lib
+
+
+# Fixed, so a seed's fill is the same on any host: the per-thread streams
+# depend on this count, not on the host's cores (the JAX package's value).
+FILL_THREADS = 8
+
+
+def fill_random_int64(n: int, bound: int, seed: int) -> np.ndarray:
+    """``n`` uniform int64 in ``[0, bound)`` from ``seed``, on
+    :data:`FILL_THREADS` threads."""
+    if bound < 1:
+        raise ValueError(f"bound must be >= 1, got {bound}")
+    out = np.empty(n, dtype=np.int64)
+    library().rsdl_fill_random_int64(
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, bound,
+        seed & 0xFFFFFFFFFFFFFFFF, FILL_THREADS)
+    return out
+
+
+def fill_random_double(n: int, seed: int) -> np.ndarray:
+    """``n`` uniform doubles in ``[0, 1)`` from ``seed`` (as
+    :func:`fill_random_int64`)."""
+    out = np.empty(n, dtype=np.float64)
+    library().rsdl_fill_random_double(
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
+        seed & 0xFFFFFFFFFFFFFFFF, FILL_THREADS)
+    return out
 
 
 def _notify_release() -> None:

@@ -38,7 +38,10 @@ as ``queue``; the supervisor's restart budget is the retry policy of the
 component ``supervisor`` (``RSDL_SUPERVISOR_RETRY_MAX_ATTEMPTS``), whose
 defaults ``runtime.supervisor`` registers. The rebalance controller reads
 its keys as the component ``rebalance`` (``RSDL_REBALANCE_SLO_P99_S``,
-``RSDL_REBALANCE_COOLDOWN_S``, ``RSDL_REBALANCE_MAX_MOVES``).
+``RSDL_REBALANCE_COOLDOWN_S``, ``RSDL_REBALANCE_MAX_MOVES``). The
+streaming window assembler reads its keys as the component ``stream``
+(``RSDL_STREAM_WINDOW_MAX_FILES``, ``RSDL_STREAM_WINDOW_LATE_POLICY``,
+...).
 
 Stdlib only.
 """
@@ -225,6 +228,17 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "rebalance_slo_p99_s": (30.0, float),
     "rebalance_cooldown_s": (60.0, float),
     "rebalance_max_moves": (1, int),
+    # Streaming windows (streaming/window.py, RSDL_STREAM_WINDOW_*): a
+    # window seals at the first bound hit: admitted file count, admitted
+    # payload bytes, or stream-time age since the window's first event.
+    # 0 disables a bound (the file count falls back to 1 when every bound
+    # is disabled: a window must be closable). An event whose stream
+    # timestamp precedes the ingest watermark is late: "admit" rolls it
+    # into the open window, "quarantine" excludes it into a report.
+    "window_max_files": (4, int),
+    "window_max_bytes": (0, int),
+    "window_max_wait_s": (0.0, float),
+    "window_late_policy": ("admit", str),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}

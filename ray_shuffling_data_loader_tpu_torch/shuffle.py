@@ -1208,18 +1208,20 @@ def shuffle_epoch(epoch: int, filenames: Sequence[str],
                   spill_manager=None,
                   gather_threads: Optional[int] = None,
                   on_bad_file: str = "raise",
-                  fault_policies: Optional[Dict[str, Any]] = None
+                  fault_policies: Optional[Dict[str, Any]] = None,
+                  window: Optional[Dict[str, Any]] = None
                   ) -> List[ex.TaskRef]:
     """Launch one epoch's plan and route its reducer refs: each route
     node names its rank and contiguous reducer span; the rank gets those
     refs, then ``None``. Returns the reducer refs. ``fault_policies``
     (keys ``read``/``reduce``/``lineage``) default to
     :func:`default_fault_policies`, so a directly driven epoch still
-    recovers lost maps."""
+    recovers lost maps. ``window`` stamps a stream window's provenance on
+    the plan."""
     if stats_collector is not None:
         stats_collector.epoch_start(epoch)
     plan = plan_ir.build_epoch_plan(filenames, num_reducers, num_trainers,
-                                    seed, epoch)
+                                    seed, epoch, window=window)
     if gather_threads is None:
         gather_threads = derive_gather_threads(num_reducers,
                                                pool.num_workers)
@@ -1331,12 +1333,19 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
                    spill_dir: Optional[str] = None,
                    on_bad_file: Optional[str] = None,
                    executor_backend: Optional[str] = None,
-                   epochs_hint: Optional[int] = None) -> float:
+                   epochs_hint: Optional[int] = None,
+                   on_epoch_done: Optional[Callable[[int], None]] = None
+                   ) -> float:
     """The pipelined driver over an iterator of :class:`plan.ir.EpochSpec`
-    (:func:`shuffle` passes :func:`plan.ir.static_epoch_specs`).
-    ``epochs_hint`` sizes the file cache and the gather threads' overlap
-    (None: an unbounded schedule, no cache). Returns the wall-clock
-    seconds."""
+    (:func:`shuffle` passes :func:`plan.ir.static_epoch_specs`; a stream's
+    window assembler yields one spec per sealed window and may block in
+    ``__next__`` waiting for input while the launched epochs go on
+    draining). ``epochs_hint`` sizes the file cache and the gather
+    threads' overlap (None: an unbounded schedule, no cache).
+    ``on_epoch_done(epoch)`` fires once an epoch's reducer refs have
+    drained, where the driver waits on it: at the throttle and in the
+    final drain (the streaming runner's serve watermark). Returns the
+    wall-clock seconds."""
     # Every trace and span id of this run derives from (seed, epoch,
     # task); the seed goes into the recorder's dumps so that a merge
     # re-derives the ids the other processes used.
@@ -1386,7 +1395,10 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
             throttle_start = timeit.default_timer()
             while in_progress and (len(in_progress) >= max_concurrent_epochs
                                    or over_budget()):
-                wait_and_raise(in_progress.pop(min(in_progress)))
+                oldest = min(in_progress)
+                wait_and_raise(in_progress.pop(oldest))
+                if on_epoch_done is not None:
+                    on_epoch_done(oldest)
             if over_budget() and spill_manager is None:
                 # Every earlier epoch has drained: wait for consumers to
                 # release tables, woken by each release, bounded so that
@@ -1416,9 +1428,11 @@ def shuffle_epochs(epoch_specs, batch_consumer: BatchConsumer,
                 else stats_collector.trial_start_time,
                 stats_collector, map_transform, file_cache,
                 reduce_transform, spill_manager, gather_threads,
-                on_bad_file, fault_policies)
+                on_bad_file, fault_policies, window=spec.window)
         for epoch in sorted(in_progress):
             wait_and_raise(in_progress.pop(epoch))
+            if on_epoch_done is not None:
+                on_epoch_done(epoch)
     finally:
         if owns_pool:
             pool.shutdown(wait_for_tasks=True, cancel_pending=True)

@@ -14,7 +14,8 @@ queue's side of ``dataset.py``) against the JAX package's, on the CPU.
   commits a manual-ack queue at each checkpoint save, and does not count
   ``birth_to_delivered`` again over a queue that observes it.
 - The in-process queue's surface and the queue policy keys against the
-  JAX package's; every left-out feature (streaming, tenancy) raises ``NotImplementedError`` naming its ROADMAP item; the
+  JAX package's; every left-out feature (tenancy, also a stream's
+  tenant) raises ``NotImplementedError`` naming its ROADMAP item; the
   service, the supervisor and the sharded client load no torch.
 """
 
@@ -39,10 +40,13 @@ from ray_shuffling_data_loader_tpu_torch import dataset as tds
 from ray_shuffling_data_loader_tpu_torch import device_dataset as tdd
 from ray_shuffling_data_loader_tpu_torch import multiqueue as tmq
 from ray_shuffling_data_loader_tpu_torch import multiqueue_service as tsvc
+from ray_shuffling_data_loader_tpu_torch import streaming as tstreaming
 from ray_shuffling_data_loader_tpu_torch.runtime import latency as tlat
 from ray_shuffling_data_loader_tpu_torch.runtime import metrics as tmetrics
 from ray_shuffling_data_loader_tpu_torch.runtime import policy as tpolicy
 from ray_shuffling_data_loader_tpu_torch.runtime import supervisor as tsup
+from ray_shuffling_data_loader_tpu_torch.streaming import (
+    runner as tstream_runner)
 
 from torch_port_fixtures import thread_backend  # noqa: F401 (autouse)
 
@@ -416,8 +420,12 @@ LEFT_OUT = {
     "tenants": (_server_kwargs(tenants={"a": {"weight": 1}}), "8"),
     "client_tenant": (lambda: tsvc.RemoteQueue(("127.0.0.1", 1),
                                                tenant="a"), "8"),
-    "stream_epochs": (lambda: tsvc.serve_pipeline(
-        {"epochs": [{"epoch": 0, "filenames": []}]}), "7"),
+    "stream_runner_tenant": (lambda: tstreaming.StreamingShuffleRunner(
+        tstreaming.SyntheticEventSource(["f"]), None, 1, 1, tenant="a"),
+        "8"),
+    "stream_server_config_tenant": (lambda: tstream_runner.server_config(
+        tstreaming.SyntheticEventSource(["f"], total_events=1), 1, 1,
+        "unused.wal", tenant_id="a"), "8"),
 }
 
 

@@ -24,6 +24,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import jax  # noqa: F401  (imported before any worker thread needs it)
 import pytest
@@ -143,6 +144,13 @@ def test_kill9_source_mid_prepare_aborts_and_stream_bit_identical(
 
     try:
         got = _drain(shard_map, files, 0, on_table)
+        # Rank 0's prefetched frames can end its drain before the source
+        # shard's supervisor has counted the death on its monitor thread;
+        # a stop then would cut the count short. Wait for it first.
+        deadline = time.monotonic() + JOIN_S
+        while (errors and supervisors[0].restarts < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
     finally:
         _stop(supervisors)
         controller.close()
