@@ -9,8 +9,10 @@ a shrink and a grow under the DLRM step), the queue service (a
 supervised server process feeding the DLRM step, killed once mid-epoch;
 two supervised shard processes, one killed, feeding it through shared
 memory), a stream's windows (in process, and served by supervised
-shards, one killed at a window boundary), save, restore and resume
-mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
+shards, one killed at a window boundary), two tenants sharing a serving
+plane (the weighted-fair split, the hot tenant's step beside a cold
+replay, its shard killed, admission and cache quotas), save, restore and
+resume mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
 run), end to end at full width, and checks its
 hand-written kernels against their plain PyTorch versions. Phases, each
@@ -308,7 +310,37 @@ printing one JSON line:
    and a fresh source: 8 events skipped, epochs 4-7, every key once
    across the two; the online model (``run_online_training``) over the
    first 12 files twice, the same history.
-15. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+15. ``tenancy``: two tenants on one serving plane (``tenancy/``):
+   ``hot`` (interactive, weight 3, rank 0) and ``cold`` (batch, weight
+   1, rank 1), after the JAX bench's tenancy leg. (a) The ``train``
+   phase's first 2 files shuffled to 128 reducers for 3 epochs and
+   pre-filled into one in-process ``serve_queue(tenants=)``, the round
+   robin's quantum pinned to 16 frame estimates; both tenants drain
+   greedily through ``RemoteQueue(tenant=, max_batch=128)``: hot's rows
+   over cold's when hot finishes beside the weight ratio and the JAX
+   band (35 %, reported), each tenant's delivered bytes and its replay
+   ledger back at 0 after the last acks. (b) The ``train`` files
+   shuffled for 2 trainers (8 reducers, 3 epochs, the key column); a
+   DLRM ``mlperf`` (Adam) trains every micro-step of rank 0's epoch 0
+   through ``connect_remote_queue(addr, tenant=hot)`` on an in-process
+   server, first alone, then while a host thread replays rank 1's 3
+   epochs greedily as ``cold``: rows/s, ``stall_pct``,
+   ``step_ms_median``, hot's ``queued_to_delivered`` p99 from the
+   client's sketch, cold's rows/s; digests equal the one-process
+   ``num_trainers=2`` stream's, keys once, one gather launch per
+   micro-step. (c) ``launch_supervised_queue_shards`` with
+   ``config["tenants"]`` (2 shards, one epoch): hot trains through
+   ``connect_remote_queue(shard_map, tenant=hot)`` and shard 0 is
+   SIGKILLed after its first loader batch; then cold drains rank 1 on
+   shard 1. The restart, hot's and cold's longest waits (cold's under
+   15 s), each tenant's digests against the reference, no segment and
+   no ledger byte left. (d) Host only: a journaled
+   ``AdmissionController`` (both working sets accepted, a 64x ask
+   rejected, the replay byte for byte), a ``TieredStore(tenant_quotas=)``
+   where hot's 2 files still hit after cold scans 6 (every eviction
+   charged to cold; the same without quotas beside it) and a cold
+   ``PrefetchManager`` throttled by its one-file prefetch quota.
+16. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -319,7 +351,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-16. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+17. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -330,7 +362,7 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
-17. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+18. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
    ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
    processes of this script (``--tp-rank``) on the one card, gloo on CUDA
    tensors. First, here, the kernels at the shapes the ranks give them:
@@ -4512,6 +4544,755 @@ def stream_phase(emb, trained: dict, tmp: str) -> dict:
     }
 
 
+# Tenancy phase: two tenants on one serving plane, as the JAX package's
+# ``bench.py`` tenancy leg sets them: ``hot`` (interactive, weight 3,
+# rank 0) and ``cold`` (batch, weight 1, rank 1).
+TENANT_HOT_WEIGHT, TENANT_COLD_WEIGHT = 3.0, 1.0
+TENANT_TABLE = {
+    "hot": {"weight": TENANT_HOT_WEIGHT, "priority": "interactive",
+            "ranks": [0]},
+    "cold": {"weight": TENANT_COLD_WEIGHT, "priority": "batch",
+             "ranks": [1]},
+}
+# (a): the JAX leg's protocol: 2 files, 128 reducers, 3 pre-filled
+# epochs, greedy clients of max_batch 128, the round robin's quantum
+# pinned to 16 frame estimates (2.5x the files' bytes over the frames),
+# and its band: hot over cold rows within 35 % of the weight ratio.
+TENANT_FAIR_FILES, TENANT_FAIR_REDUCERS, TENANT_FAIR_EPOCHS = 2, 128, 3
+TENANT_FAIR_MAX_BATCH, TENANT_FAIR_QUANTUM_FRAMES = 128, 16
+TENANT_FAIR_BAND = 0.35
+# (b): the cold tenant replays this many pre-filled epochs of rank 1.
+TENANT_COLD_EPOCHS = 3
+# (d): the storage turn's files per tenant and quotas, in files.
+TENANT_STORE_HOT_FILES, TENANT_STORE_COLD_FILES = 2, 6
+TENANT_STORE_COLD_QUOTA_FILES = 2
+TENANT_LATENCY = "rsdl_tenant_delivery_latency_seconds"
+
+
+def _tenant_contexts():
+    from ray_shuffling_data_loader_tpu_torch import tenancy
+    return {t: tenancy.TenantContext(t, priority=spec["priority"],
+                                     weight=spec["weight"])
+            for t, spec in TENANT_TABLE.items()}
+
+
+def _tenant_latency(before: dict, after: dict, tenant: str) -> dict:
+    """Count, p50 and p99 (ms) of a tenant's ``queued_to_delivered``
+    delivery latency, from the clients' sketch in this process between
+    two parsed expositions (the JAX bench's reading)."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import latency, metrics
+    name = f"{TENANT_LATENCY}_centroid"
+    earlier = before.get(name, {})
+    diff = {labels: value - earlier.get(labels, 0.0)
+            for labels, value in after.get(name, {}).items()
+            if value > earlier.get(labels, 0.0)}
+    got = metrics.sketch_quantiles({name: diff}, TENANT_LATENCY,
+                                   qs=(0.5, 0.99), tenant=tenant,
+                                   hop=latency.HOP_QUEUED_TO_DELIVERED)
+    if not got:
+        return {"count": 0, "p50_ms": None, "p99_ms": None}
+    (q,) = got.values()
+    return {"count": int(q["count"]), "p50_ms": q["p50"] * 1e3,
+            "p99_ms": q["p99"] * 1e3}
+
+
+def _tenant_bytes(samples: dict, name: str) -> dict:
+    return {dict(labels)["tenant"]: value
+            for labels, value in samples.get(name, {}).items()
+            if "tenant" in dict(labels)}
+
+
+def _ack_last_batches(server) -> None:
+    """Ack what an in-process server sent. A client acks a queue's frames
+    on its next GET of that queue, so the batch that ended each queue
+    stays unacked (and charged to its tenant) until this."""
+    with server._states_lock:
+        states = dict(server._states)
+    for queue_idx, state in states.items():
+        with state.lock:
+            if state.sent_seq > state.acked_seq:
+                server._apply_ack(queue_idx, state, state.sent_seq)
+
+
+def _refs_by_queue(files, epochs: int, reducers: int, trainers: int,
+                   map_transform=None) -> dict:
+    """One seeded shuffle, held outside any queue as ``{queue index: [ref,
+    ..., None]}``, so a turn can pre-fill the queues it wants (threads, no
+    file cache)."""
+    from ray_shuffling_data_loader_tpu_torch import shuffle
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    refs: dict = {}
+
+    def consumer(rank, epoch, batch):
+        items = refs.setdefault(plan_ir.queue_index(epoch, rank, trainers),
+                                [])
+        items.extend([None] if batch is None else batch)
+
+    shuffle.shuffle(list(files), consumer, epochs, reducers, trainers,
+                    max_concurrent_epochs=epochs, seed=SEED,
+                    map_transform=map_transform, file_cache=None,
+                    executor_backend="thread")
+    return refs
+
+
+def _tenant_fairness(files) -> dict:
+    """(a) One in-process ``serve_queue(tenants=)`` over 3 pre-filled
+    epochs of both ranks; both tenants drain greedily through
+    ``RemoteQueue(tenant=, max_batch=128)``. Hot's rows over cold's at the
+    moment hot finishes, beside the weight ratio and the JAX leg's band;
+    each tenant's delivered bytes, and the replay ledgers at 0 after the
+    last acks."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, multiqueue,
+                                                     multiqueue_service)
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+
+    leg_files = sorted(files)[:TENANT_FAIR_FILES]
+    trainers = DIST_WORLD
+    t0 = timeit.default_timer()
+    refs = _refs_by_queue(leg_files, TENANT_FAIR_EPOCHS, TENANT_FAIR_REDUCERS,
+                          trainers)
+    shuffle_s = timeit.default_timer() - t0
+    frame_est = max(1, int(2.5 * sum(os.path.getsize(f) for f in leg_files))
+                    // (trainers * TENANT_FAIR_REDUCERS))
+    quantum = TENANT_FAIR_QUANTUM_FRAMES * frame_est
+    queue = multiqueue.MultiQueue(TENANT_FAIR_EPOCHS * trainers)
+    for queue_idx, items in refs.items():
+        queue.put_batch(queue_idx, items)
+    contexts = _tenant_contexts()
+    counts = {"hot": 0, "cold": 0}
+    fetches = {}
+    errors, gate = [], threading.Event()
+    hot_done = threading.Event()
+    before = metrics.parse_exposition(metrics.render())
+
+    def drain(rank: int, tenant: str, server, done=None):
+        try:
+            gate.wait(timeout=60)
+            with multiqueue_service.RemoteQueue(
+                    server.address, max_batch=TENANT_FAIR_MAX_BATCH,
+                    num_trainers=trainers,
+                    tenant=contexts[tenant]) as remote:
+                fetches[tenant] = _log_fetches(remote)
+                for epoch in range(TENANT_FAIR_EPOCHS):
+                    queue_idx = plan_ir.queue_index(epoch, rank, trainers)
+                    while True:
+                        item = remote.get(queue_idx)
+                        if item is None:
+                            break
+                        if isinstance(item, dataset.ShuffleFailure):
+                            raise AssertionError(f"tenancy (a): {item}")
+                        counts[tenant] += item.num_rows
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            if done is not None:
+                done.set()
+
+    with _env(RSDL_QUEUE_TENANT_DRR_QUANTUM_BYTES=str(quantum)):
+        with multiqueue_service.serve_queue(
+                queue, num_trainers=trainers,
+                tenants=TENANT_TABLE) as server:
+            threads = [threading.Thread(target=drain,
+                                        args=(0, "hot", server, hot_done),
+                                        daemon=True, name="smoke-ten-hot"),
+                       threading.Thread(target=drain,
+                                        args=(1, "cold", server),
+                                        daemon=True, name="smoke-ten-cold")]
+            for thread in threads:
+                thread.start()
+            t_start = timeit.default_timer()
+            gate.set()
+            if not hot_done.wait(timeout=300):
+                raise AssertionError("tenancy (a): the hot drain hung")
+            hot_s = timeit.default_timer() - t_start
+            cold_at_hot_finish = counts["cold"]
+            for thread in threads:
+                thread.join(timeout=300)
+                if thread.is_alive():
+                    raise AssertionError("tenancy (a): a drain hung")
+            drain_s = timeit.default_timer() - t_start
+            if errors:
+                raise errors[0]
+            held = dict(server._tenant_replay)
+            _ack_last_batches(server)
+            settled = dict(server._tenant_replay)
+    queue.shutdown()
+    after = metrics.parse_exposition(metrics.render())
+    rows = TENANT_FAIR_EPOCHS * sum(_parquet_rows(f) for f in leg_files)
+    if counts["hot"] + counts["cold"] != rows:
+        raise AssertionError(f"tenancy (a): {counts} rows for {rows}")
+    if any(settled.get(t, 0) != 0 for t in TENANT_TABLE):
+        raise AssertionError(f"tenancy (a): replay ledgers after the last "
+                             f"acks: {settled}")
+    delivered_before = _tenant_bytes(before,
+                                     "rsdl_tenant_bytes_delivered_total")
+    delivered = {t: v - delivered_before.get(t, 0.0) for t, v in
+                 _tenant_bytes(after,
+                               "rsdl_tenant_bytes_delivered_total").items()
+                 if t in TENANT_TABLE}
+    weight_ratio = TENANT_HOT_WEIGHT / TENANT_COLD_WEIGHT
+    fairness = counts["hot"] / max(1, cold_at_hot_finish)
+    return {
+        "turn": "a", "files": len(leg_files),
+        "reducers": TENANT_FAIR_REDUCERS, "epochs": TENANT_FAIR_EPOCHS,
+        "max_batch": TENANT_FAIR_MAX_BATCH, "frame_estimate_bytes": frame_est,
+        "drr_quantum_bytes": quantum, "shuffle_s": shuffle_s,
+        "weight_ratio": weight_ratio, "fairness_ratio": fairness,
+        "fairness_band": TENANT_FAIR_BAND,
+        "fairness_ok": abs(fairness / weight_ratio - 1.0) <= TENANT_FAIR_BAND,
+        "hot_rows": counts["hot"],
+        "cold_rows_at_hot_finish": cold_at_hot_finish,
+        "hot_s": hot_s, "drain_s": drain_s,
+        "hot_rows_per_s": counts["hot"] / hot_s,
+        "cold_rows_per_s_while_hot": cold_at_hot_finish / hot_s,
+        "bytes_delivered": delivered,
+        "replay_bytes_before_last_acks": held,
+        "replay_bytes_after_last_acks": settled,
+        "hot_latency": _tenant_latency(before, after, "hot"),
+        "cold_latency": _tenant_latency(before, after, "cold"),
+        "gets": {t: _get_sizes(fetches[t], t_start + hot_s)
+                 for t in TENANT_TABLE},
+    }
+
+
+def _get_sizes(fetches, t_split: float) -> dict:
+    """A client's round trips (``_log_fetches``): how many, the frames
+    they brought, how many brought one frame (the scheduler's floor) and
+    the most in one, before and after ``t_split``."""
+    def sizes(frames):
+        return {"gets": len(frames), "frames": sum(frames),
+                "one_frame": sum(1 for n in frames if n == 1),
+                "max_frames": max(frames, default=0)}
+    return {"before_hot_finish": sizes([n for t, _, n in fetches
+                                        if t <= t_split]),
+            "after": sizes([n for t, _, n in fetches if t > t_split])}
+
+
+def _parquet_rows(path: str) -> int:
+    import pyarrow.parquet as pq
+    return pq.ParquetFile(path).metadata.num_rows
+
+
+def _cold_replay(address, contexts, epochs: int, out: dict,
+                 errors: list, gate: threading.Event) -> None:
+    """The cold tenant's host thread: drain rank 1's ``epochs`` greedily
+    through ``RemoteQueue(tenant=cold)``, count its rows and keep epoch 0's
+    keys."""
+    from ray_shuffling_data_loader_tpu_torch import (data_generation, dataset,
+                                                     multiqueue_service)
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    try:
+        gate.wait(timeout=60)
+        rows, keys = 0, []
+        t0 = timeit.default_timer()
+        with multiqueue_service.RemoteQueue(
+                address, num_trainers=DIST_WORLD,
+                tenant=contexts["cold"]) as remote:
+            for epoch in range(epochs):
+                queue_idx = plan_ir.queue_index(epoch, 1, DIST_WORLD)
+                while True:
+                    item = remote.get(queue_idx)
+                    if item is None:
+                        break
+                    if isinstance(item, dataset.ShuffleFailure):
+                        raise AssertionError(f"tenancy (b) cold: {item}")
+                    rows += item.num_rows
+                    if epoch == 0:
+                        keys.append(item.column(
+                            data_generation.KEY_COLUMN).to_numpy())
+        out.update(rows=rows, seconds=timeit.default_timer() - t0,
+                   keys0=np.concatenate(keys))
+    except BaseException as e:  # noqa: BLE001 - raised by the caller
+        errors.append(e)
+
+
+def _warm_up(files, micro_step, refs) -> float:
+    """Train the first loader batch of rank 0's first table in process,
+    so that (b)'s two turns both time a warm step (a fresh model's first
+    micro-steps allocate Adam's state and load the kernels)."""
+    from ray_shuffling_data_loader_tpu_torch import (device_dataset,
+                                                     multiqueue)
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    spec, _ = _sharded_spec()
+    start = timeit.default_timer()
+    queue = multiqueue.MultiQueue(DIST_WORLD)
+    hot_queue = plan_ir.queue_index(0, 0, DIST_WORLD)
+    queue.put_batch(hot_queue, [refs[hot_queue][0], None])
+    ds = device_dataset.DeviceShufflingDataset(
+        files, 1, DIST_WORLD, LOADER_BATCH, 0, batch_queue=queue,
+        shuffle_result=None, seed=SEED, drop_last=False, device=None,
+        **spec)
+    try:
+        ds.set_epoch(0)
+        features, label = next(iter(ds))
+        _train_every_micro_step(micro_step, [])(0, 0, features, label)
+        torch.cuda.synchronize()
+    finally:
+        ds.close()
+        queue.shutdown()
+    return timeit.default_timer() - start
+
+
+def _hot_step_turn(emb, files, micro_step, refs, want, contended: bool
+                   ) -> dict:
+    """(b) One turn of the hot tenant's DLRM step on the card: an
+    in-process ``serve_queue(tenants=)`` holds rank 0's epoch 0 (and, when
+    ``contended``, rank 1's 3 epochs, which the cold tenant's host thread
+    replays greedily meanwhile); rank 0's ``DeviceShufflingDataset`` reads
+    ``connect_remote_queue(addr, tenant=hot)`` and trains every micro-step
+    (Adam). Digests equal the one-process ``num_trainers=2`` stream's."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     multiqueue,
+                                                     multiqueue_service,
+                                                     train)
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+
+    name = "contended" if contended else "solo"
+    spec, _ = _sharded_spec()
+    contexts = _tenant_contexts()
+    queue = multiqueue.MultiQueue(TENANT_COLD_EPOCHS * DIST_WORLD)
+    hot_queue = plan_ir.queue_index(0, 0, DIST_WORLD)
+    queue.put_batch(hot_queue, refs[hot_queue])
+    if contended:
+        for epoch in range(TENANT_COLD_EPOCHS):
+            cold_queue = plan_ir.queue_index(epoch, 1, DIST_WORLD)
+            queue.put_batch(cold_queue, refs[cold_queue])
+    cold, errors, gate = {}, [], threading.Event()
+    digests, keys, losses, chunk_ms = [], [], [], []
+    before = metrics.parse_exposition(metrics.render())
+    ds = remote = None
+    with multiqueue_service.serve_queue(queue, num_trainers=DIST_WORLD,
+                                        tenants=TENANT_TABLE) as server:
+        try:
+            remote = dataset.connect_remote_queue(
+                server.address, num_trainers=DIST_WORLD,
+                tenant=contexts["hot"])
+            fetches = _log_fetches(remote)
+            ds = device_dataset.DeviceShufflingDataset(
+                files, 1, DIST_WORLD, LOADER_BATCH, 0, batch_queue=remote,
+                shuffle_result=None, seed=SEED, drop_last=False,
+                device=None, **spec)
+            thread = None
+            if contended:
+                thread = threading.Thread(
+                    target=_cold_replay,
+                    args=(server.address, contexts, TENANT_COLD_EPOCHS, cold,
+                          errors, gate),
+                    daemon=True, name="smoke-ten-cold-replay")
+                thread.start()
+            emb.reset_launch_counts()
+            t_start = timeit.default_timer()
+            gate.set()
+            ds.set_epoch(0)
+            t_first = None
+            for features, label in ds:
+                if t_first is None:
+                    t_first = timeit.default_timer()
+                digests.append(device_dataset.batch_digest(features, label))
+                keys.append(features[-1].reshape(-1).clone())
+                n = label.shape[0] // MICROBATCH * MICROBATCH
+                if n:  # a batch's tail of fewer rows is not trained
+                    t0 = timeit.default_timer()
+                    losses.append(train.train_chunk(
+                        micro_step, [f[:n] for f in features[:-1]],
+                        label[:n], MICROBATCH))
+                    torch.cuda.synchronize()
+                    chunk_ms.append((timeit.default_timer() - t0) * 1e3
+                                    / (n // MICROBATCH))
+            t_end = timeit.default_timer()
+            launches = emb.launch_counts["gather_rows"]
+            if thread is not None:
+                thread.join(timeout=300)
+                if thread.is_alive():
+                    raise AssertionError("tenancy (b): the cold replay hung")
+            if errors:
+                raise errors[0]
+            waits = list(ds.batch_wait_stats.wait_times)
+        finally:
+            if ds is not None:
+                ds.close()
+            if remote is not None:
+                remote.close()
+        held = dict(server._tenant_replay)
+        _ack_last_batches(server)
+        settled = dict(server._tenant_replay)
+        leases = sorted(lease.tenant for lease in server._leases.values())
+    queue.shutdown()
+    after = metrics.parse_exposition(metrics.render())
+    _same_stream(f"tenancy (b) {name}", 0,
+                 torch.stack(digests).cpu().numpy(), want[0][:1])
+    hot_keys = torch.cat(keys).cpu().numpy()
+    if len(np.unique(hot_keys)) != len(hot_keys):
+        raise AssertionError(f"tenancy (b) {name}: a key came twice")
+    if contended:
+        every = np.sort(np.concatenate([hot_keys, cold["keys0"]]))
+        if not np.array_equal(every, np.arange(NUM_ROWS)):
+            raise AssertionError("tenancy (b): hot's and cold's epoch-0 "
+                                 "keys are not each key once")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError(f"tenancy (b) {name}: non-finite loss")
+    steps = int(all_losses.numel())
+    if launches != steps:
+        raise AssertionError(f"tenancy (b) {name}: {launches} gather "
+                             f"launches in {steps} micro-steps")
+    if leases != (["cold", "hot"] if contended else ["hot"]):
+        raise AssertionError(f"tenancy (b) {name}: leases bound to "
+                             f"{leases}")
+    if any(v != 0 for v in settled.values()):
+        raise AssertionError(f"tenancy (b) {name}: replay ledgers after "
+                             f"the last acks: {settled}")
+    wall = t_end - t_first
+    rows = len(hot_keys)
+    line = {
+        "turn": f"b_{name}", "binding": ds.binding,
+        "rows": rows, "loader_batches": len(digests),
+        "micro_steps": steps, "rows_per_s": rows / wall, "wall_s": wall,
+        "fill_s": t_first - t_start,
+        "stall_pct": 100.0 * sum(waits[1:]) / wall,
+        "step_ms_median": float(np.median(chunk_ms)),
+        "hot_latency": _tenant_latency(before, after, "hot"),
+        "hot_frames_per_get": [n for _, _, n in fetches],
+        "loss_first": float(all_losses[0]),
+        "loss_last": float(all_losses[-1]),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / steps,
+        "digests_equal": True, "keys_once": True, "leases": leases,
+        "replay_bytes_before_last_acks": held,
+    }
+    if contended:
+        line.update(cold_rows=cold["rows"], cold_s=cold["seconds"],
+                    cold_rows_per_s=cold["rows"] / cold["seconds"])
+    return line
+
+
+def _tenant_shard_kill(emb, files, micro_step, want, tmp: str) -> dict:
+    """(c) ``launch_supervised_queue_shards`` with ``config["tenants"]``, 2
+    shards, one epoch: rank 0 (hot) trains every micro-step through
+    ``connect_remote_queue(shard_map, tenant=hot)``; shard 0's process is
+    SIGKILLed after rank 0's first loader batch; then a thread drains rank
+    1 (cold) on the untouched shard 1. Each tenant's digests equal the
+    one-process reference's (exactly once, bit for bit); no segment and
+    no ledger byte left."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch import dataset, device_dataset
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics, supervisor
+
+    spec, cast = _sharded_spec()
+    contexts = _tenant_contexts()
+    tel_dir = os.path.join(tmp, "c-metrics")
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else tmp
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-tenancy-", dir=shm_root)
+    handle_root = os.path.join(shm_dir, "handles")
+    config = dict(filenames=list(files), num_epochs=1,
+                  num_trainers=DIST_WORLD, num_reducers=NUM_REDUCERS,
+                  seed=SEED, journal_path=os.path.join(tmp, "c.wal"),
+                  cast=cast, handle_dir=handle_root,
+                  num_workers=SERVE_SHARD_WORKERS, tenants=TENANT_TABLE,
+                  child_env={"RSDL_TELEMETRY_DIR": tel_dir,
+                             "RSDL_METRICS_SHARD_INTERVAL_S": "0.5",
+                             "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    t_launch = timeit.default_timer()
+    sups, shard_map = supervisor.launch_supervised_queue_shards(
+        config, SERVE_SHARDS, name="smoke-tenant-shard")
+    remotes, datasets, runs, errors, losses, killed = [], [], {}, [], [], {}
+    try:
+        for address in shard_map.addresses:
+            if not supervisor.wait_for_server(tuple(address), timeout_s=120):
+                raise AssertionError(f"tenancy (c): shard {address} never "
+                                     "listened")
+        listen_s = timeit.default_timer() - t_launch
+        for rank, tenant in ((0, "hot"), (1, "cold")):
+            remotes.append(dataset.connect_remote_queue(
+                shard_map, retries=20, initial_backoff_s=0.2,
+                max_batch=1 if rank == 0 else 8, tenant=contexts[tenant]))
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                files, 1, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remotes[rank], shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+        fetches = _log_fetches(remotes[0].client_for_queue(
+            plan_ir.queue_index(0, 0, DIST_WORLD)))
+
+        def drain_cold():
+            try:
+                runs[1] = _drain_rank(datasets[1], 1,
+                                      lambda epoch, i, f, y: True)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        cold = threading.Thread(target=drain_cold, daemon=True,
+                                name="smoke-ten-cold-shard")
+
+        def kill_shard_0(epoch, i):
+            if "t" not in killed:
+                killed["t"] = timeit.default_timer()
+                killed["pid"] = sups[0].pid
+                os.kill(killed["pid"], signal.SIGKILL)
+                cold.start()
+            return True
+
+        emb.reset_launch_counts()
+        runs[0] = _drain_rank(datasets[0], 1, _train_every_micro_step(
+            micro_step, losses, kill_shard_0))
+        launches = emb.launch_counts["gather_rows"]
+        cold.join(timeout=600)
+        if cold.is_alive():
+            raise AssertionError("tenancy (c): the cold drain hung")
+        if errors:
+            raise errors[0]
+        final_pids = [sup.pid for sup in sups]
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        for sup in sups:
+            sup.stop()
+        handle_files = [f for _, _, names in os.walk(handle_root)
+                        for f in names]
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    for rank in range(DIST_WORLD):
+        _same_stream("tenancy (c)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank][:1])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("tenancy (c): non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"tenancy (c): {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    if sups[0].restarts < 1 or sups[0].failed:
+        raise AssertionError("tenancy (c): shard 0 was not restarted")
+    if sups[1].restarts:
+        raise AssertionError(f"tenancy (c): shard 1 restarted "
+                             f"{sups[1].restarts} times")
+    cold_wait = max(runs[1]["fill_s"], runs[1]["max_wait_after_s"] or 0.0)
+    if cold_wait >= SERVE_SURVIVOR_BUDGET_S:
+        raise AssertionError(f"tenancy (c): the cold tenant waited "
+                             f"{cold_wait} s for a batch")
+    if handle_files:
+        raise AssertionError(f"tenancy (c): segments left after the stop: "
+                             f"{handle_files[:4]}")
+    ledger = _exit_ledger_bytes(tel_dir, final_pids)
+    if any(v != 0 for v in ledger.values()):
+        raise AssertionError(f"tenancy (c): buffer-ledger bytes at the "
+                             f"shards' exit: {ledger}")
+    after_kill = [t for t, resumed, n in fetches
+                  if t > killed["t"] and resumed and n]
+    if not after_kill:
+        raise AssertionError("tenancy (c): no frame came after the kill")
+    samples, _ = metrics.merge_series(metrics.read_shards(tel_dir).values())
+    return {
+        "turn": "c", "shards": SERVE_SHARDS, "epochs": 1,
+        "shard_map": shard_map.to_dict(), "shards_listen_s": listen_s,
+        "restart_s": min(after_kill) - killed["t"],
+        "hot_max_wait_after_kill_s": runs[0]["max_wait_after_s"],
+        "cold_max_wait_s": cold_wait,
+        "survivor_budget_s": SERVE_SURVIVOR_BUDGET_S,
+        "ranks": [{"rank": rank, "tenant": ("hot", "cold")[rank],
+                   "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "hot_micro_steps": int(all_losses.numel()),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / all_losses.numel(),
+        "shard_restarts": [sup.restarts for sup in sups],
+        "bytes_delivered_by_shard_processes": _tenant_bytes(
+            samples, "rsdl_tenant_bytes_delivered_total"),
+        "segments_left": 0, "exit_ledger_bytes": list(ledger.values()),
+    }
+
+
+def _tenant_admission_and_storage(files, tmp: str) -> dict:
+    """(d) Host only. Admission: a journaled ``AdmissionController`` sized
+    to both tenants' working sets accepts both, rejects a 64x ask, and
+    ``replay`` re-derives the journal byte for byte (the JAX bench's
+    check). Storage: a ``TieredStore(tenant_quotas=)``; under
+    ``tenant_scope`` the hot tenant warms its files, then the cold tenant
+    scans more files than its quota holds; every hot file must still hit
+    and every eviction be charged to cold. Beside it, the same sequence
+    without quotas. Then a cold ``PrefetchManager`` whose
+    ``prefetch_quota_bytes`` holds one file."""
+    from ray_shuffling_data_loader_tpu_torch import storage, tenancy
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
+    from ray_shuffling_data_loader_tpu_torch.tenancy import admission
+
+    contexts = _tenant_contexts()
+    leg_files = sorted(files)[:TENANT_FAIR_FILES]
+    ask = sum(os.path.getsize(f) for f in leg_files) // DIST_WORLD + 1
+    journal = os.path.join(tmp, "admission.jsonl")
+    controller = admission.AdmissionController(
+        capacity_bytes=4 * DIST_WORLD * ask, journal_path=journal)
+    actions = [controller.register(contexts[t], "dataset", f"smoke-{t}",
+                                   ask).action for t in ("hot", "cold")]
+    greedy = controller.register(tenancy.TenantContext("greedy"), "dataset",
+                                 "smoke-greedy", 64 * DIST_WORLD * ask)
+    controller.close()
+    replayed = admission.replay(journal, 4 * DIST_WORLD * ask,
+                                tenants=contexts)
+    replay_equal = replayed.journal_bytes() == open(journal, "rb").read()
+    if actions != ["accept", "accept"] or greedy.action != "reject" \
+            or not replay_equal:
+        raise AssertionError(f"tenancy (d): admission {actions}, "
+                             f"{greedy.action}, replay {replay_equal}")
+
+    source = storage.LocalSource()
+    names = sorted(files)
+    hot_files = names[:TENANT_STORE_HOT_FILES]
+    cold_files = names[TENANT_STORE_HOT_FILES:TENANT_STORE_HOT_FILES
+                       + TENANT_STORE_COLD_FILES]
+    t0 = timeit.default_timer()
+    tables = {f: source.read_table(f).combine_chunks()
+              for f in hot_files + cold_files}
+    read_s = timeit.default_timer() - t0
+    size = max(t.nbytes for t in tables.values())
+    hot_quota = sum(tables[f].nbytes for f in hot_files)
+    quotas = {"hot": hot_quota,
+              "cold": TENANT_STORE_COLD_QUOTA_FILES * size}
+    counters = ("hits", "misses", "evictions")
+
+    def turn(tenant_quotas):
+        store = storage.TieredStore(hot_quota + quotas["cold"],
+                                    tenant_quotas=tenant_quotas)
+        series = {t: [metrics.counter(f"rsdl_tenant_storage_{c}_total",
+                                      tenant=t) for c in counters]
+                  for t in TENANT_TABLE}
+        before = {t: [c.value for c in cs] for t, cs in series.items()}
+        try:
+            with tenancy.tenant_scope(contexts["hot"]):
+                for f in hot_files:
+                    if store.get(f) is None:
+                        store.put(f, tables[f])
+                        store.release(f)
+            with tenancy.tenant_scope(contexts["cold"]):
+                for f in cold_files:
+                    if store.get(f) is None:
+                        store.put(f, tables[f])
+                        store.release(f)
+            with tenancy.tenant_scope(contexts["hot"]):
+                hot_hits = []
+                for f in hot_files:
+                    got = store.get(f)
+                    hot_hits.append(got is not None)
+                    if got is None:
+                        store.release(f)
+            resident = dict(store._tenant_hot_bytes)
+        finally:
+            store.close()
+        return {"hot_files_hit_after_scan": sum(hot_hits),
+                "by_tenant": {t: dict(zip(counters, (
+                    int(c.value - b) for c, b in zip(series[t], before[t]))))
+                    for t in TENANT_TABLE},
+                "resident_bytes": resident}
+
+    with_quotas = turn(quotas)
+    without = turn(None)
+    if with_quotas["hot_files_hit_after_scan"] != len(hot_files):
+        raise AssertionError(f"tenancy (d): the cold scan evicted hot's "
+                             f"pages: {with_quotas}")
+    if with_quotas["by_tenant"]["hot"]["evictions"] != 0 \
+            or with_quotas["by_tenant"]["cold"]["evictions"] < 1:
+        raise AssertionError(f"tenancy (d): evictions not charged to cold: "
+                             f"{with_quotas}")
+
+    store = storage.TieredStore(1 << 40, source=source)
+    cold_prefetch = tenancy.TenantContext(
+        "cold", priority="batch", weight=TENANT_COLD_WEIGHT,
+        prefetch_quota_bytes=1)
+    throttled = metrics.counter("rsdl_tenant_prefetch_throttled_total",
+                                tenant="cold")
+    throttled_before = throttled.value
+    try:
+        manager = storage.PrefetchManager(store, cold_files[:3],
+                                          tenant=cold_prefetch)
+        warmed = []
+        while True:
+            task = manager.next()
+            if task is None:
+                break
+            warmed.append(task.run())
+    finally:
+        store.close()
+    if warmed != [True, False, False]:
+        raise AssertionError(f"tenancy (d): prefetch under a one-file quota "
+                             f"warmed {warmed}")
+    return {
+        "turn": "d",
+        "admission": {"ask_bytes": ask,
+                      "capacity_bytes": 4 * DIST_WORLD * ask,
+                      "actions": actions, "oversized": greedy.action,
+                      "replay_equal": replay_equal},
+        "storage": {"hot_files": len(hot_files),
+                    "cold_files": len(cold_files),
+                    "quota_bytes": quotas, "table_bytes_max": size,
+                    "read_s": read_s, "with_quotas": with_quotas,
+                    "without_quotas": without},
+        "prefetch": {"quota_bytes": 1, "tasks": warmed,
+                     "throttled": int(throttled.value - throttled_before)},
+    }
+
+
+def tenancy_phase(emb, files, want, tmp: str) -> dict:
+    """Two tenants on one serving plane (the JAX bench's tenancy leg and
+    ``tests/test_tenancy_recovery.py``): (a) the weighted-fair split on
+    one in-process server; (b) the hot tenant's DLRM step on the card,
+    solo and beside the cold tenant's greedy replay; (c) the hot tenant's
+    shard SIGKILLed under its step; (d) admission and the storage quotas.
+    ``want``: the one-process ``num_trainers=2`` digests per rank and
+    epoch."""
+    from ray_shuffling_data_loader_tpu_torch import train, transforms
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+
+    start = timeit.default_timer()
+    fresh_telemetry()
+    files = sorted(files)
+    a = _tenant_fairness(files)
+    spec, _ = _sharded_spec()
+    t_ref = timeit.default_timer()
+    refs = _refs_by_queue(files, TENANT_COLD_EPOCHS, NUM_REDUCERS,
+                          DIST_WORLD,
+                          map_transform=transforms.make_cast_transform(
+                              spec["feature_columns"], spec["feature_types"],
+                              spec["label_column"], spec["label_type"]))
+    refs_s = timeit.default_timer() - t_ref
+    torch.cuda.empty_cache()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    warm_s = _warm_up(files, micro_step, refs)
+    solo = _hot_step_turn(emb, files, micro_step, refs, want, False)
+    contended = _hot_step_turn(emb, files, micro_step, refs, want, True)
+    del refs
+    c = _tenant_shard_kill(emb, files, micro_step, want, tmp)
+    del model, micro_step
+    d = _tenant_admission_and_storage(files, tmp)
+    return {
+        "tenants": TENANT_TABLE,
+        "turns": {"a": a, "b_solo": solo, "b_contended": contended, "c": c,
+                  "d": d},
+        "refs_shuffle_s": refs_s, "warm_up_s": warm_s,
+        "fairness_ratio": a["fairness_ratio"], "fairness_ok": a["fairness_ok"],
+        "contended_over_solo_rows_per_s": (contended["rows_per_s"]
+                                           / solo["rows_per_s"]),
+        "restart_s": c["restart_s"],
+        "gather_launches": (solo["gather_launches"]
+                            + contended["gather_launches"]
+                            + c["gather_launches"]),
+        "gather_launches_by_turn": {"b_solo": solo["gather_launches"],
+                                    "b_contended":
+                                        contended["gather_launches"],
+                                    "c": c["gather_launches"]},
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
 # ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
 # reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
 # NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
@@ -5393,6 +6174,10 @@ def main() -> int:
             stream_run = stream_phase(emb, trained, tmp)
         emit({"phase": "stream", "card": smi, **stream_run})
 
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-ten-") as tmp:
+            tenancy_run = tenancy_phase(emb, dlrm_paths, dist_reference, tmp)
+        emit({"phase": "tenancy", "card": smi, **tenancy_run})
+
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
         resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
         emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
@@ -5414,12 +6199,14 @@ def main() -> int:
         "name": "gather_rows", "route": "cuda",
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
-        "launches": trained["gather_launches"] + stream_run[
-            "gather_launches"],
+        "launches": (trained["gather_launches"]
+                     + stream_run["gather_launches"]
+                     + tenancy_run["gather_launches"]),
         "launches_by_path": {
             "train": trained["gather_launches"],
             "stream": stream_run["gather_launches_by_turn"]["a"],
             "stream_served": stream_run["gather_launches_by_turn"]["b"],
+            "tenancy": tenancy_run["gather_launches"],
             "telemetry": tel["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],

@@ -106,9 +106,18 @@ A stream's frozen window schedule (``config["epochs"]`` of
 :func:`serve_pipeline`, ``streaming.runner.server_config``) is served as
 any epochs are, and a restarted server re-derives the same windows.
 
-Left out, raising ``NotImplementedError`` that names its ROADMAP queue A
-item when asked for: tenancy (``OP_TENANT``, ``tenants=``, ``tenant=``:
-item 8). A frame of a kind the client does not know raises
+Tenancy (``tenancy/``): ``OP_TENANT`` (5; ``a | b << 32`` the consumer's
+id, ``c`` the length of the canonical ``TenantContext`` JSON that follows)
+binds a lease, and the ranks it then GETs, to a tenant. A server with a
+``tenants`` table or a bound consumer splits its replay budget by tenant
+weight (``tenancy.fairshare.FairShare``: each tenant's unacked bytes
+under its weighted share, and a deficit round robin over the frames past
+a GET's first), paces the one-frame floor of a denied tenant
+(``tenant_floor_pace_s``) and keeps per-tenant delivered and replay
+bytes. Each frame keeps the tenant charged at its pop, so its ack, a
+drain or a live move credits that account.
+
+A frame of a kind the client does not know raises
 :class:`UnreadableFrame`; it is never skipped.
 
 Host code: imports no torch, so the server's process never touches a
@@ -138,6 +147,7 @@ import pyarrow as pa
 
 from ray_shuffling_data_loader_tpu_torch import multiqueue as mq
 from ray_shuffling_data_loader_tpu_torch import procpool as pp
+from ray_shuffling_data_loader_tpu_torch import tenancy as rt_tenancy
 from ray_shuffling_data_loader_tpu_torch.dataset import ShuffleFailure
 from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
@@ -147,6 +157,8 @@ from ray_shuffling_data_loader_tpu_torch.runtime import policy as rt_policy
 from ray_shuffling_data_loader_tpu_torch.runtime import retry as rt_retry
 from ray_shuffling_data_loader_tpu_torch.runtime import (
     telemetry as rt_telemetry)
+from ray_shuffling_data_loader_tpu_torch.tenancy import (
+    fairshare as rt_fairshare)
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
@@ -166,7 +178,8 @@ OP_GET_BATCH = 1
 OP_HELLO = 2
 OP_HEARTBEAT = 3
 OP_NACK = 4
-#: Tenancy's bind request (ROADMAP queue A item 8): refused.
+#: Bind a consumer's lease to a tenant (``c`` the length of the
+#: ``TenantContext`` JSON that follows the request).
 OP_TENANT = 5
 #: The live-migration admin request (``flags`` the phase).
 OP_REBALANCE = 6
@@ -213,16 +226,6 @@ ACK_NONE = 0xFFFFFFFF
 DEFAULT_MAX_BATCH = 8
 
 _LOOPBACK_HOSTS = frozenset({"127.0.0.1", "localhost", "::1"})
-
-_ITEMS = {"8": "tenancy"}
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a JAX serving-plane feature the port leaves out:
-    ``what`` is what was asked for, ``item`` its ROADMAP queue A item."""
-    return NotImplementedError(
-        f"{what} needs the port's {_ITEMS[item]}, which is ROADMAP queue A "
-        f"item {item}")
 
 
 class UnreadableFrame(RuntimeError):
@@ -399,12 +402,15 @@ class _Frame:
     table's serialized size, which a handle frame pins in the buffer
     ledger (``ledger_id``) until it is acked. The stamps are the ones it
     was built with, which a replay sends again. ``pending_codec`` is
-    ``(future, codec)`` while the codec pool compresses it."""
+    ``(future, codec)`` while the codec pool compresses it. ``tenant`` is
+    the tenant its bytes were charged to when it was popped: its ack, a
+    reset or a drain credits that same account, even if the rank's
+    tenant binding changed in between."""
 
     __slots__ = ("seq", "kind", "epoch", "wire", "crc", "row_offset",
                  "nrows", "task", "codec", "payload_bytes", "data_crc",
                  "handle_path", "ledger_id", "birth", "queued",
-                 "pending_codec")
+                 "pending_codec", "tenant")
 
     def __init__(self, seq, kind, epoch, wire, crc, row_offset, nrows,
                  task=TASK_NONE, codec=CODEC_NONE, payload_bytes=None,
@@ -427,6 +433,7 @@ class _Frame:
         self.birth = birth
         self.queued = queued
         self.pending_codec = None
+        self.tenant = None
 
     def resolve_codec(self) -> int:
         """Land a codec-pool compression: the compressed bytes become the
@@ -481,13 +488,17 @@ class _QueueState:
 
 
 class _Lease:
-    __slots__ = ("consumer_id", "last_beat", "queues", "expired")
+    __slots__ = ("consumer_id", "last_beat", "queues", "expired",
+                 "tenant")
 
     def __init__(self, consumer_id: int):
         self.consumer_id = consumer_id
         self.last_beat = time.monotonic()
         self.queues: set = set()
         self.expired = False
+        #: The tenant ``OP_TENANT`` bound (None: unbound, attributed by
+        #: the server's ``tenants`` table).
+        self.tenant: Optional[str] = None
 
 
 class QueueMoved(Exception):
@@ -549,8 +560,9 @@ class QueueServer:
     ranks (``plan.ir.queue_shard``) and answers a GET for another with a
     failure frame. ``handle_dir`` is where handle frames' segments go (a
     directory of its own under the shm root by default, removed at
-    ``close``). ``tenants`` (item 8) is the JAX package's signature and
-    raises ``NotImplementedError``.
+    ``close``). ``tenants`` is the table ``{tenant_id: {"weight": w (or
+    "priority"), "ranks": [...]}}`` (``tenancy.tenants_from_config``): the
+    replay budget is split by weight over the tenants asking.
 
     ``placement`` is the state a live move leaves (``{"generation": G,
     "overrides": {rank: shard}, "rank_generations": {rank: gen},
@@ -570,8 +582,6 @@ class QueueServer:
                  handle_dir: Optional[str] = None,
                  tenants: Optional[dict] = None,
                  placement: Optional[dict] = None):
-        if tenants:
-            raise not_ported("tenants=", "8")
         self._queue = queue
         self._num_trainers = max(1, num_trainers)
         self._journal = journal
@@ -608,6 +618,21 @@ class QueueServer:
         self._nodelay = rt_policy.resolve("queue", "queue_nodelay")
         self._replay_budget = rt_policy.resolve("queue",
                                                 "queue_replay_bytes")
+        # Tenancy: the replay budget split by tenant weight. With no
+        # table and no OP_TENANT bind ``_fair`` stays None and the server
+        # serves as a single tenant would.
+        self._tenants = rt_tenancy.tenants_from_config(tenants)
+        self._tenant_lock = threading.Lock()
+        self._rank_tenant: Dict[int, str] = {}
+        for tenant_id, spec in self._tenants.items():
+            for rank in spec.get("ranks", ()):
+                self._rank_tenant[int(rank)] = tenant_id
+        self._fair: Optional[rt_fairshare.FairShare] = None
+        if self._tenants:
+            self._fair = self._new_fair_share()
+        self._floor_pace_s = float(rt_policy.resolve(
+            "queue", "tenant_floor_pace_s"))
+        self._tenant_replay: Dict[str, int] = {}
         self._lease_timeout_s = rt_policy.resolve("queue",
                                                   "queue_lease_timeout_s")
         self._on_dead_consumer = rt_policy.resolve("queue",
@@ -766,6 +791,107 @@ class QueueServer:
                                        self._num_shards)
                 == self._shard_index)
 
+    # -- tenancy --------------------------------------------------------
+
+    def _new_fair_share(self) -> rt_fairshare.FairShare:
+        return rt_fairshare.FairShare(
+            {t: spec["weight"] for t, spec in self._tenants.items()},
+            int(self._replay_budget),
+            quantum_bytes=int(rt_policy.resolve(
+                "queue", "tenant_drr_quantum_bytes")),
+            active_window_s=float(rt_policy.resolve(
+                "queue", "tenant_active_window_s")))
+
+    def _tenant_of_queue(self, queue_idx: int) -> str:
+        """The tenant a queue's bytes belong to: its rank's entry in the
+        table (or the wire-bound tenant that claimed the rank), else the
+        default tenant."""
+        rank = plan_ir.queue_rank(queue_idx, self._num_trainers)
+        with self._tenant_lock:
+            return self._rank_tenant.get(rank,
+                                         rt_tenancy.DEFAULT_TENANT_ID)
+
+    @staticmethod
+    def _tenant_counters(tenant_id: str) -> tuple:
+        """(delivered bytes, replay bytes, budget) metrics of a tenant."""
+        return (rt_metrics.counter("rsdl_tenant_bytes_delivered_total",
+                                   "payload bytes delivered per tenant",
+                                   tenant=tenant_id),
+                rt_metrics.gauge("rsdl_tenant_replay_bytes",
+                                 "unacked (in-flight) bytes held per tenant",
+                                 tenant=tenant_id),
+                rt_metrics.gauge("rsdl_tenant_budget_bytes",
+                                 "weighted-fair share of the replay budget",
+                                 tenant=tenant_id))
+
+    def _charge_tenant(self, queue_idx: int, delta: int,
+                       tenant_id: Optional[str] = None) -> str:
+        """Add ``delta`` replay bytes to a tenant's ledger (a positive one
+        also to its round-robin deficit) and return the tenant. A pop
+        pins the returned tenant on its frame; an ack, reset or drain
+        passes the pinned tenant back, so the credit lands where the debit
+        did even if an ``OP_TENANT`` rebound the rank in between."""
+        if tenant_id is None:
+            tenant_id = self._tenant_of_queue(queue_idx)
+        with self._tenant_lock:
+            self._tenant_replay[tenant_id] = \
+                self._tenant_replay.get(tenant_id, 0) + delta
+            replay = self._tenant_replay[tenant_id]
+        self._tenant_counters(tenant_id)[1].set(replay)
+        if delta > 0 and self._fair is not None:
+            self._fair.charge(tenant_id, delta)
+        return tenant_id
+
+    def _tenant_may_pop(self, tenant_id: str) -> bool:
+        """May a GET pop a frame past its first: the tenant's unacked
+        bytes are under its weighted share of the replay budget and the
+        round robin grants it another frame."""
+        fair = self._fair
+        if fair is None:
+            return True
+        budget = fair.budget(tenant_id)
+        self._tenant_counters(tenant_id)[2].set(budget)
+        with self._tenant_lock:
+            replay = self._tenant_replay.get(tenant_id, 0)
+        if replay >= budget:
+            return False
+        return fair.grant(tenant_id)
+
+    def _bind_wire_tenant(self, consumer_id: Optional[int],
+                          blob: bytes) -> None:
+        """``OP_TENANT``: bind a consumer's lease (and the ranks it then
+        GETs) to the announced ``TenantContext``. A malformed blob is
+        logged and ignored: tenancy never kills a connection."""
+        try:
+            ctx = rt_tenancy.TenantContext.from_json(blob)
+        except (ValueError, KeyError, TypeError,
+                UnicodeDecodeError) as e:
+            logger.warning("ignoring malformed OP_TENANT blob: %s", e)
+            return
+        # One critical section, so two binds cannot build rival
+        # schedulers. FairShare's lock is a leaf: taking it here (inside
+        # the constructor or set_weight) cannot invert an order.
+        with self._tenant_lock:
+            known = ctx.tenant_id in self._tenants
+            if not known:
+                self._tenants[ctx.tenant_id] = \
+                    {"weight": ctx.effective_weight}
+            if self._fair is None:
+                self._fair = self._new_fair_share()
+            elif not known:
+                # The server's table wins over a wire-announced weight
+                # for the tenants it names.
+                self._fair.set_weight(ctx.tenant_id,
+                                      ctx.effective_weight)
+        with self._lease_lock:
+            if consumer_id is not None:
+                lease = self._leases.get(consumer_id)
+                if lease is not None:
+                    lease.tenant = ctx.tenant_id
+        logger.info("consumer %s bound to tenant %r (weight %.1f)",
+                    f"{consumer_id:x}" if consumer_id is not None
+                    else "?", ctx.tenant_id, ctx.effective_weight)
+
     def _ensure_handle_dir(self) -> str:
         """The directory of handle frames' segments: made at first use
         under the shm root, or the one the caller pinned (a supervised
@@ -860,15 +986,18 @@ class QueueServer:
         """A handle frame as a streamed one (after NACK_NO_HANDLE): the
         segment this server wrote, mapped, is the wire payload. Seq, rows
         and the segment's pin carry over (no second pin), so its ack
-        releases it once; the CRC is the stored segment CRC."""
+        releases it once; the CRC is the stored segment CRC, and the
+        tenant charged at its pop stays the one its ack credits."""
         buf = pp.read_segment_buffer(frame.handle_path)
-        return _Frame(frame.seq, KIND_TABLE, frame.epoch, buf,
-                      frame.data_crc, frame.row_offset, frame.nrows,
-                      frame.task, payload_bytes=frame.payload_bytes,
-                      data_crc=frame.data_crc,
-                      handle_path=frame.handle_path,
-                      ledger_id=frame.ledger_id, birth=frame.birth,
-                      queued=frame.queued)
+        downgraded = _Frame(frame.seq, KIND_TABLE, frame.epoch, buf,
+                            frame.data_crc, frame.row_offset, frame.nrows,
+                            frame.task, payload_bytes=frame.payload_bytes,
+                            data_crc=frame.data_crc,
+                            handle_path=frame.handle_path,
+                            ledger_id=frame.ledger_id, birth=frame.birth,
+                            queued=frame.queued)
+        downgraded.tenant = frame.tenant
+        return downgraded
 
     def _note_shard_depth(self) -> None:
         if rt_telemetry.stamp():
@@ -883,6 +1012,7 @@ class QueueServer:
         while state.replay and state.replay[0].seq <= ack:
             frame = state.replay.popleft()
             state.replay_bytes -= frame.size
+            self._charge_tenant(queue_idx, -frame.size, frame.tenant)
             self._release_frame(frame)
             state.acked_rows = frame.row_offset + frame.nrows
             if frame.kind == KIND_SENTINEL:
@@ -912,6 +1042,24 @@ class QueueServer:
                 os._exit(137)
             self.close()
             raise
+        tenant_id = self._tenant_of_queue(queue_idx)
+        if self._fair is not None:
+            # Every GET marks its tenant active (the budget is split over
+            # the tenants asking).
+            self._fair.touch(tenant_id)
+            if not sum(self._queue.sizes([queue_idx])):
+                # Nothing queued for it now (a live stream between
+                # frames): its unspent credit must not gate tenants that
+                # have work. It rejoins with a fresh quantum.
+                self._fair.idle(tenant_id)
+            elif self._floor_pace_s > 0 and not self._tenant_may_pop(
+                    tenant_id):
+                # A tenant the scheduler denies still gets its one frame
+                # per GET, but paced: on loopback an unpaced floor alone
+                # out-delivers the grants and the weights shape nothing.
+                # The probe spends no credit. The sleep comes before the
+                # queue's state lock, which a live move's PREPARE takes.
+                time.sleep(self._floor_pace_s)
         state = self._state(queue_idx)
         sealed = (plan_ir.queue_rank(queue_idx, self._num_trainers)
                   in self._sealed_ranks)
@@ -953,6 +1101,12 @@ class QueueServer:
                         # budget. At least one frame per GET, so acks can
                         # progress.
                         break
+                    if frames and not self._tenant_may_pop(tenant_id):
+                        # Weighted-fair backpressure: the tenant's unacked
+                        # bytes reached its share of the budget, or the
+                        # round robin owes the next frames to another
+                        # tenant. The same one-frame floor.
+                        break
                     item = self._pop(queue_idx, blocking=not frames,
                                      consumer_id=consumer_id)
                     if item is _POP_CLOSED:
@@ -977,6 +1131,8 @@ class QueueServer:
                         restored_birth=state.births.pop(seq, None))
                     state.replay.append(frame)
                     state.replay_bytes += frame.size
+                    frame.tenant = self._charge_tenant(queue_idx,
+                                                       frame.size)
                     frames.append(frame)
             finally:
                 # Every pending compression lands before the batch leaves
@@ -986,6 +1142,9 @@ class QueueServer:
                     if f.pending_codec is not None:
                         delta = f.resolve_codec()
                         state.replay_bytes += delta
+                        if delta:
+                            self._charge_tenant(queue_idx, delta,
+                                                f.tenant)
                         if delta < 0:
                             self._compression_saved.inc(-delta)
             if frames:
@@ -1061,6 +1220,8 @@ class QueueServer:
             if frame.kind in (KIND_TABLE, KIND_TABLE_HANDLE):
                 self._wire_bytes.inc(size)
                 self._payload_bytes.inc(frame.payload_bytes)
+                self._tenant_counters(self._tenant_of_queue(queue_idx))[
+                    0].inc(frame.payload_bytes)
         if gather:
             _sendmsg_all(conn, vecs)
 
@@ -1088,9 +1249,6 @@ class QueueServer:
     def _serve_conn(self, conn: socket.socket) -> None:
         consumer_id: Optional[int] = None
         handles_ok = False
-        # Set by a request for a feature this port leaves out: every
-        # later GET on the connection is answered with this failure.
-        refused: Optional[bytes] = None
         try:
             while not self._closed.is_set():
                 try:
@@ -1115,12 +1273,9 @@ class QueueServer:
                     self._lease_beat(consumer_id, a)
                     continue
                 if op == OP_TENANT:
-                    if c:
-                        _recv_exact(conn, c)
-                    refused = repr(not_ported("OP_TENANT (a consumer "
-                                              "bound to a tenant)",
-                                              "8")).encode()
-                    logger.error("queue server: %s", refused.decode())
+                    blob = _recv_exact(conn, c) if c else b""
+                    self._lease_beat(consumer_id, None)
+                    self._bind_wire_tenant(consumer_id, blob)
                     continue
                 if op == OP_REBALANCE:
                     blob = _recv_exact(conn, c) if c else b""
@@ -1129,9 +1284,6 @@ class QueueServer:
                     continue
                 if op != OP_GET_BATCH:
                     raise ConnectionError(f"unknown request op {op}")
-                if refused is not None:
-                    conn.sendall(self._fail_frame(refused))
-                    continue
                 queue_idx, max_items = a, b
                 moved_rank = plan_ir.queue_rank(queue_idx,
                                                 self._num_trainers)
@@ -1372,6 +1524,7 @@ class QueueServer:
                                birth=birth, queued=queued)
                 state.replay.append(frame)
                 state.replay_bytes += frame.size
+                frame.tenant = self._charge_tenant(q, frame.size)
             with self._states_lock:
                 self._states[q] = state
             if self._journal is not None:
@@ -1409,6 +1562,7 @@ class QueueServer:
                 while state.replay:
                     frame = state.replay.popleft()
                     state.replay_bytes -= frame.size
+                    self._charge_tenant(q, -frame.size, frame.tenant)
                     self._release_frame(frame)
             with self._states_lock:
                 self._states.pop(q, None)
@@ -1434,6 +1588,13 @@ class QueueServer:
             lease.expired = False
             if queue_idx is not None:
                 lease.queues.add(queue_idx)
+                if lease.tenant is not None:
+                    # A wire-bound tenant claims the ranks it GETs, so
+                    # attribution needs no server-side table.
+                    rank = plan_ir.queue_rank(queue_idx,
+                                              self._num_trainers)
+                    with self._tenant_lock:
+                        self._rank_tenant.setdefault(rank, lease.tenant)
             self._consumers_alive.set(
                 sum(1 for le in self._leases.values() if not le.expired))
             if (self._lease_thread is None
@@ -1543,6 +1704,8 @@ class QueueServer:
             with state.lock:
                 for frame in state.replay:
                     self._release_frame(frame)
+                    # The tenant charged at the pop, not the rank's now.
+                    self._charge_tenant(q, -frame.size, frame.tenant)
                 state.replay.clear()
                 state.replay_bytes = 0
         while not self._closed.wait(0.2):
@@ -1805,8 +1968,13 @@ class RemoteQueue:
     mapped and its CRC checked; a handle that cannot be used is NACK'd
     with ``NACK_NO_HANDLE`` and the queue streams from then on (slower,
     still exactly once). A compressed frame is decompressed before its
-    CRC is checked. ``num_trainers`` makes the latency label the rank;
-    ``tenant`` (item 8) raises ``NotImplementedError``.
+    CRC is checked. ``num_trainers`` makes the latency label the rank.
+
+    ``tenant`` (a ``tenancy.TenantContext``, an id or a dict) binds the
+    consumer: ``OP_TENANT`` follows every HELLO, reconnects included, so
+    the server's weighted-fair scheduler and per-tenant ledgers count its
+    bytes, and the client observes ``rsdl_tenant_delivery_latency_seconds``
+    by hop. A server that cannot parse the blob logs and ignores it.
 
     Live moves: a ``KIND_MOVED`` answer raises the rank's fence to its
     generation, then :class:`QueueMoved`; a data frame whose generation is
@@ -1833,8 +2001,8 @@ class RemoteQueue:
         if ack_mode not in ("delivered", "manual"):
             raise ValueError(
                 f"ack_mode must be 'delivered' or 'manual', got {ack_mode!r}")
-        if tenant is not None:
-            raise not_ported("tenant=", "8")
+        self._tenant = (rt_tenancy.resolve(tenant)
+                        if tenant is not None else None)
         self._delivery = _resolve_delivery(delivery)
         self._address = (str(address[0]), int(address[1]))
         host = self._address[0]
@@ -1921,6 +2089,12 @@ class RemoteQueue:
                 OP_HELLO, FLAG_HANDLES_OK if self._offer_handles else 0,
                 self._consumer_id & 0xFFFFFFFF,
                 (self._consumer_id >> 32) & 0xFFFFFFFF, 0))
+            if self._tenant is not None:
+                blob = self._tenant.to_json()
+                sock.sendall(_REQUEST.pack(
+                    OP_TENANT, 0, self._consumer_id & 0xFFFFFFFF,
+                    (self._consumer_id >> 32) & 0xFFFFFFFF,
+                    len(blob)) + blob)
             self._sock = sock
             self._fetched_since_connect = set()
 
@@ -2166,6 +2340,12 @@ class RemoteQueue:
                               queued))
         return items, resumed
 
+    def _observe_tenant(self, hop: str, seconds: float) -> None:
+        rt_metrics.sketch(
+            "rsdl_tenant_delivery_latency_seconds",
+            "per-tenant delivery latency by hop",
+            hop=hop, tenant=self._tenant.tenant_id).observe(seconds)
+
     def _ingest(self, queue_index: int, items: List[Tuple],
                 resumed: bool) -> None:
         """Buffer a fetched batch (``_state_lock`` held by the caller)."""
@@ -2182,11 +2362,17 @@ class RemoteQueue:
                 continue  # a replayed frame already held: exactly once
             # Observed once per frame entering the stream, with the
             # stamps it was built with (a replay's are the originals).
+            queued_lat = self._lat_anchors.latency_s(queued)
             rt_lat.observe_hop(rt_lat.HOP_QUEUED_TO_DELIVERED, rank,
-                               self._lat_anchors.latency_s(queued))
+                               queued_lat)
+            if self._tenant is not None and queued_lat is not None:
+                self._observe_tenant(rt_lat.HOP_QUEUED_TO_DELIVERED,
+                                     queued_lat)
             if birth is not None:
                 age = self._lat_anchors.latency_s(birth)
                 rt_lat.observe_hop(rt_lat.HOP_BIRTH_TO_DELIVERED, rank, age)
+                if self._tenant is not None and age is not None:
+                    self._observe_tenant(rt_lat.HOP_BIRTH_TO_DELIVERED, age)
                 rt_lat.set_freshness(rank, age)
             fresh.append((seq, row_offset, item))
         buf.extend(fresh)
@@ -2460,8 +2646,9 @@ def serve_pipeline(config: dict):
     map-time cast of ``transforms.CastTransform``, so the server ships
     the narrow dtypes a ``DeviceShufflingDataset`` spec casts to).
     ``placement`` is ``QueueServer``'s (the state a live move left), and
-    a shard owns the ranks its overrides give it. ``tenants`` (item 8)
-    raises ``NotImplementedError``.
+    a shard owns the ranks its overrides give it. ``tenants`` is
+    ``QueueServer``'s table (``{tenant_id: {"weight" or "priority",
+    "ranks"}}``).
 
     ``epochs`` replaces ``filenames`` and ``num_epochs`` with a stream's
     frozen window schedule (``streaming.window.specs_to_dicts``: one
@@ -2491,8 +2678,6 @@ def serve_pipeline(config: dict):
     from ray_shuffling_data_loader_tpu_torch import dataset as ds
     from ray_shuffling_data_loader_tpu_torch import shuffle as sh
 
-    if config.get("tenants"):
-        raise not_ported("config['tenants']", "8")
     stream_epochs = config.get("epochs")
     num_epochs = (len(stream_epochs) if stream_epochs is not None
                   else int(config["num_epochs"]))
@@ -2584,7 +2769,7 @@ def serve_pipeline(config: dict):
         num_trainers=num_trainers, journal=journal, initial_state=state,
         exit_on_crash_site=True, shard_index=shard_index,
         num_shards=num_shards, handle_dir=handle_dir,
-        placement=config.get("placement"))
+        tenants=config.get("tenants"), placement=config.get("placement"))
     rt_metrics.gauge("rsdl_queue_serve_shards",
                      "shard count of the live queue serving plane").set(
                          num_shards)

@@ -200,6 +200,15 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     # surviving consumer).
     "queue_lease_timeout_s": (30.0, float),
     "on_dead_consumer": ("fail_fast", str),
+    # Weighted-fair tenancy (tenancy/fairshare.py): the round-robin
+    # quantum (a round gives a tenant quantum * weight bytes of credit),
+    # the seconds after which a quiet tenant's share goes to the others,
+    # and the pace of the one-frame-per-GET floor while the scheduler
+    # denies a tenant (0: unpaced; on loopback the floor alone then
+    # out-delivers the grants).
+    "tenant_drr_quantum_bytes": (1 << 20, int),
+    "tenant_active_window_s": (1.0, float),
+    "tenant_floor_pace_s": (0.002, float),
     # Table delivery: "auto" (a consumer dialling a loopback address
     # offers shared-memory handles, and the server then sends segment
     # handles instead of table bytes), "handle" (offer them whatever the

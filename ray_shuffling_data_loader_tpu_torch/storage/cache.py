@@ -16,12 +16,16 @@ table equals the lost one. :class:`TieredStore` speaks the
 so it plugs into ``shuffle(file_cache=...)``, and offers ``warm`` and
 ``make_prefetcher`` for the plan scheduler's idle-lane prefetch.
 
-The JAX package's per-tenant hot-tier quotas wait for the port's
-``tenancy`` (ROADMAP queue A item 8): a ``tenant_quotas`` argument
-raises. The tier counters are the JAX package's registry series
+Per-tenant hot-tier quotas (``TieredStore(tenant_quotas=)``): resident
+bytes are charged to the ambient tenant (``tenancy.current_tenant``), and
+a tenant over its quota evicts its own least recently used entries
+first, so one tenant's scan never evicts another's pages. The tier
+counters are the JAX package's registry series
 (``rsdl_storage_{hits,misses,evictions,corrupt}_total`` by tier,
 ``rsdl_storage_prefetch_*_total``, ``rsdl_storage_tier_bytes``), which
-:func:`storage_totals` reads.
+:func:`storage_totals` reads, and the per-tenant
+``rsdl_tenant_storage_{hits,misses,evictions}_total`` and
+``rsdl_tenant_cache_{bytes,quota_bytes}``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import pyarrow as pa
 
 from ray_shuffling_data_loader_tpu_torch import native
+from ray_shuffling_data_loader_tpu_torch import tenancy as rt_tenancy
 from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.utils.singleflight import SingleFlight
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
@@ -111,10 +116,14 @@ def _file_crc(path: str) -> int:
     return crc & 0xFFFFFFFF
 
 
-def _no_tenancy(what: str):
-    return NotImplementedError(
-        f"{what} needs the port's tenancy, which is ROADMAP queue A item 8 "
-        "(per-tenant cache and prefetch quotas)")
+def _tenant_counters(tenant_id: str) -> Tuple[object, object, object]:
+    """(hits, misses, evictions) counters of one tenant."""
+    return (rt_metrics.counter("rsdl_tenant_storage_hits_total",
+                               tenant=tenant_id),
+            rt_metrics.counter("rsdl_tenant_storage_misses_total",
+                               tenant=tenant_id),
+            rt_metrics.counter("rsdl_tenant_storage_evictions_total",
+                               tenant=tenant_id))
 
 
 class DiskTier:
@@ -364,16 +373,24 @@ class TieredStore:
     fetches, decodes, applies the map transform and inserts, so a later
     ``get`` hits; a ``get`` that misses while a warm of its key is in
     flight waits for that warm instead of fetching again, and a warm of a
-    key being loaded waits for the load. ``make_prefetcher(plan)`` gives the plan scheduler a
-    :class:`storage.prefetch.PrefetchManager` over the plan's files.
+    key being loaded waits for the load. ``make_prefetcher(plan)`` gives
+    the plan scheduler a :class:`storage.prefetch.PrefetchManager` over
+    the plan's files, pinned to the plan's ``tenant_id`` or the ambient
+    tenant.
+
+    ``tenant_quotas`` (``{tenant_id: bytes}``; the ambient context's
+    ``cache_quota_bytes`` for a tenant it does not name) caps a tenant's
+    resident hot bytes: an insertion over it evicts that tenant's own
+    least recently used entries before the global LRU runs, and a table
+    larger than the quota is not kept hot. Gets count the ambient
+    tenant's hits and misses, evictions the tenant charged for the
+    evicted entry.
     """
 
     def __init__(self, hot_bytes: int,
                  disk: Optional[DiskTier] = None,
                  source: Optional[object] = None,
                  tenant_quotas: Optional[Dict[str, int]] = None):
-        if tenant_quotas is not None:
-            raise _no_tenancy("TieredStore(tenant_quotas=...)")
         self.hot_bytes = hot_bytes
         self.disk = disk
         self._source = source
@@ -383,6 +400,9 @@ class TieredStore:
         self._hot_bytes_used = 0
         self._lock = threading.Lock()
         self._prefetched: set = set()
+        self._tenant_quotas: Dict[str, int] = dict(tenant_quotas or {})
+        self._key_tenant: Dict[str, str] = {}
+        self._tenant_hot_bytes: Dict[str, int] = {}
         # The loads and warms in flight.
         self._loads = SingleFlight()
         self.hot_hits = self.hot_misses = self.hot_evictions = 0
@@ -402,6 +422,8 @@ class TieredStore:
         :meth:`release` (as ``shuffle.FileTableCache``'s; the JAX store
         joins prefetch warms only, so two epochs in flight read a file
         twice)."""
+        tenant_id = rt_tenancy.current_tenant().tenant_id
+        t_hits, t_misses, _ = _tenant_counters(tenant_id)
         # Each pass returns or waits for one load or warm of this key in
         # flight; after it, the key is resident or no load is left.
         # rsdl-lint: disable=unbounded-retry
@@ -415,6 +437,7 @@ class TieredStore:
                     self._prefetched.discard(key)
             if table is not None:
                 self._count("hot_hits")
+                t_hits.inc()
                 if was_prefetched:
                     self._count("prefetch_hits")
                 return table
@@ -428,10 +451,12 @@ class TieredStore:
                     if was_prefetched:
                         self._count("prefetch_hits")
                     self._promote(key, table)
+                    t_hits.inc()
                     return table
             flight = self._loads.claim(key)
             if flight is None:  # this caller loads the key
                 self._count("remote_misses")
+                t_misses.inc()
                 return None
             flight.wait()
 
@@ -463,31 +488,89 @@ class TieredStore:
             self._hot_bytes_used = 0
             self._prefetched.clear()
             _tier_bytes("hot").set(0)
+            self._key_tenant.clear()
+            for tenant_id in self._tenant_hot_bytes:
+                rt_metrics.gauge("rsdl_tenant_cache_bytes",
+                                 tenant=tenant_id).set(0)
+            self._tenant_hot_bytes.clear()
         if self.disk is not None:
             self.disk.close()
 
     # -- internals -----------------------------------------------------
 
+    def _tenant_quota(self, tenant_id: str) -> Optional[int]:
+        """The tenant's hot byte cap: the quota table's, else the ambient
+        context's ``cache_quota_bytes``, else None (the global budget
+        alone)."""
+        quota = self._tenant_quotas.get(tenant_id)
+        if quota is None:
+            ctx = rt_tenancy.current_tenant()
+            if ctx.tenant_id == tenant_id:
+                quota = ctx.cache_quota_bytes
+        if quota is not None:
+            rt_metrics.gauge("rsdl_tenant_cache_quota_bytes",
+                             tenant=tenant_id).set(quota)
+        return quota
+
+    def _drop_hot_locked(self, key: str, table: pa.Table) -> str:
+        """Take ``key`` out of the hot tier's accounting (the caller holds
+        ``_lock``); returns the tenant it was charged to."""
+        # rsdl-lint: disable=lock-mutation
+        self._hot_bytes_used -= table.nbytes
+        tenant_id = self._key_tenant.pop(key, rt_tenancy.DEFAULT_TENANT_ID)
+        # rsdl-lint: disable=lock-mutation
+        self._tenant_hot_bytes[tenant_id] = \
+            self._tenant_hot_bytes.get(tenant_id, 0) - table.nbytes
+        return tenant_id
+
     def _promote(self, key: str, table: pa.Table) -> bool:
         nbytes = table.nbytes
-        evicted = 0
+        tenant_id = rt_tenancy.current_tenant().tenant_id
+        quota = self._tenant_quota(tenant_id)
+        evicted = []  # (key, the tenant it was charged to)
         with self._lock:
             if key in self._hot:
                 self._hot.move_to_end(key)
                 return True
+            if quota is not None and nbytes > quota:
+                return False  # never fits the tenant's share
+            if quota is not None:
+                # Over its quota, a tenant demotes its own least recent
+                # entries first: the others' stay resident.
+                while (self._tenant_hot_bytes.get(tenant_id, 0) + nbytes
+                       > quota):
+                    victim = next(
+                        (k for k in self._hot
+                         if self._key_tenant.get(k) == tenant_id), None)
+                    if victim is None:
+                        break
+                    old = self._hot.pop(victim)
+                    evicted.append((victim, self._drop_hot_locked(
+                        victim, old)))
             while (self._hot_bytes_used + nbytes > self.hot_bytes
                    and self._hot):
-                _old_key, old = self._hot.popitem(last=False)
-                self._hot_bytes_used -= old.nbytes
-                evicted += 1
+                old_key, old = self._hot.popitem(last=False)
+                evicted.append((old_key, self._drop_hot_locked(
+                    old_key, old)))
             ok = self._hot_bytes_used + nbytes <= self.hot_bytes
             if ok:
                 self._hot[key] = table
                 self._hot_bytes_used += nbytes
+                self._key_tenant[key] = tenant_id
+                self._tenant_hot_bytes[tenant_id] = \
+                    self._tenant_hot_bytes.get(tenant_id, 0) + nbytes
             _tier_bytes("hot").set(self._hot_bytes_used)
+            touched = {tenant_id} | {t for _, t in evicted}
+            tenant_bytes = {t: self._tenant_hot_bytes.get(t, 0)
+                            for t in touched}
         if evicted:
             # A demotion, not a loss: put wrote the entry through to disk.
-            self._count("hot_evictions", evicted)
+            self._count("hot_evictions", len(evicted))
+        for _, victim_tenant in evicted:
+            _tenant_counters(victim_tenant)[2].inc()
+        for t, used in tenant_bytes.items():
+            rt_metrics.gauge("rsdl_tenant_cache_bytes",
+                             tenant=t).set(used)
         return ok
 
     # -- prefetch seam -------------------------------------------------
@@ -502,6 +585,20 @@ class TieredStore:
             if key in self._hot:
                 return True
         return self.disk is not None and key in self.disk
+
+    def resident_bytes(self, key: str) -> int:
+        """The bytes of ``key``'s resident copy (the hot table's, else the
+        disk entry's, else 0): what a warm charges a prefetch quota."""
+        with self._lock:
+            table = self._hot.get(key)
+            if table is not None:
+                return table.nbytes
+        if self.disk is not None:
+            with self.disk._lock:
+                entry = self.disk._paths.get(key)
+                if entry is not None:
+                    return entry[1]
+        return 0
 
     def warm(self, key: str) -> bool:
         """Fetch, decode, transform and insert ``key``, so a later map's
@@ -534,11 +631,13 @@ class TieredStore:
 
     def make_prefetcher(self, plan):
         """A PrefetchManager over ``plan``'s map files: epoch N's plan
-        names the files epoch N+1 reads again."""
+        names the files epoch N+1 reads again. Its tenant is pinned now
+        (the plan's ``tenant_id``, else the ambient tenant): the pool
+        threads that run its tasks may sit in another scope."""
         from ray_shuffling_data_loader_tpu_torch.storage.prefetch import (
             PrefetchManager)
-        if getattr(plan, "tenant_id", None) is not None:
-            raise _no_tenancy("a plan with a tenant_id")
         files = [node.meta["file"] for node in plan.maps()
                  if node.meta.get("file")]
-        return PrefetchManager(self, files)
+        tenant = (getattr(plan, "tenant_id", None)
+                  or rt_tenancy.current_tenant())
+        return PrefetchManager(self, files, tenant=tenant)

@@ -13,8 +13,11 @@ reclaimed before they started, ``hits`` (counted by the store) prefetched
 entries a map later consumed. A failed prefetch is logged and dropped:
 the map's own read owns retries, quarantine and fault sites.
 
-The JAX package's per-tenant prefetch byte quota waits for the port's
-``tenancy`` (ROADMAP queue A item 8): a ``tenant`` argument raises.
+A manager belongs to a tenant (``tenant=``, else the ambient one). Its
+``prefetch_quota_bytes`` caps the bytes its warms may make resident: past
+it a task is skipped and counted in
+``rsdl_tenant_prefetch_throttled_total``. Demand reads are never
+throttled.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import threading
 from collections import deque
 from typing import Optional
 
+from ray_shuffling_data_loader_tpu_torch import tenancy as rt_tenancy
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.storage import cache as st_cache
 from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
@@ -52,10 +57,17 @@ class PrefetchTask:
         """True when the entry became (or already was) resident."""
         if self._cancel.is_set():
             return False
+        if not self.manager._under_quota():
+            # The tenant spent its prefetch bytes: the lane stops warming
+            # for it (the map's own read still fetches).
+            return False
         self._started.set()
         self.manager._bump("issued")
         try:
-            return self.manager.store.warm(self.path)
+            warmed = self.manager.store.warm(self.path)
+            if warmed:
+                self.manager._charge(self.path)
+            return warmed
         except Exception as e:  # noqa: BLE001 - an optimization only
             logger.debug("prefetch of %s failed (%s); the map's read will "
                          "fetch it", self.path, e)
@@ -67,13 +79,32 @@ class PrefetchManager:
     order, skipping files already resident in the store."""
 
     def __init__(self, store, files, tenant=None):
-        if tenant is not None:
-            raise st_cache._no_tenancy("PrefetchManager(tenant=...)")
         self.store = store
+        self.tenant = rt_tenancy.resolve(tenant)
+        self._quota = self.tenant.prefetch_quota_bytes
+        self._warmed_bytes = 0
         self._pending = deque(files)
         self._lock = threading.Lock()
         self.issued = 0
         self.canceled = 0
+        self._throttled = rt_metrics.counter(
+            "rsdl_tenant_prefetch_throttled_total",
+            "prefetch tasks skipped by the tenant's byte quota",
+            tenant=self.tenant.tenant_id)
+
+    def _under_quota(self) -> bool:
+        if self._quota is None:
+            return True
+        with self._lock:
+            ok = self._warmed_bytes < self._quota
+        if not ok:
+            self._throttled.inc()
+        return ok
+
+    def _charge(self, path: str) -> None:
+        nbytes = self.store.resident_bytes(path)
+        with self._lock:
+            self._warmed_bytes += nbytes
 
     def _bump(self, name: str) -> None:
         with self._lock:

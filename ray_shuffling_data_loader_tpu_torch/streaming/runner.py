@@ -16,26 +16,28 @@ adds the stream's bookkeeping:
 - the window-boundary resize of an elastic world (``membership=``);
 - :func:`server_config`: the frozen window schedule a supervised queue
   server (``multiqueue_service.serve_pipeline``) re-derives on every
-  restart.
+  restart;
+- the stream's tenant (``tenant=``, ``server_config(tenant_id=)``):
+  every window spec carries its id, and :meth:`StreamingShuffleRunner.run`
+  drives the shuffle under its ``tenancy.tenant_scope``.
 
 A trainer reads the served stream as it reads epochs: a
 ``DeviceShufflingDataset(num_epochs=None)`` over the runner's queue, or
 a remote queue client.
-
-Left out: tenancy (``tenant=``, ``server_config(tenant_id=)``), which
-raises ``NotImplementedError`` naming ROADMAP queue A item 8.
 
 Host code: imports no torch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import timeit
 from typing import Any, Callable, Dict, Optional
 
 from ray_shuffling_data_loader_tpu_torch import executor as ex
+from ray_shuffling_data_loader_tpu_torch import tenancy as rt_tenancy
 from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.streaming import window as win
 from ray_shuffling_data_loader_tpu_torch.streaming.source import StreamSource
@@ -43,11 +45,6 @@ from ray_shuffling_data_loader_tpu_torch.utils.logger import (
     setup_custom_logger)
 
 logger = setup_custom_logger(__name__)
-
-
-def _no_tenancy(what: str) -> NotImplementedError:
-    from ray_shuffling_data_loader_tpu_torch import multiqueue_service
-    return multiqueue_service.not_ported(what, "8")
 
 
 class StreamingShuffleRunner:
@@ -67,6 +64,12 @@ class StreamingShuffleRunner:
     at every window seal, after ``member_crash`` chaos had its chance:
     each window's reducer count follows the live view
     (``membership.reducers_for_view``) and its meta carries the view.
+
+    ``tenant`` (a ``tenancy.TenantContext``, an id or a dict; None: the
+    ambient tenant) owns the stream: each window spec without a
+    ``tenant_id`` gets its id, and :meth:`run` runs under its
+    ``tenant_scope`` (a ``ContextVar``: it reaches what runs on the
+    calling thread, not the shuffle's worker threads or processes).
     """
 
     def __init__(self, source: StreamSource, batch_consumer,
@@ -81,8 +84,8 @@ class StreamingShuffleRunner:
                  on_window_served: Optional[Callable[[int], None]] = None,
                  tenant=None, membership=None):
         from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
-        if tenant is not None:
-            raise _no_tenancy("StreamingShuffleRunner(tenant=...)")
+        self.tenant = (rt_tenancy.resolve(tenant)
+                       if tenant is not None else None)
         self.source = source
         self.batch_consumer = batch_consumer
         self.num_reducers = num_reducers
@@ -179,6 +182,9 @@ class StreamingShuffleRunner:
         for spec in self.assembler.specs(self.source,
                                          max_windows=self.max_windows,
                                          clock_step_s=self.clock_step_s):
+            if self.tenant is not None and spec.tenant_id is None:
+                spec = dataclasses.replace(
+                    spec, tenant_id=self.tenant.tenant_id)
             if self.membership is not None:
                 spec = self._apply_view(spec)
             if spec.window is not None:
@@ -217,12 +223,16 @@ class StreamingShuffleRunner:
             "ray_shuffling_data_loader_tpu_torch.shuffle")
         start = timeit.default_timer()
         self._skip_sealed_prefix()
-        duration = sh.shuffle_epochs(
-            self._specs(), self.batch_consumer, self.num_reducers,
-            self.num_trainers,
-            max_concurrent_epochs=self.max_concurrent_epochs,
-            seed=self.seed, num_workers=self.num_workers, file_cache=None,
-            epochs_hint=None, on_epoch_done=self._on_epoch_done)
+        scope = (rt_tenancy.tenant_scope(self.tenant)
+                 if self.tenant is not None else contextlib.nullcontext())
+        with scope:
+            duration = sh.shuffle_epochs(
+                self._specs(), self.batch_consumer, self.num_reducers,
+                self.num_trainers,
+                max_concurrent_epochs=self.max_concurrent_epochs,
+                seed=self.seed, num_workers=self.num_workers,
+                file_cache=None, epochs_hint=None,
+                on_epoch_done=self._on_epoch_done)
         return {
             "duration_s": timeit.default_timer() - start,
             "shuffle_s": duration,
@@ -265,18 +275,20 @@ def server_config(source: StreamSource, num_trainers: int,
     ``source`` into a frozen window schedule (journaling the ingest
     watermarks to ``ingest_journal_path``) and put it in the
     ``serve_pipeline`` config as ``epochs``. The schedule is data, so
-    every restarted server re-derives the same epochs. ``extra`` goes into
-    the config as given (``cast``, ``num_workers``, ``file_cache``,
-    ``handle_dir``, ``child_env``, ...)."""
+    every restarted server re-derives the same epochs. ``tenant_id``
+    stamps each window spec that has none. ``extra`` goes into the config
+    as given (``cast``, ``num_workers``, ``file_cache``, ``handle_dir``,
+    ``child_env``, ``tenants``, ...)."""
     from ray_shuffling_data_loader_tpu_torch import checkpoint as ckpt
-    if tenant_id is not None:
-        raise _no_tenancy("server_config(tenant_id=...)")
     journal = (ckpt.StreamJournal(ingest_journal_path)
                if ingest_journal_path else None)
     specs = win.freeze_schedule(source, policy=policy,
                                 max_windows=max_windows, journal=journal)
     if journal is not None:
         journal.close()
+    if tenant_id is not None:
+        specs = [dataclasses.replace(s, tenant_id=tenant_id)
+                 if s.tenant_id is None else s for s in specs]
     config = {
         "epochs": win.specs_to_dicts(specs),
         "num_trainers": int(num_trainers),

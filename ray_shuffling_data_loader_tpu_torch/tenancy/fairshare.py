@@ -1,0 +1,243 @@
+"""Weighted-fair sharing of one in-flight byte budget (deficit round
+robin; own copy of the JAX package's ``tenancy/fairshare.py``).
+
+The queue service's flow control is a single number: a shard stops
+popping frames for a consumer once its unacked (replay) bytes reach
+``queue_replay_bytes``. That budget is the congestion window of the
+whole serving plane — and before this module it was first-come-first-
+served: a batch tenant replaying cold epochs could pin the entire
+budget and starve an interactive stream's watermark.
+
+:class:`FairShare` partitions that budget by tenant weight, two ways
+at once:
+
+- **window partition** (:meth:`budget`) — each ACTIVE tenant's unacked
+  bytes may grow to ``total * weight / sum(active weights)``. With
+  window-limited consumers (slow acks — exactly the contention case),
+  per-RTT delivered bytes track the window, so throughput converges to
+  the weight ratio. Work-conserving: tenants that stop asking leave
+  the active set after ``active_window_s`` and their share is
+  redistributed on the next call.
+- **deficit round robin** (:meth:`grant` / :meth:`charge`) — classic
+  DRR over byte quanta for the fast-ack regime, where the window never
+  binds: every delivered frame charges the tenant's deficit; a GET may
+  pop frames past the first only while the deficit is positive; when
+  every active tenant is exhausted, all deficits replenish by
+  ``quantum * weight``. Over any contention interval the delivered
+  byte ratio converges to the weight ratio.
+
+Both checks preserve the one-frame-per-GET floor (the server only
+consults FairShare for frames past the first), so a starved tenant
+still progresses — fairness here shapes rates, it never deadlocks a
+consumer.
+
+Thread-safety: all methods take the internal lock; the queue service
+calls them under its own per-queue state lock, which is fine — this
+lock is leaf-level and never calls out.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+from ray_shuffling_data_loader_tpu_torch.tenancy import (
+    DEFAULT_TENANT_ID)
+
+#: Deficit replenish quantum multiplier — one round hands each tenant
+#: ``quantum * weight`` bytes of pop credit.
+DEFAULT_QUANTUM_BYTES = 1 << 20
+
+
+class FairShare:
+    """Deficit-round-robin weighted shares of ``total_budget`` bytes.
+
+    ``weights`` maps tenant id -> weight; unknown tenants fall back to
+    ``default_weight`` so an unconfigured tenant degrades to a normal
+    (weight-1) participant instead of crashing the serving path.
+    """
+
+    def __init__(self, weights: Dict[str, float], total_budget: int,
+                 quantum_bytes: int = DEFAULT_QUANTUM_BYTES,
+                 active_window_s: float = 1.0,
+                 default_weight: float = 1.0,
+                 clock: Callable[[], float] = time.monotonic):
+        if total_budget <= 0:
+            raise ValueError("total_budget must be > 0")
+        for tenant_id, weight in weights.items():
+            if not weight > 0:
+                raise ValueError(
+                    f"tenant {tenant_id!r}: weight must be > 0")
+        self.total_budget = total_budget
+        self.quantum_bytes = max(1, int(quantum_bytes))
+        self.active_window_s = active_window_s
+        self.default_weight = default_weight
+        self._weights = dict(weights)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._last_active: Dict[str, float] = {}
+        self._deficit: Dict[str, float] = {}
+
+    # -- identity ------------------------------------------------------
+
+    def weight(self, tenant_id: str) -> float:
+        return self._weights.get(tenant_id, self.default_weight)
+
+    def set_weight(self, tenant_id: str, weight: float) -> None:
+        """Register/adjust a tenant's weight (a wire-announced tenant
+        joining a live server)."""
+        if not weight > 0:
+            raise ValueError(f"weight must be > 0, got {weight}")
+        with self._lock:
+            self._weights[tenant_id] = weight
+
+    def touch(self, tenant_id: str) -> None:
+        """Mark ``tenant_id`` active (called on every GET it issues)."""
+        now = self._clock()
+        with self._lock:
+            if tenant_id not in self._deficit:
+                # Join mid-round with one quantum of credit, like a DRR
+                # flow arriving at a busy link.
+                self._deficit[tenant_id] = \
+                    self.quantum_bytes * self.weight(tenant_id)
+            self._last_active[tenant_id] = now
+
+    def idle(self, tenant_id: str) -> None:
+        """Drop ``tenant_id``'s active claim and unspent credit NOW (a
+        GET found its queue empty). A tenant with no queued work must
+        not gate tenants that do have work — without this, a slow live
+        stream blocked waiting for its next frame would hold positive
+        deficit for up to ``active_window_s`` and pin every competing
+        batch tenant to the paced liveness floor. It rejoins with a
+        fresh quantum on its next :meth:`touch`, like any arriving
+        flow.
+
+        Only POSITIVE credit is dropped; a negative deficit (debt) is
+        kept, and :meth:`touch` does not re-grant over it. A tenant
+        with one empty stream and one busy replay rank would otherwise
+        zero its debt on every empty-queue GET and rejoin with a fresh
+        quantum on the busy rank's next GET — resetting the round
+        robin each cycle and out-delivering its weight share."""
+        with self._lock:
+            self._last_active.pop(tenant_id, None)
+            if self._deficit.get(tenant_id, 0.0) >= 0:
+                self._deficit.pop(tenant_id, None)
+
+    def active(self) -> Iterable[str]:
+        """Tenants seen within the activity window (expired ones are
+        dropped so their share redistributes — work conservation)."""
+        now = self._clock()
+        with self._lock:
+            expired = [t for t, ts in self._last_active.items()
+                       if now - ts > self.active_window_s]
+            for tenant_id in expired:
+                del self._last_active[tenant_id]
+                self._deficit.pop(tenant_id, None)
+            return list(self._last_active)
+
+    # -- window partition ----------------------------------------------
+
+    def budget(self, tenant_id: str) -> int:
+        """``tenant_id``'s share of the in-flight byte budget among
+        currently-active tenants. A lone tenant gets the whole budget
+        (bit-for-bit the pre-tenancy behavior)."""
+        active = self.active()
+        if tenant_id not in active:
+            self.touch(tenant_id)
+            active = list(active) + [tenant_id]
+        total_weight = sum(self.weight(t) for t in active)
+        if total_weight <= 0:
+            return self.total_budget
+        return max(1, int(self.total_budget
+                          * self.weight(tenant_id) / total_weight))
+
+    # -- deficit round robin ---------------------------------------------
+
+    def grant(self, tenant_id: str) -> bool:
+        """May ``tenant_id`` pop another frame this round? True while
+        its deficit is positive; when EVERY active tenant is exhausted
+        the round ends and all deficits replenish by
+        ``quantum * weight`` (the DRR service round)."""
+        active = self.active()
+        with self._lock:
+            if self._deficit.get(tenant_id, 0.0) > 0:
+                return True
+            if any(self._deficit.get(t, 0.0) > 0 for t in active
+                   if t != tenant_id):
+                return False  # others still hold credit: wait your turn
+            for t in active:
+                self._deficit[t] = (self._deficit.get(t, 0.0)
+                                    + self.quantum_bytes * self.weight(t))
+            return self._deficit.get(tenant_id, 0.0) > 0
+
+    def charge(self, tenant_id: str, nbytes: int) -> None:
+        """Record ``nbytes`` delivered to ``tenant_id``."""
+        with self._lock:
+            self._deficit[tenant_id] = \
+                self._deficit.get(tenant_id, 0.0) - nbytes
+
+    def deficit(self, tenant_id: str) -> float:
+        with self._lock:
+            return self._deficit.get(tenant_id, 0.0)
+
+    def snapshot(self) -> Dict[str, dict]:
+        """Per-tenant {weight, deficit, budget} for metrics/debugging."""
+        active = set(self.active())
+        out = {}
+        for tenant_id in sorted(set(self._weights) | active):
+            out[tenant_id] = {
+                "weight": self.weight(tenant_id),
+                "deficit": self.deficit(tenant_id),
+                "active": tenant_id in active,
+                "budget": self.budget(tenant_id)
+                if tenant_id in active else 0,
+            }
+        return out
+
+
+def simulate_rounds(fair: FairShare, demands: Dict[str, int],
+                    frame_bytes: int, rounds: int,
+                    advance: Optional[Callable[[], None]] = None
+                    ) -> Dict[str, int]:
+    """Deterministic DRR simulation for the fairness-convergence checks:
+    every round, each tenant with
+    remaining demand is offered pops while ``grant`` allows; returns
+    delivered bytes per tenant. No wall clock involved (callers pass a
+    fake clock into ``fair``; ``advance``, if given, steps that clock
+    once per round so exhausted tenants age out of the active set).
+
+    All demanding tenants are touched BEFORE anyone pops — GETs
+    interleave in the real server, so contention is established first;
+    touching lazily would let the round's first tenant replenish
+    against an empty active set and drain its whole demand alone.
+    """
+    delivered = {t: 0 for t in demands}
+    remaining = dict(demands)
+    for _ in range(rounds):
+        if not any(v > 0 for v in remaining.values()):
+            break
+        for tenant_id in sorted(remaining):
+            if remaining[tenant_id] > 0:
+                fair.touch(tenant_id)
+        for tenant_id in sorted(remaining):
+            if remaining[tenant_id] <= 0:
+                continue
+            # one-frame floor: the first frame of a GET never consults
+            # the scheduler (matching _collect_frames)
+            take = min(frame_bytes, remaining[tenant_id])
+            fair.charge(tenant_id, take)
+            delivered[tenant_id] += take
+            remaining[tenant_id] -= take
+            while remaining[tenant_id] > 0 and fair.grant(tenant_id):
+                take = min(frame_bytes, remaining[tenant_id])
+                fair.charge(tenant_id, take)
+                delivered[tenant_id] += take
+                remaining[tenant_id] -= take
+        if advance is not None:
+            advance()
+    return delivered
+
+
+__all__ = ["DEFAULT_QUANTUM_BYTES", "DEFAULT_TENANT_ID", "FairShare",
+           "simulate_rounds"]

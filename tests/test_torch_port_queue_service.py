@@ -14,9 +14,11 @@ queue's side of ``dataset.py``) against the JAX package's, on the CPU.
   commits a manual-ack queue at each checkpoint save, and does not count
   ``birth_to_delivered`` again over a queue that observes it.
 - The in-process queue's surface and the queue policy keys against the
-  JAX package's; every left-out feature (tenancy, also a stream's
-  tenant) raises ``NotImplementedError`` naming its ROADMAP item; the
-  service, the supervisor and the sharded client load no torch.
+  JAX package's; the tenancy calls that once raised (a server's
+  ``tenants``, a client's ``tenant``, a stream's tenant) work as the JAX
+  package's do, and a JAX tenant-bound client is bound by a port server;
+  the service, the supervisor and a tenant-bound sharded client load no
+  torch.
 """
 
 import importlib
@@ -33,7 +35,9 @@ from ray_shuffling_data_loader_tpu import data_generation as jdg
 from ray_shuffling_data_loader_tpu import dataset as jds
 from ray_shuffling_data_loader_tpu import multiqueue as jmq
 from ray_shuffling_data_loader_tpu import multiqueue_service as jsvc
+from ray_shuffling_data_loader_tpu import streaming as jstreaming
 from ray_shuffling_data_loader_tpu.runtime import policy as jpolicy
+from ray_shuffling_data_loader_tpu.streaming import runner as jstream_runner
 from ray_shuffling_data_loader_tpu.workloads import dlrm_criteo as jwl
 from ray_shuffling_data_loader_tpu_torch import checkpoint as tckpt
 from ray_shuffling_data_loader_tpu_torch import dataset as tds
@@ -382,7 +386,9 @@ def test_multiqueue_surface(pkg):
 QUEUE_KEYS = ("queue_timeout_s", "queue_nodelay", "queue_replay_bytes",
               "queue_lease_timeout_s", "on_dead_consumer", "queue_delivery",
               "queue_compression", "queue_compression_min_bytes",
-              "queue_sendmsg", "queue_shards", "queue_codec_threads")
+              "queue_sendmsg", "queue_shards", "queue_codec_threads",
+              "tenant_drr_quantum_bytes", "tenant_active_window_s",
+              "tenant_floor_pace_s")
 
 
 @pytest.mark.parametrize("key", QUEUE_KEYS)
@@ -407,49 +413,115 @@ def test_supervisor_retry_defaults_equal_jax():
 
 
 # ---------------------------------------------------------------------------
-# Left-out features
+# Tenancy calls (each raised before the port had tenancy)
 # ---------------------------------------------------------------------------
 
 
-def _server_kwargs(**kw):
-    return lambda: tsvc.QueueServer(tmq.MultiQueue(1), ("127.0.0.1", 0),
-                                    **kw)
+def _server_tenancy(pkg_svc, pkg_mq, **kw):
+    server = pkg_svc.QueueServer(pkg_mq.MultiQueue(1), ("127.0.0.1", 0),
+                                 **kw)
+    try:
+        return (server._tenants, server._rank_tenant,
+                server._fair.snapshot() if server._fair else None)
+    finally:
+        server.close()
 
 
-LEFT_OUT = {
-    "tenants": (_server_kwargs(tenants={"a": {"weight": 1}}), "8"),
-    "client_tenant": (lambda: tsvc.RemoteQueue(("127.0.0.1", 1),
-                                               tenant="a"), "8"),
-    "stream_runner_tenant": (lambda: tstreaming.StreamingShuffleRunner(
-        tstreaming.SyntheticEventSource(["f"]), None, 1, 1, tenant="a"),
-        "8"),
-    "stream_server_config_tenant": (lambda: tstream_runner.server_config(
-        tstreaming.SyntheticEventSource(["f"], total_events=1), 1, 1,
-        "unused.wal", tenant_id="a"), "8"),
+def ack_sent(server):
+    """Ack every frame ``server`` sent and return its per-tenant replay
+    ledger. A client acks a queue's frames on its next GET of that
+    queue, so the batch that ended an epoch stays unacked until then."""
+    with server._states_lock:
+        states = dict(server._states)
+    for queue_idx, state in states.items():
+        with state.lock:
+            if state.sent_seq > state.acked_seq:
+                server._apply_ack(queue_idx, state, state.sent_seq)
+    return dict(server._tenant_replay)
+
+
+def _client_binding(pkg_svc, pkg_mq, pkg_ds, tenant, client_svc=None):
+    """Serve queue 0, drain it through a client (of ``client_svc``,
+    default the server's package) bound to ``tenant`` and return what the
+    server recorded: the leases' tenants, the rank's tenant, the
+    per-tenant replay ledger before and after the last acks, and the
+    tables."""
+    queue = _fill(pkg_mq, pkg_ds.ShuffleFailure, n=4)
+    with pkg_svc.serve_queue(queue) as server:
+        with (client_svc or pkg_svc).RemoteQueue(
+                server.address, tenant=tenant) as remote:
+            tables = _drain(remote)
+        leases = sorted(le.tenant for le in server._leases.values())
+        return (leases, dict(server._rank_tenant),
+                dict(server._tenant_replay), ack_sent(server), tables)
+
+
+def _runner_specs(pkg_streaming, files_):
+    runner = pkg_streaming.StreamingShuffleRunner(
+        pkg_streaming.SyntheticEventSource(files_, total_events=4), None,
+        1, 1, tenant="a", max_windows=2,
+        policy=pkg_streaming.WindowPolicy(max_files=2))
+    return runner.tenant, [(s.epoch, s.filenames, s.tenant_id)
+                           for s in runner._specs()]
+
+
+def _config_with_tenant(pkg_runner, pkg_streaming, files_):
+    return pkg_runner.server_config(
+        pkg_streaming.SyntheticEventSource(files_, total_events=2), 1, 1,
+        "unused.wal", tenant_id="a")
+
+
+TENANT_CALLS = {
+    "tenants": lambda files_: (
+        _server_tenancy(tsvc, tmq, tenants={"a": {"weight": 1}}),
+        _server_tenancy(jsvc, jmq, tenants={"a": {"weight": 1}})),
+    "client_tenant": lambda files_: (
+        _client_binding(tsvc, tmq, tds, "a"),
+        _client_binding(jsvc, jmq, jds, "a")),
+    "stream_runner_tenant": lambda files_: (
+        _runner_specs(tstreaming, files_),
+        _runner_specs(jstreaming, files_)),
+    "stream_server_config_tenant": lambda files_: (
+        _config_with_tenant(tstream_runner, tstreaming, files_),
+        _config_with_tenant(jstream_runner, jstreaming, files_)),
 }
 
 
-@pytest.mark.parametrize("name", sorted(LEFT_OUT))
-def test_left_out_feature_raises(name):
-    make, item = LEFT_OUT[name]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make()
+@pytest.mark.parametrize("name", sorted(TENANT_CALLS))
+def test_tenant_call_works_as_jax(name, files):
+    port, jax_ = TENANT_CALLS[name](list(files))
+    if name == "stream_runner_tenant":
+        # Two TenantContext classes: compare their canonical bytes.
+        assert port[0].to_json() == jax_[0].to_json()
+        port, jax_ = port[1], jax_[1]
+        assert all(tenant_id == "a" for _, _, tenant_id in port)
+    if name == "client_tenant":
+        assert port[0] == ["a"] and port[1] == {0: "a"}
+        assert port[2]["a"] > 0 and port[3] == {"a": 0}
+        assert [t.to_pydict() for t in port[4]] == \
+            [t.to_pydict() for t in jax_[4]]
+        port, jax_ = port[:4], jax_[:4]
+    assert port == jax_
 
 
-def test_jax_tenant_client_gets_a_loud_failure():
-    """A JAX client bound to a tenant: the port server answers its GETs
-    with a failure naming item 8, never a silent stream."""
-    queue = _fill(tmq, tds.ShuffleFailure, n=2)
-    with tsvc.serve_queue(queue) as server:
-        with jsvc.RemoteQueue(server.address, tenant="team-a") as remote:
-            item = remote.get(0)
-    assert type(item).__name__ == "ShuffleFailure"
-    assert "item 8" in str(item.error)
+def test_jax_tenant_client_is_bound_by_the_port_server():
+    """A JAX client bound to a tenant reads a port server's tables, the
+    server binds its lease and rank to the tenant and the tenant's
+    ledger is back at 0 after its acks, as on a JAX server."""
+    port = _client_binding(tsvc, tmq, tds, "team-a", client_svc=jsvc)
+    jax_ = _client_binding(jsvc, jmq, jds, "team-a")
+    assert [t.to_pydict() for t in port[4]] == \
+        [t.to_pydict() for t in jax_[4]]
+    assert len(port[4]) == 4
+    assert port[:4] == jax_[:4]
+    assert port[0] == ["team-a"] and port[1] == {0: "team-a"}
+    assert port[2]["team-a"] > 0 and port[3] == {"team-a": 0}
 
 
 def test_service_and_supervisor_load_no_torch():
-    """The service, the supervisor and its shard launcher's imports, and a
-    sharded client reading handle frames, load neither torch nor JAX."""
+    """The service, the supervisor and its shard launcher's imports, the
+    tenancy modules, and a tenant-bound sharded client reading handle
+    frames from tenant-aware shards, load neither torch nor JAX."""
     code = ("import sys\n"
             "import pyarrow as pa\n"
             "from ray_shuffling_data_loader_tpu_torch import "
@@ -457,15 +529,19 @@ def test_service_and_supervisor_load_no_torch():
             "from ray_shuffling_data_loader_tpu_torch.runtime import "
             "supervisor\n"
             "from ray_shuffling_data_loader_tpu_torch.plan import ir\n"
+            "from ray_shuffling_data_loader_tpu_torch.tenancy import "
+            "admission, fairshare\n"
             "assert checkpoint.shard_journal_path('j', 1, 2) == 'j.shard1'\n"
             "q = multiqueue.MultiQueue(2)\n"
             "q.put(1, pa.table({'x': [1, 2]}))\n"
             "with multiqueue_service.serve_queue_sharded(\n"
-            "        q, num_shards=2, num_trainers=2) as s:\n"
+            "        q, num_shards=2, num_trainers=2,\n"
+            "        tenants={'cold': {'weight': 1, 'ranks': [1]}}) as s:\n"
             "    m = ir.ShardMap.from_json(s.shard_map.to_json())\n"
             "    with dataset.connect_remote_queue(\n"
-            "            m, delivery='handle') as r:\n"
+            "            m, delivery='handle', tenant='cold') as r:\n"
             "        assert r.get(1).num_rows == 2\n"
+            "    assert s.servers[1]._rank_tenant == {1: 'cold'}\n"
             "assert supervisor.launch_supervised_queue_shards\n"
             "bad = sorted(m for m in sys.modules if m == 'torch' "
             "or m.startswith(('torch.', 'jax', "

@@ -591,9 +591,10 @@ def test_migration_across_packages(server_pkg, driver_pkg, client_pkg,
 
 def test_wire_constants_equal_jax():
     for name in ("OP_REBALANCE", "REB_PREPARE", "REB_ADOPT", "REB_RELEASE",
-                 "REB_UNSEAL", "KIND_MOVED"):
+                 "REB_UNSEAL", "KIND_MOVED", "OP_TENANT"):
         assert getattr(tsvc, name) == getattr(jsvc, name), name
-    assert "6" not in tsvc._ITEMS
+    # No serving-plane feature is refused any more.
+    assert not hasattr(tsvc, "not_ported")
 
 
 @pytest.mark.parametrize("server_pkg", ["port", "jax"])

@@ -132,7 +132,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "or m.startswith('ray_shuffling_data_loader_tpu.'))\n"
         "assert len(names) >= 15, names\n"
         "for name in ('multiqueue_service', 'runtime.supervisor', "
-        "'streaming.source', 'streaming.window', 'streaming.runner'):\n"
+        "'streaming.source', 'streaming.window', 'streaming.runner', "
+        "'tenancy', 'tenancy.fairshare', 'tenancy.admission'):\n"
         "    assert port.__name__ + '.' + name in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -278,12 +278,32 @@ def test_prefetch_accounting(tmp_path):
     assert paths["port"] == paths["jax"] == [f0, f1]
 
 
-def test_the_tenant_quotas_raise_naming_the_roadmap(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.TieredStore(1 << 20, tenant_quotas={"a": 1})
-    store = tst.TieredStore(1 << 20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.PrefetchManager(store, [], tenant="a")
+def test_the_tenant_quotas_partition_the_hot_tier_as_jax():
+    """A ``tenant_quotas`` store and a tenant's ``PrefetchManager``, the
+    calls that once raised: tenant ``a`` over its quota of two tables
+    evicts its own oldest entry, never ``b``'s, in both packages."""
+    from ray_shuffling_data_loader_tpu import tenancy as jten
+    from ray_shuffling_data_loader_tpu_torch import tenancy as tten
+    tables = [_table(100, 100 * i) for i in range(4)]
+    quota = 2 * tables[0].nbytes
+    got = {}
+    for name, pkg, ten in (("port", tst, tten), ("jax", jst, jten)):
+        store = pkg.TieredStore(1 << 20, tenant_quotas={"a": quota})
+        try:
+            with ten.tenant_scope(ten.TenantContext("b")):
+                store.put("b0", tables[3])
+            with ten.tenant_scope(ten.TenantContext("a")):
+                for i in range(3):
+                    store.put(f"a{i}", tables[i])
+            resident = [k for k in ("a0", "a1", "a2", "b0")
+                        if store.resident(k)]
+            manager = pkg.PrefetchManager(store, [], tenant="a")
+            got[name] = (resident, dict(store._tenant_hot_bytes),
+                         manager.tenant.to_json())
+        finally:
+            store.close()
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == ["a1", "a2", "b0"]
 
 
 def test_a_get_joins_a_warm_in_flight_without_a_second_fetch(tmp_path):

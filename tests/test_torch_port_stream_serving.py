@@ -330,15 +330,42 @@ def test_trainer_kill9_mid_window_resumes_exactly_once(files, tmp_path):
     assert len(merged) == sum(len(v) for v in expected.values())
 
 
-def test_schedule_with_tenants_raises_naming_item_8(files, tmp_path):
-    config = _config(trunner, tsource, files, str(tmp_path), 1, 2, 1,
-                     port=0, tenants={"a": {"weight": 1}})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsvc.serve_pipeline(config)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trunner.server_config(
-            tsource.SyntheticEventSource(files, total_events=2), 1, 1,
-            str(tmp_path / "w.wal"), tenant_id="a")
+def test_schedule_with_tenants_serves_as_jax(files, tmp_path):
+    """A schedule with a ``tenants`` table and a ``tenant_id``, the calls
+    that once raised: the configs equal JAX's and the port server serves
+    the tenant's stream, its ledger back at 0 after the acks."""
+    configs = {
+        name: _config(runner_mod, source_mod, files,
+                      str(tmp_path / name), 1, 2, 1, port=0,
+                      tenants={"a": {"weight": 1, "ranks": [0]}},
+                      tenant_id="a")
+        for name, runner_mod, source_mod in (
+            ("port", trunner, tsource), ("jax", jrunner, jsource))}
+    port_epochs = configs["port"]["epochs"]
+    assert port_epochs == configs["jax"]["epochs"]
+    assert {e["tenant_id"] for e in port_epochs} == {"a"}
+    srv, result, queue = tsvc.serve_pipeline(configs["port"])
+    try:
+        assert srv._tenants == {"a": {"weight": 1, "ranks": [0]}}
+        with tsvc.RemoteQueue(srv.address, tenant="a") as remote:
+            for epoch in range(len(port_epochs)):
+                while remote.get(epoch) is not None:
+                    pass
+        assert srv._tenant_replay["a"] > 0  # the epochs' last batches
+        # The client acks a batch on its next GET of the queue: ack the
+        # last ones here.
+        with srv._states_lock:
+            states = dict(srv._states)
+        for queue_idx, state in states.items():
+            with state.lock:
+                srv._apply_ack(queue_idx, state, state.sent_seq)
+        assert srv._tenant_replay["a"] == 0
+        assert tmetrics.counter("rsdl_tenant_bytes_delivered_total",
+                                tenant="a").value > 0
+        result.result(timeout=60)
+    finally:
+        srv.close()
+        queue.shutdown()
 
 
 def test_cast_applies_to_a_schedule(files, tmp_path):
