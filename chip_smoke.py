@@ -11,7 +11,9 @@ two supervised shard processes, one killed, feeding it through shared
 memory), a stream's windows (in process, and served by supervised
 shards, one killed at a window boundary), two tenants sharing a serving
 plane (the weighted-fair split, the hot tenant's step beside a cold
-replay, its shard killed, admission and cache quotas), save, restore and
+replay, a live move fired by its delivery SLO, its shard killed,
+admission and cache quotas), the ops plane (health detectors over a
+history ring, incident capsules, the sampling profiler), save, restore and
 resume mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
 run), end to end at full width, and checks its
@@ -54,7 +56,18 @@ printing one JSON line:
    otherwise; its segments are the file cache) with ``collect_stats``:
    the line carries the backend, the pool's width and worker pids, the
    segment cache's hits and bytes, each epoch's map, reduce and consume
-   seconds (``TrialStats``) and the buffer ledger's peak bytes.
+   seconds (``TrialStats``) and the buffer ledger's peak bytes. The
+   phase runs armed as the JAX bench arms its train phase:
+   ``runtime.health.arm(component="smoke")`` over ``throughput_droop``,
+   ``stall_breach``, ``ledger_creep``, ``queue_saturation``,
+   ``lease_churn`` and ``straggler_drift`` (the history ring on the
+   watchdog at the default 1 s), inside ``runtime.profiler.maybe_sample()``
+   (folded stacks into a temporary ``RSDL_PROFILE_FOLDED``); the line's
+   ``health`` carries the ring's ticks and each detector's fires (a
+   fire's detail and capsule are evidence, not a failure) and its
+   ``profiler`` the samples, the top stages billed and CPU seconds by
+   thread. Fails if the ring ticked fewer times than the phase's seconds
+   allow, less 2.
 5. ``telemetry``: the ``train`` phase's DLRM run (its files, the process
    pool of 8, the bulk binding, 2 epochs, Adam) in two turns in this call:
    (a) ``RSDL_TELEMETRY=0``, (b) the default (recording on) with
@@ -77,7 +90,26 @@ printing one JSON line:
    in the workers' dumps, ``batch_wait`` for each batch, a shard from
    every worker and a verdict for each epoch. Every loader phase also
    prints its epochs' verdicts (``"verdicts"``).
-6. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
+6. ``ops``: the JAX dry run's ops scene on the card. A process pool of 2
+   (``RSDL_EXECUTOR_BACKEND=process``, ``RSDL_TRACE_DIR`` and
+   ``RSDL_TELEMETRY_DIR`` in a temporary directory) shuffles the first 2
+   ``train`` files (500,000 rows) for 3 epochs into a fresh DLRM
+   ``mlperf`` that trains every micro-step (batch 4096) through
+   ``DeviceShufflingDataset``; ``throughput_droop`` is armed with the
+   ring at 0.1 s, a window of 8 ticks, ``fire_ticks=2``,
+   ``clear_ticks=50`` and no capture cooldown. The workers' environment
+   carries ``RSDL_CHAOS_SPEC=reduce_gather:epoch2:delay4000``, and epoch
+   2 is handed to the shuffle only once the ring holds 11 ticks of
+   undelayed activity, so the baseline is long enough whatever the
+   host's speed. Checks exactly one fire, after epoch 2 started; one
+   auto-captured capsule whose ``traces/`` hold the driver's dump and a
+   SIGUSR1'd worker's; ``tools/rsdl_incident.py`` on it exits 0; its
+   merged exposition carries ``rsdl_worker_tasks_total``, which only the
+   workers register; rows and keys once per epoch; one gather launch
+   per micro-step; finite losses. Prints the gate's wait, the fire's
+   tick and detail, the capsule's pids and files and the phase's
+   seconds.
+7. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
    H=12, S=512, D=64 with and without a key-side bias that masks keys; a
@@ -88,7 +120,7 @@ printing one JSON line:
    bound (and the share of it reached) and, as a yardstick,
    ``scaled_dot_product_attention``'s forward and backward (and each
    kernel's time over it).
-7. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
+8. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
    Parquet files -> seeded shuffle (8 reducers) -> ``DeviceShufflingDataset``
    (1 trainer, batch 256, 2 epochs, seed 0) -> on-device MLM masking ->
    ``bert_base()`` (bf16 compute, random weights from seed 0) with the flash
@@ -97,7 +129,7 @@ printing one JSON line:
    shuffle, the flash path's loss against the inline path's (within 1e-2
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
-8. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
+9. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
    turns within this call (per-batch, then bulk), each a fresh
    DLRM ``mlperf`` trained on the ``train`` phase's data for 2 epochs (bulk
    through ``device_rebatch="auto"``, the default on the card). Every
@@ -114,7 +146,7 @@ printing one JSON line:
    recover at least one copy with the same digests; (d) the ``bert``
    phase's tokens (4 batches per reducer table) in both bindings, digests
    equal, copies per epoch.
-9. ``engine``: the shuffle engine on the ``train`` phase's files in five
+10. ``engine``: the shuffle engine on the ``train`` phase's files in five
    turns, each a fresh DLRM ``mlperf`` from the same seed taking one
    micro-step on the first 2,048 rows of every loader batch (bulk
    binding, the key column loaded, the last partial batch kept). On the
@@ -138,7 +170,7 @@ printing one JSON line:
    tasks run and canceled, bytes written to disk), pool (segment-cache
    hits, respawns), spill (files, bytes, read-back seconds), ledger,
    retry and recovery counts, rows/s and wait per batch.
-10. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+11. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
    masking bias: output, dq, dk, dv and dbias against whole-sequence
@@ -159,7 +191,7 @@ printing one JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-11. ``distributed``: a world of two processes on the one card, started by
+12. ``distributed``: a world of two processes on the one card, started by
    the port's launcher (``launch_slice --local``, ``RSDL_HOSTS`` on two
    free loopback ports), each a ``train_shuffle --distributed`` rank with
    its process group over gloo on CUDA tensors (NCCL refuses two ranks on
@@ -185,7 +217,7 @@ printing one JSON line:
    ranks' batches concatenated from the same weights, the later ones
    within 1e-3 (the all-reduce sums the gradients in another order);
    step ms and the all-reduce's share of it.
-12. ``elastic``: the port's elastic membership (``membership/``, the
+13. ``elastic``: the port's elastic membership (``membership/``, the
    generation-fenced transport). (a) This process's transport (host 0)
    feeds a ``FailureDetector`` (heartbeat 0.05 s, suspect 0.4 s) through
    its frame observer while a peer process (host 1, a port transport, no
@@ -209,7 +241,7 @@ printing one JSON line:
    seed 0), for the elastic and the fixed run under
    ``torch.use_deterministic_algorithms``: digests and losses equal bit
    for bit, one gather launch per micro-step.
-13. ``serving``: the queue service (``multiqueue_service``,
+14. ``serving``: the queue service (``multiqueue_service``,
    ``runtime.supervisor``). The ``train`` phase's pipeline (its files, 8
    reducers, seed 0, 2 epochs, the process pool, the DLRM spec's map-time
    cast) runs in supervised server processes (``CUDA_VISIBLE_DEVICES=""``,
@@ -275,7 +307,7 @@ printing one JSON line:
    compression ratio (the server processes' counters from their metric
    shards), ``birth_to_delivered`` p50/p99 and the card's name and power
    limit.
-14. ``stream``: the streaming plane (``streaming/``) on a drifting click
+15. ``stream``: the streaming plane (``streaming/``) on a drifting click
    stream: 16 files of 131,072 rows in the ``mlperf`` schema (seed 0;
    ``workloads.dlrm_criteo.generate_drifting_stream``), 2-file windows
    (8 windows of 262,144 rows), 8 reducers, loader batch 131,072, the key
@@ -310,7 +342,7 @@ printing one JSON line:
    and a fresh source: 8 events skipped, epochs 4-7, every key once
    across the two; the online model (``run_online_training``) over the
    first 12 files twice, the same history.
-15. ``tenancy``: two tenants on one serving plane (``tenancy/``):
+16. ``tenancy``: two tenants on one serving plane (``tenancy/``):
    ``hot`` (interactive, weight 3, rank 0) and ``cold`` (batch, weight
    1, rank 1), after the JAX bench's tenancy leg. (a) The ``train``
    phase's first 2 files shuffled to 128 reducers for 3 epochs and
@@ -328,7 +360,22 @@ printing one JSON line:
    ``step_ms_median``, hot's ``queued_to_delivered`` p99 from the
    client's sketch, cold's rows/s; digests equal the one-process
    ``num_trainers=2`` stream's, keys once, one gather launch per
-   micro-step. (c) ``launch_supervised_queue_shards`` with
+   micro-step; hot's ``birth_to_delivered`` p99 too. (e) The rebalance
+   trigger, after (b): the same rank 0 and rank 1 tables behind
+   ``serve_queue_sharded(num_shards=2, tenants=)``; a
+   ``RebalanceController`` with a journal and ``rebalance_slo_p99_s`` at
+   half of (b) solo's ``birth_to_delivered`` p99 (both printed); a
+   ``HistoryRing`` ticking every 0.1 s on the watchdog over this
+   process's registry and ``rebalance.slo_trigger`` (the
+   ``tenant_delivery_slo`` detector alone, a window of 8 ticks); hot
+   trains every micro-step of rank 0, and the fire migrates rank 0 to
+   shard 1 under the step; cold drains rank 1 once the move committed.
+   Checks exactly one fire naming hot, one committed move
+   (``rsdl_rebalance_moves_total``), the journal replaying to
+   ``((0, 1),)``, hot's map at generation 1, each rank's digests against
+   the reference and one gather launch per micro-step; prints the fire's
+   p99 and detail and the move's phase ms (intent to commit).
+   (c) ``launch_supervised_queue_shards`` with
    ``config["tenants"]`` (2 shards, one epoch): hot trains through
    ``connect_remote_queue(shard_map, tenant=hot)`` and shard 0 is
    SIGKILLed after its first loader batch; then cold drains rank 1 on
@@ -340,7 +387,7 @@ printing one JSON line:
    where hot's 2 files still hit after cold scans 6 (every eviction
    charged to cold; the same without quotas beside it) and a cold
    ``PrefetchManager`` throttled by its one-file prefetch quota.
-16. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+17. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -351,7 +398,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-17. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+18. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -362,7 +409,7 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
-18. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+19. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
    ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
    processes of this script (``--tp-rank``) on the one card, gloo on CUDA
    tensors. First, here, the kernels at the shapes the ranks give them:
@@ -392,7 +439,10 @@ asks for per-batch copies), the executor backend its shuffle resolved
 and its figures with the shuffle before the engine (``prior_shuffle``). Then the ``{"kernels": [...]}`` summary, the
 ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-without that line. Needs CUDA; imports nothing of JAX.
+without that line. Needs CUDA; imports nothing of JAX. The whole run,
+the kernels' builds included, took 790.9 s on an NVIDIA H100 80GB HBM3 at
+700.00 W (``ops`` 20.6 s, the ``tenancy`` phase 55.1 s with its trigger
+turn 10.7 s), against its limit of 1,200 s.
 """
 
 from __future__ import annotations
@@ -411,6 +461,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 import timeit
 import types
 
@@ -1834,6 +1885,276 @@ def telemetry_phase(emb, files, trained: dict, tmp: str) -> dict:
         "profile": profile,
         "gather_launches": off["gather_launches"] + on["gather_launches"],
         "digests_equal": True,
+        "phase_s": timeit.default_timer() - start,
+    }
+
+
+# Ops plane (runtime/{history,health,profiler}.py). (a) The ``train``
+# phase runs armed as the JAX bench arms its train phase: these six
+# detectors on a fresh ring, inside the sampling profiler.
+ARMED_DETECTORS = ("throughput_droop", "stall_breach", "ledger_creep",
+                   "queue_saturation", "lease_churn", "straggler_drift")
+# (b) ``ops``: the card's twin of the JAX dry run's ops scene. A process
+# pool of 2 shuffles OPS_FILES of the ``train`` files for OPS_EPOCHS
+# epochs into a fresh DLRM ``mlperf`` (one micro-step per OPS_BATCH /
+# MICROBATCH), the ring ticking every OPS_INTERVAL_S with the droop
+# window of OPS_WINDOW ticks; the last epoch's reducers each sleep
+# OPS_DELAY_MS in the workers, and that epoch starts only after the ring
+# holds OPS_WINDOW + 3 ticks of undelayed activity.
+OPS_FILES, OPS_WORKERS, OPS_EPOCHS, OPS_BATCH = 2, 2, 3, 4096
+OPS_INTERVAL_S, OPS_WINDOW, OPS_DELAY_MS = 0.1, 8, 4000
+OPS_CHAOS = f"reduce_gather:epoch{OPS_EPOCHS - 1}:delay{OPS_DELAY_MS}"
+
+
+def activity_ticks(ring) -> int:
+    """The ring's ticks since its activity counters (the droop detector's
+    series) first moved."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import health
+    pts = health._combined_series(ring, health._ACTIVITY_SERIES)
+    moved = next((i for i in range(1, len(pts)) if pts[i][1] > pts[0][1]),
+                 None)
+    return 0 if moved is None else len(pts) - moved
+
+
+def armed_train_phase(emb, files, gen_s: float, tmp: str) -> dict:
+    """(a) :func:`train_phase` with ``health.arm(component="smoke")`` over
+    the six detectors and inside ``profiler.maybe_sample()`` (folded
+    stacks, and the recorder dumps a capture asks of this process and
+    the pool's workers, into ``tmp``); then ``disarm`` and
+    ``wait_captures``. Fails if
+    the ring ticked fewer times than the phase's seconds over
+    ``history_interval_s`` allow, less 2. A fire is reported with its
+    capsule and detail, as evidence."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import health, profiler
+
+    incidents = os.path.join(tmp, "incidents")
+    folded = os.path.join(tmp, "train.folded")
+    monitor = health.arm(component="smoke", detectors=ARMED_DETECTORS,
+                         incident_dir=incidents)
+    if monitor is None:
+        raise AssertionError("train: the health plane refused to arm "
+                             "(RSDL_HEALTH=0?)")
+    start = timeit.default_timer()
+    try:
+        with _env(RSDL_PROFILE_FOLDED=folded,
+                  RSDL_TELEMETRY_DUMP_DIR=tmp), \
+                profiler.maybe_sample() as prof:
+            trained = train_phase(emb, files, gen_s)
+        wall = timeit.default_timer() - start
+    finally:
+        finished = health.disarm()
+        capsules = finished.wait_captures(timeout_s=15.0)
+    summary = finished.summary()
+    ticks = finished.ring.ticks
+    floor = int(wall / finished.ring.interval_s) - 2
+    if ticks < floor:
+        raise AssertionError(f"train: the history ring took {ticks} ticks "
+                             f"in {wall:.1f} s at "
+                             f"{finished.ring.interval_s} s, fewer than "
+                             f"{floor}")
+    prof_summary = prof.summary()
+    trained["health"] = {
+        "detectors": list(ARMED_DETECTORS), "ticks": ticks,
+        "interval_s": finished.ring.interval_s, "armed_s": wall,
+        "fires": {name: d["fires"]
+                  for name, d in summary["detectors"].items()},
+        "fired": {name: d["last"]["detail"]
+                  for name, d in summary["detectors"].items()
+                  if d["fires"]},
+        "capsules": capsules}
+    trained["profiler"] = {
+        "samples": prof_summary["samples"],
+        "interval_s": prof_summary["interval_s"],
+        "folded_lines": len(prof.folded()),
+        "top_stages": dict(sorted(prof_summary["by_stage"].items(),
+                                  key=lambda kv: -kv[1])[:5]),
+        "threads_by_samples": prof_summary["threads_by_samples"],
+        "cpu_s_by_thread": prof_summary["cpu_s_by_thread"]}
+    return trained
+
+
+def _ops_specs(files, ring, gate: dict):
+    """The ``ops`` phase's epochs: the undelayed ones, then the chaos
+    epoch once the ring holds ``OPS_WINDOW + 3`` ticks of activity (the
+    droop baseline, however fast the host)."""
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    for epoch in range(OPS_EPOCHS - 1):
+        yield plan_ir.EpochSpec(epoch, list(files))
+    t0 = timeit.default_timer()
+    while activity_ticks(ring) < OPS_WINDOW + 3:
+        time.sleep(OPS_INTERVAL_S / 4)
+    gate.update(wait_s=timeit.default_timer() - t0,
+                activity_ticks=activity_ticks(ring), t_unix=time.time())
+    yield plan_ir.EpochSpec(OPS_EPOCHS - 1, list(files))
+
+
+def ops_phase(emb, files, tmp: str) -> dict:
+    """(b) A process pool of ``OPS_WORKERS`` (``RSDL_EXECUTOR_BACKEND=
+    process``, ``RSDL_TRACE_DIR`` and ``RSDL_TELEMETRY_DIR`` in ``tmp``,
+    the workers' ``RSDL_CHAOS_SPEC`` delaying the last epoch's reducers)
+    shuffles the first ``OPS_FILES`` ``train`` files into a fresh DLRM
+    ``mlperf`` that trains every micro-step through
+    ``DeviceShufflingDataset``, with ``throughput_droop`` armed
+    (``fire_ticks=2``, ``clear_ticks=50``, ``capture_cooldown_s=0``).
+    Checks one fire, after the chaos epoch's start; one auto-captured
+    capsule whose ``traces/`` hold dumps of the driver and a SIGUSR1'd
+    pool worker, accepted by ``tools/rsdl_incident.py``; a worker-only
+    sample in the capsule's merged exposition; rows and keys once per
+    epoch; one gather launch per micro-step; finite losses."""
+    from ray_shuffling_data_loader_tpu_torch import (
+        dataset, device_dataset, executor, multiqueue, shuffle, train,
+        transforms)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.runtime import (
+        health, metrics, telemetry)
+
+    start = timeit.default_timer()
+    files = sorted(files)[:OPS_FILES]
+    rows = sum(_parquet_rows(f) for f in files)
+    dirs = {name: os.path.join(tmp, name)
+            for name in ("trace", "shards", "incidents")}
+    for d in dirs.values():
+        os.makedirs(d)
+    spec, cast = _sharded_spec()
+    torch.cuda.empty_cache()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    losses, keys, rows_per_epoch, gate = [], [], [], {}
+    monitor = ds = result = None
+    telemetry.configure()
+    with _env(RSDL_TRACE_DIR=dirs["trace"],
+              RSDL_TELEMETRY_DIR=dirs["shards"],
+              RSDL_EXECUTOR_BACKEND="process",
+              RSDL_EXECUTOR_WORKERS=str(OPS_WORKERS),
+              RSDL_CHAOS_SPEC=OPS_CHAOS, RSDL_CHAOS_SEED="0"):
+        monitor = health.arm(
+            interval_s=OPS_INTERVAL_S, capacity=600,
+            detectors=("throughput_droop",), incident_dir=dirs["incidents"],
+            fire_ticks=2, clear_ticks=50, capture_cooldown_s=0.0,
+            slo_droop_window_ticks=OPS_WINDOW, slo_droop_floor_eps=2.0)
+        if monitor is None:
+            raise AssertionError("ops: the health plane refused to arm")
+        queue = multiqueue.MultiQueue(OPS_EPOCHS)
+        try:
+            result = shuffle.run_shuffle_epochs_in_background(
+                _ops_specs(files, monitor.ring, gate),
+                functools.partial(dataset.batch_consumer, queue, 1),
+                NUM_REDUCERS, 1, seed=SEED,
+                on_failure=dataset.make_failure_broadcaster(queue),
+                executor_backend="process", num_workers=OPS_WORKERS,
+                map_transform=transforms.CastTransform(cast),
+                epochs_hint=OPS_EPOCHS)
+            ds = device_dataset.DeviceShufflingDataset(
+                files, OPS_EPOCHS, 1, OPS_BATCH, 0, batch_queue=queue,
+                shuffle_result=None, seed=SEED, drop_last=False,
+                device=None, **spec)
+            emb.reset_launch_counts()
+            t_first = None
+            for epoch in range(OPS_EPOCHS):
+                ds.set_epoch(epoch)
+                epoch_rows = 0
+                for features, label in ds:
+                    if t_first is None:
+                        t_first = timeit.default_timer()
+                    keys.append(features[-1].reshape(-1).clone())
+                    n = label.shape[0] // MICROBATCH * MICROBATCH
+                    if n:  # a batch's tail of fewer rows is not trained
+                        losses.append(train.train_chunk(
+                            micro_step, [f[:n] for f in features[:-1]],
+                            label[:n], MICROBATCH))
+                    epoch_rows += label.shape[0]
+                rows_per_epoch.append(epoch_rows)
+            torch.cuda.synchronize()
+            launches = emb.launch_counts["gather_rows"]
+            result.result()
+            pool = executor.last_worker_pool()
+            capsules = monitor.wait_captures(timeout_s=30.0)
+        finally:
+            if ds is not None:
+                ds.close()
+            health.disarm()
+            queue.shutdown()
+        train_s = timeit.default_timer() - t_first
+        driver = metrics.parse_exposition(metrics.render())
+    fires = monitor.total_fires
+    summary = monitor.summary()
+    ring = monitor.ring
+    if fires != 1 or len(capsules) != 1:
+        raise AssertionError(f"ops: {fires} fires and capsules {capsules}, "
+                             f"expected one of each: {summary}")
+    capsule = capsules[0]
+    with open(os.path.join(capsule, "capsule.json"), encoding="utf-8") as f:
+        manifest = json.load(f)
+    verdict = manifest["verdict"]
+    fire_tick = sum(1 for s in ring.snapshots()
+                    if s["t_unix"] <= verdict["t_unix"])
+    if verdict["t_unix"] <= gate["t_unix"]:
+        raise AssertionError(f"ops: the droop fired before the chaos epoch "
+                             f"started: {verdict}, gate {gate}")
+    pids = manifest["pids"]
+    workers = [p for p in pids if p in pool["pids"]]
+    if os.getpid() not in pids or not workers or len(pids) < 2:
+        raise AssertionError(f"ops: the capsule's dumps are from {pids}; "
+                             f"driver {os.getpid()}, pool {pool['pids']}")
+    tool = subprocess.run(
+        [sys.executable, os.path.join(_REPO, "tools", "rsdl_incident.py"),
+         capsule, "--json"], capture_output=True, text=True, timeout=120,
+        cwd=tmp, env={k: v for k, v in os.environ.items()
+                      if k != "PYTHONPATH"})
+    if tool.returncode != 0:
+        raise AssertionError(f"ops: rsdl_incident.py rc {tool.returncode}: "
+                             f"{tool.stderr[-2000:]}")
+    incident = json.loads(tool.stdout)
+    with open(os.path.join(capsule, "metrics.prom"), encoding="utf-8") as f:
+        merged = metrics.parse_exposition(f.read())
+    worker_only = sorted(set(merged) - set(driver))
+    if "rsdl_worker_tasks_total" not in worker_only:
+        raise AssertionError(f"ops: the merged exposition lacks the "
+                             f"workers' rsdl_worker_tasks_total: "
+                             f"{worker_only}")
+    expected = [rows] * OPS_EPOCHS
+    if rows_per_epoch != expected:
+        raise AssertionError(f"ops: rows per epoch {rows_per_epoch}, "
+                             f"expected {expected}")
+    all_keys = torch.cat(keys).cpu().numpy().reshape(OPS_EPOCHS, rows)
+    for epoch, epoch_keys in enumerate(all_keys):
+        if len(np.unique(epoch_keys)) != rows:
+            raise AssertionError(f"ops: a key came twice in epoch {epoch}")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("ops: non-finite loss")
+    steps = int(all_losses.numel())
+    if launches != steps:
+        raise AssertionError(f"ops: {launches} gather launches in {steps} "
+                             "micro-steps")
+    rates = [r for _, r in ring.rate("rsdl_events_total")]
+    del model, micro_step
+    return {
+        "files": len(files), "rows_per_epoch": rows_per_epoch,
+        "epochs": OPS_EPOCHS, "loader_batch": OPS_BATCH,
+        "pool_workers": pool["workers"], "chaos": OPS_CHAOS,
+        "interval_s": OPS_INTERVAL_S, "window_ticks": OPS_WINDOW,
+        "gate": {k: v for k, v in gate.items() if k != "t_unix"},
+        "ticks": ring.ticks, "fires": fires, "fire_tick": fire_tick,
+        "fire_after_gate_s": verdict["t_unix"] - gate["t_unix"],
+        "detail": verdict["detail"], "value": verdict["value"],
+        "threshold": verdict["threshold"],
+        "capsule": os.path.basename(capsule),
+        "capsule_files": manifest["files"], "capsule_pids": pids,
+        "pids_signaled": manifest["pids_signaled"],
+        "worker_pids_in_capsule": workers,
+        "incident_tool_rc": tool.returncode,
+        "incident_pids": incident["pids"],
+        "worker_only_series": worker_only,
+        "events_per_s_per_tick": {"min": min(rates), "max": max(rates)},
+        "micro_steps": steps, "train_s": train_s,
+        "rows_per_s": sum(rows_per_epoch) / train_s,
+        "loss_first": float(all_losses[0]),
+        "loss_last": float(all_losses[-1]),
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / steps,
         "phase_s": timeit.default_timer() - start,
     }
 
@@ -4576,19 +4897,20 @@ def _tenant_contexts():
             for t, spec in TENANT_TABLE.items()}
 
 
-def _tenant_latency(before: dict, after: dict, tenant: str) -> dict:
-    """Count, p50 and p99 (ms) of a tenant's ``queued_to_delivered``
-    delivery latency, from the clients' sketch in this process between
-    two parsed expositions (the JAX bench's reading)."""
-    from ray_shuffling_data_loader_tpu_torch.runtime import latency, metrics
+def _tenant_latency(before: dict, after: dict, tenant: str,
+                    hop: str = "queued_to_delivered") -> dict:
+    """Count, p50 and p99 (ms) of a tenant's delivery latency at ``hop``
+    (``queued_to_delivered`` by default: the JAX bench's reading), from
+    the clients' sketch in this process between two parsed
+    expositions."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import metrics
     name = f"{TENANT_LATENCY}_centroid"
     earlier = before.get(name, {})
     diff = {labels: value - earlier.get(labels, 0.0)
             for labels, value in after.get(name, {}).items()
             if value > earlier.get(labels, 0.0)}
     got = metrics.sketch_quantiles({name: diff}, TENANT_LATENCY,
-                                   qs=(0.5, 0.99), tenant=tenant,
-                                   hop=latency.HOP_QUEUED_TO_DELIVERED)
+                                   qs=(0.5, 0.99), tenant=tenant, hop=hop)
     if not got:
         return {"count": 0, "p50_ms": None, "p99_ms": None}
     (q,) = got.values()
@@ -4750,6 +5072,8 @@ def _tenant_fairness(files) -> dict:
         "replay_bytes_before_last_acks": held,
         "replay_bytes_after_last_acks": settled,
         "hot_latency": _tenant_latency(before, after, "hot"),
+        "hot_birth_latency": _tenant_latency(before, after, "hot",
+                                             "birth_to_delivered"),
         "cold_latency": _tenant_latency(before, after, "cold"),
         "gets": {t: _get_sizes(fetches[t], t_start + hot_s)
                  for t in TENANT_TABLE},
@@ -4954,6 +5278,8 @@ def _hot_step_turn(emb, files, micro_step, refs, want, contended: bool
         "stall_pct": 100.0 * sum(waits[1:]) / wall,
         "step_ms_median": float(np.median(chunk_ms)),
         "hot_latency": _tenant_latency(before, after, "hot"),
+        "hot_birth_latency": _tenant_latency(before, after, "hot",
+                                             "birth_to_delivered"),
         "hot_frames_per_get": [n for _, _, n in fetches],
         "loss_first": float(all_losses[0]),
         "loss_last": float(all_losses[-1]),
@@ -4966,6 +5292,170 @@ def _hot_step_turn(emb, files, micro_step, refs, want, contended: bool
         line.update(cold_rows=cold["rows"], cold_s=cold["seconds"],
                     cold_rows_per_s=cold["rows"] / cold["seconds"])
     return line
+
+
+# (e) The rebalance trigger: the ring ticks every TRIGGER_INTERVAL_S over
+# this process's registry; the SLO is TRIGGER_SLO_SHARE of the hot
+# tenant's birth_to_delivered p99 that (b) solo measured on the same
+# tables, which this turn delivers later still.
+TRIGGER_INTERVAL_S, TRIGGER_WINDOW, TRIGGER_CLEAR_TICKS = 0.1, 8, 50
+TRIGGER_SLO_SHARE = 0.5
+
+
+def _trigger_turn(emb, files, micro_step, refs, want, b_p99_s: float,
+                  tmp: str) -> dict:
+    """(e) Tenant-bound clients over ``serve_queue_sharded(num_shards=2,
+    tenants=)`` holding rank 0's (hot) and rank 1's (cold) epoch 0; the
+    hot tenant's DLRM step trains every micro-step of rank 0; a
+    ``RebalanceController`` with a journal at ``rebalance_slo_p99_s`` below
+    (b)'s p99; a live ``HistoryRing`` on the watchdog and
+    ``rebalance.slo_trigger`` (``tenant_delivery_slo`` alone), whose fire
+    migrates rank 0 to shard 1 under the step. Cold drains rank 1 once the
+    move has committed. Checks one fire naming hot, one committed move,
+    the journal's replay, the consumer's map, each rank's digests against
+    the reference and one gather launch per micro-step."""
+    from ray_shuffling_data_loader_tpu_torch import (
+        dataset, device_dataset, multiqueue, multiqueue_service, rebalance)
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    from ray_shuffling_data_loader_tpu_torch.runtime import (history,
+                                                             watchdog)
+
+    start = timeit.default_timer()
+    spec, _ = _sharded_spec()
+    contexts = _tenant_contexts()
+    slo_s = TRIGGER_SLO_SHARE * b_p99_s
+    queue = multiqueue.MultiQueue(DIST_WORLD)
+    for rank in range(DIST_WORLD):
+        q = plan_ir.queue_index(0, rank, DIST_WORLD)
+        queue.put_batch(q, refs[q])
+    journal = os.path.join(tmp, "e-rebalance.journal")
+    counters_before = _rebalance_counters()
+    ring = history.HistoryRing(capacity=1200, interval_s=TRIGGER_INTERVAL_S)
+    wd = watchdog.get_watchdog()
+    runs, errors, losses, phases = {}, [], [], {}
+    remotes, datasets = [], []
+    monitor = periodic = None
+    sharded = multiqueue_service.serve_queue_sharded(
+        queue, num_shards=SERVE_SHARDS, num_trainers=DIST_WORLD,
+        tenants=TENANT_TABLE)
+    controller = rebalance.RebalanceController(
+        sharded.shard_map, journal_path=journal, rebalance_slo_p99_s=slo_s)
+
+    def rank_dataset(rank: int, tenant: str, max_batch: int):
+        # Each rank's own copy of the map: rank 0's follows the move.
+        remotes.append(dataset.connect_remote_queue(
+            plan_ir.ShardMap.from_json(sharded.shard_map.to_json()),
+            retries=20, initial_backoff_s=0.2, tenant=contexts[tenant],
+            max_batch=max_batch))
+        datasets.append(device_dataset.DeviceShufflingDataset(
+            files, 1, DIST_WORLD, LOADER_BATCH, rank,
+            batch_queue=remotes[-1], shuffle_result=None, seed=SEED,
+            drop_last=False, device=None, **spec))
+        return datasets[-1], remotes[-1]
+
+    try:
+        ring.tick()  # the window's base: before any delivery
+        monitor = rebalance.slo_trigger(
+            ring, controller, 0, target=1, fire_ticks=2,
+            clear_ticks=TRIGGER_CLEAR_TICKS, phases=phases,
+            slo_droop_window_ticks=TRIGGER_WINDOW)
+        periodic = wd.every(TRIGGER_INTERVAL_S, ring.tick,
+                            name="smoke-trigger-ring")
+
+        def drain_cold():
+            # Cold's client starts once the move has committed, so that
+            # the window the fire judges holds hot's frames alone.
+            try:
+                deadline = timeit.default_timer() + 120
+                while controller.moves_total < 1 and \
+                        timeit.default_timer() < deadline:
+                    time.sleep(0.05)
+                runs[1] = _drain_rank(rank_dataset(1, "cold", 8)[0], 1)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        hot_ds, hot_remote = rank_dataset(0, "hot", SERVE_MOVE_MAX_BATCH)
+        emb.reset_launch_counts()
+        drainer = threading.Thread(target=drain_cold, daemon=True,
+                                   name="smoke-ten-e-cold")
+        drainer.start()
+        runs[0] = _drain_rank(hot_ds, 1,
+                              _train_every_micro_step(micro_step, losses))
+        launches = emb.launch_counts["gather_rows"]
+        drainer.join(timeout=300)
+        if drainer.is_alive():
+            raise AssertionError("tenancy (e): cold's drain hung")
+        if errors:
+            raise errors[0]
+        client_map = hot_remote.shard_map
+    finally:
+        if periodic is not None:
+            wd.cancel(periodic)
+        if monitor is not None:
+            monitor.detach()
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        controller.close()
+        sharded.close()
+        queue.shutdown()
+    counters = {k: v - counters_before[k]
+                for k, v in _rebalance_counters().items()}
+    summary = monitor.summary()
+    fired = summary["detectors"]["tenant_delivery_slo"]
+    if monitor.total_fires != 1 or "tenant hot " not in \
+            fired.get("last", {}).get("detail", ""):
+        raise AssertionError(f"tenancy (e): expected one fire naming hot: "
+                             f"{summary}")
+    if counters["moves_total"] != 1 or controller.moves_total != 1:
+        raise AssertionError(f"tenancy (e): {counters['moves_total']} "
+                             "moves committed")
+    replayed = rebalance.replay(journal)
+    if (replayed.overrides, replayed.pending) != (((0, 1),), None):
+        raise AssertionError(f"tenancy (e): the journal replays to "
+                             f"{replayed}")
+    reasons = [r["decision"].reason
+               for r in rebalance.RebalanceJournal.load(journal)
+               if r["decision"].kind == "commit"]
+    if (client_map.overrides, client_map.generation) != ({0: 1}, 1):
+        raise AssertionError(f"tenancy (e): rank 0's map reads "
+                             f"{client_map.to_dict()}: the move missed "
+                             "its stream")
+    for rank in range(DIST_WORLD):
+        _same_stream("tenancy (e)", rank,
+                     torch.stack(runs[rank]["digests"]).cpu().numpy(),
+                     want[rank][:1])
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("tenancy (e): non-finite loss")
+    steps = int(all_losses.numel())
+    if launches != steps:
+        raise AssertionError(f"tenancy (e): {launches} gather launches in "
+                             f"{steps} micro-steps")
+    return {
+        "turn": "e_trigger", "shards": SERVE_SHARDS,
+        "interval_s": TRIGGER_INTERVAL_S, "window_ticks": TRIGGER_WINDOW,
+        "b_solo_birth_p99_s": b_p99_s, "rebalance_slo_p99_s": slo_s,
+        "fire_p99_s": fired["last"]["value"],
+        "fire_detail": fired["last"]["detail"], "fires": 1,
+        "ticks": ring.ticks, "commit_reason": reasons,
+        "journal_replay": replayed.to_dict(),
+        "shard_map_after": client_map.to_dict(),
+        "phase_ms": {k.replace("_s", "_ms"): v * 1e3
+                     for k, v in phases.items() if k.endswith("_s")},
+        "manifest_frames": phases.get("manifest_frames"),
+        "rebalance": counters,
+        "ranks": [{"rank": rank, "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "wall_s": runs[rank]["wall_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "rank0_micro_steps": steps,
+        "rank0_rows_per_s": runs[0]["rows"] / runs[0]["wall_s"],
+        "gather_launches": launches,
+        "launches_per_micro_step": launches / steps,
+        "turn_s": timeit.default_timer() - start,
+    }
 
 
 def _tenant_shard_kill(emb, files, micro_step, want, tmp: str) -> dict:
@@ -5269,6 +5759,8 @@ def tenancy_phase(emb, files, want, tmp: str) -> dict:
     warm_s = _warm_up(files, micro_step, refs)
     solo = _hot_step_turn(emb, files, micro_step, refs, want, False)
     contended = _hot_step_turn(emb, files, micro_step, refs, want, True)
+    trigger = _trigger_turn(emb, files, micro_step, refs, want,
+                            solo["hot_birth_latency"]["p99_ms"] / 1e3, tmp)
     del refs
     c = _tenant_shard_kill(emb, files, micro_step, want, tmp)
     del model, micro_step
@@ -5276,18 +5768,24 @@ def tenancy_phase(emb, files, want, tmp: str) -> dict:
     return {
         "tenants": TENANT_TABLE,
         "turns": {"a": a, "b_solo": solo, "b_contended": contended, "c": c,
-                  "d": d},
+                  "d": d, "e_trigger": trigger},
         "refs_shuffle_s": refs_s, "warm_up_s": warm_s,
         "fairness_ratio": a["fairness_ratio"], "fairness_ok": a["fairness_ok"],
         "contended_over_solo_rows_per_s": (contended["rows_per_s"]
                                            / solo["rows_per_s"]),
         "restart_s": c["restart_s"],
+        "trigger_slo_s": trigger["rebalance_slo_p99_s"],
+        "trigger_b_solo_p99_s": trigger["b_solo_birth_p99_s"],
+        "trigger_intent_to_commit_ms":
+            trigger["phase_ms"].get("intent_to_commit_ms"),
         "gather_launches": (solo["gather_launches"]
                             + contended["gather_launches"]
+                            + trigger["gather_launches"]
                             + c["gather_launches"]),
         "gather_launches_by_turn": {"b_solo": solo["gather_launches"],
                                     "b_contended":
                                         contended["gather_launches"],
+                                    "e_trigger": trigger["gather_launches"],
                                     "c": c["gather_launches"]},
         "phase_s": timeit.default_timer() - start,
     }
@@ -6129,13 +6627,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-") as dlrm_tmp, \
             tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as btmp:
         dlrm_paths, dlrm_gen_s = dlrm_files(dlrm_tmp)
-        trained = train_phase(emb, dlrm_paths, dlrm_gen_s)
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-arm-") as tmp:
+            trained = armed_train_phase(emb, dlrm_paths, dlrm_gen_s, tmp)
         emit({"phase": "train", "card": smi,
               **{k: v for k, v in trained.items() if k != "digests"}})
 
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tel-") as tmp:
             tel = telemetry_phase(emb, dlrm_paths, trained, tmp)
         emit({"phase": "telemetry", "card": smi, **tel})
+
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-ops-") as tmp:
+            ops_run = ops_phase(emb, dlrm_paths, tmp)
+        emit({"phase": "ops", "card": smi, **ops_run})
 
         token_paths, token_gen_s = bert_files(btmp)
         bert_run = bert_phase(fa, token_paths, token_gen_s)
@@ -6201,12 +6704,16 @@ def main() -> int:
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
         "launches": (trained["gather_launches"]
                      + stream_run["gather_launches"]
-                     + tenancy_run["gather_launches"]),
+                     + tenancy_run["gather_launches"]
+                     + ops_run["gather_launches"]),
         "launches_by_path": {
             "train": trained["gather_launches"],
             "stream": stream_run["gather_launches_by_turn"]["a"],
             "stream_served": stream_run["gather_launches_by_turn"]["b"],
             "tenancy": tenancy_run["gather_launches"],
+            "tenancy_trigger":
+                tenancy_run["gather_launches_by_turn"]["e_trigger"],
+            "ops": ops_run["gather_launches"],
             "telemetry": tel["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],

@@ -37,9 +37,16 @@ seq what it already delivered. A source that serves on after the move
 stamps its frames with the old generation, and the client fences them
 (``rsdl_rebalance_fenced_frames_total``).
 
-The JAX package's trigger, the ``tenant_delivery_slo`` health detector,
-is not ported (it reads per-tenant latency: ROADMAP queue A items 8 and
-9); an operator or chaos drives :func:`migrate` here.
+The trigger closes the loop: :func:`slo_trigger` attaches a
+``runtime.health.HealthMonitor`` with the one ``tenant_delivery_slo``
+detector to a history ring. It reads the clients' per-tenant
+``birth_to_delivered`` sketch, windowed over the ring's ticks, against
+the controller's ``rebalance_slo_p99_s``. A breach that outlives the
+monitor's hysteresis fires once per episode, and the fire calls
+:func:`migrate` with the fire's ``detail`` as the journaled reason. The
+controller's ``rebalance_cooldown_s`` and ``rebalance_max_moves`` still
+gate a repeated fire. An operator or chaos can drive :func:`migrate`
+directly too.
 
 Host code: imports no torch.
 """
@@ -352,8 +359,8 @@ class RebalanceController:
     """The placement decision hub: the current state, its journal and the
     policy.
 
-    Decisions come from an operator or from chaos (the JAX package's
-    ``tenant_delivery_slo`` detector is not ported). Each folds through
+    Decisions come from the ``tenant_delivery_slo`` detector's fire
+    (:func:`slo_trigger`), an operator or chaos. Each folds through
     :func:`apply_decision`, is journaled before any actuator byte moves,
     and records the ``rebalance_*`` telemetry and metrics.
 
@@ -613,6 +620,36 @@ def migrate(controller: RebalanceController, rank: int,
     return state
 
 
+def slo_trigger(ring, controller: RebalanceController, rank: int,
+                target: Optional[int] = None,
+                fire_ticks: Optional[int] = None,
+                clear_ticks: Optional[int] = None,
+                phases: Optional[dict] = None, **threshold_overrides: Any):
+    """Attach to ``ring`` (a ``runtime.history.HistoryRing``) a health
+    monitor with the one ``tenant_delivery_slo`` detector, at the
+    controller's ``rebalance_slo_p99_s``, whose fire migrates ``rank``
+    (to ``target``, or to :meth:`RebalanceController.pick_target`'s
+    choice) with the fire's ``detail`` as the reason. The fire runs where
+    the ring ticks (a live ring: the watchdog's monitor thread). Returns
+    the attached monitor; ``detach()`` it when done. ``fire_ticks`` and
+    ``clear_ticks`` are the monitor's hysteresis (the ``health`` policy
+    keys by default), ``phases`` goes to :func:`migrate`, and
+    ``threshold_overrides`` (``slo_droop_window_ticks``) to the
+    detector."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import health
+
+    def on_fire(fire: dict) -> None:
+        migrate(controller, rank, target=target, reason=fire["detail"],
+                phases=phases)
+
+    detectors = health.default_detectors(
+        names=["tenant_delivery_slo"],
+        rebalance_slo_p99_s=controller.slo_p99_s, **threshold_overrides)
+    return health.HealthMonitor(
+        ring, detectors=detectors, fire_ticks=fire_ticks,
+        clear_ticks=clear_ticks, on_fire=on_fire, capture=False).attach()
+
+
 __all__ = ["PlacementDecision", "PlacementState", "RebalanceJournal",
            "RebalanceController", "apply_decision", "replay", "migrate",
-           "DECISION_KINDS"]
+           "slo_trigger", "DECISION_KINDS"]

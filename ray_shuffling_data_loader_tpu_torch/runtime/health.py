@@ -1,0 +1,1170 @@
+"""Declarative SLO detectors and auto-captured incident capsules (own copy
+of the JAX package's ``runtime/health.py``).
+
+The detectors judge the history ring (runtime/history.py) at every tick,
+on the watchdog's monitor thread, so an armed health plane costs one
+brief callback per ``history_interval_s``. Hysteresis keeps a noisy tick
+from flapping a verdict; thresholds resolve through runtime/policy.py
+(``RSDL_SLO_*``); verdicts go out as metrics (``rsdl_health_state`` and
+``rsdl_health_breaches_total``) and as flight-recorder events
+(``health_breach``, ``health_clear``: process-wide, so epoch and task
+stay unset).
+
+Detectors (thresholds under their policy keys; ``RSDL_SLO_<KEY>`` env):
+
+===========================  ==============================================
+``throughput_droop``         the smoothed activity rate fell below
+                             ``(100 - slo_droop_pct)%`` of the retained
+                             peak (a peak under ``slo_droop_floor_eps`` is
+                             idle, not drooping)
+``stall_breach``             the consumer's batch-wait share of the
+                             smoothing window exceeded ``slo_stall_pct``
+``ledger_creep``             the ledger's (or RSS's) growth slope exceeded
+                             ``slo_creep_mb_per_min``
+``queue_saturation``         a queue's depth gauge exceeded
+                             ``slo_queue_depth`` items
+``lease_churn``              consumer-lease expiries exceeded
+                             ``slo_lease_churn_per_min``
+``straggler_drift``          the critical-path straggler's seconds exceeded
+                             ``slo_straggler_drift_x`` x its rolling median
+``delivery_latency_breach``  a queue's windowed ``birth_to_delivered`` p99
+                             (the ``rsdl_delivery_latency_seconds`` sketch)
+                             exceeded ``slo_delivery_p99_s``
+``freshness_stall``          a queue's effective freshness (the
+                             ``rsdl_delivery_freshness_seconds`` gauge plus
+                             the seconds it has sat unchanged) exceeded
+                             ``slo_freshness_s``
+``cache_thrash``             the tiered cache evicts faster than
+                             ``slo_cache_evictions_per_min`` while its hit
+                             share over the window is under
+                             ``slo_cache_hit_pct``
+``tenant_cache_thrash``      the same joint condition for one tenant over
+                             the ``rsdl_tenant_storage_*`` series
+``tenant_delivery_slo``      a tenant's windowed ``birth_to_delivered`` p99
+                             exceeded ``rebalance_slo_p99_s``: the
+                             rebalance trigger (``rebalance.slo_trigger``)
+``watermark_lag``            the stream's serve watermark trails its
+                             ingest watermark by more than
+                             ``slo_watermark_lag_s`` stream seconds
+===========================  ==============================================
+
+On a fire (or on ``SIGUSR2``: :func:`install_incident_signal`) the monitor
+captures an **incident capsule**: a directory with the verdict, trace
+dumps from every reachable pid (this process dumps directly; the process
+pool's workers and the supervised queue shards are sent SIGUSR1 and their
+dumps collected from ``RSDL_TRACE_DIR``), a profiler burst, the history
+slice, the merged exposition and the resolved policy and ``RSDL_*``
+environment, in the JAX package's layout, so ``tools/rsdl_incident.py``
+renders it.
+
+Host code: stdlib only, imports no torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import signal as signal_mod
+import socket
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ray_shuffling_data_loader_tpu_torch.runtime import history as rt_history
+from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
+from ray_shuffling_data_loader_tpu_torch.runtime import (
+    telemetry as rt_telemetry)
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+_MIB = float(1 << 20)
+
+#: Counter families whose combined rate is the pipeline's activity pulse
+#: (the droop detector's series). rsdl_stage_seconds_count covers the
+#: process-backend driver, whose per-task evidence arrives via
+#: observe_stage histograms rather than ring events.
+_ACTIVITY_SERIES: Tuple[str, ...] = ("rsdl_events_total",
+                                     "rsdl_stage_seconds_count")
+
+
+def _combined_series(ring: rt_history.HistoryRing,
+                     names: Sequence[str]) -> List[Tuple[float, float]]:
+    out = []
+    for snap in ring.snapshots():
+        total = None
+        for name in names:
+            value = rt_history.HistoryRing._sample_value(snap, name, None)
+            if value is not None:
+                total = (total or 0.0) + value
+        if total is not None:
+            out.append((snap["t"], total))
+    return out
+
+
+def _windowed_rates(pts: List[Tuple[float, float]],
+                    window_ticks: int) -> List[Tuple[float, float]]:
+    window_ticks = max(1, int(window_ticks))
+    out = []
+    for i in range(window_ticks, len(pts)):
+        t0, v0 = pts[i - window_ticks]
+        t1, v1 = pts[i]
+        if t1 - t0 <= 0:
+            continue
+        out.append((t1, max(0.0, v1 - v0) / (t1 - t0)))
+    return out
+
+
+@dataclasses.dataclass
+class Breach:
+    """One detector's breach evidence at one tick."""
+
+    detector: str
+    value: float
+    threshold: float
+    detail: str
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+class Detector:
+    """One health invariant. Subclasses resolve their thresholds from
+    the policy registry at construction (``component`` controls the
+    ``RSDL_<COMPONENT>_SLO_*`` env rung; the generic ``RSDL_SLO_*`` form
+    applies everywhere) and implement :meth:`evaluate` returning a
+    :class:`Breach` while the invariant is violated, else None."""
+
+    name = "detector"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        from ray_shuffling_data_loader_tpu_torch.runtime import policy
+        self._resolve = lambda key, default=None: policy.resolve(
+            component, key, override=overrides.get(key), default=default)
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        raise NotImplementedError
+
+    def _breach(self, value: float, threshold: float,
+                detail: str) -> Breach:
+        return Breach(self.name, round(float(value), 6),
+                      round(float(threshold), 6), detail)
+
+
+class ThroughputDroopDetector(Detector):
+    """Smoothed activity rate fell far below the retained peak."""
+
+    name = "throughput_droop"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.droop_pct = self._resolve("slo_droop_pct")
+        self.floor_eps = self._resolve("slo_droop_floor_eps")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        rates = _windowed_rates(
+            _combined_series(ring, _ACTIVITY_SERIES), self.window_ticks)
+        if len(rates) < 3:
+            return None
+        current = rates[-1][1]
+        peak = max(rate for _, rate in rates[:-1])
+        if peak < self.floor_eps:
+            return None  # never saw real traffic: idle, not drooping
+        allowed = peak * (1.0 - self.droop_pct / 100.0)
+        if current < allowed:
+            return self._breach(
+                current, allowed,
+                f"activity rate {current:.1f}/s fell below "
+                f"{100 - self.droop_pct:.0f}% of peak {peak:.1f}/s")
+        return None
+
+
+class StallBreachDetector(Detector):
+    """Consumer batch-wait share of wall clock over the window."""
+
+    name = "stall_breach"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.stall_pct = self._resolve("slo_stall_pct")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        waits = ring.series("rsdl_batch_wait_seconds_sum")
+        counts = ring.series("rsdl_batch_wait_seconds_count")
+        window = max(1, int(self.window_ticks))
+        if len(waits) <= window or len(counts) <= window:
+            return None
+        (t0, w0), (t1, w1) = waits[-1 - window], waits[-1]
+        batches = counts[-1][1] - counts[-1 - window][1]
+        if t1 - t0 <= 0 or batches < 1:
+            return None
+        stall_pct = 100.0 * max(0.0, w1 - w0) / (t1 - t0)
+        if stall_pct > self.stall_pct:
+            return self._breach(
+                stall_pct, self.stall_pct,
+                f"consumer stalled {stall_pct:.1f}% of the last "
+                f"{t1 - t0:.1f}s ({int(batches)} batch waits)")
+        return None
+
+
+class LedgerCreepDetector(Detector):
+    """Monotone growth slope of the buffer ledger (or process RSS)."""
+
+    name = "ledger_creep"
+    _series = ("rsdl_ledger_bytes_in_use", "rsdl_process_rss_bytes")
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.mb_per_min = self._resolve("slo_creep_mb_per_min")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        worst = None
+        for name in self._series:
+            pts = ring.series(name)
+            if len(pts) < 5:
+                continue
+            (t0, v0), (t1, v1) = pts[0], pts[-1]
+            if t1 - t0 < 2 * ring.interval_s:
+                continue
+            slope_mb_min = (v1 - v0) / (t1 - t0) * 60.0 / _MIB
+            if worst is None or slope_mb_min > worst[0]:
+                worst = (slope_mb_min, name, t1 - t0)
+        if worst is not None and worst[0] > self.mb_per_min:
+            slope, name, span = worst
+            return self._breach(
+                slope, self.mb_per_min,
+                f"{name} grew {slope:.1f} MiB/min over {span:.0f}s")
+        return None
+
+
+class QueueSaturationDetector(Detector):
+    """Any queue's depth gauge pinned above the saturation bound."""
+
+    name = "queue_saturation"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.max_depth = self._resolve("slo_queue_depth")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        snaps = ring.snapshots()
+        if not snaps:
+            return None
+        series = snaps[-1]["samples"].get("rsdl_queue_depth")
+        if not series:
+            return None
+        labels, depth = max(series.items(), key=lambda kv: kv[1])
+        if depth > self.max_depth:
+            return self._breach(
+                depth, self.max_depth,
+                f"queue {dict(labels).get('queue', '?')} holds "
+                f"{int(depth)} items")
+        return None
+
+
+class LeaseChurnDetector(Detector):
+    """Consumer leases expiring faster than the churn budget."""
+
+    name = "lease_churn"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.per_min = self._resolve("slo_lease_churn_per_min")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        rates = ring.rate("rsdl_queue_lease_expiries_total",
+                          window_ticks=self.window_ticks)
+        if not rates:
+            return None
+        churn_per_min = rates[-1][1] * 60.0
+        if churn_per_min > self.per_min:
+            return self._breach(
+                churn_per_min, self.per_min,
+                f"leases expiring at {churn_per_min:.1f}/min")
+        return None
+
+
+class StragglerDriftDetector(Detector):
+    """The critical-path straggler drifting away from its own median."""
+
+    name = "straggler_drift"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.drift_x = self._resolve("slo_straggler_drift_x")
+        #: Medians below this are noise, not a trend to drift from.
+        self.floor_s = 0.05
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        values = []
+        for snap in ring.snapshots():
+            series = snap["samples"].get("rsdl_trace_straggler_seconds")
+            if series:
+                values.append(max(series.values()))
+        if len(values) < 5:
+            return None
+        current = values[-1]
+        prior = sorted(values[:-1])
+        median = prior[len(prior) // 2]
+        if median < self.floor_s:
+            return None
+        if current > self.drift_x * median:
+            return self._breach(
+                current, self.drift_x * median,
+                f"straggler now {current:.2f}s vs rolling median "
+                f"{median:.2f}s")
+        return None
+
+
+_DELIVERY_CENTROID_SERIES = "rsdl_delivery_latency_seconds_centroid"
+_FRESHNESS_SERIES = "rsdl_delivery_freshness_seconds"
+
+
+class DeliveryLatencyDetector(Detector):
+    """Windowed per-queue p99 of the end-to-end birth->delivered hop.
+
+    The sketch's centroid counts are cumulative per label set, so the
+    window's distribution is the element-wise DELTA between the newest
+    snapshot and the one ``slo_droop_window_ticks`` back — handed to
+    the same quantile math every other sketch reader uses
+    (``metrics.sketch_quantiles``). Breaches on the WORST queue: the
+    SLO is per-queue, and averaging ranks together would let one
+    starving trainer hide behind its siblings."""
+
+    name = "delivery_latency_breach"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.p99_s = self._resolve("slo_delivery_p99_s")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        snaps = ring.snapshots()
+        if len(snaps) < 2:
+            return None
+        window = max(1, int(self.window_ticks))
+        now = snaps[-1]["samples"].get(_DELIVERY_CENTROID_SERIES)
+        if not now:
+            return None
+        base = snaps[max(0, len(snaps) - 1 - window)]["samples"].get(
+            _DELIVERY_CENTROID_SERIES, {})
+        delta = {}
+        for labels, value in now.items():
+            d = value - base.get(labels, 0.0)
+            if d > 0:
+                delta[labels] = d
+        if not delta:
+            return None
+        stats = rt_metrics.sketch_quantiles(
+            {_DELIVERY_CENTROID_SERIES: delta},
+            "rsdl_delivery_latency_seconds", qs=(0.99,),
+            hop="birth_to_delivered")
+        worst = None
+        for labels, entry in stats.items():
+            queue = dict(labels).get("queue", "?")
+            if worst is None or entry["p99"] > worst[0]:
+                worst = (entry["p99"], queue, int(entry["count"]))
+        if worst is not None and worst[0] > self.p99_s:
+            p99, queue, count = worst
+            return self._breach(
+                p99, self.p99_s,
+                f"queue {queue} delivery p99 {p99:.2f}s over the last "
+                f"{count} frame(s)")
+        return None
+
+
+class FreshnessStallDetector(Detector):
+    """Effective payload freshness at the consumer's final hop.
+
+    The freshness gauge is set to the newest payload's birth age at
+    each delivery — so when deliveries STOP, the gauge freezes while
+    the data keeps aging. The detector therefore judges
+    ``gauge value + seconds the gauge has sat unchanged`` (scanned back
+    through the retained snapshots), catching both stale-data delivery
+    and no-data stalls with one threshold."""
+
+    name = "freshness_stall"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.freshness_s = self._resolve("slo_freshness_s")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        snaps = ring.snapshots()
+        if not snaps:
+            return None
+        latest = snaps[-1]
+        series = latest["samples"].get(_FRESHNESS_SERIES)
+        if not series:
+            return None
+        worst = None
+        for labels, value in series.items():
+            t_change = latest["t"]
+            for snap in reversed(snaps[:-1]):
+                prev = snap["samples"].get(_FRESHNESS_SERIES,
+                                           {}).get(labels)
+                if prev is None or prev != value:
+                    break
+                t_change = snap["t"]
+            effective = value + max(0.0, latest["t"] - t_change)
+            if worst is None or effective > worst[0]:
+                worst = (effective, value, dict(labels).get("queue", "?"))
+        if worst is not None and worst[0] > self.freshness_s:
+            effective, raw, queue = worst
+            return self._breach(
+                effective, self.freshness_s,
+                f"queue {queue} freshness {effective:.1f}s "
+                f"(last delivered age {raw:.1f}s)")
+        return None
+
+
+class CacheThrashDetector(Detector):
+    """Tiered storage cache evicting entries it never gets to serve.
+
+    Thrash is a *joint* condition: a high eviction rate alone is fine
+    while the hit share stays healthy (steady-state LRU turnover), and
+    a low hit share alone is the expected cold-start shape. Only the
+    combination — evictions above ``slo_cache_evictions_per_min`` while
+    hits/(hits+misses) over the same window sits below
+    ``slo_cache_hit_pct`` — means the working set has outgrown the
+    cache budget and every insert is displacing something still live."""
+
+    name = "cache_thrash"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.evictions_per_min = self._resolve("slo_cache_evictions_per_min")
+        self.hit_pct = self._resolve("slo_cache_hit_pct")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        window = max(1, int(self.window_ticks))
+        evict_rates = ring.rate("rsdl_storage_evictions_total",
+                                window_ticks=window)
+        if not evict_rates:
+            return None
+        evict_per_min = evict_rates[-1][1] * 60.0
+        if evict_per_min <= self.evictions_per_min:
+            return None
+        hits = ring.series("rsdl_storage_hits_total")
+        misses = ring.series("rsdl_storage_misses_total")
+        if len(hits) <= window or len(misses) <= window:
+            return None
+        dh = max(0.0, hits[-1][1] - hits[-1 - window][1])
+        dm = max(0.0, misses[-1][1] - misses[-1 - window][1])
+        if dh + dm <= 0:
+            return None
+        hit_pct = 100.0 * dh / (dh + dm)
+        if hit_pct < self.hit_pct:
+            return self._breach(
+                evict_per_min, self.evictions_per_min,
+                f"cache evicting {evict_per_min:.1f}/min at "
+                f"{hit_pct:.1f}% hit rate (floor {self.hit_pct:.0f}%)")
+        return None
+
+
+class TenantCacheThrashDetector(Detector):
+    """Per-tenant cache thrash: the :class:`CacheThrashDetector` joint
+    condition evaluated per tenant label over the
+    ``rsdl_tenant_storage_*`` series (storage/cache.py attributes every
+    hot-tier hit/miss/eviction to the ambient TenantContext).
+
+    The aggregate detector can stay green while one tenant churns —
+    its evictions diluted by a neighbor's hits. This one names the
+    thrashing tenant, which is also the actionable unit: the fix is
+    that tenant's ``cache_quota_bytes``, not the global budget."""
+
+    name = "tenant_cache_thrash"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.evictions_per_min = self._resolve("slo_cache_evictions_per_min")
+        self.hit_pct = self._resolve("slo_cache_hit_pct")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def _tenants(self, ring: rt_history.HistoryRing) -> List[str]:
+        snaps = ring.snapshots()
+        if not snaps:
+            return []
+        series = snaps[-1]["samples"].get(
+            "rsdl_tenant_storage_evictions_total", {})
+        return sorted({dict(labels).get("tenant", "")
+                       for labels in series} - {""})
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        window = max(1, int(self.window_ticks))
+        worst = None
+        for tenant in self._tenants(ring):
+            labels = {"tenant": tenant}
+            evict_rates = ring.rate("rsdl_tenant_storage_evictions_total",
+                                    labels=labels, window_ticks=window)
+            if not evict_rates:
+                continue
+            evict_per_min = evict_rates[-1][1] * 60.0
+            if evict_per_min <= self.evictions_per_min:
+                continue
+            hits = ring.series("rsdl_tenant_storage_hits_total",
+                               labels=labels)
+            misses = ring.series("rsdl_tenant_storage_misses_total",
+                                 labels=labels)
+            if len(hits) <= window or len(misses) <= window:
+                continue
+            dh = max(0.0, hits[-1][1] - hits[-1 - window][1])
+            dm = max(0.0, misses[-1][1] - misses[-1 - window][1])
+            if dh + dm <= 0:
+                continue
+            hit_pct = 100.0 * dh / (dh + dm)
+            if hit_pct < self.hit_pct and (
+                    worst is None or evict_per_min > worst[0]):
+                worst = (evict_per_min, hit_pct, tenant)
+        if worst is not None:
+            evict_per_min, hit_pct, tenant = worst
+            return self._breach(
+                evict_per_min, self.evictions_per_min,
+                f"tenant {tenant} evicting {evict_per_min:.1f}/min at "
+                f"{hit_pct:.1f}% hit rate (floor {self.hit_pct:.0f}%)")
+        return None
+
+
+_TENANT_DELIVERY_CENTROID_SERIES = \
+    "rsdl_tenant_delivery_latency_seconds_centroid"
+
+
+class TenantDeliverySLODetector(Detector):
+    """Sustained per-tenant delivery-p99 SLO breach — the rebalance
+    trigger.
+
+    Same windowed centroid-delta math as
+    :class:`DeliveryLatencyDetector`, evaluated over the per-tenant
+    sketch the wire client feeds (``rsdl_tenant_delivery_latency_seconds``
+    with ``hop=birth_to_delivered``) and breaching on the WORST tenant.
+    The threshold is the rebalance plane's own knob
+    (``RSDL_REBALANCE_SLO_P99_S``), not the generic delivery SLO: this
+    detector's consumer is the :mod:`rebalance` controller, and its
+    hysteresis (``HealthMonitor``'s fire/clear tick runs) is what turns
+    a noisy latency series into exactly one migration per episode."""
+
+    name = "tenant_delivery_slo"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.p99_s = self._resolve("rebalance_slo_p99_s")
+        self.window_ticks = self._resolve("slo_droop_window_ticks")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        snaps = ring.snapshots()
+        if len(snaps) < 2:
+            return None
+        window = max(1, int(self.window_ticks))
+        now = snaps[-1]["samples"].get(_TENANT_DELIVERY_CENTROID_SERIES)
+        if not now:
+            return None
+        base = snaps[max(0, len(snaps) - 1 - window)]["samples"].get(
+            _TENANT_DELIVERY_CENTROID_SERIES, {})
+        delta = {}
+        for labels, value in now.items():
+            d = value - base.get(labels, 0.0)
+            if d > 0:
+                delta[labels] = d
+        if not delta:
+            return None
+        stats = rt_metrics.sketch_quantiles(
+            {_TENANT_DELIVERY_CENTROID_SERIES: delta},
+            "rsdl_tenant_delivery_latency_seconds", qs=(0.99,),
+            hop="birth_to_delivered")
+        worst = None
+        for labels, entry in stats.items():
+            tenant = dict(labels).get("tenant", "?")
+            if worst is None or entry["p99"] > worst[0]:
+                worst = (entry["p99"], tenant, int(entry["count"]))
+        if worst is not None and worst[0] > self.p99_s:
+            p99, tenant, count = worst
+            return self._breach(
+                p99, self.p99_s,
+                f"tenant {tenant} delivery p99 {p99:.2f}s over the last "
+                f"{count} frame(s) (rebalance SLO {self.p99_s:.2f}s)")
+        return None
+
+
+class WatermarkLagDetector(Detector):
+    """Streaming ingest running away from serving.
+
+    ``rsdl_stream_watermark_lag_seconds`` (streaming/runner.py) is the
+    ingest watermark minus the serve watermark, in STREAM seconds: how
+    much sealed-but-unserved input exists. A bounded lag is the normal
+    pipelining depth (`max_concurrent_epochs` windows in flight); a lag
+    above ``slo_watermark_lag_s`` means windows close faster than the
+    shuffle+serving plane drains them — online training is falling
+    behind the stream and model freshness is decaying."""
+
+    name = "watermark_lag"
+
+    def __init__(self, component: str = "health", **overrides: Any):
+        super().__init__(component, **overrides)
+        self.lag_s = self._resolve("slo_watermark_lag_s")
+
+    def evaluate(self, ring: rt_history.HistoryRing) -> Optional[Breach]:
+        pts = ring.series("rsdl_stream_watermark_lag_seconds")
+        if not pts:
+            return None
+        lag = pts[-1][1]
+        if lag > self.lag_s:
+            return self._breach(
+                lag, self.lag_s,
+                f"stream serving lags ingest by {lag:.1f}s of stream "
+                f"time (budget {self.lag_s:.0f}s)")
+        return None
+
+
+_DETECTOR_TYPES: Dict[str, type] = {
+    cls.name: cls for cls in (
+        ThroughputDroopDetector, StallBreachDetector, LedgerCreepDetector,
+        QueueSaturationDetector, LeaseChurnDetector, StragglerDriftDetector,
+        DeliveryLatencyDetector, FreshnessStallDetector, CacheThrashDetector,
+        TenantCacheThrashDetector, TenantDeliverySLODetector,
+        WatermarkLagDetector)
+}
+
+
+def default_detectors(component: str = "health",
+                      names: Optional[Sequence[str]] = None,
+                      **overrides: Any) -> List[Detector]:
+    """Instantiate detectors by name (None: all twelve), with thresholds
+    resolved for ``component`` plus explicit ``overrides``."""
+    names = tuple(names) if names is not None else tuple(_DETECTOR_TYPES)
+    unknown = set(names) - set(_DETECTOR_TYPES)
+    if unknown:
+        raise ValueError(f"unknown detectors: {sorted(unknown)} "
+                         f"(known: {sorted(_DETECTOR_TYPES)})")
+    return [_DETECTOR_TYPES[name](component, **overrides) for name in names]
+
+
+class _DetectorState:
+    __slots__ = ("breach_run", "ok_run", "firing", "fires", "last_breach")
+
+    def __init__(self):
+        self.breach_run = 0
+        self.ok_run = 0
+        self.firing = False
+        self.fires = 0
+        self.last_breach: Optional[Breach] = None
+
+
+class HealthMonitor:
+    """Hysteresis state machine over a detector set, driven by history
+    ticks. A breach must persist ``fire_ticks`` consecutive ticks to
+    FIRE (once per episode); ``clear_ticks`` consecutive clean ticks
+    re-arm the detector — so an oscillating signal inside one episode
+    cannot fire twice (the no-flapping contract, pinned by tests)."""
+
+    def __init__(self, ring: rt_history.HistoryRing,
+                 detectors: Optional[Sequence[Detector]] = None,
+                 component: str = "health",
+                 fire_ticks: Optional[int] = None,
+                 clear_ticks: Optional[int] = None,
+                 on_fire: Optional[Callable[[Dict[str, Any]], None]] = None,
+                 capture: bool = True,
+                 incident_dir: Optional[str] = None,
+                 capture_cooldown_s: Optional[float] = None):
+        from ray_shuffling_data_loader_tpu_torch.runtime import policy
+        self.ring = ring
+        self.detectors = list(detectors if detectors is not None
+                              else default_detectors(component))
+        self.fire_ticks = int(policy.resolve(component, "health_fire_ticks",
+                                             override=fire_ticks))
+        self.clear_ticks = int(policy.resolve(
+            component, "health_clear_ticks", override=clear_ticks))
+        self.on_fire = on_fire
+        self.capture = capture
+        self.incident_dir = incident_dir
+        #: None = the module default (CAPSULE_COOLDOWN_S); a driver that
+        #: arms several scenes in one process passes 0.0 so that each
+        #: gets its capsule.
+        self.capture_cooldown_s = capture_cooldown_s
+        self._states = {d.name: _DetectorState() for d in self.detectors}
+        self._lock = threading.Lock()
+        self._capture_threads: List[threading.Thread] = []
+        self.capsules: List[str] = []
+        self._attached = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def attach(self) -> "HealthMonitor":
+        if not self._attached:
+            self._attached = True
+            self.ring.add_listener(self._on_tick)
+        return self
+
+    def detach(self) -> None:
+        if self._attached:
+            self._attached = False
+            self.ring.remove_listener(self._on_tick)
+
+    def _on_tick(self, ring: rt_history.HistoryRing) -> None:
+        self.tick()
+
+    # -- evaluation ----------------------------------------------------------
+
+    def tick(self) -> List[Breach]:
+        """Evaluate every detector against the ring once; returns the
+        breaches that FIRED this tick (post-hysteresis)."""
+        fired: List[Breach] = []
+        for detector in self.detectors:
+            try:
+                breach = detector.evaluate(self.ring)
+            except Exception:  # noqa: BLE001 - detectors must not kill ticks
+                logger.exception("health detector %s failed", detector.name)
+                continue
+            with self._lock:
+                state = self._states[detector.name]
+                if breach is not None:
+                    state.breach_run += 1
+                    state.ok_run = 0
+                    state.last_breach = breach
+                    should_fire = (not state.firing
+                                   and state.breach_run >= self.fire_ticks)
+                    if should_fire:
+                        state.firing = True
+                        state.fires += 1
+                else:
+                    state.ok_run += 1
+                    state.breach_run = 0
+                    should_fire = False
+                    if state.firing and state.ok_run >= self.clear_ticks:
+                        state.firing = False
+                        self._export_state(detector.name, 0.0)
+                        rt_telemetry.record("health_clear",
+                                            detector=detector.name)
+            if breach is not None and should_fire:
+                fired.append(breach)
+                self._fire(breach)
+        return fired
+
+    def _export_state(self, name: str, value: float) -> None:
+        rt_metrics.gauge("rsdl_health_state",
+                         "1 while the detector's breach episode is open",
+                         detector=name).set(value)
+
+    def _fire(self, breach: Breach) -> None:
+        rt_metrics.counter("rsdl_health_breaches_total",
+                           "detector fires (post-hysteresis episodes)",
+                           detector=breach.detector).inc()
+        self._export_state(breach.detector, 1.0)
+        rt_telemetry.record("health_breach", detector=breach.detector,
+                            value=breach.value, threshold=breach.threshold,
+                            detail=breach.detail)
+        logger.error("health: %s FIRED (%s; value %.3f, threshold %.3f)",
+                     breach.detector, breach.detail, breach.value,
+                     breach.threshold)
+        verdict = self.verdict(breach)
+        if self.on_fire is not None:
+            try:
+                self.on_fire(verdict)
+            except Exception:  # noqa: BLE001 - capture must not kill ticks
+                logger.exception("health on_fire hook failed")
+        elif self.capture:
+            thread = threading.Thread(
+                target=self._capture, args=(verdict,), daemon=True,
+                name="rsdl-incident-capture")
+            with self._lock:
+                self._capture_threads.append(thread)
+            thread.start()
+
+    def _capture(self, verdict: Dict[str, Any]) -> None:
+        try:
+            path = capture_incident(
+                reason=f"detector {verdict['detector']}", verdict=verdict,
+                ring=self.ring, base_dir=self.incident_dir,
+                cooldown_s=self.capture_cooldown_s)
+            if path:
+                with self._lock:
+                    self.capsules.append(path)
+        except Exception:  # noqa: BLE001 - capture is best-effort evidence
+            logger.exception("incident capture failed")
+
+    def wait_captures(self, timeout_s: float = 30.0) -> List[str]:
+        """Block until in-flight capsule captures finish; returns the
+        capsule paths captured so far."""
+        deadline = time.monotonic() + timeout_s
+        with self._lock:
+            threads = list(self._capture_threads)
+        for thread in threads:
+            thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        with self._lock:
+            return list(self.capsules)
+
+    # -- reporting -----------------------------------------------------------
+
+    def verdict(self, breach: Breach) -> Dict[str, Any]:
+        with self._lock:
+            state = self._states[breach.detector]
+            return {
+                "detector": breach.detector,
+                "value": breach.value,
+                "threshold": breach.threshold,
+                "detail": breach.detail,
+                "fires": state.fires,
+                "fire_ticks": self.fire_ticks,
+                "clear_ticks": self.clear_ticks,
+                "pid": os.getpid(),
+                "t_unix": time.time(),
+            }
+
+    @property
+    def total_fires(self) -> int:
+        with self._lock:
+            return sum(s.fires for s in self._states.values())
+
+    def summary(self) -> Dict[str, Any]:
+        """Per-detector episode counts and the last breach evidence of
+        every detector that fired."""
+        with self._lock:
+            detectors = {}
+            for name, state in self._states.items():
+                entry: Dict[str, Any] = {"fires": state.fires,
+                                         "firing": state.firing}
+                if state.fires and state.last_breach is not None:
+                    entry["last"] = state.last_breach.as_dict()
+                detectors[name] = entry
+            return {
+                "fire_ticks": self.fire_ticks,
+                "clear_ticks": self.clear_ticks,
+                "interval_s": self.ring.interval_s,
+                "fires": sum(s.fires for s in self._states.values()),
+                "detectors": detectors,
+                "capsules": list(self.capsules),
+            }
+
+
+# ---------------------------------------------------------------------------
+# Arm/disarm: the one-call switch of the ops plane for a driver
+# ---------------------------------------------------------------------------
+
+_armed_lock = threading.Lock()
+_armed: Optional[HealthMonitor] = None
+
+
+def arm(interval_s: Optional[float] = None,
+        capacity: Optional[int] = None,
+        detectors: Optional[Sequence[str]] = None,
+        component: str = "health",
+        on_fire: Optional[Callable[[Dict[str, Any]], None]] = None,
+        capture: bool = True,
+        incident_dir: Optional[str] = None,
+        fire_ticks: Optional[int] = None,
+        clear_ticks: Optional[int] = None,
+        capture_cooldown_s: Optional[float] = None,
+        **threshold_overrides: Any) -> Optional[HealthMonitor]:
+    """Start history ticking and attach a monitor over it (None when the
+    ``health`` policy key disarms the plane). Re-arming replaces the
+    previous monitor: arming per phase gives each phase a fresh ring and
+    fresh hysteresis state."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    if not policy.resolve(component, "health"):
+        return None
+    global _armed
+    with _armed_lock:
+        if _armed is not None:
+            _armed.detach()
+        ring = rt_history.start(interval_s=interval_s, capacity=capacity)
+        monitor = HealthMonitor(
+            ring,
+            detectors=default_detectors(component, detectors,
+                                        **threshold_overrides),
+            component=component, fire_ticks=fire_ticks,
+            clear_ticks=clear_ticks, on_fire=on_fire, capture=capture,
+            incident_dir=incident_dir,
+            capture_cooldown_s=capture_cooldown_s).attach()
+        _armed = monitor
+    return monitor
+
+
+def disarm() -> Optional[HealthMonitor]:
+    """Stop history ticking and detach; returns the monitor (for its
+    :meth:`HealthMonitor.summary`)."""
+    global _armed
+    with _armed_lock:
+        monitor, _armed = _armed, None
+    if monitor is not None:
+        monitor.detach()
+    rt_history.stop()
+    return monitor
+
+
+def armed_monitor() -> Optional[HealthMonitor]:
+    with _armed_lock:
+        return _armed
+
+
+# ---------------------------------------------------------------------------
+# Incident capsules
+# ---------------------------------------------------------------------------
+
+_capsule_lock = threading.Lock()
+_capsule_seq = 0
+_last_capture_mono: Optional[float] = None
+
+#: Minimum seconds between capsules (a breach storm — several detectors
+#: firing in one window — yields ONE capsule; the first already embeds
+#: every detector's state via the history slice).
+CAPSULE_COOLDOWN_S = 30.0
+
+
+def _capsule_base_dir(override: Optional[str] = None) -> str:
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    import tempfile
+    return (override
+            or policy.resolve("health", "incident_dir")
+            or policy.resolve("telemetry", "trace_dir")
+            or policy.resolve("telemetry", "telemetry_dump_dir")
+            or tempfile.gettempdir())
+
+
+def _signal_candidate_pids() -> List[int]:
+    """Sibling pids worth asking for a trace dump: the last worker
+    pool's processes plus every pid with a metrics shard."""
+    pids = set()
+    try:
+        from ray_shuffling_data_loader_tpu_torch import executor as rsdl_ex
+        pids.update(rsdl_ex.last_worker_pool().get("pids") or [])
+    except ImportError:
+        # The shard pids below still cover a host whose executor layer
+        # (numpy) cannot load.
+        logger.warning("incident capture: executor pool registry "
+                       "unavailable; using shard pids only")
+    directory = rt_metrics.telemetry_dir()
+    if directory:
+        pids.update(rt_metrics.read_shards(directory))
+    pids.discard(os.getpid())
+    return sorted(pids)
+
+
+def capture_incident(reason: str = "on-demand",
+                     verdict: Optional[Dict[str, Any]] = None,
+                     ring: Optional[rt_history.HistoryRing] = None,
+                     base_dir: Optional[str] = None,
+                     profile_s: Optional[float] = None,
+                     wait_s: Optional[float] = None,
+                     cooldown_s: Optional[float] = None,
+                     stem: Optional[str] = None) -> Optional[str]:
+    """Write one incident capsule directory; returns its path (None when
+    suppressed by the capture cooldown). ``stem`` overrides the
+    ``rsdl-incident-<pid>-<seq>`` directory name.
+
+    Layout (rendered by ``tools/rsdl_incident.py``)::
+
+        rsdl-incident-<pid>-<seq>[-<detector>]/
+          capsule.json    # manifest: reason, verdict, pids, file list
+          history.json    # history-ring slice (rsdl-history-v1)
+          metrics.prom    # merged multi-process exposition
+          policy.json     # resolved policy snapshot + RSDL_* env
+          profile.folded  # sampling-profiler burst (flamegraph input)
+          traces/rsdl-telemetry-<pid>-*.jsonl   # per-pid recorder dumps
+    """
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    global _capsule_seq, _last_capture_mono
+    cooldown = (CAPSULE_COOLDOWN_S if cooldown_s is None
+                else float(cooldown_s))
+    start_mono = time.monotonic()
+    with _capsule_lock:
+        if (_last_capture_mono is not None
+                and start_mono - _last_capture_mono < cooldown):
+            logger.warning(
+                "incident capture suppressed (%s): previous capsule is "
+                "%.1fs old (cooldown %.0fs)", reason,
+                start_mono - _last_capture_mono, cooldown)
+            return None
+        _last_capture_mono = start_mono
+        _capsule_seq += 1
+        seq = _capsule_seq
+    detector = (verdict or {}).get("detector")
+    if stem is None:
+        stem = f"rsdl-incident-{os.getpid()}-{seq}" + (
+            f"-{detector}" if detector else "")
+    capsule = os.path.join(_capsule_base_dir(base_dir), stem)
+    traces_dir = os.path.join(capsule, "traces")
+    os.makedirs(traces_dir, exist_ok=True)
+
+    # 1. Flush this process's shard so the merged exposition is current,
+    #    then freeze the cluster-wide view.
+    rt_metrics.write_shard()
+    federated_text = rt_metrics.render_federated()
+    with open(os.path.join(capsule, "metrics.prom"), "w",
+              encoding="utf-8") as f:
+        f.write(federated_text)
+    # Delivery-latency slice of the frozen exposition: the capsule's
+    # manifest answers "how late was delivery when this fired" without
+    # re-deriving quantiles from the .prom file.
+    latency_summary: Dict[str, Any] = {}
+    try:
+        samples = rt_metrics.parse_exposition(federated_text)
+        for labels, stats in sorted(rt_metrics.sketch_quantiles(
+                samples, "rsdl_delivery_latency_seconds").items()):
+            key = ",".join(f"{k}={v}" for k, v in labels)
+            latency_summary[key] = {
+                name: round(value, 6) for name, value in stats.items()}
+    except (ValueError, KeyError):
+        logger.exception("incident latency summary failed")
+
+    # 2. History slice (armed ring, explicit ring, or none).
+    ring = ring or rt_history.get_history()
+    if ring is not None:
+        with open(os.path.join(capsule, "history.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(rt_history.downsample_slice(ring.slice()), f)
+
+    # 3. Resolved policy + environment (the "what was configured" half
+    #    every incident review starts with).
+    with open(os.path.join(capsule, "policy.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({
+            "policy": {k: repr(v) if not isinstance(
+                v, (int, float, str, bool, type(None))) else v
+                for k, v in policy.describe().items()},
+            "env": {k: v for k, v in sorted(os.environ.items())
+                    if k.startswith("RSDL_")},
+        }, f, indent=2)
+
+    # 4. Profiler burst: a short always-available flamegraph window of
+    #    the moment the detector fired.
+    profile_s = policy.resolve("health", "incident_profile_s",
+                               override=profile_s)
+    profile_summary = None
+    if profile_s and profile_s > 0:
+        try:
+            from ray_shuffling_data_loader_tpu_torch.runtime import profiler
+            prof = profiler.SamplingProfiler().start()
+            time.sleep(profile_s)
+            prof.stop()
+            prof.write_folded(os.path.join(capsule, "profile.folded"))
+            profile_summary = prof.summary()
+        except Exception:  # noqa: BLE001 - a capsule without a profile
+            logger.exception("incident profiler burst failed")
+
+    # 5. Trace dumps: this process dumps directly into the capsule;
+    #    sibling pids are SIGUSR1'd (procpool workers and supervised
+    #    queue servers install the handler) and their dumps — landing in
+    #    the shared RSDL_TRACE_DIR — are collected after a bounded wait.
+    own_dump = os.path.join(traces_dir,
+                            f"rsdl-telemetry-{os.getpid()}-0.jsonl")
+    try:
+        rt_telemetry.dump(path=own_dump, reason=f"incident: {reason}")
+    except OSError:
+        logger.exception("incident self-dump failed")
+    signaled: List[int] = []
+    for pid in _signal_candidate_pids():
+        try:
+            os.kill(pid, signal_mod.SIGUSR1)
+            signaled.append(pid)
+        except (ProcessLookupError, PermissionError, OSError):
+            continue
+    trace_dir = policy.resolve("telemetry", "trace_dir") or None
+    wait_s = policy.resolve("health", "incident_wait_s", override=wait_s)
+    if signaled and trace_dir:
+        deadline = start_mono + wait_s
+        # Bounded collection wait, not a retry: each pass polls for the
+        # signaled pids' fresh dumps until the deadline.
+        # rsdl-lint: disable=unbounded-retry
+        while time.monotonic() < deadline:
+            fresh = {pid for pid in signaled
+                     if _fresh_dumps(trace_dir, pid, start_mono)}
+            if fresh == set(signaled):
+                break
+            time.sleep(0.05)
+        for pid in signaled:
+            for path in _fresh_dumps(trace_dir, pid, start_mono):
+                try:
+                    shutil.copy(path, traces_dir)
+                except OSError:
+                    continue
+
+    # 6. Manifest, written LAST: a capsule with a manifest is complete.
+    trace_files = sorted(os.listdir(traces_dir))
+    pids = []
+    for name in trace_files:
+        try:
+            with open(os.path.join(traces_dir, name),
+                      encoding="utf-8") as f:
+                meta = json.loads(f.readline())
+            if isinstance(meta.get("pid"), int):
+                pids.append(meta["pid"])
+        except (OSError, ValueError):
+            continue
+    manifest = {
+        "schema": "rsdl-incident-v1",
+        "reason": reason,
+        "verdict": verdict,
+        "created_unix": time.time(),
+        "pid": os.getpid(),
+        "host": socket.gethostname(),
+        "pids": sorted(set(pids)),
+        "pids_signaled": signaled,
+        "traces": trace_files,
+        "profile": profile_summary,
+        "latency": latency_summary,
+        "files": sorted(os.listdir(capsule)),
+    }
+    with open(os.path.join(capsule, "capsule.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(manifest, f, indent=2)
+    rt_metrics.counter("rsdl_incident_capsules_total",
+                       "incident capsules captured").inc()
+    rt_telemetry.record("incident_capsule", reason=reason,
+                        detector=detector, path=capsule)
+    logger.error("incident capsule (%s): %s [pids %s]", reason, capsule,
+                 manifest["pids"])
+    return capsule
+
+
+def _fresh_dumps(trace_dir: str, pid: int, since_mono: float) -> List[str]:
+    """Dump files for ``pid`` in ``trace_dir`` written after the capture
+    started (mtime compared on a monotonic-anchored wall offset — the
+    capture and the dumps happen on the same host)."""
+    # Anchoring a monotonic capture start onto the wall clock is the only
+    # way to compare against file mtimes (same host, sub-second window,
+    # 1s slack below). rsdl-lint: disable=wallclock-interval
+    since_wall = time.time() - (time.monotonic() - since_mono)
+    out = []
+    prefix = f"rsdl-telemetry-{pid}-"
+    try:
+        names = os.listdir(trace_dir)
+    except OSError:
+        return out
+    for name in names:
+        if not name.startswith(prefix) or not name.endswith(".jsonl"):
+            continue
+        path = os.path.join(trace_dir, name)
+        try:
+            if os.stat(path).st_mtime >= since_wall - 1.0:
+                out.append(path)
+        except OSError:
+            continue
+    return out
+
+
+def install_incident_signal(signum: int = signal_mod.SIGUSR2) -> bool:
+    """SIGUSR2 -> incident capsule on demand, the parallel of
+    telemetry's SIGUSR1 recorder dump (``kill -USR2 <pid>`` on any armed
+    driver). The handler only spawns the capture thread — capture does
+    real I/O and must not run in signal context. Returns False (no-op)
+    off the main thread or without the signal — callers never guard."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+
+    def _handler(_signum, _frame):
+        threading.Thread(
+            target=capture_incident,
+            kwargs={"reason": f"signal {_signum}", "cooldown_s": 0.0},
+            daemon=True, name="rsdl-incident-capture").start()
+
+    try:
+        signal_mod.signal(signum, _handler)
+    except (ValueError, OSError, AttributeError):
+        return False
+    return True

@@ -41,7 +41,11 @@ its keys as the component ``rebalance`` (``RSDL_REBALANCE_SLO_P99_S``,
 ``RSDL_REBALANCE_COOLDOWN_S``, ``RSDL_REBALANCE_MAX_MOVES``). The
 streaming window assembler reads its keys as the component ``stream``
 (``RSDL_STREAM_WINDOW_MAX_FILES``, ``RSDL_STREAM_WINDOW_LATE_POLICY``,
-...).
+...). The ops plane reads its keys as the JAX package does: the history
+ring as ``history``, the sampling profiler as ``telemetry``, the
+detectors, their hysteresis and the capsules as ``health`` (or the
+component a caller arms them for: ``RSDL_<COMPONENT>_SLO_*`` over the
+generic ``RSDL_SLO_*``); ``RSDL_HEALTH=0`` disarms the plane.
 
 Stdlib only.
 """
@@ -248,6 +252,44 @@ _ENGINE_KEYS: Dict[str, "tuple[Any, Callable[[str], Any]]"] = {
     "window_max_bytes": (0, int),
     "window_max_wait_s": (0.0, float),
     "window_late_policy": ("admit", str),
+    # Sampling profiler (runtime/profiler.py): folded stacks of named
+    # threads and per-thread CPU, off by default; the interval bounds
+    # its cost (one stack walk per thread per sample).
+    "profiler": (False, _parse_bool),
+    "profiler_interval_s": (0.01, float),
+    # History ring (runtime/history.py): registry snapshots in fixed
+    # memory, ticked on the watchdog's monitor thread.
+    "history_interval_s": (1.0, float),
+    "history_capacity": (600, int),
+    # Health detectors (runtime/health.py), judged at every history tick
+    # with hysteresis: a breach must persist `health_fire_ticks` ticks to
+    # fire, and `health_clear_ticks` clean ticks re-arm the detector.
+    "health": (True, _parse_bool),
+    "health_fire_ticks": (3, int),
+    "health_clear_ticks": (5, int),
+    # SLO thresholds (RSDL_SLO_* through the generic rung; the component
+    # form, e.g. RSDL_HEALTH_SLO_*, wins over it). Each detector's
+    # meaning is beside it in runtime/health.py.
+    "slo_droop_pct": (60.0, float),        # rate below (100-x)% of peak
+    "slo_droop_floor_eps": (2.0, float),   # least peak (events/s) judged
+    "slo_droop_window_ticks": (8, int),    # smoothing window of rates
+    "slo_stall_pct": (95.0, float),        # consumer batch-wait share
+    "slo_creep_mb_per_min": (512.0, float),  # ledger/RSS growth slope
+    "slo_queue_depth": (100000.0, float),  # items in one queue
+    "slo_lease_churn_per_min": (3.0, float),
+    "slo_straggler_drift_x": (4.0, float),  # straggler over its median
+    "slo_delivery_p99_s": (30.0, float),   # windowed birth->delivered p99
+    "slo_freshness_s": (120.0, float),     # effective freshness age
+    "slo_cache_evictions_per_min": (120.0, float),
+    "slo_cache_hit_pct": (10.0, float),
+    "slo_watermark_lag_s": (300.0, float),  # stream seconds served late
+    # Incident capsules (runtime/health.py): where they land ("": the
+    # trace dir, else the telemetry dump dir, else the temp dir), the
+    # profiler burst's seconds, and how long a capture waits for the
+    # signalled processes' trace dumps.
+    "incident_dir": ("", str),
+    "incident_profile_s": (0.25, float),
+    "incident_wait_s": (2.0, float),
 }
 
 _ALL_KEYS = {**_KEYS, **_ENGINE_KEYS}
@@ -310,3 +352,9 @@ def resolve_all(component: str, **overrides: Any) -> Dict[str, Any]:
                          f"(known: {sorted(_KEYS)})")
     return {key: resolve(component, key, overrides.get(key))
             for key in _KEYS}
+
+
+def describe(component: str = "library") -> Dict[str, Any]:
+    """Every key resolved for ``component``: the snapshot an incident
+    capsule keeps."""
+    return {key: resolve(component, key) for key in _ALL_KEYS}

@@ -1,0 +1,242 @@
+"""Sampling profiler: folded stacks and per-thread CPU of the host (own
+copy of the JAX package's ``runtime/profiler.py``).
+
+The device-side capture (``torch.profiler``, as ``chip_smoke.py``'s
+``profile_steps`` uses it) answers what the card runs, and the flight
+recorder which stage is slow. This module answers which Python frames
+burn the host's CPU:
+
+- **Stack sampling**: a daemon thread walks ``sys._current_frames()`` on
+  a fixed interval and folds each named thread's stack into
+  ``thread;outer;...;leaf`` lines with sample counts (the input of
+  ``flamegraph.pl``, speedscope or inferno). Sampling takes the GIL like
+  the pipeline does, so a frame seen often is a frame that holds it.
+- **Stage billing**: each sample is also billed to the telemetry span
+  kind the thread has open (``telemetry.active_kinds()``), the flight
+  recorder's vocabulary.
+- **Per-thread CPU**: on Linux, each native thread's utime+stime from
+  ``/proc/self/task/<tid>/stat`` over the profiled window, by thread
+  name.
+
+Off, it starts no thread; on, it costs one frames snapshot per interval.
+:func:`maybe_sample` is the driver's switch: it profiles when the
+``profiler`` policy key (``RSDL_PROFILER=1``) or ``RSDL_PROFILE_FOLDED=
+<path>`` is set, and writes the folded stacks to that path.
+
+Host code: stdlib only, imports no torch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from ray_shuffling_data_loader_tpu_torch.utils.logger import (
+    setup_custom_logger)
+
+logger = setup_custom_logger(__name__)
+
+_CLK_TCK = os.sysconf("SC_CLK_TCK") if hasattr(os, "sysconf") else 100
+
+
+def _thread_cpu_seconds() -> Dict[int, float]:
+    """native tid -> CPU seconds (utime+stime) from /proc; {} elsewhere."""
+    out: Dict[int, float] = {}
+    task_dir = "/proc/self/task"
+    if not os.path.isdir(task_dir):
+        return out
+    try:
+        tids = os.listdir(task_dir)
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"{task_dir}/{tid}/stat", "rb") as f:
+                stat = f.read().decode("ascii", "replace")
+        except OSError:
+            continue  # thread exited between listdir and open
+        # utime/stime are fields 14/15, counted AFTER the parenthesized
+        # comm field (which may itself contain spaces).
+        rest = stat.rsplit(")", 1)[-1].split()
+        if len(rest) >= 13:
+            try:
+                out[int(tid)] = (int(rest[11]) + int(rest[12])) / _CLK_TCK
+            except ValueError:
+                continue
+    return out
+
+
+class SamplingProfiler:
+    """Fold stacks of named threads on an interval; bill samples to
+    threads and to open telemetry span kinds; attribute per-thread CPU
+    over the profiled window."""
+
+    def __init__(self, interval_s: Optional[float] = None,
+                 thread_prefixes: Optional[Tuple[str, ...]] = None):
+        from ray_shuffling_data_loader_tpu_torch.runtime import policy
+        self.interval_s = policy.resolve("telemetry", "profiler_interval_s",
+                                         override=interval_s)
+        #: None = sample every thread; otherwise only names matching a
+        #: prefix (e.g. ("rsdl-", "dryrun-") to isolate pipeline work).
+        self.thread_prefixes = thread_prefixes
+        self._folded: Dict[str, int] = {}
+        self._by_stage: Dict[str, int] = {}
+        self._by_thread: Dict[str, int] = {}
+        self.samples = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._cpu_start: Dict[int, float] = {}
+        self._cpu_delta: Dict[str, float] = {}
+        self._t_start = 0.0
+        self.duration_s = 0.0
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "SamplingProfiler":
+        if self._thread is not None:
+            return self
+        self._cpu_start = _thread_cpu_seconds()
+        self._t_start = time.monotonic()
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="rsdl-profiler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> "SamplingProfiler":
+        if self._thread is None:
+            return self
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self._thread = None
+        self.duration_s = time.monotonic() - self._t_start
+        cpu_end = _thread_cpu_seconds()
+        names = {t.native_id: t.name for t in threading.enumerate()
+                 if getattr(t, "native_id", None) is not None}
+        deltas: Dict[str, float] = {}
+        for tid, end in cpu_end.items():
+            delta = end - self._cpu_start.get(tid, 0.0)
+            if delta <= 0:
+                continue
+            name = names.get(tid, f"tid-{tid}")
+            deltas[name] = deltas.get(name, 0.0) + delta
+        self._cpu_delta = deltas
+        return self
+
+    def __enter__(self) -> "SamplingProfiler":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- sampling loop -------------------------------------------------------
+
+    def _loop(self) -> None:
+        from ray_shuffling_data_loader_tpu_torch.runtime import telemetry
+        own_ident = threading.get_ident()
+        while not self._stop.wait(self.interval_s):
+            frames = sys._current_frames()
+            by_ident = {t.ident: t.name for t in threading.enumerate()}
+            kinds = telemetry.active_kinds()
+            with self._lock:
+                self.samples += 1
+                for ident, frame in frames.items():
+                    if ident == own_ident:
+                        continue
+                    name = by_ident.get(ident, f"ident-{ident}")
+                    if self.thread_prefixes is not None and not any(
+                            name.startswith(p) for p in
+                            self.thread_prefixes):
+                        continue
+                    stack: List[str] = []
+                    depth = 0
+                    while frame is not None and depth < 64:
+                        code = frame.f_code
+                        module = code.co_filename.rsplit(os.sep, 1)[-1]
+                        stack.append(f"{module}:{code.co_name}")
+                        frame = frame.f_back
+                        depth += 1
+                    stack.reverse()
+                    key = ";".join([name] + stack)
+                    self._folded[key] = self._folded.get(key, 0) + 1
+                    self._by_thread[name] = self._by_thread.get(name, 0) + 1
+                    stage = kinds.get(ident)
+                    if stage is not None:
+                        self._by_stage[stage] = \
+                            self._by_stage.get(stage, 0) + 1
+
+    # -- results -------------------------------------------------------------
+
+    def folded(self) -> Dict[str, int]:
+        """``thread;frame;...;leaf`` -> sample count (flamegraph input)."""
+        with self._lock:
+            return dict(self._folded)
+
+    def by_stage(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._by_stage)
+
+    def cpu_by_thread(self) -> Dict[str, float]:
+        """thread name -> CPU seconds used over the profiled window."""
+        return dict(self._cpu_delta)
+
+    def write_folded(self, path: str) -> str:
+        folded = self.folded()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            for key in sorted(folded):
+                f.write(f"{key} {folded[key]}\n")
+        return path
+
+    def summary(self, top: int = 5) -> Dict[str, Any]:
+        """Compact report: sample counts, stage billing, the busiest
+        threads by samples and by CPU seconds, the hottest stacks."""
+        folded = self.folded()
+        hot = sorted(folded.items(), key=lambda kv: -kv[1])[:top]
+        cpu = sorted(self._cpu_delta.items(), key=lambda kv: -kv[1])[:top]
+        return {
+            "samples": self.samples,
+            "interval_s": self.interval_s,
+            "duration_s": round(self.duration_s, 3),
+            "by_stage": self.by_stage(),
+            "threads_by_samples": dict(
+                sorted(self._by_thread.items(),
+                       key=lambda kv: -kv[1])[:top]),
+            "cpu_s_by_thread": {k: round(v, 3) for k, v in cpu},
+            "hottest_stacks": [
+                {"stack": k.split(";")[-1], "thread": k.split(";")[0],
+                 "samples": v} for k, v in hot
+            ],
+        }
+
+
+@contextlib.contextmanager
+def maybe_sample(folded_env: str = "RSDL_PROFILE_FOLDED"
+                 ) -> Iterator[Optional[SamplingProfiler]]:
+    """Profile the block iff profiling is switched on: the ``profiler``
+    policy key (``RSDL_PROFILER=1``) or a folded-output path in
+    ``RSDL_PROFILE_FOLDED``. Yields the profiler (or None when off);
+    on exit writes the folded stacks when a path was given."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import policy
+    folded_path = os.environ.get(folded_env) or None
+    if not folded_path and not policy.resolve("telemetry", "profiler"):
+        yield None
+        return
+    profiler = SamplingProfiler()
+    profiler.start()
+    try:
+        yield profiler
+    finally:
+        profiler.stop()
+        if folded_path:
+            try:
+                profiler.write_folded(folded_path)
+                logger.info("sampling profile: %d samples -> %s",
+                            profiler.samples, folded_path)
+            except OSError:
+                logger.exception("folded-stack write failed")

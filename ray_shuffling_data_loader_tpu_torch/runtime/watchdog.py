@@ -1,5 +1,5 @@
-"""Deadline watchdog for blocking pipeline steps (own copy of the JAX
-package's ``runtime/watchdog.py``, without its periodic callbacks).
+"""Deadline watchdog for blocking pipeline steps and the host's periodic
+callbacks (own copy of the JAX package's ``runtime/watchdog.py``).
 
 A thread blocked in a wedged host-to-device copy cannot be interrupted,
 so the cure is supervision: the step registers a *watch* around its
@@ -11,8 +11,13 @@ when the stall outlives a second deadline, and runs the step's
 ``on_stall`` hook (the device binding's drops it to per-batch copies). When the call
 returns, the step reads ``handle.stalled`` and goes on degraded.
 
+The same monitor thread runs registered *periodic* callbacks
+(:meth:`Watchdog.every`): the history ring's tick and, through its
+listeners, the health detectors ride it instead of a thread each.
+
 One process-wide instance (:func:`get_watchdog`) supervises every step;
-its monitor parks on a condition while no watch is active.
+its monitor parks on a condition while it has neither a watch nor a
+periodic.
 """
 
 from __future__ import annotations
@@ -78,15 +83,38 @@ class WatchHandle:
             return f"<detail failed: {e}>"
 
 
+class PeriodicHandle:
+    """One registered periodic callback run by the monitor thread."""
+
+    __slots__ = ("name", "interval_s", "fn", "next_due")
+
+    def __init__(self, name: str, interval_s: float, fn: Callable[[], None]):
+        self.name = name
+        # The floor keeps a zero or negative interval from busy-looping
+        # the one monitor thread every subsystem shares.
+        self.interval_s = max(0.01, float(interval_s))
+        self.fn = fn
+        self.next_due = time.monotonic() + self.interval_s
+
+
 class Watchdog:
     """Deadline monitor: one daemon thread supervising all active
-    watches."""
+    watches and running the registered periodics."""
 
     def __init__(self, poll_interval_s: float = 0.05):
         self.poll_interval_s = poll_interval_s
         self._cond = threading.Condition()
         self._watches: "set[WatchHandle]" = set()
+        self._periodics: "set[PeriodicHandle]" = set()
         self._thread: Optional[threading.Thread] = None
+
+    def _ensure_thread_locked(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._monitor, daemon=True,
+                name="rsdl-torch-watchdog")
+            self._thread.start()
+        self._cond.notify_all()
 
     @contextlib.contextmanager
     def watch(self, name: str, deadline_s: float,
@@ -101,25 +129,37 @@ class Watchdog:
         handle = WatchHandle(name, deadline_s, on_stall, detail_fn)
         with self._cond:
             self._watches.add(handle)
-            if self._thread is None or not self._thread.is_alive():
-                self._thread = threading.Thread(
-                    target=self._monitor, daemon=True,
-                    name="rsdl-torch-watchdog")
-                self._thread.start()
-            self._cond.notify_all()
+            self._ensure_thread_locked()
         try:
             yield handle
         finally:
             with self._cond:
                 self._watches.discard(handle)
 
+    def every(self, interval_s: float, fn: Callable[[], None],
+              name: str = "periodic") -> PeriodicHandle:
+        """Run ``fn`` on the monitor thread every ``interval_s`` seconds
+        until :meth:`cancel`, with or without active watches. ``fn``
+        must be brief; one that raises is logged and keeps its
+        schedule."""
+        handle = PeriodicHandle(name, interval_s, fn)
+        with self._cond:
+            self._periodics.add(handle)
+            self._ensure_thread_locked()
+        return handle
+
+    def cancel(self, handle: PeriodicHandle) -> None:
+        with self._cond:
+            self._periodics.discard(handle)
+
     def _monitor(self) -> None:
         from ray_shuffling_data_loader_tpu_torch import stats as stats_mod
         while True:
             with self._cond:
-                if not self._watches:
-                    # Idle park; watch() notifies. Bounded only so a
-                    # torn-down interpreter lets the daemon cycle out.
+                if not self._watches and not self._periodics:
+                    # Idle park; watch() and every() notify. Bounded only
+                    # so a torn-down interpreter lets the daemon cycle
+                    # out.
                     self._cond.wait(timeout=5.0)
                     continue
                 now = time.monotonic()
@@ -130,11 +170,30 @@ class Watchdog:
                         w.escalations += 1
                         w.stalled = True
                         due.append((w, waited, w.escalations))
-                if not due:
-                    self._cond.wait(timeout=self.poll_interval_s)
+                due_periodics = []
+                for p in self._periodics:
+                    if now >= p.next_due:
+                        p.next_due = now + p.interval_s
+                        due_periodics.append(p)
+                if not due and not due_periodics:
+                    # Sleep to the earlier of the watch poll and the next
+                    # periodic's due time.
+                    if self._watches:
+                        timeout = self.poll_interval_s
+                    else:
+                        timeout = min(5.0, max(
+                            0.005,
+                            min(p.next_due for p in self._periodics) - now))
+                    self._cond.wait(timeout=timeout)
                     continue
-            # Reports, logs and hooks run OUTSIDE the lock: a hook that
-            # takes its subsystem's locks must not deadlock new watchers.
+            # Reports, logs, hooks and periodics run OUTSIDE the lock: a
+            # callback that takes its subsystem's locks must not deadlock
+            # new watchers.
+            for p in due_periodics:
+                try:
+                    p.fn()
+                except Exception:  # noqa: BLE001 - supervision survives
+                    logger.exception("watchdog periodic %s failed", p.name)
             for w, waited, escalation in due:
                 report = StallReport(
                     name=w.name, waited_s=waited, deadline_s=w.deadline_s,

@@ -133,7 +133,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert len(names) >= 15, names\n"
         "for name in ('multiqueue_service', 'runtime.supervisor', "
         "'streaming.source', 'streaming.window', 'streaming.runner', "
-        "'tenancy', 'tenancy.fairshare', 'tenancy.admission'):\n"
+        "'tenancy', 'tenancy.fairshare', 'tenancy.admission', "
+        "'runtime.history', 'runtime.health', 'runtime.profiler'):\n"
         "    assert port.__name__ + '.' + name in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
