@@ -63,12 +63,26 @@ printing one JSON line:
    ``lease_churn`` and ``straggler_drift`` (the history ring on the
    watchdog at the default 1 s), inside ``runtime.profiler.maybe_sample()``
    (folded stacks into a temporary ``RSDL_PROFILE_FOLDED``); the line's
-   ``health`` carries the ring's ticks and each detector's fires (a
+   ``health`` carries the ring's ticks, its longest gap between
+   snapshots and each gap over 1.5 intervals, and each detector's fires (a
    fire's detail and capsule are evidence, not a failure) and its
    ``profiler`` the samples, the top stages billed and CPU seconds by
    thread. Fails if the ring ticked fewer times than the phase's seconds
    allow, less 2.
-5. ``telemetry``: the ``train`` phase's DLRM run (its files, the process
+5. ``torch_binding``: the port's Torch binding (``torch_dataset.
+   TorchShufflingDataset``) as a reference-style trainer uses it, over the
+   ``train`` phase's files with its epochs, batch, reducers and seed and
+   the ``mlperf`` column spec (int32 features, f32 labels, cast per batch
+   on the host; ``train`` casts at map time): each CPU batch goes
+   ``.to("cuda")`` into a fresh DLRM ``mlperf`` (weights from seed 0),
+   one micro-step per 2048 rows. Fails unless every batch's digest equals
+   ``train``'s at its position, the rows per epoch equal ``train``'s, the
+   losses are finite, there is one gather launch per micro-step and the
+   first loss is within ``ENGINE_LOSS_RTOL`` of ``train``'s. Prints
+   rows/s, ``stall_pct``, the fill, the step ms, the host-to-device copy
+   ms per loader batch and its rows/s over ``train``'s (what the host
+   binding costs against the bulk device binding).
+6. ``telemetry``: the ``train`` phase's DLRM run (its files, the process
    pool of 8, the bulk binding, 2 epochs, Adam) in two turns in this call:
    (a) ``RSDL_TELEMETRY=0``, (b) the default (recording on) with
    ``RSDL_TELEMETRY_DIR`` and ``RSDL_TRACE_DIR`` in a temporary directory.
@@ -90,7 +104,7 @@ printing one JSON line:
    in the workers' dumps, ``batch_wait`` for each batch, a shard from
    every worker and a verdict for each epoch. Every loader phase also
    prints its epochs' verdicts (``"verdicts"``).
-6. ``ops``: the JAX dry run's ops scene on the card. A process pool of 2
+7. ``ops``: the JAX dry run's ops scene on the card. A process pool of 2
    (``RSDL_EXECUTOR_BACKEND=process``, ``RSDL_TRACE_DIR`` and
    ``RSDL_TELEMETRY_DIR`` in a temporary directory) shuffles the first 2
    ``train`` files (500,000 rows) for 3 epochs into a fresh DLRM
@@ -109,7 +123,7 @@ printing one JSON line:
    per micro-step; finite losses. Prints the gate's wait, the fire's
    tick and detail, the capsule's pids and files and the phase's
    seconds.
-7. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
+8. ``attention``: the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the card, in bf16, within 2e-2 (atol and
    rtol; the kernels round P and dS to bf16 for the tensor cores): B=32,
    H=12, S=512, D=64 with and without a key-side bias that masks keys; a
@@ -120,7 +134,7 @@ printing one JSON line:
    bound (and the share of it reached) and, as a yardstick,
    ``scaled_dot_product_attention``'s forward and backward (and each
    kernel's time over it).
-8. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
+9. ``bert``: 8,192 generated sequences of 512 tokens (vocab 30,522) in 8
    Parquet files -> seeded shuffle (8 reducers) -> ``DeviceShufflingDataset``
    (1 trainer, batch 256, 2 epochs, seed 0) -> on-device MLM masking ->
    ``bert_base()`` (bf16 compute, random weights from seed 0) with the flash
@@ -129,7 +143,7 @@ printing one JSON line:
    shuffle, the flash path's loss against the inline path's (within 1e-2
    relative: bf16 compute, the two round the scores at different places),
    and exactly 12 launches of each flash kernel per micro-step.
-9. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
+10. ``rebatch``: the two device bindings of ``DeviceShufflingDataset`` in
    turns within this call (per-batch, then bulk), each a fresh
    DLRM ``mlperf`` trained on the ``train`` phase's data for 2 epochs (bulk
    through ``device_rebatch="auto"``, the default on the card). Every
@@ -146,7 +160,7 @@ printing one JSON line:
    recover at least one copy with the same digests; (d) the ``bert``
    phase's tokens (4 batches per reducer table) in both bindings, digests
    equal, copies per epoch.
-10. ``engine``: the shuffle engine on the ``train`` phase's files in five
+11. ``engine``: the shuffle engine on the ``train`` phase's files in five
    turns, each a fresh DLRM ``mlperf`` from the same seed taking one
    micro-step on the first 2,048 rows of every loader batch (bulk
    binding, the key column loaded, the last partial batch kept). On the
@@ -170,7 +184,7 @@ printing one JSON line:
    tasks run and canceled, bytes written to disk), pool (segment-cache
    hits, respawns), spill (files, bytes, read-back seconds), ledger,
    retry and recovery counts, rows/s and wait per batch.
-11. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
+12. ``ring``: (a) the flash ring's per-hop step (``ops.ring_attention``,
    the code the process-group ring runs) walks n = 2 and n = 4 K/V chunks
    of B=32, H=12, S=512, D=64 bf16 in one process, with and without a
    masking bias: output, dq, dk, dv and dbias against whole-sequence
@@ -191,7 +205,7 @@ printing one JSON line:
    gather kernel launched once per step, the losses against
    ``train.make_micro_step``'s from the same weights within 1e-5
    relative.
-12. ``distributed``: a world of two processes on the one card, started by
+13. ``distributed``: a world of two processes on the one card, started by
    the port's launcher (``launch_slice --local``, ``RSDL_HOSTS`` on two
    free loopback ports), each a ``train_shuffle --distributed`` rank with
    its process group over gloo on CUDA tensors (NCCL refuses two ranks on
@@ -217,7 +231,7 @@ printing one JSON line:
    ranks' batches concatenated from the same weights, the later ones
    within 1e-3 (the all-reduce sums the gradients in another order);
    step ms and the all-reduce's share of it.
-13. ``elastic``: the port's elastic membership (``membership/``, the
+14. ``elastic``: the port's elastic membership (``membership/``, the
    generation-fenced transport). (a) This process's transport (host 0)
    feeds a ``FailureDetector`` (heartbeat 0.05 s, suspect 0.4 s) through
    its frame observer while a peer process (host 1, a port transport, no
@@ -241,7 +255,7 @@ printing one JSON line:
    seed 0), for the elastic and the fixed run under
    ``torch.use_deterministic_algorithms``: digests and losses equal bit
    for bit, one gather launch per micro-step.
-14. ``serving``: the queue service (``multiqueue_service``,
+15. ``serving``: the queue service (``multiqueue_service``,
    ``runtime.supervisor``). The ``train`` phase's pipeline (its files, 8
    reducers, seed 0, 2 epochs, the process pool, the DLRM spec's map-time
    cast) runs in supervised server processes (``CUDA_VISIBLE_DEVICES=""``,
@@ -307,7 +321,7 @@ printing one JSON line:
    compression ratio (the server processes' counters from their metric
    shards), ``birth_to_delivered`` p50/p99 and the card's name and power
    limit.
-15. ``stream``: the streaming plane (``streaming/``) on a drifting click
+16. ``stream``: the streaming plane (``streaming/``) on a drifting click
    stream: 16 files of 131,072 rows in the ``mlperf`` schema (seed 0;
    ``workloads.dlrm_criteo.generate_drifting_stream``), 2-file windows
    (8 windows of 262,144 rows), 8 reducers, loader batch 131,072, the key
@@ -342,7 +356,7 @@ printing one JSON line:
    and a fresh source: 8 events skipped, epochs 4-7, every key once
    across the two; the online model (``run_online_training``) over the
    first 12 files twice, the same history.
-16. ``tenancy``: two tenants on one serving plane (``tenancy/``):
+17. ``tenancy``: two tenants on one serving plane (``tenancy/``):
    ``hot`` (interactive, weight 3, rank 0) and ``cold`` (batch, weight
    1, rank 1), after the JAX bench's tenancy leg. (a) The ``train``
    phase's first 2 files shuffled to 128 reducers for 3 epochs and
@@ -387,7 +401,7 @@ printing one JSON line:
    where hot's 2 files still hit after cold scans 6 (every eviction
    charged to cold; the same without quotas beside it) and a cold
    ``PrefetchManager`` throttled by its one-file prefetch quota.
-17. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
+18. ``resnet``: 4,096 generated 224x224 RGB PNGs (1,000 classes) in 8
    Parquet files -> seeded shuffle of the encoded bytes (8 reducers, each
    decoding its rows with the ``env`` line's decoder) ->
    ``DeviceShufflingDataset`` (1 trainer, batch 512, 2 epochs, seed 0),
@@ -398,7 +412,7 @@ printing one JSON line:
    the same reducer rows, and that no port kernel is launched (the
    convolutions are cuDNN's). Reports images/s, ``stall_pct``, the
    reducers' decode rate, the peak device memory and a 5-step profile.
-18. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
+19. ``resume``: on ResNet-50 (the ``resnet`` phase's shards) and on
    ``bert_base()`` with the flash kernels (1,024 generated sequences): 4
    loader batches uninterrupted, against 2 batches, a save
    (``checkpoint.TrainStateCheckpointer``: model, optimizer, the mask
@@ -409,7 +423,7 @@ printing one JSON line:
    parameters within 1e-3 of their largest magnitude, whether they are
    equal bit for bit, the save and restore times and bytes, and 12
    launches of each flash kernel per BERT micro-step.
-19. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
+20. ``tp``: tensor parallelism (``parallel.tp``, ``SpmdTrainer`` with
    ``param_specs``) on a ``("data", "model")`` mesh of (1, 2): two
    processes of this script (``--tp-rank``) on the one card, gloo on CUDA
    tensors. First, here, the kernels at the shapes the ranks give them:
@@ -1923,8 +1937,9 @@ def armed_train_phase(emb, files, gen_s: float, tmp: str) -> dict:
     the pool's workers, into ``tmp``); then ``disarm`` and
     ``wait_captures``. Fails if
     the ring ticked fewer times than the phase's seconds over
-    ``history_interval_s`` allow, less 2. A fire is reported with its
-    capsule and detail, as evidence."""
+    ``history_interval_s`` allow, less 2; the gaps between snapshots
+    over 1.5 intervals say where it ran late. A fire is reported with
+    its capsule and detail, as evidence."""
     from ray_shuffling_data_loader_tpu_torch.runtime import health, profiler
 
     incidents = os.path.join(tmp, "incidents")
@@ -1935,6 +1950,7 @@ def armed_train_phase(emb, files, gen_s: float, tmp: str) -> dict:
         raise AssertionError("train: the health plane refused to arm "
                              "(RSDL_HEALTH=0?)")
     start = timeit.default_timer()
+    armed_at = time.monotonic()
     try:
         with _env(RSDL_PROFILE_FOLDED=folded,
                   RSDL_TELEMETRY_DUMP_DIR=tmp), \
@@ -1946,16 +1962,24 @@ def armed_train_phase(emb, files, gen_s: float, tmp: str) -> dict:
         capsules = finished.wait_captures(timeout_s=15.0)
     summary = finished.summary()
     ticks = finished.ring.ticks
-    floor = int(wall / finished.ring.interval_s) - 2
+    interval = finished.ring.interval_s
+    # Where the ring ran late: each gap between snapshots over 1.5
+    # intervals, as (seconds after the phase's start, gap).
+    stamps = [snap["t"] for snap in finished.ring.snapshots()]
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    late = [(round(b - armed_at, 3), round(b - a, 3))
+            for a, b in zip(stamps, stamps[1:]) if b - a > 1.5 * interval]
+    floor = int(wall / interval) - 2
     if ticks < floor:
         raise AssertionError(f"train: the history ring took {ticks} ticks "
-                             f"in {wall:.1f} s at "
-                             f"{finished.ring.interval_s} s, fewer than "
-                             f"{floor}")
+                             f"in {wall:.1f} s at {interval} s, fewer than "
+                             f"{floor}; late ticks (s after start, gap s): "
+                             f"{late}")
     prof_summary = prof.summary()
     trained["health"] = {
         "detectors": list(ARMED_DETECTORS), "ticks": ticks,
-        "interval_s": finished.ring.interval_s, "armed_s": wall,
+        "interval_s": interval, "armed_s": wall,
+        "max_tick_gap_s": max(gaps, default=None), "late_ticks": late,
         "fires": {name: d["fires"]
                   for name, d in summary["detectors"].items()},
         "fired": {name: d["last"]["detail"]
@@ -1971,6 +1995,123 @@ def armed_train_phase(emb, files, gen_s: float, tmp: str) -> dict:
         "threads_by_samples": prof_summary["threads_by_samples"],
         "cpu_s_by_thread": prof_summary["cpu_s_by_thread"]}
     return trained
+
+
+def _torch_binding_turn(emb, files, epochs: int):
+    """DLRM ``mlperf`` (a fresh model, seed 0) trained over ``epochs``
+    through the Torch binding as a reference-style trainer uses it: CPU
+    ``(List[Tensor], Tensor)`` batches from ``TorchShufflingDataset``
+    (int32 features and f32 labels cast per batch; the last partial
+    batch dropped, as the device binding drops it), each moved with
+    ``.to("cuda")``, one micro-step per ``MICROBATCH`` rows; one gather
+    launch per micro-step (the count set to 0 just before, read just
+    after). Returns the turn's line, its batch digests and its losses."""
+    from ray_shuffling_data_loader_tpu_torch import device_dataset, train
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.torch_dataset import (
+        TorchShufflingDataset)
+    from ray_shuffling_data_loader_tpu_torch.workloads import dlrm_criteo
+
+    torch.cuda.empty_cache()
+    spec = dlrm_criteo.dlrm_spec()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    fresh_telemetry()
+    digests, losses, chunk_ms, copy_ms, waits = [], [], [], [], []
+    rows_per_epoch = []
+    emb.reset_launch_counts()
+    t_start = timeit.default_timer()
+    ds = TorchShufflingDataset(
+        files, epochs, 1, LOADER_BATCH, 0,
+        feature_columns=spec["feature_columns"],
+        feature_types=[torch.int32] * len(spec["feature_columns"]),
+        label_column=spec["label_column"], label_type=torch.float32,
+        drop_last=True, num_reducers=NUM_REDUCERS, seed=SEED,
+        queue_name="smoke-torch-binding")
+    t_first = None
+    for epoch in range(epochs):
+        ds.set_epoch(epoch)
+        rows = 0
+        batches = iter(ds)
+        while True:
+            t_ask = timeit.default_timer()
+            try:
+                features, label = next(batches)
+            except StopIteration:
+                break
+            t_got = timeit.default_timer()
+            if t_first is None:
+                t_first = t_got
+            else:
+                waits.append(t_got - t_ask)
+            features = [f.to("cuda") for f in features]
+            label = label.to("cuda")
+            torch.cuda.synchronize()
+            copy_ms.append((timeit.default_timer() - t_got) * 1e3)
+            digests.append(device_dataset.batch_digest(features, label))
+            t0 = timeit.default_timer()
+            losses.append(train.train_chunk(micro_step, features, label,
+                                            MICROBATCH))
+            torch.cuda.synchronize()
+            chunk_ms.append((timeit.default_timer() - t0) * 1e3)
+            rows += label.shape[0]
+        rows_per_epoch.append(rows)
+    t_end = timeit.default_timer()
+    launches = emb.launch_counts["gather_rows"]
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("torch binding: non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"torch binding: {launches} gather launches "
+                             f"in {all_losses.numel()} micro-steps")
+    wall = t_end - t_first
+    del model, micro_step
+    return {
+        "binding": "torch (host batches, .to('cuda'))",
+        "verdicts": epoch_verdicts(epochs),
+        "rows_per_epoch": rows_per_epoch,
+        "rows_per_s": sum(rows_per_epoch) / wall,
+        "stall_pct": 100.0 * sum(waits) / wall,
+        "step_ms_median": float(np.median(chunk_ms)) / (LOADER_BATCH
+                                                        // MICROBATCH),
+        "fill_s": t_first - t_start,
+        "h2d_copy_ms_per_batch": {
+            "median": float(np.median(copy_ms)),
+            "max": float(np.max(copy_ms)),
+            "bytes": sum(f.numel() * f.element_size() for f in features)
+            + label.numel() * label.element_size()},
+        "batches": len(digests),
+        "micro_steps": int(all_losses.numel()),
+        "gather_launches": launches,
+        "wall_s": t_end - t_start,
+    }, torch.stack(digests).cpu(), all_losses
+
+
+def torch_binding_phase(emb, files, trained: dict) -> dict:
+    """:func:`_torch_binding_turn` over the ``train`` files for
+    ``NUM_EPOCHS``, held against ``trained``: each batch's digest, the
+    rows per epoch and the first loss (within ``ENGINE_LOSS_RTOL``); its
+    rows/s over ``train``'s is what host batches cost against the bulk
+    device binding (with the step's drift between the two runs)."""
+    line, digests, losses = _torch_binding_turn(emb, files, NUM_EPOCHS)
+    _same_digests("torch_binding", digests, trained["digests"])
+    if line["rows_per_epoch"] != trained["rows_per_epoch"]:
+        raise AssertionError(f"torch_binding: rows per epoch "
+                             f"{line['rows_per_epoch']}, train's "
+                             f"{trained['rows_per_epoch']}")
+    first = float(losses[0])
+    rel = abs(first - trained["first_loss"]) / abs(trained["first_loss"])
+    if rel > ENGINE_LOSS_RTOL:
+        raise AssertionError(f"torch_binding: first loss {first} vs the "
+                             f"train phase's {trained['first_loss']}")
+    return {**line,
+            "rows_per_s_over_train": line["rows_per_s"]
+            / trained["rows_per_s"],
+            "train_step_ms_median": trained["step_ms_median"],
+            "first_loss": first, "first_loss_rel_diff": rel,
+            "digests_equal": True}
 
 
 def _ops_specs(files, ring, gate: dict):
@@ -6632,6 +6773,9 @@ def main() -> int:
         emit({"phase": "train", "card": smi,
               **{k: v for k, v in trained.items() if k != "digests"}})
 
+        binding_run = torch_binding_phase(emb, dlrm_paths, trained)
+        emit({"phase": "torch_binding", "card": smi, **binding_run})
+
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tel-") as tmp:
             tel = telemetry_phase(emb, dlrm_paths, trained, tmp)
         emit({"phase": "telemetry", "card": smi, **tel})
@@ -6703,11 +6847,13 @@ def main() -> int:
         "source": "ray_shuffling_data_loader_tpu_torch/kernels/gather.cu",
         "replaces": "ray_shuffling_data_loader_tpu/ops/embedding.py:64",
         "launches": (trained["gather_launches"]
+                     + binding_run["gather_launches"]
                      + stream_run["gather_launches"]
                      + tenancy_run["gather_launches"]
                      + ops_run["gather_launches"]),
         "launches_by_path": {
             "train": trained["gather_launches"],
+            "torch_binding": binding_run["gather_launches"],
             "stream": stream_run["gather_launches_by_turn"]["a"],
             "stream_served": stream_run["gather_launches_by_turn"]["b"],
             "tenancy": tenancy_run["gather_launches"],

@@ -1,0 +1,205 @@
+"""Hot-path copy-discipline rules.
+
+The shuffle's throughput story is built on zero-copy Arrow handoff: map
+outputs are index plans over mmap-able tables, the fused reduce gathers
+straight from source buffers, and the process backend hands whole tables
+across processes as shared-memory segments. One careless conversion in a
+hot path silently re-materializes the very bytes the design avoids
+copying — and the regression shows up only as a throughput drift nobody
+can attribute.
+
+``copy-in-hot-path`` pins the discipline in the hot-path modules
+(``Config.hot_path_globs``: ``shuffle.py``, ``dataset.py``,
+``device_dataset.py``):
+
+- ``.astype(...)`` without ``copy=False`` — NumPy copies even when the
+  dtype already matches; ``copy=False`` makes the no-op case free and
+  documents that a copy is conditional, not assumed.
+- ``.to_numpy(zero_copy_only=False)`` — permission to copy on every
+  call. Legitimate only at the blessed conversion sites whose results
+  are cached (``_table_numpy_columns`` behind ``MapShard``'s per-shard
+  cache, the device-conversion boundary in ``device_dataset``); those carry
+  a pragma with their justification.
+- ``.combine_chunks()`` — concatenates every chunk into fresh buffers.
+  Blessed only where the copy is paid ONCE and amortized (the decode
+  path right before a table enters a cross-epoch cache); per-call sites
+  must operate on the chunked form instead.
+
+``sendall-in-loop`` pins the wire-syscall discipline that made the
+sendmsg scatter-gather path worth building: a ``.sendall`` call inside a
+``for`` loop writes one syscall per buffer, when the loop is almost
+always walking a collection of frames/chunks that could gather into a
+single ``sendmsg`` (``multiqueue_service._sendmsg_all``). ``while``
+protocol loops (heartbeats, request/response) are deliberately excused —
+one logical message per iteration is not a gatherable batch. The legacy
+sequential arm kept for ``RSDL_QUEUE_SENDMSG=0`` carries pragmas: it IS
+the fallback the rule exists to keep rare.
+
+Escape hatch: ``# rsdl-lint: disable=copy-in-hot-path`` on the line (or
+the line above), with the justification in prose next to it — the
+pragma IS the blessing mechanism.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterator, Optional
+
+from ray_shuffling_data_loader_tpu_torch.analysis.core import (
+    FileContext, Rule, Violation, get_keyword, is_constant, register)
+
+
+@register
+class CopyInHotPathRule(Rule):
+    id = "copy-in-hot-path"
+    category = "perf"
+    description = ("flag copying conversions (.astype without copy=False, "
+                   ".to_numpy(zero_copy_only=False), .combine_chunks()) in "
+                   "the shuffle/dataset hot-path modules outside blessed "
+                   "cached sites")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        if not ctx.path_matches(ctx.config.hot_path_globs):
+            return
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)):
+                continue
+            method = node.func.attr
+            if method == "astype":
+                copy_kw = get_keyword(node, "copy")
+                if not is_constant(copy_kw, False):
+                    yield ctx.violation(
+                        self, node,
+                        "hot-path .astype() without copy=False copies even "
+                        "when the dtype already matches; pass copy=False "
+                        "(or bless the site with a pragma + justification)")
+            elif method == "to_numpy":
+                zco = get_keyword(node, "zero_copy_only")
+                if is_constant(zco, False):
+                    yield ctx.violation(
+                        self, node,
+                        "hot-path to_numpy(zero_copy_only=False) permits a "
+                        "copy on every call; only blessed cached conversion "
+                        "sites may carry it (pragma + justification)")
+            elif method == "combine_chunks" and not node.args \
+                    and not node.keywords:
+                yield ctx.violation(
+                    self, node,
+                    "hot-path combine_chunks() concatenates every chunk "
+                    "into fresh buffers; bless only once-per-cache-entry "
+                    "sites (pragma + justification) — per-call sites must "
+                    "stay chunked")
+
+
+@register
+class SendallInLoopRule(Rule):
+    id = "sendall-in-loop"
+    category = "perf"
+    description = ("flag `.sendall(...)` inside a for loop — one syscall "
+                   "per buffer where a sendmsg scatter-gather batch would "
+                   "write the whole collection in one; while-loop protocol "
+                   "exchanges are excused")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        seen = set()
+        for loop in ast.walk(tree):
+            if not isinstance(loop, ast.For):
+                continue
+            for node in ast.walk(loop):
+                if (isinstance(node, ast.Call)
+                        and isinstance(node.func, ast.Attribute)
+                        and node.func.attr == "sendall"
+                        and id(node) not in seen):
+                    seen.add(id(node))
+                    yield ctx.violation(
+                        self, node,
+                        "`.sendall` inside a for loop pays one syscall per "
+                        "buffer; gather the iteration's buffers and write "
+                        "them with one scatter-gather sendmsg "
+                        "(multiqueue_service._sendmsg_all), or bless a "
+                        "deliberate sequential fallback with a pragma + "
+                        "justification")
+
+
+def _is_bytes_init(value: ast.expr) -> bool:
+    """``b"..."`` literal, or a ``bytes(...)`` call — the accumulator
+    shapes that make ``buf += chunk`` provably a bytes concatenation."""
+    if isinstance(value, ast.Constant) and isinstance(value.value, bytes):
+        return True
+    return (isinstance(value, ast.Call)
+            and isinstance(value.func, ast.Name)
+            and value.func.id == "bytes")
+
+
+@register
+class BytesConcatInLoopRule(Rule):
+    id = "bytes-concat-in-loop"
+    category = "perf"
+    description = ("flag `buf += chunk` / `buf = buf + chunk` inside a "
+                   "loop when buf was initialized from a bytes literal "
+                   "or bytes() — quadratic on large frames; accumulate "
+                   "into a bytearray or collect chunks and b\"\".join")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        scopes = [tree] + [n for n in ast.walk(tree)
+                           if isinstance(n, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef))]
+        for scope in scopes:
+            # Accumulators PROVABLY bytes: assigned from a bytes literal
+            # or bytes() anywhere in this scope (not a nested function).
+            bytes_vars = set()
+            for node in self._scope_walk(scope):
+                if isinstance(node, ast.Assign) \
+                        and _is_bytes_init(node.value):
+                    for target in node.targets:
+                        if isinstance(target, ast.Name):
+                            bytes_vars.add(target.id)
+            if not bytes_vars:
+                continue
+            for loop in self._scope_walk(scope):
+                if not isinstance(loop, (ast.For, ast.While)):
+                    continue
+                for node in ast.walk(loop):
+                    name = self._concat_target(node)
+                    if name in bytes_vars:
+                        yield ctx.violation(
+                            self, node,
+                            f"`{name} += chunk` on a bytes accumulator "
+                            "inside a loop re-copies every byte "
+                            "accumulated so far (quadratic on large "
+                            "frames); accumulate into a bytearray, or "
+                            "collect chunks in a list and b\"\".join "
+                            "once")
+
+    @staticmethod
+    def _scope_walk(scope: ast.AST) -> Iterator[ast.AST]:
+        """ast.walk that does not descend into nested function scopes
+        (their accumulators are their own scope's business)."""
+        stack = list(ast.iter_child_nodes(scope))
+        while stack:
+            node = stack.pop()
+            yield node
+            if not isinstance(node, (ast.FunctionDef,
+                                     ast.AsyncFunctionDef, ast.Lambda)):
+                stack.extend(ast.iter_child_nodes(node))
+
+    @staticmethod
+    def _concat_target(node: ast.AST) -> Optional[str]:
+        """The accumulator name of ``x += y`` / ``x = x + y`` (Add only),
+        else None."""
+        if isinstance(node, ast.AugAssign) and isinstance(node.op, ast.Add) \
+                and isinstance(node.target, ast.Name):
+            return node.target.id
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and isinstance(node.value, ast.BinOp) \
+                and isinstance(node.value.op, ast.Add):
+            name = node.targets[0].id
+            for operand in (node.value.left, node.value.right):
+                if isinstance(operand, ast.Name) and operand.id == name:
+                    return name
+        return None

@@ -1,0 +1,253 @@
+"""Runtime liveness/flow-control rules.
+
+The epoch-launch budget wait once flushed cycle-stuck table wrappers by
+calling ``gc.collect()`` every second inside its poll loop. That pattern
+is now structurally banned: releases are event-driven
+(``runtime/release.py`` — the ledger notifies waiters on every decref),
+and a ``gc.collect()`` inside a wait/poll loop is both a symptom (some
+path still leaks frees through reference cycles instead of breaking
+them) and a cost (a full-heap cycle collection per poll tick,
+process-wide, while holding up the very pipeline it's trying to help).
+
+Same story for ad-hoc retry loops (``unbounded-retry``): the repo
+accumulated four independent retry idioms before ``runtime/retry.py``
+unified them; a ``while True`` retry loop has no attempt budget and no
+deadline (a permanently-failing resource hangs the pipeline forever),
+and a fixed-interval ``time.sleep(N)`` retry re-hits a recovering
+resource in lockstep with every other retrier. Both shapes must route
+through :class:`runtime.retry.RetryPolicy` (bounded attempts,
+decorrelated jitter, deadline, fault-stats accounting).
+
+``socket-op-no-timeout`` guards the cross-process plane: a blocking
+``recv``/``accept``/``connect`` on a socket with no timeout configured
+waits forever on a wedged peer — past the watchdog, past the lease
+sweeper, unkillable except by process death. Every socket must either
+be created with a timeout (``create_connection(addr, timeout=...)``)
+or have ``settimeout`` called on it; ``settimeout(None)`` counts as
+configured — an *explicit* infinite wait is a reviewed decision, the
+silent default is the bug (PR-5 satellite: queue timeouts now resolve
+through ``RSDL_QUEUE_TIMEOUT``).
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterator, Set
+
+from ray_shuffling_data_loader_tpu_torch.analysis.core import (
+    FileContext, Rule, Violation, dotted_name, register)
+
+#: Call tails that mark a `for` loop as a wait/poll loop (any `while`
+#: loop qualifies by itself: re-checking a condition is what it does).
+_WAIT_TAILS = {"sleep", "wait", "wait_for_release", "wait_while"}
+
+
+def _gc_collect_names(tree: ast.Module) -> Set[str]:
+    """Names that resolve to ``gc.collect`` in this module: dotted forms
+    for ``import gc`` / ``import gc as _gc``, plus bare names bound by
+    ``from gc import collect [as name]``."""
+    names: Set[str] = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.name == "gc":
+                    names.add(f"{alias.asname or alias.name}.collect")
+        elif isinstance(node, ast.ImportFrom) and node.module == "gc":
+            for alias in node.names:
+                if alias.name == "collect":
+                    names.add(alias.asname or alias.name)
+    return names
+
+
+def _is_wait_loop(loop: ast.AST) -> bool:
+    if isinstance(loop, ast.While):
+        return True
+    for node in ast.walk(loop):
+        if isinstance(node, ast.Call):
+            tail = dotted_name(node.func).rsplit(".", 1)[-1]
+            if tail in _WAIT_TAILS:
+                return True
+    return False
+
+
+@register
+class GcCollectInWaitRule(Rule):
+    id = "gc-collect-in-wait"
+    category = "runtime"
+    description = ("`gc.collect()` inside a wait/poll loop — releases are "
+                   "event-driven (runtime/release.py); break the reference "
+                   "cycle at its source instead of sweeping the whole heap "
+                   "per poll tick")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        collect_names = _gc_collect_names(tree)
+        # `import gc` inside a function body is also common; cover the
+        # canonical dotted form even without a visible top-level import.
+        collect_names.add("gc.collect")
+        seen: Set[int] = set()
+        for loop in ast.walk(tree):
+            if not isinstance(loop, (ast.While, ast.For, ast.AsyncFor)):
+                continue
+            if not _is_wait_loop(loop):
+                continue
+            for node in ast.walk(loop):
+                if not isinstance(node, ast.Call) or id(node) in seen:
+                    continue
+                if dotted_name(node.func) in collect_names:
+                    seen.add(id(node))
+                    yield ctx.violation(
+                        self, node,
+                        "`gc.collect()` inside a wait/poll loop flushes "
+                        "cycle-stuck frees by sweeping the whole heap every "
+                        "tick; releases are event-driven — wake on "
+                        "runtime.release events and break the reference "
+                        "cycle that delays the free at its source")
+
+
+def _is_while_true(loop: ast.AST) -> bool:
+    return (isinstance(loop, ast.While)
+            and isinstance(loop.test, ast.Constant)
+            and loop.test.value is True)
+
+
+def _sleep_calls(loop: ast.AST):
+    for node in ast.walk(loop):
+        if isinstance(node, ast.Call) \
+                and dotted_name(node.func).rsplit(".", 1)[-1] == "sleep":
+            yield node
+
+
+def _is_retry_loop(loop: ast.AST) -> bool:
+    """A loop whose body is a try whose except handler STAYS in the loop
+    (re-attempting the failed work). A handler that exits — ``return``,
+    ``raise``, ``break`` — is failure propagation, not a retry; a try
+    buried inside nested statements is stream processing (e.g. a monitor
+    servicing many watches), not a retried operation."""
+    for stmt in loop.body:
+        if not isinstance(stmt, ast.Try):
+            continue
+        for handler in stmt.handlers:
+            last = handler.body[-1] if handler.body else None
+            if not isinstance(last, (ast.Return, ast.Raise, ast.Break)):
+                return True
+    return False
+
+
+@register
+class UnboundedRetryRule(Rule):
+    id = "unbounded-retry"
+    category = "runtime"
+    description = ("`while True` retry loops and fixed-interval "
+                   "`time.sleep(N)` retry loops — retries must route "
+                   "through runtime.retry.RetryPolicy (bounded attempts, "
+                   "decorrelated jitter, deadline)")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        # RetryPolicy's own engine is the one sanctioned retry loop.
+        if ctx.path.endswith("runtime/retry.py"):
+            return
+        for loop in ast.walk(tree):
+            if not isinstance(loop, (ast.While, ast.For, ast.AsyncFor)):
+                continue
+            if not _is_retry_loop(loop):
+                continue  # no failure absorbed in-loop: not a retry
+            if _is_while_true(loop):
+                yield ctx.violation(
+                    self, loop,
+                    "`while True` retry loop has no attempt budget or "
+                    "deadline — a permanently-failing resource hangs here "
+                    "forever; route the call through "
+                    "runtime.retry.RetryPolicy")
+                continue
+            for call in _sleep_calls(loop):
+                if call.args and isinstance(call.args[0], ast.Constant):
+                    yield ctx.violation(
+                        self, call,
+                        "fixed-interval sleep in a retry loop re-hits a "
+                        "recovering resource in lockstep with every other "
+                        "retrier; use runtime.retry.RetryPolicy "
+                        "(exponential backoff with decorrelated jitter)")
+
+
+#: Socket methods that block indefinitely without a configured timeout.
+_BLOCKING_SOCKET_OPS = {"recv", "recv_into", "recvfrom", "accept",
+                        "connect"}
+#: Constructors whose result is a socket object.
+_SOCKET_CONSTRUCTORS = {"socket.socket", "socket.create_connection"}
+
+
+def _call_has_timeout(call: ast.Call) -> bool:
+    """``create_connection(addr, timeout)`` / ``timeout=`` counts as a
+    timeout configured at construction."""
+    if any(kw.arg == "timeout" for kw in call.keywords):
+        return True
+    tail = dotted_name(call.func).rsplit(".", 1)[-1]
+    return tail == "create_connection" and len(call.args) >= 2
+
+
+def _target_names(target: ast.AST):
+    """Dotted names bound by an assignment target (plain or the first
+    element of a tuple unpack — ``conn, peer = listener.accept()``)."""
+    if isinstance(target, (ast.Name, ast.Attribute)):
+        name = dotted_name(target)
+        if "?" not in name:
+            yield name
+    elif isinstance(target, (ast.Tuple, ast.List)) and target.elts:
+        yield from _target_names(target.elts[0])
+
+
+@register
+class SocketOpNoTimeoutRule(Rule):
+    id = "socket-op-no-timeout"
+    category = "runtime"
+    description = ("blocking socket `recv`/`accept`/`connect` on a socket "
+                   "with no timeout configured — waits forever on a wedged "
+                   "peer, past the watchdog and the lease sweeper; call "
+                   "`settimeout` (policy key RSDL_QUEUE_TIMEOUT for the "
+                   "queue plane) or create with `timeout=`")
+
+    def check(self, tree: ast.Module,
+              ctx: FileContext) -> Iterator[Violation]:
+        tracked: Set[str] = set()      # names known to hold sockets
+        configured: Set[str] = set()   # ... with a timeout configured
+        # Pass 1: collect socket bindings and settimeout calls (order-
+        # independent on purpose: configuration in __init__ covers ops
+        # in methods defined earlier in the class body).
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Assign) and isinstance(node.value,
+                                                           ast.Call):
+                call = node.value
+                callee = dotted_name(call.func)
+                is_ctor = callee in _SOCKET_CONSTRUCTORS
+                is_accept = callee.rsplit(".", 1)[-1] == "accept"
+                if not (is_ctor or is_accept):
+                    continue
+                for name in (n for t in node.targets
+                             for n in _target_names(t)):
+                    tracked.add(name)
+                    if is_ctor and _call_has_timeout(call):
+                        configured.add(name)
+            elif isinstance(node, ast.Call):
+                callee = dotted_name(node.func)
+                if callee.rsplit(".", 1)[-1] == "settimeout":
+                    configured.add(callee.rsplit(".settimeout", 1)[0])
+        # Pass 2: flag blocking ops on tracked-but-unconfigured names.
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            callee = dotted_name(node.func)
+            base, _, op = callee.rpartition(".")
+            if op not in _BLOCKING_SOCKET_OPS or not base:
+                continue
+            if base in tracked and base not in configured:
+                yield ctx.violation(
+                    self, node,
+                    f"blocking `{op}` on socket `{base}` with no timeout "
+                    f"configured waits forever on a wedged peer (past the "
+                    f"watchdog and the lease sweeper); call "
+                    f"`{base}.settimeout(...)` — policy-resolved, e.g. "
+                    f"RSDL_QUEUE_TIMEOUT — or construct it with "
+                    f"`timeout=`; `settimeout(None)` is accepted as an "
+                    f"explicit, reviewed infinite wait")

@@ -388,7 +388,9 @@ def resume_iterator(dataset, checkpoint: LoaderCheckpoint,
             if commit is not None:
                 commit()
 
-    for epoch in range(checkpoint.epoch, checkpoint.num_epochs):
+    from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
+    for epoch in plan_ir.epoch_range(checkpoint.epoch,
+                                     checkpoint.num_epochs):
         skip = checkpoint.batches_consumed if epoch == checkpoint.epoch else 0
         checkpoint.epoch = epoch
         dataset.set_epoch(epoch, skip_batches=skip)

@@ -66,10 +66,25 @@ class ShuffleFailure:
 
 
 def make_failure_broadcaster(queue: mq.MultiQueue):
+    """The shuffle's ``on_failure``: a :class:`ShuffleFailure` into every
+    queue. A full bounded queue has items evicted to make room (the
+    pipeline is dead, so its pending tables are worthless, and a consumer
+    that drained them would wait forever); the JAX package's rule."""
     def broadcast(error: BaseException) -> None:
+        marker = ShuffleFailure(error)
         try:
             for queue_idx in range(queue.num_queues):
-                queue.put(queue_idx, ShuffleFailure(error))
+                # Each round frees a slot, so maxsize rounds suffice; the
+                # bound covers a consumer racing the eviction.
+                for _ in range(10_000):
+                    try:
+                        queue.put(queue_idx, marker, block=False)
+                        break
+                    except mq.Full:
+                        try:
+                            queue.get(queue_idx, block=False)
+                        except mq.Empty:
+                            continue  # a consumer drained it: put again
         except mq.ShutdownError:
             pass  # every epoch was consumed: nobody is left to wake
     return broadcast
@@ -99,6 +114,7 @@ def create_batch_queue_and_shuffle(
         max_concurrent_epochs: int = 2, num_reducers: Optional[int] = None,
         seed: int = 0, map_transform=None, only_rank: Optional[int] = None,
         reduce_transform=None, start_epoch: int = 0,
+        max_batch_queue_size: int = 0, queue_name: Optional[str] = None,
         num_workers: Optional[int] = None, task_retries: int = 0,
         file_cache="auto", max_inflight_bytes: Optional[int] = None,
         spill_dir: Optional[str] = None, on_bad_file: Optional[str] = None,
@@ -107,14 +123,18 @@ def create_batch_queue_and_shuffle(
     """Create the queues and start the shuffle before any trainer exists,
     so every rank can be a pure consumer. With ``only_rank``, only that
     rank's queues are filled (the other ranks read theirs in other
-    processes). The shuffle starts at ``start_epoch`` (a resumed run).
+    processes). Each queue holds at most ``max_batch_queue_size`` reducer
+    outputs (0: unbounded; a full queue holds the shuffle back), and a
+    ``queue_name`` registers the queue for ``multiqueue.connect_queue``.
+    The shuffle starts at ``start_epoch`` (a resumed run).
     The engine's arguments go to ``shuffle.shuffle``. Returns ``(queue,
     shuffle_result)``; the result resolves to the shuffle's duration, or
     its ``TrialStats`` with ``collect_stats``."""
     if not 0 <= start_epoch <= num_epochs:
         raise ValueError(
             f"start_epoch {start_epoch} out of range [0, {num_epochs}]")
-    queue = mq.MultiQueue(num_epochs * num_trainers)
+    queue = mq.MultiQueue(num_epochs * num_trainers, max_batch_queue_size,
+                          name=queue_name)
     if num_reducers is None:
         num_reducers = default_num_reducers(num_trainers)
     consumer = (functools.partial(batch_consumer, queue, num_trainers)
@@ -164,6 +184,13 @@ class ShufflingDataset:
     ``num_epochs=None`` reads an unbounded stream (a streaming runner's
     queue, or a served window schedule): epochs go on as windows are
     sealed, so it needs a ``batch_queue`` to read from.
+
+    ``max_batch_queue_size`` bounds each queue of the shuffle this dataset
+    launches. With a ``queue_name`` (the JAX package's rule), rank 0
+    launches the shuffle for every rank into a queue registered under
+    that name, and a dataset of another rank in the same process reads
+    its queue from there (``multiqueue.connect_queue``; the engine's
+    arguments are rank 0's to give).
     """
 
     def __init__(self, filenames: Sequence[str], num_epochs: Optional[int],
@@ -174,8 +201,11 @@ class ShufflingDataset:
                  batch_queue: Optional[mq.MultiQueue] = None,
                  shuffle_result: Optional[ex.TaskRef] = None,
                  seed: int = 0, map_transform=None, reduce_transform=None,
-                 start_epoch: int = 0, **shuffle_kwargs):
-        if batch_queue is None and num_epochs is None:
+                 start_epoch: int = 0, max_batch_queue_size: int = 0,
+                 queue_name: Optional[str] = None, **shuffle_kwargs):
+        connects = (batch_queue is None and queue_name is not None
+                    and rank != 0)
+        if batch_queue is None and num_epochs is None and not connects:
             # The queues of a stream are sized by whoever produces its
             # windows; a static shuffle here would need an epoch count.
             raise ValueError(
@@ -189,12 +219,16 @@ class ShufflingDataset:
         if num_epochs is None and start_epoch < 0:
             raise ValueError(f"start_epoch {start_epoch} must be >= 0")
         self._owns_queue = False
-        if batch_queue is None:
+        if connects:
+            batch_queue, shuffle_result = mq.connect_queue(queue_name), None
+        elif batch_queue is None:
             batch_queue, shuffle_result = create_batch_queue_and_shuffle(
                 filenames, num_epochs, num_trainers, max_concurrent_epochs,
                 num_reducers, seed=seed, map_transform=map_transform,
-                only_rank=rank, reduce_transform=reduce_transform,
-                start_epoch=start_epoch, **shuffle_kwargs)
+                only_rank=None if queue_name is not None else rank,
+                reduce_transform=reduce_transform, start_epoch=start_epoch,
+                max_batch_queue_size=max_batch_queue_size,
+                queue_name=queue_name, **shuffle_kwargs)
             self._owns_queue = True
         elif shuffle_kwargs:
             raise ValueError(
@@ -374,7 +408,7 @@ def slice_batches(tables: Iterator[pa.Table], batch_size: int,
             carry_rows += take
             offset = take
             if carry_rows == batch_size:
-                yield pa.concat_tables(carry)
+                yield pa.concat_tables(carry, promote_options="permissive")
                 carry = []
                 carry_rows = 0
         while num_rows - offset >= batch_size:
@@ -384,4 +418,4 @@ def slice_batches(tables: Iterator[pa.Table], batch_size: int,
             carry.append(table.slice(offset))
             carry_rows += num_rows - offset
     if carry_rows and not drop_last:
-        yield pa.concat_tables(carry)
+        yield pa.concat_tables(carry, promote_options="permissive")

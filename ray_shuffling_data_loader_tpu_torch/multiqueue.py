@@ -1,6 +1,5 @@
 """In-process blocking queues, one per ``(epoch, rank)`` (own copy of the
-JAX package's ``multiqueue.py``, without the async ops and the by-name
-registry).
+JAX package's ``multiqueue.py``, without the async ops).
 
 Queue ``epoch * num_trainers + rank`` carries rank ``rank``'s reducer
 outputs for ``epoch`` followed by a ``None`` end-of-epoch sentinel (the
@@ -8,7 +7,10 @@ JAX package's ``plan.ir.queue_index`` contract). Each queue is a
 :class:`BoundedFifo` (``maxsize=0``: unbounded) with blocking, timed and
 non-blocking gets and puts (:class:`Empty`/:class:`Full`), all-or-nothing
 batch ops, and :meth:`MultiQueue.shutdown`, which refuses further puts
-and wakes every blocked caller with :class:`ShutdownError`. The queue
+and wakes every blocked caller with :class:`ShutdownError`. A queue
+made with a ``name`` is registered in this process until its shutdown,
+and :func:`connect_queue` finds it by that name (how the ranks of one
+process read the queue that rank 0 filled). The queue
 server (``multiqueue_service.QueueServer``) drains a queue through these
 non-blocking and timed gets.
 
@@ -26,6 +28,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from ray_shuffling_data_loader_tpu_torch.plan import ir as plan_ir
 from ray_shuffling_data_loader_tpu_torch.runtime import faults as rt_faults
 from ray_shuffling_data_loader_tpu_torch.runtime import metrics as rt_metrics
 from ray_shuffling_data_loader_tpu_torch.runtime import (
@@ -37,10 +40,15 @@ from ray_shuffling_data_loader_tpu_torch.runtime import (
 CONNECT_RETRIES = 5
 CONNECT_INITIAL_BACKOFF_S = 1.0
 
+#: This process's named queues (``MultiQueue(name=...)``).
+_REGISTRY: Dict[str, "MultiQueue"] = {}
+_REGISTRY_LOCK = threading.Lock()
+
 
 def queue_index(epoch: int, rank: int, num_trainers: int) -> int:
-    """The queue carrying ``rank``'s tables for ``epoch``."""
-    return epoch * num_trainers + rank
+    """The queue carrying ``rank``'s tables for ``epoch`` (the plan's
+    rule, ``plan.ir.queue_index``)."""
+    return plan_ir.queue_index(epoch, rank, num_trainers)
 
 
 class Empty(Exception):
@@ -152,9 +160,11 @@ class BoundedFifo:
 
 class MultiQueue:
     """``num_queues`` FIFO queues of at most ``maxsize`` items each (0:
-    unbounded); ``get`` blocks by default."""
+    unbounded); ``get`` blocks by default. With a ``name``, the queue is
+    registered for :func:`connect_queue` until its shutdown."""
 
-    def __init__(self, num_queues: int, maxsize: int = 0):
+    def __init__(self, num_queues: int, maxsize: int = 0,
+                 name: Optional[str] = None):
         if num_queues < 1:
             raise ValueError(f"num_queues must be >= 1, got {num_queues}")
         self._maxsize = maxsize
@@ -162,6 +172,12 @@ class MultiQueue:
             BoundedFifo(maxsize) for _ in range(num_queues)]
         self._closed = threading.Event()
         self._depth_gauges: Dict[int, rt_metrics.Gauge] = {}
+        self._name = name
+        if name is not None:
+            with _REGISTRY_LOCK:
+                if name in _REGISTRY:
+                    raise ValueError(f"queue name already registered: {name}")
+                _REGISTRY[name] = self
 
     @property
     def num_queues(self) -> int:
@@ -266,3 +282,26 @@ class MultiQueue:
         self._closed.set()
         for q in self._queues:
             q.close()
+        if self._name is not None:
+            with _REGISTRY_LOCK:
+                if _REGISTRY.get(self._name) is self:
+                    del _REGISTRY[self._name]
+
+
+def connect_queue(name: str, retries: int = CONNECT_RETRIES,
+                  initial_backoff_s: float = CONNECT_INITIAL_BACKOFF_S
+                  ) -> MultiQueue:
+    """The queue registered under ``name`` in this process, looked up
+    again after each of ``retries`` doubling backoffs (the JAX package's
+    schedule); ``TimeoutError`` if it never appears."""
+    backoff = initial_backoff_s
+    for attempt in range(retries + 1):
+        with _REGISTRY_LOCK:
+            queue = _REGISTRY.get(name)
+        if queue is not None:
+            return queue
+        if attempt < retries:
+            time.sleep(backoff)
+            backoff *= 2
+    raise TimeoutError(
+        f"could not connect to queue {name!r} after {retries} retries")

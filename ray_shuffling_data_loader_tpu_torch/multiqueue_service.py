@@ -2185,6 +2185,8 @@ class RemoteQueue:
                 info = json.loads(blob.decode())
                 moved_gen = int(info["generation"])
                 if moved_gen > self._gen_floor.get(rank, 0):
+                    # Held: the only caller (_fetch_batch) reads frames
+                    # under _io_lock. rsdl-lint: disable=lock-mutation
                     self._gen_floor[rank] = moved_gen
                 raise QueueMoved(queue_index, int(info["rank"]),
                                  (info["host"], info["port"]), moved_gen)
@@ -2209,6 +2211,8 @@ class RemoteQueue:
                         generation, floor)
                     continue
                 if generation > floor:
+                    # Held: the only caller (_fetch_batch) reads frames
+                    # under _io_lock. rsdl-lint: disable=lock-mutation
                     self._gen_floor[rank] = generation
             try:
                 # The CRC is over the uncompressed bytes: a torn

@@ -384,6 +384,8 @@ def gather_tensor(t: torch.Tensor, dim: Optional[int], blocks: int,
     if dim is None:
         return t
     t = t.detach().contiguous()
+    # One slot per rank of the collective's own group, as all_gather
+    # requires. rsdl-lint: disable=fixed-world-assumption
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return unshard_tensors(parts, dim, blocks)

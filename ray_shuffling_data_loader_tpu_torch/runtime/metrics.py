@@ -683,13 +683,15 @@ def shard_path(directory: str, pid: Optional[int] = None) -> str:
 
 def write_shard(directory: Optional[str] = None) -> Optional[str]:
     """Atomically write THIS process's exposition as its per-pid shard;
-    returns the path (None when no directory is configured)."""
+    returns the path (None when no directory is configured). Threads of
+    one process (the exporter, a worker's exit flush, an incident
+    capture) may write at once, so each writes its own temporary file."""
     directory = directory or telemetry_dir()
     if not directory:
         return None
     os.makedirs(directory, exist_ok=True)
     path = shard_path(directory)
-    tmp = f"{path}.tmp"
+    tmp = f"{path}.{threading.get_ident()}.tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         f.write(render())
     os.replace(tmp, path)

@@ -139,9 +139,10 @@ class Watchdog:
     def every(self, interval_s: float, fn: Callable[[], None],
               name: str = "periodic") -> PeriodicHandle:
         """Run ``fn`` on the monitor thread every ``interval_s`` seconds
-        until :meth:`cancel`, with or without active watches. ``fn``
-        must be brief; one that raises is logged and keeps its
-        schedule."""
+        until :meth:`cancel`, with or without active watches, on a
+        schedule anchored at this call (a late run does not delay the
+        next). ``fn`` must be brief; one that raises is logged and keeps
+        its schedule."""
         handle = PeriodicHandle(name, interval_s, fn)
         with self._cond:
             self._periodics.add(handle)
@@ -173,17 +174,23 @@ class Watchdog:
                 due_periodics = []
                 for p in self._periodics:
                     if now >= p.next_due:
-                        p.next_due = now + p.interval_s
+                        # The schedule is anchored at registration: a late
+                        # wake-up does not push every later run back. A
+                        # periodic a whole interval behind skips the runs
+                        # it missed instead of bursting.
+                        p.next_due += p.interval_s
+                        if p.next_due <= now:
+                            p.next_due = now + p.interval_s
                         due_periodics.append(p)
                 if not due and not due_periodics:
                     # Sleep to the earlier of the watch poll and the next
                     # periodic's due time.
+                    timeout = 5.0
+                    if self._periodics:
+                        timeout = max(0.005, min(
+                            p.next_due for p in self._periodics) - now)
                     if self._watches:
-                        timeout = self.poll_interval_s
-                    else:
-                        timeout = min(5.0, max(
-                            0.005,
-                            min(p.next_due for p in self._periodics) - now))
+                        timeout = min(timeout, self.poll_interval_s)
                     self._cond.wait(timeout=timeout)
                     continue
             # Reports, logs, hooks and periodics run OUTSIDE the lock: a

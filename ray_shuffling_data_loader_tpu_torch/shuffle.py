@@ -61,13 +61,14 @@ The engine:
 - **Stats**: ``collect_stats=True`` returns a ``stats.TrialStats`` (map,
   reduce and consume stage spans per epoch).
 
-Primitive and fixed-size list columns move as numpy rows (the native
-``scatter_gather`` for 1/2/4/8-byte items); a table with a null-free
-binary column (encoded images) is concatenated and permuted with Arrow's
-``take`` instead. In the distributed shuffle (``parallel/distributed.py``)
-a reducer also takes its rows of a remote file as a table received from
-the host that mapped it, in global file order, so the output is the
-same.
+Null-free primitive and fixed-size list columns move as numpy rows (the
+native ``scatter_gather`` for 1/2/4/8-byte items); a table with any
+other column (encoded images as binary, lists, nullable columns), or
+chunks whose schemas differ, is concatenated with permissive promotion
+and permuted with Arrow's ``take`` instead, as in the JAX package. In
+the distributed shuffle (``parallel/distributed.py``) a reducer also
+takes its rows of a remote file as a table received from the host that
+mapped it, in global file order, so the output is the same.
 """
 
 from __future__ import annotations
@@ -198,54 +199,77 @@ def _is_primitive(t: pa.DataType) -> bool:
             or pa.types.is_boolean(t))
 
 
+def _is_rows_column(col: pa.ChunkedArray) -> bool:
+    """A null-free primitive column, or a null-free
+    ``FixedSizeList<primitive>`` column whose values hold no null: the
+    columns :func:`column_to_rows` takes."""
+    t = col.type
+    if col.null_count:
+        return False
+    if _is_primitive(t):
+        return True
+    return (pa.types.is_fixed_size_list(t) and _is_primitive(t.value_type)
+            and all(chunk.flatten().null_count == 0
+                    for chunk in col.chunks))
+
+
 def column_to_rows(col: pa.ChunkedArray, name: str) -> np.ndarray:
     """One ndarray row per table row: a null-free primitive column becomes
     ``(N,)``, a null-free ``FixedSizeList<primitive>[W]`` column (token
     sequences) ``(N, W)``, its child values flattened and reshaped.
-    Anything else raises ``ValueError`` (a null-free binary column is not
-    taken here: its table is reduced with Arrow's ``take``)."""
-    t = col.type
-    if col.null_count == 0 and _is_primitive(t):
-        return col.combine_chunks().to_numpy(zero_copy_only=False)
-    if (col.null_count == 0 and pa.types.is_fixed_size_list(t)
-            and _is_primitive(t.value_type)):
-        values = col.combine_chunks().flatten()
-        if values.null_count == 0:
-            return values.to_numpy(zero_copy_only=False).reshape(
-                -1, t.list_size)
-    raise ValueError(
-        f"column {name!r} ({t}) is neither a null-free primitive column nor "
-        "a null-free fixed-size list of one")
+    Anything else raises ``ValueError`` (its table is reduced with
+    Arrow's ``take``, :func:`_numpy_columns`)."""
+    if not _is_rows_column(col):
+        raise ValueError(
+            f"column {name!r} ({col.type}) is neither a null-free primitive "
+            "column nor a null-free fixed-size list of one")
+    # Blessed: one copy per column of a map shard; its numpy rows serve
+    # every reducer of the shard. rsdl-lint: disable=copy-in-hot-path
+    combined = col.combine_chunks()
+    if _is_primitive(col.type):
+        # rsdl-lint: disable=copy-in-hot-path
+        return combined.to_numpy(zero_copy_only=False)
+    # Blessed: the child values of a null-free primitive list are one
+    # buffer; flatten() and to_numpy() are views of it.
+    # rsdl-lint: disable=copy-in-hot-path
+    return combined.flatten().to_numpy(zero_copy_only=False).reshape(
+        -1, col.type.list_size)
 
 
-def _is_binary_column(col: pa.ChunkedArray) -> bool:
-    """A null-free ``binary`` or ``large_binary`` column: reduced with
-    Arrow's ``take`` rather than as numpy rows."""
-    return col.null_count == 0 and (pa.types.is_binary(col.type)
-                                    or pa.types.is_large_binary(col.type))
+def _promote_offset_type(t: pa.DataType) -> pa.DataType:
+    """The 64-bit-offset (``large_*``) form of ``t``, its nested value
+    types and struct fields included (the JAX package's rule)."""
+    if pa.types.is_binary(t):
+        return pa.large_binary()
+    if pa.types.is_string(t):
+        return pa.large_string()
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        return pa.large_list(_promote_offset_type(t.value_type))
+    if pa.types.is_fixed_size_list(t):
+        return pa.list_(_promote_offset_type(t.value_type), t.list_size)
+    if pa.types.is_struct(t):
+        return pa.struct([field.with_type(_promote_offset_type(field.type))
+                          for field in t])
+    return t
 
 
 def _promote_large_offsets(table: pa.Table) -> pa.Table:
-    """Cast ``binary`` columns (the only variable-width type a reducer
-    takes) to ``large_binary``, so one reducer output may hold more than
-    2 GiB of them."""
-    schema = pa.schema([f.with_type(pa.large_binary())
-                        if pa.types.is_binary(f.type) else f
-                        for f in table.schema],
-                       metadata=table.schema.metadata)
-    return table.cast(schema)
+    """Cast the 32-bit-offset variable-width columns (binary, string,
+    list, nested children included) to their ``large_*`` forms, so one
+    reducer output may hold more than 2 GiB of them."""
+    fields = [f.with_type(_promote_offset_type(f.type)) for f in table.schema]
+    if all(f.type == g.type for f, g in zip(fields, table.schema)):
+        return table
+    return table.cast(pa.schema(fields, metadata=table.schema.metadata))
 
 
 def _numpy_columns(table: pa.Table) -> Optional[Dict[str, np.ndarray]]:
     """{column -> ndarray}, one row per table row (see
-    :func:`column_to_rows`), or None where the table has a null-free
-    binary column (its other columns are still checked, so an unsupported
-    type raises)."""
+    :func:`column_to_rows`), or None where a column is not numpy rows (a
+    binary, string, nested or nullable column): such a table is reduced
+    with Arrow's ``take``, where the JAX package falls back too."""
     columns = [table.column(name) for name in table.column_names]
-    if any(_is_binary_column(col) for col in columns):
-        for name, col in zip(table.column_names, columns):
-            if not _is_binary_column(col):
-                column_to_rows(col, name)  # raises on an unsupported type
+    if not all(_is_rows_column(col) for col in columns):
         return None
     return {name: column_to_rows(col, name)
             for name, col in zip(table.column_names, columns)}
@@ -410,8 +434,8 @@ class MapShard:
     """A read-then-plan map output: the file's table and its partition
     plan; reducer ``r``'s rows are ``flat[offsets[r]:offsets[r+1]]``, in
     original row order. ``columns`` holds the rows as numpy (one entry per
-    column, :func:`column_to_rows`), or is None where the table has a
-    binary column (the reduce then takes rows with Arrow). Indexing gives
+    column, :func:`column_to_rows`), or is None where a column is not
+    numpy rows (the reduce then takes rows with Arrow). Indexing gives
     a reducer's :class:`LazyChunk`; the gather is left to the reduce."""
 
     __slots__ = ("table", "columns", "schema", "flat", "offsets")
@@ -578,10 +602,7 @@ def _fused_stream_columns(filename: str, num_reducers: int, seed: int,
                 tbl = map_transform(tbl)
                 if tbl.num_rows != batch.num_rows:
                     return None
-            try:
-                cols = _numpy_columns(tbl)
-            except ValueError:  # a nullable or unsupported column
-                return None
+            cols = _numpy_columns(tbl)
             if cols is None or any(a.ndim != 1 for a in cols.values()):
                 return None
             if out_cols is None:
@@ -731,8 +752,9 @@ def _shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
             if map_transform is not None:
                 table = map_transform(table)
             if file_cache is not None:
-                # Once per cached file: single-chunk columns make every
-                # later epoch's numpy views zero-copy.
+                # Blessed: once per cached file, single-chunk columns make
+                # every later epoch's numpy views zero-copy.
+                # rsdl-lint: disable=copy-in-hot-path
                 table = table.combine_chunks()
                 file_cache.put(filename, table)
         finally:
@@ -757,7 +779,7 @@ def _shuffle_map(filename: str, num_reducers: int, seed: int, epoch: int,
 def _source(chunk, reduce_index: int):
     """``(columns or None, row indices or None, num_rows, schema)`` of one
     chunk: numpy columns with the rows to take (None: all, in order), or
-    None columns where the chunk has a binary column."""
+    None columns where a column of the chunk is not numpy rows."""
     if isinstance(chunk, (MapShard, FusedMapShard)):
         chunk = chunk[reduce_index]
     if isinstance(chunk, LazyChunk):
@@ -838,10 +860,13 @@ def _fused_reduce(reduce_index: int, seed: int, epoch: int, sources,
 
 def _take_reduce(reduce_index: int, seed: int, epoch: int,
                  chunks: Sequence[Chunk]) -> pa.Table:
-    """``concat[perm]`` with Arrow's ``take`` (tables with a binary
-    column); promotes to 64-bit offsets where the output passes 2 GiB of
-    variable-width data."""
-    table = pa.concat_tables([_materialize(c, reduce_index) for c in chunks])
+    """``concat[perm]`` with Arrow's ``take`` (tables with a column that
+    is not numpy rows, or chunks whose schemas differ); promotes to 64-bit
+    offsets where the output passes 2 GiB of variable-width data."""
+    # Permissive: chunks whose schemas differ in offset width alone (a
+    # map transform's, or a promoted stream from another host) unify.
+    table = pa.concat_tables([_materialize(c, reduce_index) for c in chunks],
+                             promote_options="permissive")
     perm = partition.permutation(
         table.num_rows, partition.reduce_rng(seed, epoch, reduce_index))
     try:
@@ -870,11 +895,8 @@ def shuffle_reduce(reduce_index: int, seed: int, epoch: int,
         else:
             sources = [_source(c, reduce_index) for c in chunks]
             schema = sources[0][3]
-            for _, _, _, s in sources[1:]:
-                if (list(s.names) != list(schema.names)
-                        or not s.equals(schema)):
-                    raise ValueError("map outputs disagree on their schema")
-            if any(cols is None for cols, _, _, _ in sources):
+            if (any(cols is None for cols, _, _, _ in sources)
+                    or any(not s.equals(schema) for _, _, _, s in sources)):
                 out = _take_reduce(reduce_index, seed, epoch, chunks)
             else:
                 out = _fused_reduce(reduce_index, seed, epoch, sources,

@@ -219,6 +219,10 @@ class TrialStatsCollector:
                  num_consumes: int):
         self._epochs = [
             EpochStatsCollector(num_maps, num_reduces, num_consumes)
+            # The caller declared this finite count (stats are collected
+            # per bounded trial; a stream passes no collector), so the
+            # list has a static shape.
+            # rsdl-lint: disable=static-epoch-assumption
             for _ in range(num_epochs)]
         self._trial_start_time: Optional[float] = None
         self._trial_duration: Optional[float] = None

@@ -170,14 +170,6 @@ def test_large_binary_column_reduces_and_promotion_widens_offsets(tmp_path):
     assert promoted.equals(jsh._promote_large_offsets(table))
 
 
-def test_nullable_binary_column_is_rejected(tmp_path):
-    path = str(tmp_path / "nulls.parquet")
-    pq.write_table(pa.table({"image": pa.array([b"a", None], pa.binary()),
-                             "key": np.arange(2, dtype=np.int64)}), path)
-    with pytest.raises(ValueError, match="image"):
-        tsh.shuffle_map(path, 2, SEED, 0, 0)
-
-
 def _jax_stream(files, skips):
     queue_name = f"torch-port-imagenet-{next(_queue_ids)}"
     spec = jim.imagenet_spec(H, W)

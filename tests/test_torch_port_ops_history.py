@@ -107,6 +107,38 @@ def test_watchdog_every_ticks_cancels_and_survives_a_raise():
     assert twd.PeriodicHandle("x", 0.0, lambda: None).interval_s == 0.01
 
 
+def test_watchdog_periodic_keeps_its_schedule_under_a_watch_poll():
+    """A watch makes the monitor poll every 0.06 s; a 0.1 s periodic
+    still runs once per interval, since a late run does not push the
+    next one back. A run a whole interval late skips what it missed and
+    does not burst."""
+    wd = twd.Watchdog(poll_interval_s=0.06)
+    starts = []
+    handle = wd.every(0.1, lambda: starts.append(time.monotonic()),
+                      name="test-anchored")
+    begin = time.monotonic()
+    with wd.watch("test-hold", 60.0):
+        time.sleep(2.0)
+    elapsed = time.monotonic() - begin
+    wd.cancel(handle)
+    assert len(starts) >= int(elapsed / 0.1) - 2, (
+        f"{len(starts)} runs in {elapsed:.2f} s at 0.1 s")
+
+    slow = []
+
+    def stall_once():
+        slow.append(time.monotonic())
+        if len(slow) == 1:
+            time.sleep(0.35)
+
+    handle = wd.every(0.1, stall_once, name="test-skip")
+    time.sleep(1.0)
+    wd.cancel(handle)
+    gaps = [b - a for a, b in zip(slow[1:], slow[2:])]
+    assert len(slow) >= 5 and min(gaps) >= 0.05, (
+        f"a late periodic burst: gaps {gaps}")
+
+
 @pytest.mark.parametrize("window", [1, 2, 5])
 def test_ring_capacity_series_and_rate_equal_jax(window):
     rings = _noisy_rings()

@@ -134,7 +134,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in ('multiqueue_service', 'runtime.supervisor', "
         "'streaming.source', 'streaming.window', 'streaming.runner', "
         "'tenancy', 'tenancy.fairshare', 'tenancy.admission', "
-        "'runtime.history', 'runtime.health', 'runtime.profiler'):\n"
+        "'runtime.history', 'runtime.health', 'runtime.profiler', "
+        "'torch_dataset', 'analysis.core', 'analysis.cli', "
+        "'analysis.rules_torch'):\n"
         "    assert port.__name__ + '.' + name in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -25,6 +25,7 @@ import collections
 import csv
 import itertools
 import os
+import threading
 import time
 
 import jax  # noqa: F401  (imported before any worker thread needs it)
@@ -158,6 +159,37 @@ def test_two_port_shards_merge_as_jax_merges_them(tmp_path, monkeypatch):
     samples, _types, pids = tmetrics.federated_series()
     assert sorted(pids) == sorted([os.getpid(), 101, 202])
     assert samples["rsdl_federated_processes"][()] == 3.0
+
+
+def test_concurrent_shard_writes_in_one_process(tmp_path, monkeypatch):
+    # Two threads both inside write_shard before either renames: each
+    # must rename its own temporary file, and the shard stays whole.
+    monkeypatch.setenv("RSDL_TELEMETRY_DIR", str(tmp_path))
+    both_writing = threading.Barrier(2, timeout=10)
+    render = tmetrics.render
+
+    def slow_render():
+        both_writing.wait()
+        return render()
+
+    monkeypatch.setattr(tmetrics, "render", slow_render)
+    errors, paths = [], []
+
+    def write():
+        try:
+            paths.append(tmetrics.write_shard())
+        except OSError as exc:
+            errors.append(exc)
+
+    threads = [threading.Thread(target=write) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert paths == [tmetrics.shard_path(str(tmp_path), os.getpid())] * 2
+    assert os.listdir(tmp_path) == [os.path.basename(paths[0])]
+    assert os.getpid() in tmetrics.read_shards(str(tmp_path))
 
 
 def test_file_exporter_writes_the_registry(tmp_path):
