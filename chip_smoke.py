@@ -16,9 +16,9 @@ admission and cache quotas), the ops plane (health detectors over a
 history ring, incident capsules, the sampling profiler), save, restore and
 resume mid-epoch, and Megatron tensor parallelism over a ``("data", "model")``
 mesh (DLRM, BERT-base and ResNet-50 in two processes, the multi-rank dry
-run), end to end at full width, and checks its
-hand-written kernels against their plain PyTorch versions. Phases, each
-printing one JSON line:
+run), the runtime lock sanitizer and round forensics, end to end at full
+width, and checks its hand-written kernels against their plain PyTorch
+versions. Phases, each printing one JSON line:
 
 1. ``env``: torch/CUDA versions, the card's name and power limit, PIL's
    version, ``g++`` and the codec headers the native image decoder needs,
@@ -446,6 +446,30 @@ printing one JSON line:
    and peak device memory per rank beside one process's; BERT's MLM head
    bytes (the table's all-gather against partial logits). (d)
    ``parallel.dryrun.dryrun_multichip(2)`` and ``(4)``, both at once.
+21. ``locksan``: the runtime lock sanitizer (``runtime/locksan.py``) over
+   the one-card DLRM step. A child of this script (``--locksan``,
+   ``RSDL_LOCKSAN=1``, so the port arms the sanitizer before it allocates
+   a lock) runs one epoch of the ``train`` files through two supervised
+   shard processes (armed too) with both tenants bound and the six
+   detectors of ``train`` armed: rank 0 (hot) trains DLRM ``mlperf`` on
+   every micro-step, one gather launch each, a thread drains rank 1
+   (cold); both ranks' digests equal the one-process ``num_trainers=2``
+   stream's. Here, the child's order graph merged with the shards' is held
+   against the port's static one (``analysis.core.check_program_paths``
+   with ``locksan_graph=``, ``locksets.crosscheck``): it fails on any
+   finding, any confirmed or union cycle, or fewer than 20 recorded port
+   lock sites. Prints the nodes, edges, held-while-blocking sites, the
+   cross-check's counts, the hot rank's rows/s beside ``train``'s and the
+   seconds.
+22. ``regress``: round forensics (``runtime/regress.py``). Right after
+   ``train`` and again after ``torch_binding`` the smoke captured a round
+   capsule (``health.capture_incident(reason="bench-round")``, a trace dir
+   pinned for the capture alone; each capsule holds only its turn's
+   events) beside a record of the turn's numbers. ``diff_rounds`` in
+   capsule mode: the top three suspects and the critical-path diff; the
+   JAX package's ``tools/rsdl_regress.py --json`` on the same pair (a
+   subprocess, ``PYTHONPATH`` unset, stdlib only) must give the same
+   report.
 
 Every phase that drives ``DeviceShufflingDataset`` names the binding it
 ran (``"binding"``: the bulk one, the default on the card, unless a turn
@@ -454,13 +478,14 @@ and its figures with the shuffle before the engine (``prior_shuffle``). Then the
 ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. Needs CUDA; imports nothing of JAX. The whole run,
-the kernels' builds included, took 790.9 s on an NVIDIA H100 80GB HBM3 at
-700.00 W (``ops`` 20.6 s, the ``tenancy`` phase 55.1 s with its trigger
-turn 10.7 s), against its limit of 1,200 s.
+the kernels' builds included, took 710.0 s on an NVIDIA H100 80GB HBM3 at
+700.00 W (``ops`` 19.4 s, ``tenancy`` 45.3 s, ``locksan`` 43.8 s,
+``regress`` 0.4 s), against its limit of 1,200 s.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import contextlib
 import dataclasses
@@ -5932,6 +5957,373 @@ def tenancy_phase(emb, files, want, tmp: str) -> dict:
     }
 
 
+# Round forensics (runtime/regress.py). After ``train`` and again after
+# ``torch_binding`` the smoke captures a round capsule (the recorder's
+# events since the turn's ``fresh_telemetry``, the merged exposition, the
+# resolved policy and env) beside a record of the turn's numbers, then
+# diffs the two rounds in capsule mode.
+REGRESS_BASE, REGRESS_CUR = "train", "torch_binding"
+REGRESS_RECORD_KEYS = ("rows_per_s", "stall_pct", "step_ms_median",
+                       "fill_s", "micro_steps", "gather_launches")
+
+
+def _capsule_events(capsule: str) -> list:
+    """Every recorder event in a capsule's trace dumps (no meta lines)."""
+    events = []
+    for path in sorted(glob.glob(os.path.join(capsule, "traces",
+                                              "*.jsonl"))):
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                event = json.loads(line)
+                if event.get("kind") != "dump_meta":
+                    events.append(event)
+    return events
+
+
+def capture_round(name: str, line: dict, turn_start: float,
+                  out_dir: str) -> dict:
+    """``health.capture_incident(reason="bench-round")`` into
+    ``out_dir/<name>.capsule`` with a trace dir pinned for the capture
+    alone (the JAX bench's rule), and ``out_dir/<name>.json``: a bench
+    record of ``line``'s numbers that names the capsule (also written into
+    it as ``record.json``). Fails unless the capsule holds events and none
+    began before ``turn_start`` (``time.monotonic()`` when the turn
+    started): each capsule holds its own turn's events alone."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import health
+    pinned = tempfile.mkdtemp(prefix="rsdl-smoke-trace-")
+    start = timeit.default_timer()
+    try:
+        with _env(RSDL_TRACE_DIR=pinned):
+            capsule = health.capture_incident(
+                reason="bench-round", base_dir=out_dir, profile_s=0.0,
+                cooldown_s=0.0, stem=f"{name}.capsule")
+    finally:
+        shutil.rmtree(pinned, ignore_errors=True)
+    capture_s = timeit.default_timer() - start
+    if capsule is None:
+        raise AssertionError(f"regress: the {name} capture was suppressed")
+    record = {"metric": "rows_per_s", "value": line["rows_per_s"],
+              "unit": "rows/s", "phase": name,
+              **{k: line[k] for k in REGRESS_RECORD_KEYS},
+              "capsule": f"{name}.capsule"}
+    for path in (os.path.join(out_dir, f"{name}.json"),
+                 os.path.join(capsule, "record.json")):
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(record, f, indent=2, sort_keys=True)
+    events = _capsule_events(capsule)
+    starts = [e["t_mono"] - e.get("dur_s", 0.0) for e in events
+              if isinstance(e.get("t_mono"), (int, float))]
+    if not starts:
+        raise AssertionError(f"regress: the {name} capsule holds no timed "
+                             "event")
+    if min(starts) < turn_start:
+        raise AssertionError(
+            f"regress: the {name} capsule holds an event that began "
+            f"{turn_start - min(starts):.3f} s before its turn")
+    with open(os.path.join(capsule, "capsule.json"),
+              encoding="utf-8") as f:
+        manifest = json.load(f)
+    kinds = collections.Counter(e.get("kind") for e in events)
+    return {"capture_s": capture_s, "events": len(events),
+            "top_kinds": dict(kinds.most_common(6)),
+            "pids": manifest["pids"],
+            "pids_signaled": manifest["pids_signaled"],
+            "files": manifest["files"]}
+
+
+def regress_phase(out_dir: str, captures: dict) -> dict:
+    """``regress.diff_rounds`` of the two captured rounds (``train`` ->
+    ``torch_binding``) in capsule mode: the top three suspects and the
+    critical-path diff. Then the JAX package's ``tools/rsdl_regress.py
+    --json`` on the same pair, as a subprocess with ``PYTHONPATH`` unset
+    from a temp cwd (it loads its runtime files by path, stdlib only):
+    its report must equal the port's."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import regress
+    base, cur = (os.path.join(out_dir, f"{n}.json")
+                 for n in (REGRESS_BASE, REGRESS_CUR))
+    start = timeit.default_timer()
+    report = regress.diff_rounds(base, cur)
+    diff_s = timeit.default_timer() - start
+    if report["mode"] != "capsule":
+        raise AssertionError(f"regress: {report['mode']} mode, not capsule: "
+                             f"{report['warnings']}")
+    lines = regress.render_report(report)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    start = timeit.default_timer()
+    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-regress-") as cwd:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(_REPO, "tools", "rsdl_regress.py"),
+             base, cur, "--json"], cwd=cwd, env=env, capture_output=True,
+            text=True, timeout=120, check=False)
+    tool_s = timeit.default_timer() - start
+    if proc.returncode:
+        raise AssertionError(f"regress: tools/rsdl_regress.py exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    tool = json.loads(proc.stdout)
+    ours = json.loads(json.dumps(report))
+    if tool != ours:
+        differ = sorted(k for k in set(tool) | set(ours)
+                        if tool.get(k) != ours.get(k))
+        raise AssertionError(f"regress: tools/rsdl_regress.py's report "
+                             f"differs from the port's in {differ}")
+    return {
+        "base": REGRESS_BASE, "cur": REGRESS_CUR, "mode": report["mode"],
+        "captures": captures,
+        "suspects": report["suspects"][:3],
+        "critical_path_diff": [
+            {k: row[k] for k in ("stage", "base_cp_ms_per_epoch",
+                                 "cur_cp_ms_per_epoch",
+                                 "delta_ms_per_epoch", "entered", "left")}
+            for row in report["critical_path_diff"]],
+        "significant_distributions": sum(
+            r["significant"] for r in report["distribution_diff"]),
+        "record_diff": report["record_diff"][:6],
+        "policy_diff": report["policy_diff"], "env_diff": report["env_diff"],
+        "warnings": report["warnings"], "report_lines": len(lines),
+        "epochs_traced": [report["base"]["epochs_traced"],
+                          report["cur"]["epochs_traced"]],
+        "tool_report_equal": True, "diff_s": diff_s, "tool_s": tool_s}
+
+
+# The runtime lock sanitizer (runtime/locksan.py). A child of this script
+# (``--locksan OUT``, RSDL_LOCKSAN=1 in its environment, so the port's
+# ``__init__`` arms the sanitizer before any port lock exists) runs one
+# epoch of the ``train`` files through SERVE_SHARDS supervised shards with
+# both tenants bound (TENANT_TABLE) and the six ARMED_DETECTORS: rank 0
+# (hot) trains DLRM ``mlperf`` on every micro-step, a thread drains rank
+# 1 (cold). The shards run armed too and write their graphs at exit.
+LOCKSAN_TIMEOUT_S = 420
+LOCKSAN_MIN_SITES = 20
+LOCKSAN_PACKAGE = "ray_shuffling_data_loader_tpu_torch"
+
+
+def _locksan_turn(emb, files, want, out_dir: str) -> dict:
+    """The child's turn (see above); each rank's digests equal ``want``
+    (the one-process ``num_trainers=2`` stream's epoch 0), bit for bit."""
+    from ray_shuffling_data_loader_tpu_torch import (dataset, device_dataset,
+                                                     train)
+    from ray_shuffling_data_loader_tpu_torch.models import dlrm
+    from ray_shuffling_data_loader_tpu_torch.runtime import (health,
+                                                             supervisor)
+
+    t_start = timeit.default_timer()
+    spec, cast = _sharded_spec()
+    contexts = _tenant_contexts()
+    model = dlrm.DLRM(dlrm.MLPERF, device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(SEED))
+    micro_step = train.make_micro_step(model, train.make_optimizer(model))
+    shm_root = "/dev/shm" if os.access("/dev/shm", os.W_OK) else out_dir
+    shm_dir = tempfile.mkdtemp(prefix="rsdl-smoke-locksan-", dir=shm_root)
+    config = dict(filenames=list(files), num_epochs=1,
+                  num_trainers=DIST_WORLD, num_reducers=NUM_REDUCERS,
+                  seed=SEED, journal_path=os.path.join(out_dir, "shards.wal"),
+                  cast=cast, handle_dir=os.path.join(shm_dir, "handles"),
+                  num_workers=SERVE_SHARD_WORKERS, tenants=TENANT_TABLE,
+                  child_env={"RSDL_LOCKSAN_TORCH_DIR":
+                             os.path.join(out_dir, "shards"),
+                             "RSDL_EXECUTOR_SHM_DIR": shm_dir})
+    monitor = health.arm(component="smoke-locksan",
+                         detectors=ARMED_DETECTORS,
+                         incident_dir=os.path.join(out_dir, "incidents"))
+    if monitor is None:
+        raise AssertionError("locksan: the health plane refused to arm")
+    sups, remotes, datasets, runs, errors, losses = [], [], [], {}, [], []
+    try:
+        sups, shard_map = supervisor.launch_supervised_queue_shards(
+            config, SERVE_SHARDS, name="smoke-locksan-shard")
+        for address in shard_map.addresses:
+            if not supervisor.wait_for_server(tuple(address), timeout_s=120):
+                raise AssertionError(f"locksan: shard {address} never "
+                                     "listened")
+        for rank, tenant in ((0, "hot"), (1, "cold")):
+            remotes.append(dataset.connect_remote_queue(
+                shard_map, retries=20, initial_backoff_s=0.2,
+                tenant=contexts[tenant]))
+            datasets.append(device_dataset.DeviceShufflingDataset(
+                files, 1, DIST_WORLD, LOADER_BATCH, rank,
+                batch_queue=remotes[rank], shuffle_result=None, seed=SEED,
+                drop_last=False, device=None, **spec))
+
+        def drain_cold():
+            try:
+                runs[1] = _drain_rank(datasets[1], 1)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        cold = threading.Thread(target=drain_cold, daemon=True,
+                                name="smoke-locksan-cold")
+        cold.start()
+        emb.reset_launch_counts()
+        runs[0] = _drain_rank(datasets[0], 1,
+                              _train_every_micro_step(micro_step, losses))
+        launches = emb.launch_counts["gather_rows"]
+        cold.join(timeout=600)
+        if cold.is_alive():
+            raise AssertionError("locksan: the cold drain hung")
+        if errors:
+            raise errors[0]
+    finally:
+        for ds in datasets:
+            ds.close()
+        for remote in remotes:
+            remote.close()
+        for sup in sups:
+            sup.stop()
+        finished = health.disarm()
+        capsules = finished.wait_captures(timeout_s=15.0)
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    for rank in range(DIST_WORLD):
+        got = torch.stack(runs[rank]["digests"]).cpu().numpy()
+        if got.shape != want[rank].shape or not np.array_equal(got,
+                                                               want[rank]):
+            raise AssertionError(f"locksan: rank {rank}'s batch digests "
+                                 "differ from the one-process "
+                                 f"num_trainers={DIST_WORLD} stream")
+    all_losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(all_losses).all()):
+        raise AssertionError("locksan: non-finite loss")
+    if launches != all_losses.numel():
+        raise AssertionError(f"locksan: {launches} gather launches in "
+                             f"{all_losses.numel()} micro-steps")
+    summary = finished.summary()
+    return {
+        "ranks": [{"rank": rank, "tenant": ("hot", "cold")[rank],
+                   "rows": runs[rank]["rows"],
+                   "loader_batches": len(runs[rank]["digests"]),
+                   "rows_per_s": runs[rank]["rows"] / runs[rank]["wall_s"],
+                   "fill_s": runs[rank]["fill_s"], "digests_equal": True}
+                  for rank in range(DIST_WORLD)],
+        "micro_steps": int(all_losses.numel()),
+        "gather_launches": launches,
+        "health": {"detectors": list(ARMED_DETECTORS),
+                   "ticks": finished.ring.ticks,
+                   "fires": {name: d["fires"]
+                             for name, d in summary["detectors"].items()},
+                   "capsules": capsules},
+        "turn_s": timeit.default_timer() - t_start,
+    }
+
+
+def locksan_worker(out_dir: str) -> int:
+    """``--locksan OUT``: the child of the ``locksan`` phase. Its port
+    import armed the sanitizer (RSDL_LOCKSAN=1); it builds nothing new
+    (the gather library the parent built), runs :func:`_locksan_turn` on
+    ``OUT/args.json``'s files and ``OUT/want.npz``'s digests, and writes
+    ``OUT/turn.json`` and its order graph, ``OUT/graph.json``."""
+    from ray_shuffling_data_loader_tpu_torch.runtime import locksan
+    if not locksan.installed():
+        raise AssertionError("locksan: the sanitizer is not armed")
+    from ray_shuffling_data_loader_tpu_torch.kernels import build
+    from ray_shuffling_data_loader_tpu_torch.ops import embedding as emb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.gather_library()
+    with open(os.path.join(out_dir, "args.json")) as f:
+        files = json.load(f)["files"]
+    with np.load(os.path.join(out_dir, "want.npz")) as want:
+        digests = [want[f"rank{r}"] for r in range(DIST_WORLD)]
+    line = _locksan_turn(emb, files, digests, out_dir)
+    locksan.dump(os.path.join(out_dir, "graph.json"))
+    with open(os.path.join(out_dir, "turn.json"), "w") as f:
+        json.dump(line, f)
+    return 0
+
+
+def locksan_phase(files, want, trained: dict, tmp: str) -> dict:
+    """Run :func:`locksan_worker` (``--locksan``) and hold its order graph,
+    merged with the shards' (``locksan.merge``), against the port's
+    static one: ``check_program_paths(..., locksan_graph=)`` must find
+    nothing, ``locksets.crosscheck`` no confirmed or union cycle, and the
+    child's own graph must hold at least LOCKSAN_MIN_SITES port lock
+    sites (a wrong include prefix records none and checks "clean")."""
+    import signal
+
+    from ray_shuffling_data_loader_tpu_torch.analysis import core as lint
+    from ray_shuffling_data_loader_tpu_torch.analysis import locksets
+    from ray_shuffling_data_loader_tpu_torch.runtime import locksan
+
+    np.savez(os.path.join(tmp, "want.npz"),
+             **{f"rank{r}": torch.stack(want[r][0]).cpu().numpy()
+                for r in range(DIST_WORLD)})
+    with open(os.path.join(tmp, "args.json"), "w") as f:
+        json.dump({"files": list(files)}, f)
+    env = dict(os.environ, RSDL_LOCKSAN="1")
+    env.pop("RSDL_LOCKSAN_TORCH_DIR", None)
+    log_path = os.path.join(tmp, "locksan.log")
+    start = timeit.default_timer()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--locksan", tmp],
+            cwd=_REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    try:
+        proc.wait(timeout=LOCKSAN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the locksan child ran past "
+                             f"{LOCKSAN_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    child_s = timeit.default_timer() - start
+    if proc.returncode:
+        with open(log_path) as f:
+            raise AssertionError(f"the locksan child exited "
+                                 f"{proc.returncode}:\n{f.read()[-6000:]}")
+    with open(os.path.join(tmp, "turn.json")) as f:
+        turn = json.load(f)
+    with open(os.path.join(tmp, "graph.json")) as f:
+        own = json.load(f)
+    shard_files = glob.glob(os.path.join(tmp, "shards", "*.json"))
+    merged = locksan.merge([own, locksan.load_dir(os.path.join(tmp,
+                                                               "shards"))])
+    start = timeit.default_timer()
+    violations, analysis = lint.check_program_paths(
+        [os.path.join(_REPO, LOCKSAN_PACKAGE)], root=_REPO,
+        locksan_graph=merged)
+    report = locksets.crosscheck(analysis.static_graph(), merged)
+    check_s = timeit.default_timer() - start
+    own_sites = [n["key"] for n in own["nodes"]]
+    if len(own_sites) < LOCKSAN_MIN_SITES or not all(
+            k.startswith(f"{LOCKSAN_PACKAGE}/") for k in own_sites):
+        raise AssertionError(f"locksan: {len(own_sites)} recorded lock "
+                             f"sites, {own_sites[:5]}...")
+    if violations:
+        raise AssertionError("locksan: " + "; ".join(
+            v.format() for v in violations[:5]))
+    if report["confirmed_cycles"] or report["union_cycles"] or \
+            locksan.cycles(merged):
+        raise AssertionError(f"locksan: cycles {report}")
+    hot = turn["ranks"][0]
+    blocking = collections.Counter(
+        (e["type"], e["site"]) for e in merged["events"])
+    return {
+        **turn,
+        "graph": {"nodes": len(own["nodes"]), "edges": len(own["edges"]),
+                  "events": len(own["events"]),
+                  "shard_graphs": len(shard_files),
+                  "merged_nodes": len(merged["nodes"]),
+                  "merged_edges": len(merged["edges"]),
+                  "top_blocking_sites": [
+                      {"type": t, "site": site, "count": n}
+                      for (t, site), n in blocking.most_common(5)]},
+        "crosscheck": {
+            "static_nodes": len(analysis.static_graph()["nodes"]),
+            "static_edges": len(analysis.static_graph()["edges"]),
+            "findings": len(violations),
+            **{k: len(v) for k, v in report.items()},
+            "missing_edges": [(e["src"], e["dst"])
+                              for e in report["missing_edges"]]},
+        "hot_rows_per_s": hot["rows_per_s"],
+        "train_rows_per_s": trained["rows_per_s"],
+        "hot_rows_per_s_over_train": hot["rows_per_s"]
+        / trained["rows_per_s"],
+        "child_s": child_s, "check_s": check_s,
+    }
+
+
 # ResNet phase (BASELINE config 3): 224x224 PNG shards decoded in the
 # reducers, ResNet-50 at 256 images per micro-step (the per-GPU batch of
 # NVIDIA's DeepLearningExamples ResNet-50 v1.5 mixed-precision recipe).
@@ -6732,6 +7124,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--tp-rank"]:
         return tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--locksan"]:
+        return locksan_worker(sys.argv[2])
     from ray_shuffling_data_loader_tpu_torch.kernels import build
     from ray_shuffling_data_loader_tpu_torch.ops import embedding as emb
     from ray_shuffling_data_loader_tpu_torch.ops import flash_attention as fa
@@ -6765,15 +7159,25 @@ def main() -> int:
     att = attention_phase(fa, peak, bf16_peak(name))
     emit({"phase": "attention", "card": smi, **att})
 
+    # The ``train`` files live to the end: the ``locksan`` phase, after
+    # ``tp``, reads them again.
     with tempfile.TemporaryDirectory(prefix="rsdl-smoke-") as dlrm_tmp, \
-            tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as btmp:
+            tempfile.TemporaryDirectory(prefix="rsdl-smoke-bert-") as btmp, \
+            tempfile.TemporaryDirectory(prefix="rsdl-smoke-rounds-") as rtmp:
         dlrm_paths, dlrm_gen_s = dlrm_files(dlrm_tmp)
+        captures = {}
+        turn_start = time.monotonic()
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-arm-") as tmp:
             trained = armed_train_phase(emb, dlrm_paths, dlrm_gen_s, tmp)
+        captures[REGRESS_BASE] = capture_round(REGRESS_BASE, trained,
+                                               turn_start, rtmp)
         emit({"phase": "train", "card": smi,
               **{k: v for k, v in trained.items() if k != "digests"}})
 
+        turn_start = time.monotonic()
         binding_run = torch_binding_phase(emb, dlrm_paths, trained)
+        captures[REGRESS_CUR] = capture_round(REGRESS_CUR, binding_run,
+                                              turn_start, rtmp)
         emit({"phase": "torch_binding", "card": smi, **binding_run})
 
         with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tel-") as tmp:
@@ -6825,21 +7229,33 @@ def main() -> int:
             tenancy_run = tenancy_phase(emb, dlrm_paths, dist_reference, tmp)
         emit({"phase": "tenancy", "card": smi, **tenancy_run})
 
-    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
-        resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
-        emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
-              **resnet_run})
-        resume_run = resume_phase(fa, emb, decoder, image_files)
-        emit({"phase": "resume", "card": smi, **loader_context("resume"),
-              **resume_run})
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-images-") as tmp:
+            resnet_run, image_files = resnet_phase(fa, emb, decoder, tmp)
+            emit({"phase": "resnet", "card": smi, **loader_context("resnet"),
+                  **resnet_run})
+            resume_run = resume_phase(fa, emb, decoder, image_files)
+            emit({"phase": "resume", "card": smi, **loader_context("resume"),
+                  **resume_run})
 
-    with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tp-") as tmp:
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-tp-") as tmp:
+            start = timeit.default_timer()
+            tp_run = tp_phase(fa, emb, peak, bf16_peak(name), tmp)
+            tp_run["seconds"] = timeit.default_timer() - start
+        emit({"phase": "tp", "card": smi, **tp_run})
+        tp_ranks = {m: tp_run["models"][m]["ranks"][0]["launches"]
+                    for m in ("dlrm", "bert")}
+
+        with tempfile.TemporaryDirectory(prefix="rsdl-smoke-lsan-") as tmp:
+            start = timeit.default_timer()
+            locksan_run = locksan_phase(dlrm_paths, dist_reference, trained,
+                                        tmp)
+            locksan_run["seconds"] = timeit.default_timer() - start
+        emit({"phase": "locksan", "card": smi, **locksan_run})
+
         start = timeit.default_timer()
-        tp_run = tp_phase(fa, emb, peak, bf16_peak(name), tmp)
-        tp_run["seconds"] = timeit.default_timer() - start
-    emit({"phase": "tp", "card": smi, **tp_run})
-    tp_ranks = {m: tp_run["models"][m]["ranks"][0]["launches"]
-                for m in ("dlrm", "bert")}
+        regress_run = regress_phase(rtmp, captures)
+        regress_run["seconds"] = timeit.default_timer() - start
+        emit({"phase": "regress", "card": smi, **regress_run})
 
     main_path = kern["timings"][f"group_B{MICROBATCH}_bf16"]
     summary = [{
@@ -6850,7 +7266,8 @@ def main() -> int:
                      + binding_run["gather_launches"]
                      + stream_run["gather_launches"]
                      + tenancy_run["gather_launches"]
-                     + ops_run["gather_launches"]),
+                     + ops_run["gather_launches"]
+                     + locksan_run["gather_launches"]),
         "launches_by_path": {
             "train": trained["gather_launches"],
             "torch_binding": binding_run["gather_launches"],
@@ -6860,6 +7277,7 @@ def main() -> int:
             "tenancy_trigger":
                 tenancy_run["gather_launches_by_turn"]["e_trigger"],
             "ops": ops_run["gather_launches"],
+            "locksan": locksan_run["gather_launches"],
             "telemetry": tel["gather_launches"],
             "rebatch": rebatch["gather_launches"],
             "engine": engine["gather_launches"],

@@ -6,7 +6,12 @@ Run ``python -m ray_shuffling_data_loader_tpu_torch.analysis <paths>``;
 with the Torch rules ``torch-host-sync`` and ``cuda-device-implicit``
 in place of its JAX rules). ``# rsdl-lint: disable=<rule>`` on a line
 (or a comment line just above it) suppresses a finding there; give the
-reason beside it. Stdlib-only: it needs neither torch nor a card.
+reason beside it. ``--concurrency`` adds the whole-program pass
+(``callgraph``, ``locksets``, ``rules_concurrency``: lock-order cycles
+and unguarded shared mutations across modules), and
+``--locksan-graph FILE`` holds its static order graph against a dump of
+the runtime lock sanitizer (``runtime/locksan.py``). Stdlib-only: it
+needs neither torch nor a card.
 """
 
 from ray_shuffling_data_loader_tpu_torch.analysis.core import (

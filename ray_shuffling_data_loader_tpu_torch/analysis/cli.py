@@ -55,6 +55,18 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="comma-separated rule ids to skip")
     parser.add_argument("--list-rules", action="store_true",
                         help="print the registered rules and exit")
+    parser.add_argument("--concurrency", action="store_true",
+                        help="additionally run the whole-program "
+                             "concurrency pass (lock-order cycles, "
+                             "cross-module unguarded mutations) over the "
+                             "library files among PATHS")
+    parser.add_argument("--emit-order-graph", default=None, metavar="FILE",
+                        help="with --concurrency: write the static "
+                             "lock-order graph JSON to FILE")
+    parser.add_argument("--locksan-graph", default=None, metavar="FILE",
+                        help="with --concurrency: cross-check the static "
+                             "graph against a runtime locksan dump "
+                             "(RSDL_LOCKSAN=1 run artifact)")
     return parser
 
 
@@ -67,16 +79,21 @@ def _split_ids(value: Optional[str]) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     registry = core.all_rules()
+    program_registry = core.program_rules()
 
     if args.list_rules:
-        width = max(len(rule_id) for rule_id in registry)
-        for rule_id, rule in sorted(registry.items()):
+        combined = dict(registry)
+        combined.update(program_registry)
+        width = max(len(rule_id) for rule_id in combined)
+        for rule_id, rule in sorted(combined.items()):
+            scope = " (whole-program, --concurrency)" \
+                if rule_id in program_registry else ""
             print(f"{rule_id:<{width}}  [{rule.category}] "
-                  f"{rule.description}")
+                  f"{rule.description}{scope}")
         return core.EXIT_CLEAN
 
     unknown = [r for r in _split_ids(args.select) + _split_ids(args.disable)
-               if r not in registry]
+               if r not in registry and r not in program_registry]
     if unknown:
         print(f"rsdl-lint-torch: unknown rule id(s): {', '.join(unknown)} "
               f"(see --list-rules)", file=sys.stderr)
@@ -92,7 +109,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
             return core.EXIT_ERROR
 
-    selected = set(_split_ids(args.select) or registry)
+    default_ids = list(registry) + (list(program_registry)
+                                    if args.concurrency else [])
+    selected = set(_split_ids(args.select) or default_ids)
     selected -= set(_split_ids(args.disable))
     rules = [rule for rule_id, rule in sorted(registry.items())
              if rule_id in selected]
@@ -104,6 +123,35 @@ def main(argv: Optional[List[str]] = None) -> int:
         return core.EXIT_ERROR
 
     violations, files_checked = core.check_paths(args.paths, config, rules)
+
+    if args.concurrency:
+        locksan_graph = None
+        if args.locksan_graph:
+            try:
+                with open(args.locksan_graph, "r", encoding="utf-8") as f:
+                    locksan_graph = json.load(f)
+            except (OSError, ValueError) as e:
+                print(f"rsdl-lint-torch: bad --locksan-graph "
+                      f"{args.locksan_graph}: {e}", file=sys.stderr)
+                return core.EXIT_ERROR
+        program_rules = [rule for rule_id, rule
+                         in sorted(program_registry.items())
+                         if rule_id in selected]
+        program_violations, analysis = core.check_program_paths(
+            args.paths, config, program_rules,
+            locksan_graph=locksan_graph)
+        violations = sorted(
+            violations + program_violations,
+            key=lambda v: (v.path, v.line, v.col, v.rule))
+        if args.emit_order_graph:
+            graph = analysis.static_graph()
+            with open(args.emit_order_graph, "w", encoding="utf-8") as f:
+                json.dump(graph, f, indent=2, sort_keys=True)
+                f.write("\n")
+    elif args.emit_order_graph or args.locksan_graph:
+        print("rsdl-lint-torch: --emit-order-graph/--locksan-graph require "
+              "--concurrency", file=sys.stderr)
+        return core.EXIT_ERROR
 
     baseline_path = args.baseline or (
         DEFAULT_BASELINE if os.path.exists(DEFAULT_BASELINE) else None)

@@ -1,7 +1,7 @@
 """Core of the port's per-file static checker (rsdl-lint for the port).
 
-The port's own copy of the JAX package's ``analysis/core.py``, per-file
-half: an AST-walking rule registry, per-rule configuration, inline
+The port's own copy of the JAX package's ``analysis/core.py``: an
+AST-walking rule registry, per-rule configuration, inline
 ``# rsdl-lint: disable=<rule>`` pragmas, a checked-in baseline file for
 grandfathered findings, and human/JSON reporting with a stable
 exit-code contract (0 clean, 1 violations, 2 usage/internal error).
@@ -11,6 +11,15 @@ via :func:`register`; the Torch rule set (``rules_torch``) takes the
 place of the JAX package's ``rules_jax``. Everything here is
 stdlib-only, so the checker runs where neither torch nor a card is.
 :class:`Config`'s path defaults name the port's layout.
+
+Two registries coexist: per-file :class:`Rule` subclasses (one parsed
+module at a time) and whole-program :class:`ProgramRule` subclasses
+(``rules_concurrency``'s ``inconsistent-lock-order`` and
+``unguarded-shared-mutation``, which need the cross-module call graph
+from ``callgraph.py``/``locksets.py`` and only run under
+``--concurrency``). Both share the same pragma, baseline, and reporting
+machinery — a program-rule violation is still anchored to one
+``path:line`` and suppressible there.
 """
 
 from __future__ import annotations
@@ -169,6 +178,19 @@ class Config:
         "*ray_shuffling_data_loader_tpu_torch/plan/*",
         "*ray_shuffling_data_loader_tpu_torch/rebalance/*",
         "*ray_shuffling_data_loader_tpu_torch/multiqueue_service.py")
+    # fnmatch patterns of files included in the whole-program
+    # concurrency pass (--concurrency). Library code only: tests spin
+    # throwaway threads/locks with no cross-module ordering contract.
+    concurrency_globs: Tuple[str, ...] = (
+        "ray_shuffling_data_loader_tpu_torch/*",)
+    # ...minus these: the runtime lock sanitizer sits BELOW the lock
+    # abstraction (its proxies wrap and forward acquire/release/wait),
+    # so treating its classes as call-resolution targets invents
+    # edges from every condition-wait in the package.
+    concurrency_exclude_globs: Tuple[str, ...] = ("*locksan.py",)
+    # unguarded-shared-mutation flags a bare write only when at least
+    # this many OTHER sites write the same attribute under a lock.
+    concurrency_min_guarded_sites: int = 1
     # fnmatch patterns of files whose serving/storage entry points must
     # be tenant-aware (tenancy/: every byte in flight attributable).
     tenancy_entry_globs: Tuple[str, ...] = (
@@ -235,6 +257,49 @@ def all_rules() -> Dict[str, Rule]:
         rules_metrics, rules_perf, rules_plan, rules_runtime, rules_storage,
         rules_telemetry, rules_tenancy, rules_torch)
     return dict(_REGISTRY)
+
+
+class ProgramRule:
+    """One whole-program invariant checker (``--concurrency`` pass).
+
+    Unlike :class:`Rule`, ``check_program`` sees every module of the
+    package at once (a ``callgraph.Program``) plus the finished
+    ``locksets.LockAnalysis``; each yielded :class:`Violation` must
+    still anchor to a single real ``path:line`` so pragmas and the
+    baseline apply exactly as they do for per-file rules.
+    """
+
+    id: str = ""
+    category: str = ""
+    description: str = ""
+
+    def check_program(self, program, analysis, config: "Config",
+                      locksan_graph: Optional[dict] = None
+                      ) -> Iterator[Violation]:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"<ProgramRule {self.id}>"
+
+
+_PROGRAM_REGISTRY: Dict[str, ProgramRule] = {}
+
+
+def register_program(cls):
+    """Class decorator: instantiate and index a whole-program rule."""
+    rule = cls()
+    assert rule.id and rule.id not in _PROGRAM_REGISTRY, rule.id
+    _PROGRAM_REGISTRY[rule.id] = rule
+    return cls
+
+
+def program_rules() -> Dict[str, ProgramRule]:
+    """The whole-program registry (kept separate from :func:`all_rules`
+    so per-file tooling — fixture-coverage tests, --select over file
+    rules — keeps its closed-world assumption)."""
+    from ray_shuffling_data_loader_tpu_torch.analysis import (  # noqa: F401
+        rules_concurrency)
+    return dict(_PROGRAM_REGISTRY)
 
 
 class FileContext:
@@ -426,3 +491,47 @@ def check_paths(paths: Sequence[str], config: Optional[Config] = None,
         violations.extend(check_source(source, rel, config, rules))
     violations.sort(key=lambda v: (v.path, v.line, v.col, v.rule))
     return violations, count
+
+
+def check_program_paths(paths: Sequence[str],
+                        config: Optional[Config] = None,
+                        rules: Optional[Iterable[ProgramRule]] = None,
+                        root: Optional[str] = None,
+                        locksan_graph: Optional[dict] = None
+                        ) -> Tuple[List[Violation], "object"]:
+    """Run the whole-program concurrency pass over the library files
+    among ``paths`` (those matching ``config.concurrency_globs``).
+
+    Returns ``(violations, analysis)`` — the ``LockAnalysis`` rides
+    along so the CLI can emit the static order graph. Pragmas apply
+    per anchored file/line exactly as in :func:`check_source`;
+    baselines are the caller's job (the CLI applies one pass over the
+    combined finding list).
+    """
+    from ray_shuffling_data_loader_tpu_torch.analysis import (callgraph,
+                                                              locksets)
+    config = config or Config()
+    if rules is None:
+        rules = program_rules().values()
+    program = callgraph.Program.load(paths, root=root)
+    for path in list(program.modules_by_path):
+        if not any(fnmatch.fnmatch(path, g)
+                   for g in config.concurrency_globs) or \
+                any(fnmatch.fnmatch(path, g)
+                    for g in config.concurrency_exclude_globs):
+            mod = program.modules_by_path.pop(path)
+            program.modules.pop(mod.name, None)
+    program.index()
+    analysis = locksets.analyze(program, config)
+    pragmas = {mod.path: Pragmas(mod.source)
+               for mod in program.modules.values()}
+    out: List[Violation] = []
+    for rule in rules:
+        for violation in rule.check_program(program, analysis, config,
+                                            locksan_graph=locksan_graph):
+            file_pragmas = pragmas.get(violation.path)
+            if file_pragmas is None or \
+                    not file_pragmas.suppresses(violation):
+                out.append(violation)
+    out.sort(key=lambda v: (v.path, v.line, v.col, v.rule))
+    return out, analysis

@@ -480,6 +480,19 @@ class _QueueState:
         self.replay: collections.deque = collections.deque()  # unacked
         self.replay_bytes = 0
         self.done = done               # the sentinel was acked
+        # Held while other locks are taken, edges the static pass cannot
+        # see (the server reaches this lock through a local ``state``):
+        # QueueServer._tenant_lock (a pop, an ack, a rank's release or a
+        # drain charges the frame's tenant: _charge_tenant,
+        # _tenant_may_pop), QueueServer._lease_lock (a GET parked in
+        # _pop beats its lease) and, while a frame is built, the popped
+        # reducer table's finalizer (procpool.ProcTaskRef._final_lock),
+        # the buffer ledger's peak lock and telemetry's locks. No section
+        # under those locks takes a queue's state lock: they update the
+        # tenant and lease tables, the FairShare (whose lock is a leaf),
+        # gauges, the ledger and the recorder. So the order cannot
+        # invert.
+        # rsdl-lint: disable=inconsistent-lock-order
         self.lock = threading.Lock()
         self.no_handles = False        # NACK_NO_HANDLE: streamed from now
         #: seq -> original birth Stamp from the journal, given back to
@@ -2024,7 +2037,13 @@ class RemoteQueue:
             "queue", retry_max_attempts=retries + 1,
             retry_initial_backoff_s=initial_backoff_s,
             retryable=rt_retry.transient_retryable)
-        self._io_lock = threading.Lock()      # keeps round trips whole
+        # Keeps round trips whole. A round trip's first telemetry event
+        # in a process builds the flight recorder under telemetry's
+        # module lock (an edge the static pass cannot see); that lock's
+        # sections take only the policy registry's and the recorder's
+        # locks, never a client's, so the order cannot invert.
+        # rsdl-lint: disable=inconsistent-lock-order
+        self._io_lock = threading.Lock()
         self._state_lock = threading.Lock()   # buffers, done, pending
         self._closed = threading.Event()
         #: queue -> deque of (seq, row_offset or None, item)

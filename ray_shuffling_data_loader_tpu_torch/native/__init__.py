@@ -403,9 +403,14 @@ class NativeBufferPool:
             return NativeBufferPool._peak
 
     def reset_peak(self) -> None:
-        """Restart the peak from the bytes in use now."""
+        """Restart the peak from the bytes in use now. The ledger is read
+        before the peak's lock is taken, so that lock stays a leaf: the
+        callers that hold their own locks while they allocate (a queue's
+        state, a spilled table, a pool task's finalizer) reach it with no
+        order to keep."""
+        in_use = self.bytes_in_use()
         with NativeBufferPool._peak_lock:
-            NativeBufferPool._peak = self.bytes_in_use()
+            NativeBufferPool._peak = in_use
 
 
 def buffer_ledger() -> NativeBufferPool:

@@ -919,6 +919,14 @@ class ProcTaskRef(ex.TaskRef):
         self._transform = transform
         self._final = None
         self._final_error: Optional[BaseException] = None
+        # The finalizer runs under this lock once (an opaque call the
+        # static pass cannot follow): mapping the worker's segment
+        # registers its bytes in the buffer ledger (its peak lock) and
+        # reports the stage to telemetry (the attribution's and the
+        # module's locks). Those sections take only the ledger's,
+        # metrics', policy's and the recorder's locks, never a task
+        # ref's, so the order cannot invert.
+        # rsdl-lint: disable=inconsistent-lock-order
         self._final_lock = threading.Lock()
         self._finalized = False
 
